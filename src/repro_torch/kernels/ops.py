@@ -1,0 +1,127 @@
+"""Entry points of the kernel backend (the port of ``repro/kernels/ops.py``).
+
+The SF hot path calls ``pack_rows``, ``segment_reduce_rows`` and
+``local_bcast_rows``.  Each routes to a hand-written kernel by a fixed rule;
+there is no autotune sweep and no library candidate, so the path always
+runs the kernels and a kernel that fails to build raises:
+
+  * rows of fewer than ``WIDE_ROW`` elements: the blocked kernels,
+    ``PACK_BLOCK_ROWS`` rows / ``SEG_BLOCK`` segments per CTA, so that a
+    CTA has a few hundred words of work;
+  * rows of ``WIDE_ROW`` elements or more: one row (one segment) per CTA
+    (``pack`` / ``segment_reduce_sorted``).
+
+``chip_smoke.py`` times both variants on f32 rows of 64, 256 and 1024
+elements (see ``PERF.md``).  For the segment reduce the one-segment-per-CTA
+kernel is the faster there, about 2x at 256 and more; for the gather the
+blocked kernel is no slower at any of those widths, so the gather's wide-row
+route exists only so that the one-row-per-CTA entry point ``pack`` runs on
+the path, as the reference autotuner's separate ``"row"`` candidate does.
+
+Index lists are prepared once per source array and device (int32 upload
+and bounds check, :mod:`repro_torch.kernels._index`), so repeat exchanges
+on one plan cost no conversion.  The direct entry points ``sf_pack``,
+``sf_pack_strided``, ``sf_unpack`` and ``spmv_ell`` call one kernel each.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import ref
+from .sf_pack import (bcast_fused, inverse_map, pack, pack_blocked,
+                      pack_strided)
+from .sf_unpack import (segment_reduce_blocked, segment_reduce_sorted,
+                        unpack_segments)
+from .spmv_ell import spmv_ell
+
+__all__ = [
+    "PACK_BLOCK_ROWS", "SEG_BLOCK", "WIDE_ROW",
+    "pack_rows", "segment_reduce_rows", "local_bcast_rows", "inverse_map",
+    "sf_pack", "sf_pack_strided", "sf_unpack", "spmv_ell", "ref",
+    "kernel_wrappers", "reset_launch_counts", "launch_counts",
+]
+
+PACK_BLOCK_ROWS = 64
+SEG_BLOCK = 64
+WIDE_ROW = 256
+
+
+def _row_elems(t: torch.Tensor) -> int:
+    return int(np.prod(t.shape[1:], dtype=np.int64))
+
+
+def pack_rows(data: torch.Tensor, idx) -> torch.Tensor:
+    """``data[idx]`` row gather through the pack kernels, for rows of any
+    unit shape and dtype; ``idx`` is a numpy array or an integer tensor on
+    ``data``'s device."""
+    if _row_elems(data) >= WIDE_ROW:
+        return pack(data, idx)
+    return pack_blocked(data, idx, block_rows=PACK_BLOCK_ROWS)
+
+
+def pack_strided_rows(data: torch.Tensor, strided) -> torch.Tensor:
+    """The rows a :class:`repro_torch.core.patterns.Strided3D` enumerates,
+    through the strided pack kernel."""
+    return pack_strided(data, start=strided.start, dims=strided.dims,
+                        strides=strided.strides, block_rows=PACK_BLOCK_ROWS)
+
+
+def segment_reduce_rows(sorted_vals: torch.Tensor, seg_first, seg_len, *,
+                        op: str = "sum") -> torch.Tensor:
+    """One row per segment of a destination-sorted row buffer (sum, prod,
+    max, min), folded in buffer order by the segment-reduce kernels."""
+    if _row_elems(sorted_vals) >= WIDE_ROW:
+        return segment_reduce_sorted(sorted_vals, seg_first, seg_len, op=op)
+    return segment_reduce_blocked(sorted_vals, seg_first, seg_len,
+                                  segs_per_block=SEG_BLOCK, op=op)
+
+
+def local_bcast_rows(rootdata: torch.Tensor, leafdata: torch.Tensor,
+                     src_of_leaf) -> torch.Tensor:
+    """Local-only bcast through the fused kernel: a copy of ``leafdata``
+    with every leaf that has a root (``src_of_leaf >= 0``, built once by
+    :func:`inverse_map`) replaced by its root's row."""
+    return bcast_fused(rootdata, leafdata, src_of_leaf)
+
+
+# --------------------------------------------------------------------------
+# direct (untuned) kernel access
+# --------------------------------------------------------------------------
+def sf_pack(data, idx):
+    return pack(data, idx)
+
+
+def sf_pack_strided(data, *, start, dims, strides):
+    return pack_strided(data, start=int(start),
+                        dims=tuple(int(d) for d in dims),
+                        strides=tuple(int(s) for s in strides),
+                        block_rows=PACK_BLOCK_ROWS)
+
+
+def sf_unpack(target, buf_sorted, seg_start, seg_len, seg_dst, *, op="sum"):
+    return unpack_segments(target, buf_sorted, seg_start, seg_len, seg_dst,
+                           op=op, segs_per_block=SEG_BLOCK)
+
+
+# --------------------------------------------------------------------------
+# launch counters
+# --------------------------------------------------------------------------
+def kernel_wrappers() -> dict:
+    """Every kernel entry point by name; each counts its launches in
+    ``.launches``."""
+    return {"pack": pack, "pack_blocked": pack_blocked,
+            "pack_strided": pack_strided, "bcast_fused": bcast_fused,
+            "segment_reduce_sorted": segment_reduce_sorted,
+            "segment_reduce_blocked": segment_reduce_blocked,
+            "spmv_ell": spmv_ell}
+
+
+def reset_launch_counts() -> None:
+    for f in kernel_wrappers().values():
+        f.launches = 0
+
+
+def launch_counts() -> dict:
+    return {n: f.launches for n, f in kernel_wrappers().items()}
