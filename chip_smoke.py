@@ -16,13 +16,32 @@ Phases, each printing one JSON line and asserting as it goes:
            and ops (bitwise, except ``spmv_ell``: max|d| <= 1e-5 max|y|);
            device times of kernel (warm and with L2 scrubbed), plain
            version and one library call; both gather and both
-           segment-reduce variants on wide rows.
+           segment-reduce variants on wide rows.  ``flash_attention`` at
+           the serving prefill's shape for every bucket the trace uses
+           (bf16, Sq = Skv, 32 query / 8 KV heads of 128, causal) and over
+           a sweep (float32 / bf16, head sizes 16-128, GQA 1/4/8, windows,
+           Sq < Skv, Sq > Skv with fully masked rows exactly 0, ragged
+           tails, a batch), within FLASH_TOL, which scales with each query
+           row; two faulty outputs made in plain torch (late rows 0, the
+           diagonal KV tile skipped) must fail it.  SDPA is its library
+           call.
   sf_ops   ``SFComm(backend="cuda")`` against ``SFComm(backend="global")``.
   spmv_cg  SpMV / SpMV^T against scipy in float64, then CG and CGAsync on
            the Poisson matrix through the ELL kernel.
+  serve    qwen3-4b at its published size in bf16 (random weights from a
+           seeded generator): the flash kernel held against the plain decode
+           attention through the whole model (prefill(p) vs prefill(p[:-1])
+           + decode_step(p[-1]) logits: the last query row of every layer;
+           two faulty last rows must fail it), one engine stream against
+           direct greedy decoding, then ``ServeEngine(batch=8, s_max=2048)`` driven
+           by ``loadgen.drive`` on 16 requests (prompts 64-1024 tokens,
+           16-64 new tokens each): service metrics, launches, and a
+           profiled window of one prefill and five decode steps.
 
-``sf_ops`` and ``spmv_cg`` are the main path: every launch counter is set to
-0 before them and read after, and each kernel must have launched there.
+Two paths carry the kernels: ``sf_ops`` + ``spmv_cg`` (the SF kernels) and
+the serve phase's drive (``flash_attention``).  Every launch counter is set
+to 0 just before each and read just after, and each kernel must have
+launched on its path; the ``launches`` of a kernel are its path's count.
 The line before the last two is ``{"kernels": [...]}``, then the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, then the result line.
 Exits non-zero without a CUDA device, without the repository's ``src``, or
@@ -31,6 +50,7 @@ on any failed check.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -44,6 +64,24 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM, float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM, dense bf16 on the tensor cores
+# prefill(prompt) against prefill(prompt[:-1]) + decode_step(prompt[-1]) in
+# bf16 through the whole model, ||d|| / ||logits|| over the vocabulary.  Both
+# sides share the kernel's rows 0..n-2 (the cache is seeded by prefill), so
+# this holds only the last query row of every layer: the kernel's against
+# the plain decode attention's.
+PREFILL_DECODE_REL_TOL = 5e-2
+# flash_attention against its plain version, per element
+#   |d| <= rtol |want| + atol + row_atol * rms(want's query row)
+# and per query row ||d|| <= row_rel ||want|| (a row of want that is 0 must
+# come back 0).  The row terms scale with the data, so rows whose outputs are
+# small (late causal rows average many keys) are held as tightly as the
+# large early ones.  float32: the reference's tests/test_kernels.py:84.
+FLASH_TOL = {
+    "float32": {"rtol": 2e-4, "atol": 2e-5, "row_atol": 0.0,
+                "row_rel": 2e-4},
+    "bfloat16": {"rtol": 2e-2, "atol": 0.0, "row_atol": 1e-2,
+                 "row_rel": 1e-2}}
 
 REPLACES = {
     "pack": "src/repro/kernels/sf_pack.py:60",
@@ -53,6 +91,7 @@ REPLACES = {
     "segment_reduce_sorted": "src/repro/kernels/sf_unpack.py:86",
     "segment_reduce_blocked": "src/repro/kernels/sf_unpack.py:154",
     "spmv_ell": "src/repro/kernels/spmv_ell.py:33",
+    "flash_attention": "src/repro/kernels/flash_attention.py:92",
 }
 SOURCES = {
     "pack": "src/repro_torch/kernels/csrc/sf_pack.cu",
@@ -62,7 +101,11 @@ SOURCES = {
     "segment_reduce_sorted": "src/repro_torch/kernels/csrc/sf_unpack.cu",
     "segment_reduce_blocked": "src/repro_torch/kernels/csrc/sf_unpack.cu",
     "spmv_ell": "src/repro_torch/kernels/csrc/spmv_ell.cu",
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
 }
+SF_PATH = ("pack", "pack_blocked", "pack_strided", "bcast_fused",
+           "segment_reduce_sorted", "segment_reduce_blocked", "spmv_ell")
+SERVE_PATH = ("flash_attention",)
 
 
 @dataclasses.dataclass
@@ -77,6 +120,16 @@ class Sizes:
     wide_edges: int = 1 << 16
     cg_maxiter: int = 2000
     timing_iters: int = 20
+    # serve: qwen3-4b at its published size, bf16 (smoke=True: its smoke
+    # config, for rehearsals on the CPU)
+    serve_arch: str = "qwen3-4b"
+    serve_smoke: bool = False
+    serve_batch: int = 8
+    serve_s_max: int = 2048
+    serve_requests: int = 16
+    serve_prompt: tuple = (64, 1024)
+    serve_new: tuple = (16, 64)
+    check_prompt: int = 200       # prefill-vs-decode check prompt length
 
 
 def emit(obj) -> None:
@@ -211,10 +264,11 @@ def cold_device_ms(fn, dev, iters: int) -> float:
     return _profiled_device_ms(many, dev, flush_names) / iters
 
 
-def bound(nbytes: float, nops: float = 0.0):
+def bound(nbytes: float, nops: float = 0.0, ops_per_s=FP32_OPS_PER_S):
     """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
-    float32 operations over the card's non-tensor float32 rate."""
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / FP32_OPS_PER_S * 1e3
+    operations over the card's peak rate for their type (by default
+    float32 outside the tensor cores)."""
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / ops_per_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -585,6 +639,168 @@ def kernel_sweep(dev) -> int:
     return cases
 
 
+# -------------------------------------------------------- flash attention
+def visible_pairs(Sq: int, Skv: int, causal: bool, window) -> int:
+    """(query, key) pairs the masks leave visible: the work the data
+    needs, not the full Sq x Skv rectangle."""
+    qpos = np.arange(Sq, dtype=np.int64) + (Skv - Sq)
+    hi = np.minimum(qpos + 1, Skv) if causal else np.full(Sq, Skv)
+    lo = np.zeros(Sq, np.int64) if window is None else \
+        np.maximum(qpos - int(window) + 1, 0)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def flash_gap(got, want) -> dict:
+    """How far a flash_attention result lies from its plain version, read
+    against FLASH_TOL: max|d|, ||d||/||want||, the largest per-row
+    ||d||/||want||, and the elements and rows outside the limit."""
+    import torch
+    tol = FLASH_TOL[str(want.dtype).split(".")[-1]]
+    H, D = want.shape[-2:]
+    g = got.float().reshape(-1, H * D)           # one query row per line
+    w = want.float().reshape(-1, H * D)
+    d = g - w
+    rms = w.square().mean(1, keepdim=True).sqrt()
+    limit = tol["rtol"] * w.abs() + tol["atol"] + tol["row_atol"] * rms
+    dn, wn = d.norm(dim=1), w.norm(dim=1)
+    row_bad = dn > tol["row_rel"] * wn
+    row_rel = torch.where(wn > 0, dn / wn.clamp_min(1e-30),
+                          torch.where(dn > 0, float("inf"), 0.0))
+    return {"max_abs": float(d.abs().max()),
+            "rel_l2": float(d.norm() / w.norm()),
+            "row_rel_max": float(row_rel.max()),
+            "elements_outside": int((d.abs() > limit).sum()),
+            "rows_outside": int(row_bad.sum()),
+            "finite": bool(torch.isfinite(g).all())}
+
+
+def flash_check(got, want, what: str) -> float:
+    """Hold a flash_attention result against its plain version within
+    FLASH_TOL; returns max|d|."""
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{what}: {got.shape} {got.dtype} vs {want.shape} {want.dtype}")
+    gap = flash_gap(got, want)
+    check(gap["finite"], f"{what}: non-finite output")
+    check(gap["elements_outside"] == 0 and gap["rows_outside"] == 0,
+          f"{what}: outside FLASH_TOL: {gap}")
+    return gap["max_abs"]
+
+
+def flash_controls(q, k, v, want, tile: int = 64) -> dict:
+    """Outputs of faults the kernel could have, made in plain torch from the
+    causal serving shape's inputs, each read against FLASH_TOL beside the
+    old fixed (5e-2, 5e-2) limit: rows past S/4 returned as 0, and every
+    query tile's last KV tile (the diagonal one) skipped.  flash_check must
+    reject each."""
+    import torch
+    S = q.shape[0]
+    zeroed = want.clone()
+    zeroed[S // 4:] = 0
+    # each query row sees only the keys before its own 64-row tile
+    qg = q.float().reshape(S, k.shape[1], -1, q.shape[-1])
+    s = torch.einsum("qkrd,skd->krqs", qg, k.float()) / q.shape[-1] ** 0.5
+    pos = torch.arange(S, device=q.device)
+    keep = pos[None, :] < (pos[:, None] // tile) * tile
+    p = torch.nan_to_num(torch.softmax(s.masked_fill(~keep, float("-inf")),
+                                       -1), nan=0.0)
+    skipped = torch.einsum("krqs,skd->qkrd", p, v.float()) \
+        .reshape(want.shape).to(want.dtype)
+    del s, p
+    out = {}
+    for name, bad in (("late_rows_zero", zeroed),
+                      ("diagonal_kv_tile_skipped", skipped)):
+        gap = flash_gap(bad, want)
+        gap["rejected"] = gap["elements_outside"] > 0 or \
+            gap["rows_outside"] > 0
+        d = (bad.float() - want.float()).abs()
+        gap["old_5e-2_limit_rejects"] = bool(
+            (d > 5e-2 + 5e-2 * want.float().abs()).any())
+        check(gap["rejected"], f"flash control {name} passes FLASH_TOL: "
+              f"{gap}")
+        out[name] = gap
+    return out
+
+
+def flash_sweep(dev) -> dict:
+    """flash_attention against its plain version over dtypes, head sizes,
+    GQA ratios 1/4/8, windows, Sq < Skv, Sq > Skv (fully masked rows must
+    be exactly 0), ragged tails and a batched call.  Returns the case
+    count and the largest error per dtype."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(11)
+    shapes = [  # Sq, Skv, H, Hkv, causal, window
+        (128, 128, 4, 4, True, None), (100, 100, 8, 2, True, None),
+        (64, 192, 8, 1, True, 48), (1, 96, 4, 1, True, None),
+        (128, 128, 4, 2, False, None), (73, 129, 6, 3, True, None),
+        (48, 16, 4, 2, True, None), (200, 200, 8, 8, True, 17),
+        (130, 70, 8, 1, False, 20)]
+    cases, worst = 0, {}
+    for dt in (torch.float32, torch.bfloat16):
+        def rand(*shape):
+            return torch.as_tensor(rng.standard_normal(shape),
+                                   device=dev).to(dt)
+        for D in (16, 32, 64, 128):
+            for Sq, Skv, H, Hkv, causal, window in shapes:
+                q, k, v = rand(Sq, H, D), rand(Skv, Hkv, D), rand(Skv, Hkv, D)
+                what = f"flash {dt} D{D} {Sq}x{Skv} H{H}/{Hkv} " \
+                    f"causal={causal} window={window}"
+                got = fa.flash_attention(q, k, v, causal=causal,
+                                         window=window)
+                want = fa.flash_attention_plain(q, k, v, causal=causal,
+                                                window=window)
+                err = flash_check(got, want, what)
+                key = str(dt).split(".")[-1]
+                worst[key] = max(worst.get(key, 0.0), err)
+                if causal and Sq > Skv:
+                    check(bool((got[: Sq - Skv] == 0).all()),
+                          f"{what}: fully masked rows are not 0")
+                cases += 1
+            # a leading batch dimension goes into the grid
+            qb, kb = rand(2, 77, 8, D), rand(2, 77, 2, D)
+            vb = rand(2, 77, 2, D)
+            flash_check(fa.flash_attention(qb, kb, vb),
+                        fa.flash_attention_plain(qb, kb, vb),
+                        f"flash batched {dt} D{D}")
+            cases += 1
+    return {"cases": cases, "max_abs_err": worst}
+
+
+def flash_record(dev, S: int, it: int, H: int, Hkv: int, D: int,
+                 window) -> dict:
+    """The serving prefill's attention core at one bucket (bf16, Sq = Skv
+    = S, causal): kernel vs plain, device times, bound and the library
+    call (SDPA with enable_gqa), as the other kernel rows."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=dev).manual_seed(S)
+    q = torch.randn(S, H, D, generator=g, device=dev).bfloat16()
+    k = torch.randn(S, Hkv, D, generator=g, device=dev).bfloat16()
+    v = torch.randn(S, Hkv, D, generator=g, device=dev).bfloat16()
+    run = lambda: fa.flash_attention(q, k, v, causal=True, window=window)
+    plain = lambda: fa.flash_attention_plain(q, k, v, causal=True,
+                                             window=window)
+    got, want = run(), plain()
+    err = flash_check(got, want, f"flash serving shape S={S}")
+    gap = flash_gap(got, want)
+    controls = flash_controls(q, k, v, want)
+    qt, kt, vt = (x.transpose(0, 1)[None] for x in (q, k, v))
+    library = lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    nops = 4.0 * visible_pairs(S, S, True, window) * H * D
+    bms, by = bound(nbytes, nops, BF16_OPS_PER_S)
+    return {"S": S, "max_abs_err": err, "rel_l2": gap["rel_l2"],
+            "row_rel_max": gap["row_rel_max"], "controls": controls,
+            "ms": device_ms(run, dev, it),
+            "ms_cold_l2": cold_device_ms(run, dev, it),
+            "plain_ms": device_ms(plain, dev, it),
+            "library_ms": device_ms(library, dev, it),
+            "call_ms": call_ms(run, dev, it),
+            "bound_ms": bms, "bound_by": by}
+
+
 # ----------------------------------------------------------------- sf_ops
 def phase_sf_ops(objs, dev) -> dict:
     import torch
@@ -785,6 +1001,215 @@ def phase_spmv_cg(objs, sz: Sizes, dev) -> dict:
                 "top_kernels_ms": {k[:60]: v for k, v in top}}}
 
 
+# ------------------------------------------------------------------ serve
+def serve_config(sz: Sizes):
+    from repro_torch.configs import get_config
+    cfg = get_config(sz.serve_arch)
+    return cfg.smoke_config() if sz.serve_smoke else cfg
+
+
+def sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def serve_trace(sz: Sizes, cfg):
+    """The serve phase's arrival trace: ``serve_requests`` requests at 1000
+    requests/s, so that the queue never empties while the engine works."""
+    from repro_torch.serving import LoadSpec, synthesize
+    return synthesize(LoadSpec(rate_rps=1000.0, n_requests=sz.serve_requests,
+                               prompt_len=sz.serve_prompt,
+                               max_new=sz.serve_new, vocab=cfg.vocab, seed=0))
+
+
+def serve_buckets(trace, sz: Sizes) -> list:
+    """The prefill buckets (sequence lengths) the trace's prompts take."""
+    from repro_torch.serving import next_pow2
+    return sorted({min(next_pow2(r.prompt_len), sz.serve_s_max)
+                   for _, r in trace})
+
+
+@contextlib.contextmanager
+def faulty_attention_core(fault):
+    """Within the block, the models' prefill attention core is the flash
+    kernel followed by ``fault(out)``, which edits its output in place."""
+    from repro_torch.kernels import ops as kops
+    real = kops.flash_attention
+
+    def core(*args, **kwargs):
+        out = real(*args, **kwargs)
+        fault(out)
+        return out
+    kops.flash_attention = core
+    try:
+        yield
+    finally:
+        kops.flash_attention = real
+
+
+def serve_checks(cfg, params, sz: Sizes, dev, rng) -> dict:
+    """The path's correctness checks, run before the traffic: the flash
+    kernel against the plain decode attention through the whole model, and
+    one request's engine stream against direct greedy prefill + decode."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import Request, ServeEngine
+    out = {}
+    # 1. last-position logits of prefill(prompt) (flash kernel on every
+    #    layer) against prefill(prompt[:-1]) + decode_step(prompt[-1])
+    #    (plain decode attention), full width and depth, bf16
+    n = sz.check_prompt
+    prompt = rng.integers(0, cfg.vocab, (1, n))
+    with torch.no_grad():
+        full, _ = T.prefill(params, cfg, tokens=prompt, s_max=n)
+        _, cache = T.prefill(params, cfg, tokens=prompt[:, :-1], s_max=n)
+        step, _ = T.decode_step(params, cfg, prompt[:, -1], cache)
+    a, b = full.float(), step.float()
+    check(bool(torch.isfinite(a).all() and torch.isfinite(b).all()),
+          "prefill / decode logits are not finite")
+    rel = float((a - b).norm() / b.norm())
+    out["prefill_vs_decode"] = {
+        "prompt": n, "rel_l2": rel, "tol": PREFILL_DECODE_REL_TOL,
+        "max_abs": max_abs(a, b), "logit_abs_max": float(b.abs().max()),
+        "same_argmax": bool(a.argmax() == b.argmax())}
+    check(rel <= PREFILL_DECODE_REL_TOL, f"prefill vs decode logits: "
+          f"||d||/||y|| {rel} > {PREFILL_DECODE_REL_TOL}")
+    # controls: the same prefill(prompt) with the attention core's last
+    # query row made wrong on every layer (0, or the row before it); the
+    # check must reject both
+    out["prefill_vs_decode"]["controls"] = {}
+    for name, fault in (("last_row_zero", lambda o: o[..., -1, :, :].zero_()),
+                        ("last_row_is_previous", lambda o: o[..., -1, :, :]
+                         .copy_(o[..., -2, :, :]))):
+        with faulty_attention_core(fault), torch.no_grad():
+            bad, _ = T.prefill(params, cfg, tokens=prompt, s_max=n)
+        crel = float((bad.float() - b).norm() / b.norm())
+        out["prefill_vs_decode"]["controls"][name] = crel
+        check(crel > PREFILL_DECODE_REL_TOL, f"control {name}: rel L2 "
+              f"{crel} passes the prefill-vs-decode check")
+    # 2. one request through the engine equals direct greedy prefill +
+    #    decode_step (tests/test_serving.py:29).  In float32 at two layers of
+    #    the full width, so that the engine's batch-of-slots decode and the
+    #    single-stream decode_step round alike and greedy ties cannot flip;
+    #    a power-of-two prompt makes the bucket the prompt itself.
+    cfg32 = cfg.scaled(dtype="float32", n_layers=2)
+    g = torch.Generator(device=dev).manual_seed(1)
+    p32 = T.init_params(cfg32, generator=g, device=dev)
+    toks = rng.integers(0, cfg.vocab, 64).tolist()
+    req = Request(0, toks, max_new=8)
+    ServeEngine(cfg32, p32, batch=2, s_max=256, device=dev).run([req])
+    lg, cache = T.prefill(p32, cfg32, tokens=[toks], s_max=256)
+    tok = torch.argmax(lg, -1)
+    want = [int(tok[0])]
+    for _ in range(7):
+        lg, cache = T.decode_step(p32, cfg32, tok, cache)
+        tok = torch.argmax(lg, -1)
+        want.append(int(tok[0]))
+    check(req.out == want, f"engine stream {req.out} != direct greedy {want}")
+    out["engine_equals_direct_greedy"] = {"layers": 2, "dtype": "float32",
+                                          "tokens": len(want)}
+    del p32, cache
+    return out
+
+
+def phase_serve(sz: Sizes, dev) -> dict:
+    """Serve a synthetic trace on the model at its published size through
+    ``ServeEngine`` + ``loadgen.drive``: every prefill runs the flash
+    kernel on every layer.  Launch counters are set to 0 just before the
+    drive and read just after it."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import Request, ServeEngine, drive, \
+        trace_fingerprint
+    cfg = serve_config(sz)
+    rng = np.random.default_rng(5)
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = T.init_params(cfg, generator=g, device=dev)
+    sync(dev)
+    leaves = [params["embed"], params["final_norm"],
+              *params["blocks"].values()] + \
+        ([] if cfg.tie_embeddings else [params["lm_head"]])
+    out = {"phase": "serve", "arch": cfg.name, "dtype": cfg.dtype,
+           "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "params": cfg.param_count(),
+           "param_bytes": sum(t.numel() * t.element_size() for t in leaves),
+           "init_s": time.perf_counter() - t0}
+    out["checks"] = serve_checks(cfg, params, sz, dev, rng)
+
+    trace = serve_trace(sz, cfg)
+    eng = ServeEngine(cfg, params, batch=sz.serve_batch, s_max=sz.serve_s_max,
+                      device=dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    gc.collect()
+    sync(dev)
+    kops.reset_launch_counts()
+    t1 = time.perf_counter()
+    metrics = drive(eng, trace)
+    sync(dev)
+    wall = time.perf_counter() - t1
+    counts = kops.launch_counts()
+    reqs = [r for _, r in trace]
+    check(all(r.done and len(r.out) == r.max_new for r in reqs),
+          "a request did not finish with its budget of tokens")
+    buckets = serve_buckets(trace, sz)
+    check(metrics["prefill_buckets"] == buckets,
+          f"prefill buckets {metrics['prefill_buckets']} != {buckets}")
+    check(counts["flash_attention"] == cfg.n_layers * len(reqs) or
+          dev.type != "cuda", f"flash launches {counts['flash_attention']} "
+          f"!= {cfg.n_layers} layers x {len(reqs)} prefills")
+    out.update({"trace_fingerprint": trace_fingerprint(trace),
+                "requests": len(reqs),
+                "prompt_tokens": sum(r.prompt_len for r in reqs),
+                "drive_wall_s": wall, "metrics": metrics,
+                "launches": counts,
+                "flash_launches_per_prefill":
+                    counts["flash_attention"] / len(reqs),
+                "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9
+                if dev.type == "cuda" else None})
+
+    # where a step's time goes: 7 slots admitted outside the windows; then
+    # one prefill and five decode steps of all 8 slots, a prefill of the
+    # largest bucket alone, and five decode steps alone, each under the
+    # profiler
+    lo, hi = sz.serve_prompt
+    for i in range(sz.serve_batch - 1):
+        eng.submit(Request(100 + i, rng.integers(0, cfg.vocab,
+                                                 (lo + hi) // 2).tolist(),
+                           max_new=32))
+    eng.step()
+    probe = Request(200, rng.integers(0, cfg.vocab, hi // 2).tolist(),
+                    max_new=8)
+
+    def mixed():
+        eng.submit(probe)
+        for _ in range(5):
+            eng.step()
+    big = rng.integers(0, cfg.vocab, (1, max(serve_buckets(trace, sz))))
+    windows = {
+        "prefill_and_5_decode_steps": mixed,
+        f"prefill_{big.shape[1]}": lambda: T.prefill(
+            params, cfg, tokens=big, s_max=sz.serve_s_max),
+        "5_decode_steps": lambda: [eng.step() for _ in range(5)]}
+    for name, fn in windows.items():
+        by_name, wall_ms = profiled(fn, dev)
+        busy = sum(by_name.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        out[f"profiled_{name}"] = {
+            "wall_ms": wall_ms, "device_ms": busy,
+            "device_idle_share": 1.0 - busy / wall_ms if busy else None,
+            "flash_ms": sum(v for k, v in by_name.items()
+                            if "flash_fwd" in k),
+            "top_kernels_ms": {k[:60]: v for k, v in top}}
+    out["seconds"] = time.perf_counter() - t0
+    del eng, params
+    gc.collect()
+    return out
+
+
 # ------------------------------------------------------------------- main
 def run(dev, sz: Sizes) -> list:
     """All phases on ``dev``; returns the kernel records."""
@@ -797,9 +1222,25 @@ def run(dev, sz: Sizes) -> list:
     t0 = time.perf_counter()
     recs, wide_ms = kernel_records(objs, sz, dev)
     cases = kernel_sweep(dev)
+    cfg = serve_config(sz)
+    buckets = serve_buckets(serve_trace(sz, cfg), sz)
+    by_bucket = [flash_record(dev, S, sz.timing_iters, H=cfg.n_heads,
+                              Hkv=cfg.n_kv_heads, D=cfg.hd,
+                              window=sz.serve_s_max) for S in buckets]
+    flash = dict(by_bucket[-1])           # the row: the largest bucket
+    recs["flash_attention"] = {
+        "name": "flash_attention", "route": "cuda",
+        "source": SOURCES["flash_attention"],
+        "replaces": REPLACES["flash_attention"], "launches": 0,
+        **{k: flash[k] for k in ("max_abs_err", "ms", "ms_cold_l2",
+                                 "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "call_ms")}}
+    sweep = flash_sweep(dev)
     emit({"phase": "kernels", "sweep_cases": cases,
           "seconds": time.perf_counter() - t0,
           "wide_row_variants_ms": wide_ms,
+          "flash_sweep": sweep, "flash_tolerance": FLASH_TOL,
+          "flash_serving_buckets": by_bucket,
           "main_path_shapes": {k: {"max_err": v["max_abs_err"],
                                    "kernel_ms": v["ms"],
                                    "kernel_ms_cold_l2": v["ms_cold_l2"],
@@ -809,16 +1250,28 @@ def run(dev, sz: Sizes) -> list:
                                    "bound_ms": v["bound_ms"]}
                                for k, v in recs.items()}})
 
-    # the main path: counters from 0, driven through the user entry points
+    # the SF path: counters from 0, driven through the user entry points
+    on_card = dev.type == "cuda"
     kops.reset_launch_counts()
     emit(phase_sf_ops(objs, dev))
     emit(phase_spmv_cg(objs, sz, dev))
     counts = kops.launch_counts()
-    missing = [k for k, v in counts.items() if v == 0]
-    check(not missing or dev.type != "cuda",
-          f"main path never launched {missing}")
-    for name, rec in recs.items():
-        rec["launches"] = counts[name]
+    missing = [k for k in SF_PATH if counts[k] == 0]
+    check(not missing or not on_card, f"SF path never launched {missing}")
+    for name in SF_PATH:
+        recs[name]["launches"] = counts[name]
+    del objs
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # the serving path: phase_serve zeroes the counters before its drive
+    serve = phase_serve(sz, dev)
+    emit(serve)
+    missing = [k for k in SERVE_PATH if serve["launches"][k] == 0]
+    check(not missing or not on_card, f"serving never launched {missing}")
+    for name in SERVE_PATH:
+        recs[name]["launches"] = serve["launches"][name]
     return [recs[k] for k in REPLACES]
 
 

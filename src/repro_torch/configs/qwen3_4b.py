@@ -1,0 +1,17 @@
+"""qwen3-4b [dense] — hf:Qwen/Qwen3-8B family (hf tier).
+36L d_model=2560 32H (GQA kv=8) d_ff=9728 vocab=151936 — qk_norm, GQA."""
+from ..models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen3-4b",
+    family="dense",
+    n_layers=36,
+    d_model=2560,
+    n_heads=32,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=9728,
+    vocab=151936,
+    qk_norm=True,
+    rope_theta=1e6,
+)

@@ -2,8 +2,8 @@
 
 The port never imports the JAX package; a caller that has reference
 objects reads their arrays out (``repro.core.graph.RankGraph`` fields,
-``repro.sparse.parmat.ParCSR`` blocks) and hands them over here as plain
-dicts and tuples.
+``repro.sparse.parmat.ParCSR`` blocks, a model's param pytree) and hands
+them over here as plain dicts and tuples.
 """
 
 from __future__ import annotations
@@ -11,12 +11,17 @@ from __future__ import annotations
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
+import torch
 
+from .core.device import resolve_device
 from .core.graph import RankGraph, StarForest
+from .models.config import ModelConfig
+from .models.transformer import init_params, require_dense
 from .sparse.csr import LocalCSR
 from .sparse.parmat import ParCSR
 
-__all__ = ["star_forest_from_arrays", "parcsr_from_arrays"]
+__all__ = ["star_forest_from_arrays", "parcsr_from_arrays",
+           "params_from_arrays"]
 
 
 def star_forest_from_arrays(nranks: int,
@@ -54,3 +59,42 @@ def parcsr_from_arrays(nranks: int, row_offsets, col_offsets,
                   [block(b) for b in diag], [block(b) for b in offd],
                   [np.asarray(g, dtype=np.int64) for g in garray],
                   dtype=dtype, device=device)
+
+
+def _tensor(a, device: torch.device) -> torch.Tensor:
+    """A numpy array as a tensor of the same dtype on ``device``; bfloat16
+    arrays (numpy's ``ml_dtypes`` extension type) go across as their bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.array(a).view(np.uint16))
+        return bits.view(torch.bfloat16).to(device)
+    return torch.as_tensor(np.array(a), device=device)
+
+
+def params_from_arrays(cfg: ModelConfig, tree: Dict, *,
+                       device=None) -> Dict:
+    """The port's params from the reference's param pytree given as nested
+    dicts of numpy arrays (``{"embed", "final_norm", "lm_head"?,
+    "blocks": {...}}``), name for name and in the same dtype.  The names,
+    shapes and dtypes must be the ones ``models.transformer.init_params``
+    makes for ``cfg``."""
+    require_dense(cfg)
+    dev = resolve_device(device)
+
+    def convert(where: str, spec: Dict, arrays: Dict) -> Dict:
+        if set(arrays) != set(spec):
+            raise KeyError(f"params{where} have {sorted(arrays)}, {cfg.name} "
+                           f"needs {sorted(spec)}")
+        out = {}
+        for name, leaf in spec.items():
+            if isinstance(leaf, dict):
+                out[name] = convert(f"{where}.{name}", leaf, arrays[name])
+                continue
+            t = _tensor(arrays[name], dev)
+            if t.shape != leaf.shape or t.dtype != leaf.dtype:
+                raise ValueError(f"params{where}.{name}: {t.dtype} "
+                                 f"{tuple(t.shape)}, {cfg.name} needs "
+                                 f"{leaf.dtype} {tuple(leaf.shape)}")
+            out[name] = t
+        return out
+    return convert("", init_params(cfg, device="meta"), tree)

@@ -11,6 +11,9 @@ Public API:
   SFOps                      plain torch ops on global tensors
   patterns.analyze           §5.2 pattern discovery
   redplan                    shared sort-segment reduction machinery (§3.3)
+  PlanCache                  signature-keyed cache of plans / programs
+  sflog                      -log_view analogue: event/counter registry,
+                             SFView introspection
 """
 
 from .graph import PairInfo, RankGraph, StarForest, ragged_offsets
@@ -23,7 +26,8 @@ from .backend import (CudaBackend, GlobalBackend, SFBackend, SFComm,
                       available_backends, make_backend, register_backend,
                       select_backend)
 from .device import resolve_device
-from . import patterns, redplan
+from .dynplan import PlanCache
+from . import patterns, redplan, sflog
 
 __all__ = [
     "PairInfo", "RankGraph", "StarForest", "ragged_offsets",
@@ -34,6 +38,6 @@ __all__ = [
     "ReductionPlan", "build_reduction_plan",
     "SFBackend", "SFComm", "GlobalBackend", "CudaBackend",
     "available_backends", "make_backend", "register_backend",
-    "select_backend", "resolve_device",
-    "patterns", "redplan",
+    "select_backend", "resolve_device", "PlanCache",
+    "patterns", "redplan", "sflog",
 ]

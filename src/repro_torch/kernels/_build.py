@@ -30,11 +30,12 @@ __all__ = ["SOURCES", "BUILD_DIR", "build_all", "launch", "stream_of"]
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("sf_pack", "sf_unpack", "spmv_ell")
+SOURCES = ("sf_pack", "sf_unpack", "spmv_ell", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
 # C entry point -> (library, argtypes); every one returns int.
 _SIGNATURES = {
     "sf_gather_rows": ("sf_pack", [_P, _P, _P, _L, _L, _I, _P]),
@@ -46,6 +47,9 @@ _SIGNATURES = {
     "sf_segment_reduce": ("sf_unpack", [_P, _P, _P, _P, _L, _L, _I, _I, _I,
                                         _P]),
     "sf_spmv_ell": ("spmv_ell", [_P, _P, _P, _P, _L, _I, _I, _P]),
+    "flash_attention_fwd": ("flash_attention", [_P, _P, _P, _P, _I, _I, _I,
+                                                _I, _I, _I, _I, _I, _I, _F,
+                                                _I, _P]),
 }
 
 _LOCK = threading.Lock()

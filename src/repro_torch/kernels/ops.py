@@ -22,6 +22,10 @@ Index lists are prepared once per source array and device (int32 upload
 and bounds check, :mod:`repro_torch.kernels._index`), so repeat exchanges
 on one plan cost no conversion.  The direct entry points ``sf_pack``,
 ``sf_pack_strided``, ``sf_unpack`` and ``spmv_ell`` call one kernel each.
+
+``flash_attention`` is the serving path's prefill attention core (the
+reference's ``_chunked_attn`` function, computed by the hand-written
+kernel; ``models/layers.py::attention`` calls it).
 """
 
 from __future__ import annotations
@@ -35,11 +39,13 @@ from .sf_pack import (bcast_fused, inverse_map, pack, pack_blocked,
 from .sf_unpack import (segment_reduce_blocked, segment_reduce_sorted,
                         unpack_segments)
 from .spmv_ell import spmv_ell
+from .flash_attention import flash_attention
 
 __all__ = [
     "PACK_BLOCK_ROWS", "SEG_BLOCK", "WIDE_ROW",
     "pack_rows", "segment_reduce_rows", "local_bcast_rows", "inverse_map",
-    "sf_pack", "sf_pack_strided", "sf_unpack", "spmv_ell", "ref",
+    "sf_pack", "sf_pack_strided", "sf_unpack", "spmv_ell", "flash_attention",
+    "ref",
     "kernel_wrappers", "reset_launch_counts", "launch_counts",
 ]
 
@@ -115,7 +121,7 @@ def kernel_wrappers() -> dict:
             "pack_strided": pack_strided, "bcast_fused": bcast_fused,
             "segment_reduce_sorted": segment_reduce_sorted,
             "segment_reduce_blocked": segment_reduce_blocked,
-            "spmv_ell": spmv_ell}
+            "spmv_ell": spmv_ell, "flash_attention": flash_attention}
 
 
 def reset_launch_counts() -> None:

@@ -8,9 +8,10 @@ import torch
 from .sf_pack import pack_plain, pack_strided_plain
 from .sf_unpack import segment_reduce_plain
 from .spmv_ell import spmv_ell_plain
+from .flash_attention import flash_attention_plain
 
 __all__ = ["pack_ref", "pack_strided_ref", "unpack_segment_ref",
-           "spmv_ell_ref"]
+           "flash_attention_ref", "spmv_ell_ref"]
 
 
 def pack_ref(data: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -32,6 +33,11 @@ def unpack_segment_ref(buf: torch.Tensor, seg_ids: torch.Tensor,
     length = torch.bincount(seg_ids, minlength=int(num_segments))
     start = torch.cumsum(length, 0) - length
     return segment_reduce_plain(buf, start, length, op)
+
+
+# plain softmax attention: q (Sq, H, D), k/v (Skv, Hkv, D), positions aligned
+# at the end, fully masked rows 0
+flash_attention_ref = flash_attention_plain
 
 
 def spmv_ell_ref(data: torch.Tensor, cols: torch.Tensor,

@@ -264,7 +264,8 @@ def test_cpu_path_counts_no_launch(rng):
     assert set(kops.launch_counts().values()) == {0}
     assert sorted(kops.kernel_wrappers()) == sorted(
         ["pack", "pack_blocked", "pack_strided", "bcast_fused",
-         "segment_reduce_sorted", "segment_reduce_blocked", "spmv_ell"])
+         "segment_reduce_sorted", "segment_reduce_blocked", "spmv_ell",
+         "flash_attention"])
 
 
 def test_prepared_index_cache_follows_source():

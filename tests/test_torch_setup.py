@@ -145,9 +145,13 @@ def test_csr_and_to_ell_match_reference(seed):
 
 # ---------------------------------------------------------------- rules
 def test_import_hygiene_no_jax_no_reference():
-    """Every repro_torch module imports without jax or the JAX package."""
+    """Every repro_torch module imports without jax or the JAX package:
+    the serving slice's subpackages by name, then every module found."""
     code = (
         "import importlib, pkgutil, sys\n"
+        "import repro_torch.models, repro_torch.configs\n"
+        "import repro_torch.serving, repro_torch.core.sflog\n"
+        "import repro_torch.kernels.flash_attention\n"
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
