@@ -6,7 +6,8 @@
 Phases, each printing one JSON line and asserting as it goes:
 
   env      torch / CUDA versions, the card, ``nvidia-smi`` name and power
-           limit, and the time to build the CUDA kernels from ``src``.
+           limit, the time to build the CUDA kernels from ``src``, and the
+           flash kernels' registers, spills and shared memory (ptxas -v).
   setup    the main path's objects: a 7-point Poisson matrix on a 128^3 grid
            (2,097,152 unknowns) as ``ParCSR`` over 8 logical ranks in
            z-slabs, a random general star forest (8 ranks, 2^20 roots,
@@ -21,10 +22,15 @@ Phases, each printing one JSON line and asserting as it goes:
            (bf16, Sq = Skv, 32 query / 8 KV heads of 128, causal) and over
            a sweep (float32 / bf16, head sizes 16-128, GQA 1/4/8, windows,
            Sq < Skv, Sq > Skv with fully masked rows exactly 0, ragged
-           tails, a batch), within FLASH_TOL, which scales with each query
-           row; two faulty outputs made in plain torch (late rows 0, the
-           diagonal KV tile skipped) must fail it.  SDPA is its library
-           call.
+           tails, a batch; for the wgmma kernel's ring also S = 4096 with a
+           window of 1000, Skv off the tile, Sq = 1 against 2048 keys and a
+           batch of 3), each case with the route it took, within FLASH_TOL,
+           which scales with each query row; three faulty outputs made in
+           plain torch (late rows 0, the diagonal KV tile skipped, every KV
+           tile after the first holding the previous tile's K and V) must
+           fail it.  Each bucket also times the other bf16 kernel
+           (``prev_ms``) and gives the achieved TFLOP/s.  SDPA is its
+           library call.
   sf_ops   ``SFComm(backend="cuda")`` against ``SFComm(backend="global")``.
   spmv_cg  SpMV / SpMV^T against scipy in float64, then CG and CGAsync on
            the Poisson matrix through the ELL kernel.
@@ -35,8 +41,9 @@ Phases, each printing one JSON line and asserting as it goes:
            two faulty last rows must fail it), one engine stream against
            direct greedy decoding, then ``ServeEngine(batch=8, s_max=2048)`` driven
            by ``loadgen.drive`` on 16 requests (prompts 64-1024 tokens,
-           16-64 new tokens each): service metrics, launches, and a
-           profiled window of one prefill and five decode steps.
+           16-64 new tokens each): service metrics, launches (every flash
+           launch on the wgmma route), and profiled windows of prefills and
+           decode steps.
 
 Two paths carry the kernels: ``sf_ops`` + ``spmv_cg`` (the SF kernels) and
 the serve phase's drive (``flash_attention``).  Every launch counter is set
@@ -101,7 +108,7 @@ SOURCES = {
     "segment_reduce_sorted": "src/repro_torch/kernels/csrc/sf_unpack.cu",
     "segment_reduce_blocked": "src/repro_torch/kernels/csrc/sf_unpack.cu",
     "spmv_ell": "src/repro_torch/kernels/csrc/spmv_ell.cu",
-    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
 }
 SF_PATH = ("pack", "pack_blocked", "pack_strided", "bcast_fused",
            "segment_reduce_sorted", "segment_reduce_blocked", "spmv_ell")
@@ -270,6 +277,24 @@ def bound(nbytes: float, nops: float = 0.0, ops_per_s=FP32_OPS_PER_S):
     float32 outside the tensor cores)."""
     tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / ops_per_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def flash_ptxas() -> list:
+    """Registers, spills and static shared memory of both flash sources'
+    kernels, from their ``nvcc -Xptxas=-v`` build logs, with the dynamic
+    shared memory of each wgmma instance."""
+    from repro_torch.kernels import _build, flash_attention as fa
+    out = []
+    for src in ("flash_attention_sm90", "flash_attention"):
+        for r in _build.ptxas_report(src):
+            r = dict(r, source=src)
+            for D in fa.SM90_HEAD_DIMS:
+                for nc in (1, 2):
+                    if src == fa.SM90 and f"ILi{D}ELi{nc}E" in r["function"]:
+                        r.update(D=D, rows=64 * nc, dynamic_smem_bytes=fa
+                                 .sm90_smem_bytes(D, 64 * nc))
+            out.append(r)
+    return out
 
 
 def nvidia_smi() -> str:
@@ -689,11 +714,13 @@ def flash_check(got, want, what: str) -> float:
 def flash_controls(q, k, v, want, tile: int = 64) -> dict:
     """Outputs of faults the kernel could have, made in plain torch from the
     causal serving shape's inputs, each read against FLASH_TOL beside the
-    old fixed (5e-2, 5e-2) limit: rows past S/4 returned as 0, and every
-    query tile's last KV tile (the diagonal one) skipped.  flash_check must
-    reject each."""
+    old fixed (5e-2, 5e-2) limit: rows past S/4 returned as 0; every query
+    tile's last KV tile (the diagonal one) skipped; and a stale ring stage,
+    where every KV tile of the wgmma kernel's width after the first holds
+    the previous tile's K and V.  flash_check must reject each."""
     import torch
-    S = q.shape[0]
+    from repro_torch.kernels import flash_attention as fa
+    S, kv_tile = q.shape[0], fa.SM90_BC
     zeroed = want.clone()
     zeroed[S // 4:] = 0
     # each query row sees only the keys before its own 64-row tile
@@ -706,9 +733,15 @@ def flash_controls(q, k, v, want, tile: int = 64) -> dict:
     skipped = torch.einsum("krqs,skd->qkrd", p, v.float()) \
         .reshape(want.shape).to(want.dtype)
     del s, p
+    faults = [("late_rows_zero", zeroed),
+              ("diagonal_kv_tile_skipped", skipped)]
+    if S > kv_tile:          # one KV tile has no stale stage to read
+        k_stale, v_stale = k.clone(), v.clone()
+        k_stale[kv_tile:], v_stale[kv_tile:] = k[:-kv_tile], v[:-kv_tile]
+        faults.append(("stale_kv_stage",
+                       fa.flash_attention_plain(q, k_stale, v_stale)))
     out = {}
-    for name, bad in (("late_rows_zero", zeroed),
-                      ("diagonal_kv_tile_skipped", skipped)):
+    for name, bad in faults:
         gap = flash_gap(bad, want)
         gap["rejected"] = gap["elements_outside"] > 0 or \
             gap["rows_outside"] > 0
@@ -724,8 +757,11 @@ def flash_controls(q, k, v, want, tile: int = 64) -> dict:
 def flash_sweep(dev) -> dict:
     """flash_attention against its plain version over dtypes, head sizes,
     GQA ratios 1/4/8, windows, Sq < Skv, Sq > Skv (fully masked rows must
-    be exactly 0), ragged tails and a batched call.  Returns the case
-    count and the largest error per dtype."""
+    be exactly 0), ragged tails and a batched call, then the ring-stress
+    shapes of the wgmma kernel in bf16 at head sizes 64 and 128.  Each case
+    records the kernel it took (read from the launch counters and held to
+    ``route``).  Returns the cases, the count per route and the largest
+    error per dtype."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     rng = np.random.default_rng(11)
@@ -735,35 +771,51 @@ def flash_sweep(dev) -> dict:
         (128, 128, 4, 2, False, None), (73, 129, 6, 3, True, None),
         (48, 16, 4, 2, True, None), (200, 200, 8, 8, True, 17),
         (130, 70, 8, 1, False, 20)]
-    cases, worst = 0, {}
+    ring = [  # B, Sq, Skv, H, Hkv, causal, window: many tiles per ring
+        (1, 4096, 4096, 8, 2, True, 1000), (1, 300, 333, 8, 2, True, None),
+        (1, 1, 2048, 8, 2, True, None), (3, 257, 257, 8, 2, True, None)]
+    cases, worst, routes = [], {}, {}
+
+    def run_case(q, k, v, what, causal=True, window=None):
+        before = fa.flash_attention.launches_sm90
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        took = "plain" if dev.type != "cuda" else fa.SM90 \
+            if fa.flash_attention.launches_sm90 > before \
+            else "flash_attention"
+        check(took == fa.route(q.dtype, q.shape[-1]) or dev.type != "cuda",
+              f"{what}: took {took}")
+        want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+        err = flash_check(got, want, what)
+        key = str(q.dtype).split(".")[-1]
+        worst[key] = max(worst.get(key, 0.0), err)
+        Sq, Skv = q.shape[-3], k.shape[-3]
+        if causal and Sq > Skv:
+            check(bool((got[..., : Sq - Skv, :, :] == 0).all()),
+                  f"{what}: fully masked rows are not 0")
+        routes[took] = routes.get(took, 0) + 1
+        cases.append([what, took, err])
+
     for dt in (torch.float32, torch.bfloat16):
         def rand(*shape):
             return torch.as_tensor(rng.standard_normal(shape),
                                    device=dev).to(dt)
         for D in (16, 32, 64, 128):
             for Sq, Skv, H, Hkv, causal, window in shapes:
-                q, k, v = rand(Sq, H, D), rand(Skv, Hkv, D), rand(Skv, Hkv, D)
-                what = f"flash {dt} D{D} {Sq}x{Skv} H{H}/{Hkv} " \
-                    f"causal={causal} window={window}"
-                got = fa.flash_attention(q, k, v, causal=causal,
-                                         window=window)
-                want = fa.flash_attention_plain(q, k, v, causal=causal,
-                                                window=window)
-                err = flash_check(got, want, what)
-                key = str(dt).split(".")[-1]
-                worst[key] = max(worst.get(key, 0.0), err)
-                if causal and Sq > Skv:
-                    check(bool((got[: Sq - Skv] == 0).all()),
-                          f"{what}: fully masked rows are not 0")
-                cases += 1
+                run_case(rand(Sq, H, D), rand(Skv, Hkv, D), rand(Skv, Hkv, D),
+                         f"{str(dt)[6:]} D{D} {Sq}x{Skv} H{H}/{Hkv} "
+                         f"causal={causal} window={window}", causal, window)
             # a leading batch dimension goes into the grid
-            qb, kb = rand(2, 77, 8, D), rand(2, 77, 2, D)
-            vb = rand(2, 77, 2, D)
-            flash_check(fa.flash_attention(qb, kb, vb),
-                        fa.flash_attention_plain(qb, kb, vb),
-                        f"flash batched {dt} D{D}")
-            cases += 1
-    return {"cases": cases, "max_abs_err": worst}
+            run_case(rand(2, 77, 8, D), rand(2, 77, 2, D), rand(2, 77, 2, D),
+                     f"{str(dt)[6:]} D{D} batched 2x77")
+            if dt != torch.bfloat16 or D not in fa.SM90_HEAD_DIMS:
+                continue
+            for B, Sq, Skv, H, Hkv, causal, window in ring:
+                run_case(rand(B, Sq, H, D), rand(B, Skv, Hkv, D),
+                         rand(B, Skv, Hkv, D),
+                         f"ring bfloat16 D{D} {B}x{Sq}x{Skv} H{H}/{Hkv} "
+                         f"causal={causal} window={window}", causal, window)
+    return {"n_cases": len(cases), "routes": routes, "max_abs_err": worst,
+            "cases": cases}
 
 
 def flash_record(dev, S: int, it: int, H: int, Hkv: int, D: int,
@@ -781,7 +833,11 @@ def flash_record(dev, S: int, it: int, H: int, Hkv: int, D: int,
     run = lambda: fa.flash_attention(q, k, v, causal=True, window=window)
     plain = lambda: fa.flash_attention_plain(q, k, v, causal=True,
                                              window=window)
+    # the first kernel (mma.sync) on the same bf16 inputs
+    prev = lambda: fa.launch_kernel("flash_attention", q, k, v, causal=True,
+                                    window=window)
     got, want = run(), plain()
+    flash_check(prev(), want, f"first flash kernel S={S}")
     err = flash_check(got, want, f"flash serving shape S={S}")
     gap = flash_gap(got, want)
     controls = flash_controls(q, k, v, want)
@@ -791,14 +847,24 @@ def flash_record(dev, S: int, it: int, H: int, Hkv: int, D: int,
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
     nops = 4.0 * visible_pairs(S, S, True, window) * H * D
     bms, by = bound(nbytes, nops, BF16_OPS_PER_S)
-    return {"S": S, "max_abs_err": err, "rel_l2": gap["rel_l2"],
-            "row_rel_max": gap["row_rel_max"], "controls": controls,
-            "ms": device_ms(run, dev, it),
-            "ms_cold_l2": cold_device_ms(run, dev, it),
-            "plain_ms": device_ms(plain, dev, it),
-            "library_ms": device_ms(library, dev, it),
-            "call_ms": call_ms(run, dev, it),
-            "bound_ms": bms, "bound_by": by}
+    # kernel and first kernel in turns: kernel, prev, prev, kernel
+    ms = [device_ms(run, dev, it)]
+    prev_ms = [device_ms(prev, dev, it), device_ms(prev, dev, it)]
+    ms.append(device_ms(run, dev, it))
+    rec = {"S": S, "route": fa.route(q.dtype, D),
+           "max_abs_err": err, "rel_l2": gap["rel_l2"],
+           "row_rel_max": gap["row_rel_max"], "controls": controls,
+           "ms": min(ms), "ms_runs": ms,
+           "ms_cold_l2": cold_device_ms(run, dev, it),
+           "prev_ms": min(prev_ms), "prev_ms_runs": prev_ms,
+           "prev_ms_cold_l2": cold_device_ms(prev, dev, it),
+           "plain_ms": device_ms(plain, dev, it),
+           "library_ms": device_ms(library, dev, it),
+           "call_ms": call_ms(run, dev, it),
+           "bound_ms": bms, "bound_by": by, "flop": nops}
+    rec["tflops"] = nops / (rec["ms"] * 1e-3) / 1e12
+    rec["share_of_bound"] = bms / rec["ms"]
+    return rec
 
 
 # ----------------------------------------------------------------- sf_ops
@@ -1119,7 +1185,7 @@ def phase_serve(sz: Sizes, dev) -> dict:
     kernel on every layer.  Launch counters are set to 0 just before the
     drive and read just after it."""
     import torch
-    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import flash_attention as fa, ops as kops
     from repro_torch.models import transformer as T
     from repro_torch.serving import Request, ServeEngine, drive, \
         trace_fingerprint
@@ -1158,14 +1224,17 @@ def phase_serve(sz: Sizes, dev) -> dict:
     buckets = serve_buckets(trace, sz)
     check(metrics["prefill_buckets"] == buckets,
           f"prefill buckets {metrics['prefill_buckets']} != {buckets}")
+    sm90 = fa.flash_attention.launches_sm90
     check(counts["flash_attention"] == cfg.n_layers * len(reqs) or
           dev.type != "cuda", f"flash launches {counts['flash_attention']} "
           f"!= {cfg.n_layers} layers x {len(reqs)} prefills")
+    check(sm90 == counts["flash_attention"], f"only {sm90} of "
+          f"{counts['flash_attention']} flash launches took the wgmma route")
     out.update({"trace_fingerprint": trace_fingerprint(trace),
                 "requests": len(reqs),
                 "prompt_tokens": sum(r.prompt_len for r in reqs),
                 "drive_wall_s": wall, "metrics": metrics,
-                "launches": counts,
+                "launches": counts, "flash_launches_sm90": sm90,
                 "flash_launches_per_prefill":
                     counts["flash_attention"] / len(reqs),
                 "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9
@@ -1234,7 +1303,12 @@ def run(dev, sz: Sizes) -> list:
         "replaces": REPLACES["flash_attention"], "launches": 0,
         **{k: flash[k] for k in ("max_abs_err", "ms", "ms_cold_l2",
                                  "plain_ms", "bound_ms", "bound_by",
-                                 "library_ms", "call_ms")}}
+                                 "library_ms", "call_ms", "prev_ms",
+                                 "prev_ms_cold_l2", "tflops")},
+        "prev_source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "ptxas": [{k: r[k] for k in ("D", "rows", "registers",
+                                     "spill_stores", "dynamic_smem_bytes")}
+                  for r in flash_ptxas() if "rows" in r]}
     sweep = flash_sweep(dev)
     emit({"phase": "kernels", "sweep_cases": cases,
           "seconds": time.perf_counter() - t0,
@@ -1288,7 +1362,8 @@ def main() -> int:
     build_s = _build.build_all()
     emit({"phase": "env", "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
-          "nvidia_smi": smi, "kernel_build_s": build_s})
+          "nvidia_smi": smi, "kernel_build_s": build_s,
+          "flash_ptxas": flash_ptxas()})
     kernels = run(dev, Sizes())
     emit({"kernels": kernels})
     print(smi, flush=True)

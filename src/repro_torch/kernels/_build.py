@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -26,13 +27,17 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["SOURCES", "BUILD_DIR", "build_all", "launch", "stream_of"]
+__all__ = ["SOURCES", "BUILD_DIR", "build_all", "launch", "stream_of",
+           "ptxas_report"]
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("sf_pack", "sf_unpack", "spmv_ell", "flash_attention")
+SOURCES = ("sf_pack", "sf_unpack", "spmv_ell", "flash_attention",
+           "flash_attention_sm90")
+# -Xptxas=-v: registers, spills and shared memory of every kernel go into
+# the build log beside each library (ptxas_report reads them)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
@@ -50,6 +55,9 @@ _SIGNATURES = {
     "flash_attention_fwd": ("flash_attention", [_P, _P, _P, _P, _I, _I, _I,
                                                 _I, _I, _I, _I, _I, _I, _F,
                                                 _I, _P]),
+    "flash_attention_sm90_fwd": ("flash_attention_sm90",
+                                 [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  _I, _I, _I, _F, _I, _I, _P]),
 }
 
 _LOCK = threading.Lock()
@@ -102,6 +110,7 @@ def build_all() -> float:
                               f"\n{log}")
             else:
                 os.replace(tmp, out)
+                out.with_suffix(".log").write_text(log)
         if errors:
             raise RuntimeError("CUDA kernel build failed:\n"
                                + "\n".join(errors))
@@ -137,11 +146,44 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def ptxas_report(name: str) -> list:
+    """Registers, spills and shared memory of each kernel in source
+    ``name`` as ``ptxas -v`` printed them when its library was built:
+    ``[{"function", "registers", "spill_stores", "spill_loads",
+    "smem_bytes"}]`` (empty if the library was built without a log)."""
+    log = _library_path(name).with_suffix(".log")
+    if not log.exists():
+        return []
+    out, fn = [], None
+    for line in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = {"function": m.group(1)}
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            fn["spill_stores"], fn["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            fn["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            fn["smem_bytes"] = int(m.group(1)) if m else 0
+            out.append(fn)
+            fn = None
+    return out
+
+
 def launch(name: str, *args) -> None:
     """Call C entry point ``name`` and raise if it reports an error."""
     rc = _func(name)(*args)
     if rc == -1:
         raise RuntimeError(f"{name}: unsupported dtype or op code")
+    if rc == -2:
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled refused a "
+                           f"tensor map")
     if rc != 0:
         msg = _func("sf_cuda_error_string")(rc).decode()
         raise RuntimeError(f"{name}: CUDA launch failed: {msg} ({rc})")

@@ -1,0 +1,716 @@
+// Flash attention forward for Hopper (sm_90a), bf16, head sizes 64 and 128:
+// TMA loads into a ring of K/V stages, warp-specialised producer and
+// consumer warpgroups, both products on wgmma, a persistent schedule.
+//
+// Replaces the Pallas function flash_attention
+// (repro/kernels/flash_attention.py:92, pallas_call at :119) on the serving
+// path: q (B, Sq, H, D), k/v (B, Skv, Hkv, D), Hkv | H, query row i at
+// absolute position Skv - Sq + i; key j visible iff j < Skv, (causal)
+// j <= qpos and (window) j > qpos - window; out = softmax(scale * q k^T) v
+// in bf16, softmax statistics and accumulation in float32; a row that sees
+// no key returns exactly 0.  flash_attention.cu keeps float32 and the bf16
+// head sizes 16 and 32; kernels/flash_attention.py routes between the two.
+//
+// Bound on this card.  The serving prefill (Sq = Skv = S, 32 query / 8 KV
+// heads of 128, causal) needs 4 * S(S+1)/2 * H * D flops (q k^T and p v on
+// the visible half) and reads q, k, v and writes o once: at S = 1024,
+// 8.6 GFLOP over 989 TFLOP/s = 8.7 us against 21 MB over 3.35 TB/s = 6.3 us,
+// so operations bound it; below S = 512 bytes do.
+//
+// What held the first kernel (flash_attention.cu) back, and the answer here:
+//  1. No overlap of loads and math: every K/V tile went global -> registers
+//     -> shared between two __syncthreads.  Here one producer thread issues
+//     TMA loads (cp.async.bulk.tensor, 128-byte swizzle) into two rings of
+//     STAGES slots, one for K and one for V, each slot guarded by a
+//     full/empty mbarrier pair, so the next tiles land while the consumers
+//     compute; q is loaded once per work item by TMA as well, the next
+//     item's q during this one's epilogue.
+//  2. mma.sync with B fed by scalar shared loads.  Here S = Q K^T is wgmma
+//     m64n64k16 with both operands read by the tensor cores from the
+//     swizzled tiles through matrix descriptors (K-major, B128, SBO 1024 B,
+//     +32 B per k16 step inside a 128-byte row), and O += P V is wgmma
+//     m64nDk16 with A = P in registers (the S accumulator rounded to bf16
+//     pairs: its m64nN f32 layout is the A-fragment layout) and B = the V
+//     tile, keys x d, read MN-major with the transpose bit (LBO = one
+//     64-column box, SBO = 8 keys).  The walk is software-pipelined: S of
+//     tile j and P V of tile j - 1 are issued together, and the softmax of
+//     tile j runs while P V is in flight.
+//  3. GQA reloads: the H / Hkv query heads of a KV head are consecutive in
+//     the work order, so the CTAs that run them at once read the same K/V
+//     tiles and all but the first find them in L2 (a KV head's K and V are
+//     512 KB at S = 1024, 4 MB for all 8, against 50 MB of L2).  Packing a
+//     KV group's heads into one CTA's M rows was the other choice; it needs
+//     4 x 64 rows of q per tile at every bucket (only 8 q tiles of work at
+//     S = 128) and a per-head row mapping in the epilogue, for HBM traffic
+//     that L2 already absorbs.
+//  4. Small CTAs, poor hiding, uneven causal tiles.  A CTA is NC consumer
+//     warpgroups of 64 query rows each (NC = 2: 128 rows of one head) plus
+//     one producer warpgroup.  The grid is persistent, at most SMs x
+//     resident CTAs, and walks the work list (b, head, q tile) in the
+//     longest-first order that tile_plan() computes, CTA c taking items c
+//     and 2 grid - 1 - c, then 2 grid + c and 4 grid - 1 - c, and so on:
+//     the CTA with the longest tile of a round takes the shortest of the
+//     next, which evens out the causal triangle (at S = 1024 the busiest
+//     CTA walks 18 KV tiles against a mean of 17.5; plain striding gave it
+//     24).  The wrapper picks NC = 1 (64 rows) when 128-row tiles would
+//     leave fewer CTAs than half the SMs (small buckets).
+//  5. Masks on every tile.  Each q tile visits only KV tiles [j0, j1) that
+//     some of its rows can see (kv_tiles), and applies the element mask
+//     only on tiles that straddle the causal diagonal, the window's edge
+//     or Skv (tile_masked).  TMA zero-fills K/V rows past Skv; such a tile
+//     is always masked, so a zero key counts as absent, not as a logit 0.
+//     The running max keeps the first kernel's guard (a row that has seen
+//     nothing subtracts 0, not -inf) and the epilogue scales by
+//     l > 0 ? 1/l : 0.
+// The epilogue writes each consumer's 64 x D tile as bf16 into swizzled
+// shared memory and stores it with TMA, which drops rows past Sq.
+//
+// Tile width.  NC = 2 launches at 65536 / 384 threads = 168 registers a
+// thread, and ptxas holds the consumers to that although setmaxnreg hands
+// them 240: the pipelined walk keeps S (BC / 2 floats), P (BC / 4 words)
+// and O (D / 2 floats) live at once.  At D = 128 a 128-key tile spills and
+// serialises its wgmmas, a 64-key tile does not, and on the H100 the
+// 64-key tile with a 2-slot ring was the fastest at the serving buckets
+// (flash_variants.py times the alternatives; PERF.md has the readings).
+// So BC = 64, STAGES = 2.
+//
+// kv_tiles, tile_masked and the work order are mirrored by tile_plan() in
+// kernels/flash_attention.py; a change to one side changes the other.
+//
+// Every entry point returns cudaGetLastError() after its launch, -1 for an
+// unsupported head size or tile height, -2 if a tensor map cannot be made.
+
+#include <cuda.h>  // CUtensorMap; the encoder comes through the runtime
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int BC = 64;     // keys per K/V tile
+constexpr int STAGES = 2;  // K/V ring depth
+
+struct Params {
+  const int* order;  // q tiles, longest first (tile_plan)
+  int B, Sq, Skv, H, Hkv;
+  int causal, has_window, window;
+  float scale_log2;  // scale * log2(e): the softmax runs in base 2
+  int n_work;        // B * H * q tiles
+};
+
+// Shared memory: every tile starts on a 1024-byte boundary (the 128-byte
+// swizzle repeats every 8 rows of 128 bytes).  A tile of R rows x D
+// columns is D / 64 boxes of R x 64, one after the other.
+template <int D, int NC>
+struct Smem {
+  __nv_bfloat16 q[NC * 64 * D];
+  __nv_bfloat16 k[STAGES][BC * D];
+  __nv_bfloat16 v[STAGES][BC * D];
+  __nv_bfloat16 o[NC][64 * D];
+  uint64_t full_k[STAGES], empty_k[STAGES], full_v[STAGES], empty_v[STAGES];
+  uint64_t q_full, q_empty;
+};
+
+// ---------------------------------------------------------------- schedule
+// (mirrored by tile_plan in kernels/flash_attention.py)
+__device__ __forceinline__ void tile_of(const Params& p, int idx, int br,
+                                        int& b, int& h, int& r0) {
+  const int bh = p.B * p.H;
+  const int rem = idx % bh;
+  r0 = p.order[idx / bh] * br;
+  h = rem % p.H;
+  b = rem / p.H;
+}
+
+// KV tiles [j0, j1) that some query row in [r0, r1) may see.
+__device__ __forceinline__ void kv_tiles(const Params& p, int r0, int r1,
+                                         int& j0, int& j1) {
+  const long long off = (long long)p.Skv - p.Sq;
+  long long lo = 0, hi = p.Skv;
+  if (p.causal) hi = min(hi, off + r1);
+  if (p.has_window) lo = max(lo, off + r0 - p.window + 1);
+  if (hi <= lo) {
+    j0 = j1 = 0;
+    return;
+  }
+  j0 = (int)(lo / BC);
+  j1 = (int)((hi + BC - 1) / BC);
+}
+
+// Whether some (row in [r0, r1), key in tile j) pair is not visible.
+__device__ __forceinline__ bool tile_masked(const Params& p, int r0, int r1,
+                                            int j) {
+  const long long off = (long long)p.Skv - p.Sq;
+  const long long k0 = (long long)j * BC, k1 = k0 + BC - 1;
+  return k1 >= p.Skv || (p.causal && k1 > off + r0) ||
+         (p.has_window && k0 <= off + r1 - 1 - p.window);
+}
+
+__device__ __forceinline__ bool visible(const Params& p, long long qpos,
+                                        long long kpos) {
+  return kpos < p.Skv && (!p.causal || kpos <= qpos) &&
+         (!p.has_window || kpos > qpos - p.window);
+}
+
+// ------------------------------------------------------------------- PTX
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed.  A
+// wait that outlasts 2^24 polls (seconds; a tile takes microseconds) is a
+// broken protocol: trap, so the launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0, polls = 0;
+  do {
+    if (++polls == (1u << 24)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of a 4-D tensor map (coordinates innermost first) into shared
+// memory; completion is counted in bytes on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int c0, int c1, int c2, int c3,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// One box from shared memory to the tensor; elements outside it are
+// dropped.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          const void* src, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"((uint64_t)map),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// Generic-proxy writes to shared memory become visible to TMA.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void named_bar(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most N committed wgmma groups are still in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
+// leading and stride byte offsets, all in 16-byte units.
+__device__ __forceinline__ uint64_t desc_b128(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// d = a * b (+ d if scale_d), m64n64k16: a and b from shared memory,
+// both K-major
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d = a * b (+ d if scale_d), m64n64k16: a from registers, b from shared
+// memory, MN-major (the transpose bit is set)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d = a * b (+ d if scale_d), m64n128k16: a from registers, b from shared
+// memory, MN-major (the transpose bit is set)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// ------------------------------------------------------------------ kernel
+// Work item of CTA c in round r: the list is walked in a snake, c in even
+// rounds and grid - 1 - c in odd ones, so a CTA that took one of the
+// longest tiles in a round takes one of the shortest in the next (a static
+// longest-processing-time schedule).  Items only grow with r.
+__device__ __forceinline__ int work_item(int r) {
+  return r * gridDim.x + ((r & 1) ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
+}
+
+// Pins registers at this point of the program: values written by an
+// asynchronous wgmma are read only after its wait, and registers it reads
+// (the P fragment) are not reused before it.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
+}
+
+// Ring slot and phase parity of the n-th K (or V) tile a CTA handles.
+__device__ __forceinline__ int slot(uint32_t n) { return n % STAGES; }
+__device__ __forceinline__ uint32_t parity(uint32_t n) {
+  return (n / STAGES) & 1;
+}
+
+// The consumer's softmax step on one S tile, in place: s becomes the
+// tile's probabilities exp2(scale * s - mu), m / l are updated and the
+// factor that rescales the running output is returned per row.
+template <bool kMasked>
+__device__ __forceinline__ void softmax_tile(const Params& p, float (&s)[BC / 2],
+                                             float (&m)[2], float (&l)[2],
+                                             float (&corr)[2], int j, int c4,
+                                             long long qpos_a,
+                                             long long qpos_b) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < BC / 2; ++i) {
+    float x = s[i] * p.scale_log2;
+    // s[i]: row a (i % 4 < 2) or b, key j*BC + 8*(i/4) + 2*c4 + i%2
+    if (kMasked) {
+      const long long kpos = (long long)j * BC + (i / 4) * 8 + 2 * c4 + (i & 1);
+      if (!visible(p, (i & 2) ? qpos_b : qpos_a, kpos)) x = -INFINITY;
+    }
+    s[i] = x;
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+  }
+  float mu[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float mn = fmaxf(m[r], mx[r]);
+    mu[r] = mn == -INFINITY ? 0.f : mn;  // a row that sees nothing yet
+    corr[r] = exp2f(m[r] - mu[r]);
+    m[r] = mn;
+    l[r] *= corr[r];
+  }
+#pragma unroll
+  for (int i = 0; i < BC / 2; ++i) {
+    s[i] = exp2f(s[i] - mu[(i >> 1) & 1]);
+    l[(i >> 1) & 1] += s[i];  // this thread's part of the row sum
+  }
+}
+
+template <int D, int NC>
+__global__ void __launch_bounds__((NC + 1) * 128, 1)
+    flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_o,
+                          const Params p) {
+  constexpr int BR = NC * 64;
+  extern __shared__ uint8_t smem_raw[];
+  Smem<D, NC>& sm = *reinterpret_cast<Smem<D, NC>*>(
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&sm.full_k[s], 1);
+      mbar_init(&sm.full_v[s], 1);
+      mbar_init(&sm.empty_k[s], NC * 128);
+      mbar_init(&sm.empty_v[s], NC * 128);
+    }
+    mbar_init(&sm.q_full, 1);
+    mbar_init(&sm.q_empty, NC * 128);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == NC) {
+    // ------------------------------------------------ producer warpgroup
+    // NC = 2 launches at 65536 / 384 threads = 168 registers; the producer
+    // gives back all but 24 and the consumers take them (240).  NC = 1
+    // launches at up to 255, which the consumers keep.
+    if constexpr (NC == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (t != 0) return;
+    const int rep = p.H / p.Hkv;
+    uint32_t n = 0, it = 0;  // K/V tiles loaded, work items
+    for (int idx = work_item(0); idx < p.n_work; idx = work_item(++it)) {
+      int b, h, r0, j0, j1;
+      tile_of(p, idx, BR, b, h, r0);
+      kv_tiles(p, r0, min(r0 + BR, p.Sq), j0, j1);
+      mbar_wait(&sm.q_empty, (it & 1) ^ 1);  // the last tile's q is done
+      mbar_expect_tx(&sm.q_full, BR * D * 2);
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c)
+        tma_load(sm.q + c * BR * 64, &tm_q, c * 64, h, r0, b, &sm.q_full);
+      const int hk = h / rep;
+      for (int j = j0; j < j1; ++j, ++n) {
+        const int st = slot(n);
+        mbar_wait(&sm.empty_k[st], parity(n) ^ 1);
+        mbar_expect_tx(&sm.full_k[st], BC * D * 2);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c)
+          tma_load(sm.k[st] + c * BC * 64, &tm_k, c * 64, hk, j * BC, b,
+                   &sm.full_k[st]);
+        mbar_wait(&sm.empty_v[st], parity(n) ^ 1);
+        mbar_expect_tx(&sm.full_v[st], BC * D * 2);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c)
+          tma_load(sm.v[st] + c * BC * 64, &tm_v, c * 64, hk, j * BC, b,
+                   &sm.full_v[st]);
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------- consumer warpgroups
+  if constexpr (NC == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int w = t / 32, lane = t % 32, g = lane / 4, c4 = lane % 4;
+  const long long off = (long long)p.Skv - p.Sq;
+  const uint32_t q_base = smem_u32(sm.q) + wg * 64 * 128;
+  uint8_t* o_tile = reinterpret_cast<uint8_t*>(sm.o[wg]);
+
+  // s = q k^T on K slot st: 64 rows x BC keys, D / 16 steps of k16
+  auto issue_s = [&](float (&s)[BC / 2], int st) {
+    const uint32_t k_base = smem_u32(sm.k[st]);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(
+          s, desc_b128(q_base + (kk / 4) * BR * 128 + (kk % 4) * 32, 16, 1024),
+          desc_b128(k_base + (kk / 4) * BC * 128 + (kk % 4) * 32, 16, 1024),
+          kk > 0);
+    wgmma_commit();
+  };
+  // o += p v on V slot st: BC / 16 steps of k16
+  auto issue_pv = [&](float (&o)[D / 2], const uint32_t (&pa)[BC / 16][4],
+                      int st) {
+    const uint32_t v_base = smem_u32(sm.v[st]);
+#pragma unroll
+    for (int kk = 0; kk < BC / 16; ++kk) {
+      const uint64_t dv = desc_b128(v_base + kk * 16 * 128, BC * 128, 1024);
+      if constexpr (D == 128)
+        wgmma_rs_n128(o, pa[kk], dv, 1);
+      else
+        wgmma_rs_n64(o, pa[kk], dv, 1);
+    }
+    wgmma_commit();
+  };
+
+  uint32_t n = 0, it = 0;  // K/V tiles consumed, work items
+  for (int idx = work_item(0); idx < p.n_work; idx = work_item(++it)) {
+    int b, h, r0, j0, j1;
+    tile_of(p, idx, BR, b, h, r0);
+    const int r1 = min(r0 + BR, p.Sq);
+    kv_tiles(p, r0, r1, j0, j1);
+    // this thread's two rows (the wgmma accumulator layout: warp w holds
+    // rows 16w..16w+15 of the warpgroup's 64, lane l rows l/4 and l/4 + 8)
+    const long long qpos_a = off + r0 + wg * 64 + w * 16 + g;
+    const long long qpos_b = qpos_a + 8;
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    mbar_wait(&sm.q_full, it & 1);
+
+    if (j0 < j1) {
+      // The walk is software-pipelined: S of tile j and P V of tile j - 1
+      // go to the tensor cores together, and the softmax of tile j runs
+      // while P V is still in flight.  P stays in registers (bf16 pairs:
+      // the accumulator's keys 16kk..16kk+15 are the A fragment
+      // {a0 a1 | a2 a3 | a4 a5 | a6 a7} of k16 step kk).
+      float s[BC / 2], corr[2];
+      uint32_t pa[BC / 16][4];
+      auto softmax = [&](int j) {
+        if (tile_masked(p, r0, r1, j))
+          softmax_tile<true>(p, s, m, l, corr, j, c4, qpos_a, qpos_b);
+        else
+          softmax_tile<false>(p, s, m, l, corr, j, c4, qpos_a, qpos_b);
+      };
+      auto to_p = [&]() {
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+#pragma unroll
+        for (int i = 0; i < BC / 2; i += 2)
+          pa[i / 8][(i % 8) / 2] = pack_bf16(s[i], s[i + 1]);
+      };
+
+      mbar_wait(&sm.full_k[slot(n)], parity(n));
+      wgmma_fence();
+      issue_s(s, slot(n));
+      wgmma_wait<0>();
+      reg_fence(s);
+      mbar_arrive(&sm.empty_k[slot(n)]);
+      softmax(j0);
+      to_p();
+      for (int j = j0 + 1; j < j1; ++j) {
+        const uint32_t prev = n++;
+        mbar_wait(&sm.full_k[slot(n)], parity(n));
+        mbar_wait(&sm.full_v[slot(prev)], parity(prev));
+        wgmma_fence();
+        issue_s(s, slot(n));
+        issue_pv(o, pa, slot(prev));
+        wgmma_wait<1>();  // S of tile j is done
+        reg_fence(s);
+        mbar_arrive(&sm.empty_k[slot(n)]);
+        softmax(j);
+        wgmma_wait<0>();  // P V of tile j - 1 is done
+        reg_fence(o);
+        reg_fence(pa);
+        mbar_arrive(&sm.empty_v[slot(prev)]);
+        to_p();
+      }
+      mbar_wait(&sm.full_v[slot(n)], parity(n));
+      wgmma_fence();
+      issue_pv(o, pa, slot(n));
+      wgmma_wait<0>();
+      reg_fence(o);
+      reg_fence(pa);
+      mbar_arrive(&sm.empty_v[slot(n)]);
+      ++n;
+    }
+    mbar_arrive(&sm.q_empty);
+
+    // epilogue: o / l in bf16 through swizzled shared memory, TMA store
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;  // no visible key: 0
+    }
+    if (t == 0) bulk_wait_read();  // the last tile's store has read o_tile
+    named_bar(1 + wg, 128);
+#pragma unroll
+    for (int i = 0; i < D / 2; i += 2) {
+      const int row = w * 16 + g + ((i >> 1) & 1) * 8;
+      const int col = (i / 4) * 8 + 2 * c4, cc = col % 64;
+      const int at = (col / 64) * 64 * 128 + row * 128 +
+                     (((cc / 8) ^ (row % 8)) * 16) + (cc % 8) * 2;
+      *reinterpret_cast<uint32_t*>(o_tile + at) =
+          pack_bf16(o[i] * inv[(i >> 1) & 1], o[i + 1] * inv[(i >> 1) & 1]);
+    }
+    fence_proxy_async();
+    named_bar(1 + wg, 128);
+    if (t == 0) {
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c)
+        tma_store(&tm_o, sm.o[wg] + c * 64 * 64, c * 64, h, r0 + wg * 64, b);
+      bulk_commit();
+    }
+  }
+  if (t == 0) bulk_wait_all();
+}
+
+// ------------------------------------------------------------------- host
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult got;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
+                                cudaEnableDefault, &got) == cudaSuccess &&
+        got == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(f);
+  }
+  return fn;
+}
+
+// A contiguous bf16 (B, S, heads, D) tensor as the 4-D map (D, heads, S, B)
+// with boxes of 64 columns x 1 head x `rows` rows, 128-byte swizzle;
+// reads outside it are zero.
+bool make_map(CUtensorMap* map, const void* base, int B, int S, int heads,
+              int D, int rows) {
+  const EncodeTiled enc = encoder();
+  if (!enc) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2,
+                                 (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)S * heads * D * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D, int NC>
+int launch(const Params& p, const void* q, const void* k, const void* v,
+           void* o, cudaStream_t s) {
+  CUtensorMap tq, tk, tv, to;
+  if (!make_map(&tq, q, p.B, p.Sq, p.H, D, NC * 64) ||
+      !make_map(&tk, k, p.B, p.Skv, p.Hkv, D, BC) ||
+      !make_map(&tv, v, p.B, p.Skv, p.Hkv, D, BC) ||
+      !make_map(&to, o, p.B, p.Sq, p.H, D, 64))
+    return -2;
+  const auto kern = flash_fwd_sm90_kernel<D, NC>;
+  constexpr int threads = (NC + 1) * 128;
+  constexpr int bytes = (int)sizeof(Smem<D, NC>) + 1024;  // + alignment
+  static int resident = 0;  // CTAs per SM, asked once per instance
+  if (!resident) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kern,
+                                                        threads, bytes);
+    if (e != cudaSuccess) return (int)e;
+    if (resident < 1) resident = 1;
+  }
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int grid = min(p.n_work, sms * resident);
+  kern<<<grid, threads, bytes, s>>>(tq, tk, tv, to, p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// q (B, Sq, H, D), k/v (B, Skv, Hkv, D), o like q, all contiguous bf16;
+// D in {64, 128}; br (query rows per CTA) in {64, 128}; order: n_qt int32
+// q-tile indices on the device, longest first; has_window = 0 means no
+// window.
+int flash_attention_sm90_fwd(const void* q, const void* k, const void* v,
+                             void* o, const void* order, int B, int Sq,
+                             int Skv, int H, int Hkv, int D, int causal,
+                             int has_window, int window, float scale, int br,
+                             int n_qt, void* stream) {
+  if ((D != 64 && D != 128) || (br != 64 && br != 128)) return -1;
+  const Params p{(const int*)order, B, Sq, Skv, H, Hkv, causal, has_window,
+                 window, scale * 1.4426950408889634f, B * H * n_qt};
+  if (p.n_work == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (D == 64)
+    return br == 64 ? launch<64, 1>(p, q, k, v, o, s)
+                    : launch<64, 2>(p, q, k, v, o, s);
+  return br == 64 ? launch<128, 1>(p, q, k, v, o, s)
+                  : launch<128, 2>(p, q, k, v, o, s);
+}
+
+}  // extern "C"

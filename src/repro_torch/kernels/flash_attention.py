@@ -11,16 +11,27 @@ A query row that sees no key returns 0, as ``ref.flash_attention_ref`` does
 (the Pallas kernel returns the mean of v there).  A leading batch dimension,
 ``(B, Sq, H, D)``, is accepted as well and goes into the kernel's grid.
 
-``csrc/flash_attention.cu`` is the kernel: bf16 on the tensor cores
-(``mma.sync``), float32 with fp32 FMAs, head sizes 16, 32, 64 and 128; its
-note gives the bound and the design.  ``flash_attention.launches`` counts
-launches.  The wrapper takes the plain version only for tensors on the CPU;
-for a CUDA tensor it launches the kernel or raises.  There is no backward
-kernel yet, so an input that requires grad raises.
+Two kernels, chosen by a fixed rule (:func:`route`):
+
+  * bf16 with head size 64 or 128 (every serving config) goes to
+    ``csrc/flash_attention_sm90.cu``: TMA loads into a ring of K/V stages,
+    a producer warpgroup and one or two consumer warpgroups on ``wgmma``,
+    a persistent grid walking the tiles of :func:`tile_plan` longest first;
+  * everything else (float32, bf16 head sizes 16 and 32) goes to
+    ``csrc/flash_attention.cu``: ``mma.sync`` for bf16, fp32 FMAs for
+    float32.
+
+Each source's note gives its bound and design.  ``flash_attention.launches``
+counts the launches of both, ``flash_attention.launches_sm90`` those of the
+first.  The wrapper takes the plain version only for tensors on the CPU;
+for a CUDA tensor it launches one of the two kernels or raises.  There is
+no backward kernel yet, so an input that requires grad raises.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import math
 
 import torch
@@ -28,10 +39,27 @@ import torch
 from . import _build
 from ._index import require_cuda_tensor
 
-__all__ = ["flash_attention", "flash_attention_plain", "HEAD_DIMS"]
+__all__ = ["flash_attention", "flash_attention_plain", "HEAD_DIMS",
+           "SM90", "SM90_HEAD_DIMS", "ROUTES", "route", "tile_plan",
+           "TilePlan", "sm90_smem_bytes", "launch_kernel"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 3}
 HEAD_DIMS = (16, 32, 64, 128)
+SM90_HEAD_DIMS = (64, 128)
+SM90 = "flash_attention_sm90"
+ROUTES = (SM90, "flash_attention")
+H100_SMS = 132
+# the sm90 kernel's fixed shapes (csrc/flash_attention_sm90.cu: BC, STAGES)
+SM90_BC = 64
+SM90_STAGES = 2
+
+
+def route(dtype: torch.dtype, D: int) -> str:
+    """The kernel a CUDA call takes: bf16 with head size 64 or 128 goes to
+    ``flash_attention_sm90`` (wgmma, TMA), everything else to
+    ``flash_attention`` (mma.sync bf16, float32 FMAs)."""
+    return SM90 if dtype == torch.bfloat16 and D in SM90_HEAD_DIMS \
+        else "flash_attention"
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -97,11 +125,132 @@ def _window_arg(window, Sq: int, Skv: int):
     return 1, max(int(window), -(Sq + Skv))
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window=None,
-                    scale=None) -> torch.Tensor:
-    """q: (Sq, H, D); k, v: (Skv, Hkv, D) with Hkv | H (or all with a
-    leading batch dimension).  Returns q's shape and dtype."""
+# ------------------------------------------------------- the sm90 schedule
+# A mirror of csrc/flash_attention_sm90.cu's kv_tiles, tile_masked and
+# tile_of; a change to one side changes the other.
+def _kv_tiles(Sq, Skv, causal, has_window, win, r0, r1):
+    """KV tiles [j0, j1) that some query row in [r0, r1) may see."""
+    off = Skv - Sq
+    lo, hi = 0, Skv
+    if causal:
+        hi = min(hi, off + r1)
+    if has_window:
+        lo = max(lo, off + r0 - win + 1)
+    if hi <= lo:
+        return 0, 0
+    return lo // SM90_BC, -(-hi // SM90_BC)
+
+
+def _tile_masked(Sq, Skv, causal, has_window, win, r0, r1, j):
+    """Whether some (row in [r0, r1), key in tile j) pair is not visible."""
+    off = Skv - Sq
+    k0, k1 = j * SM90_BC, j * SM90_BC + SM90_BC - 1
+    return bool(k1 >= Skv or (causal and k1 > off + r0)
+                or (has_window and k0 <= off + r1 - 1 - win))
+
+
+def tile_height(B: int, Sq: int, H: int, sms: int = H100_SMS) -> int:
+    """Query rows per CTA: 128 (two consumer warpgroups) unless that leaves
+    fewer tiles than half the SMs, then 64 (one consumer warpgroup, twice
+    the CTAs).  With 32 heads on the H100 that is 64 rows up to S = 256
+    and 128 from S = 512, the faster of the two at each serving bucket
+    (``flash_variants.py`` times both; ``PERF.md`` has the readings)."""
+    return 128 if B * H * -(-Sq // 128) >= sms // 2 else 64
+
+
+@functools.lru_cache(maxsize=256)
+def _q_order(Sq, Skv, causal, has_window, win, br) -> tuple:
+    """The q tiles longest first (most KV tiles; later rows first among
+    equals)."""
+    n = []
+    for qt in range(-(-Sq // br)):
+        j0, j1 = _kv_tiles(Sq, Skv, causal, has_window, win, qt * br,
+                           min(qt * br + br, Sq))
+        n.append(j1 - j0)
+    return tuple(sorted(range(len(n)), key=lambda t: (-n[t], -t)))
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """The sm90 kernel's schedule for one call.  ``work`` is the list of
+    (b, head, q tile) in the order the persistent CTAs take it
+    (:meth:`cta_items`); ``kv[qt]`` the (KV tile, masked) pairs q tile qt
+    visits, in order."""
+    br: int
+    bc: int
+    q_order: tuple
+    work: list
+    kv: dict
+
+    def cta_items(self, grid: int) -> list:
+        """The work items CTA c of a persistent grid of ``grid`` CTAs runs
+        (csrc ``work_item``): item r grid + c in even rounds r and r grid +
+        grid - 1 - c in odd ones, a snake over the longest-first list."""
+        out = [[] for _ in range(grid)]
+        for r in range(-(-len(self.work) // grid)):
+            for c in range(grid):
+                idx = r * grid + (grid - 1 - c if r & 1 else c)
+                if idx < len(self.work):
+                    out[c].append(idx)
+        return out
+
+
+def tile_plan(B: int, Sq: int, Skv: int, H: int, Hkv: int, D: int,
+              causal: bool = True, window=None,
+              sms: int = H100_SMS) -> TilePlan:
+    """The sm90 kernel's tile height, work order and per-tile KV walk for
+    these shapes (pure Python; the CPU tests check it).  ``D`` does not
+    change the schedule; it is checked against the kernel's head sizes."""
+    if D not in SM90_HEAD_DIMS:
+        raise ValueError(f"{SM90} takes head sizes {SM90_HEAD_DIMS}, got {D}")
+    if H % Hkv:
+        raise ValueError(f"{H} query heads are not a multiple of {Hkv}")
+    has_window, win = _window_arg(window, Sq, Skv)
+    br = tile_height(B, Sq, H, sms)
+    order = _q_order(Sq, Skv, bool(causal), has_window, win, br)
+    work = [(b, h, qt) for qt in order for b in range(B) for h in range(H)]
+    kv = {}
+    for qt in order:
+        r0, r1 = qt * br, min(qt * br + br, Sq)
+        j0, j1 = _kv_tiles(Sq, Skv, causal, has_window, win, r0, r1)
+        kv[qt] = [(j, _tile_masked(Sq, Skv, causal, has_window, win, r0, r1,
+                                   j)) for j in range(j0, j1)]
+    return TilePlan(br, SM90_BC, order, work, kv)
+
+
+def sm90_smem_bytes(D: int, br: int) -> int:
+    """Dynamic shared memory of one CTA of the sm90 kernel (csrc
+    Smem<D, br / 64>): q, STAGES x (k, v) and o tiles in bf16, 2 + 4 STAGES
+    mbarriers, and 1024 bytes of alignment slack."""
+    return 2 * (2 * br * D + 2 * SM90_STAGES * SM90_BC * D) \
+        + 8 * (2 + 4 * SM90_STAGES) + 1024
+
+
+_ORDERS: dict = {}
+
+
+def _order_tensor(key, device) -> torch.Tensor:
+    """The q-tile order as int32 on ``device``, made once per shape."""
+    t = _ORDERS.get((key, device))
+    if t is None:
+        if len(_ORDERS) >= 256:
+            _ORDERS.clear()
+        t = torch.tensor(_q_order(*key), dtype=torch.int32, device=device)
+        _ORDERS[(key, device)] = t
+    return t
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def launch_kernel(kernel: str, q, k, v, *, causal: bool = True, window=None,
+                  scale=None) -> torch.Tensor:
+    """:func:`flash_attention` through ``kernel`` (one of ``ROUTES``)
+    instead of :func:`route`'s choice; ``chip_smoke.py`` times the first
+    kernel with it on the wgmma kernel's bf16 inputs.  CPU tensors take the
+    plain version."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
@@ -123,12 +272,36 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return o
     has_window, win = _window_arg(window, Sq, Skv)
     sc = 1.0 / math.sqrt(D) if scale is None else float(scale)
-    _build.launch("flash_attention_fwd", q.data_ptr(), k.data_ptr(),
-                  v.data_ptr(), o.data_ptr(), B, Sq, Skv, H, Hkv, D,
-                  int(bool(causal)), has_window, win, sc,
-                  _DTYPE_CODES[q.dtype], _build.stream_of(q))
+    common = (B, Sq, Skv, H, Hkv, D, int(bool(causal)), has_window, win, sc)
+    if kernel == SM90:
+        if q.dtype != torch.bfloat16 or D not in SM90_HEAD_DIMS:
+            raise ValueError(f"{SM90} takes bf16 head sizes "
+                             f"{SM90_HEAD_DIMS}, got {q.dtype} {D}")
+        br = tile_height(B, Sq, H, _sm_count(q.device.index))
+        key = (Sq, Skv, bool(causal), has_window, win, br)
+        order = _order_tensor(key, q.device)
+        _build.launch("flash_attention_sm90_fwd", q.data_ptr(), k.data_ptr(),
+                      v.data_ptr(), o.data_ptr(), order.data_ptr(), *common,
+                      br, order.numel(), _build.stream_of(q))
+        flash_attention.launches_sm90 += 1
+    elif kernel == "flash_attention":
+        _build.launch("flash_attention_fwd", q.data_ptr(), k.data_ptr(),
+                      v.data_ptr(), o.data_ptr(), *common,
+                      _DTYPE_CODES[q.dtype], _build.stream_of(q))
+    else:
+        raise ValueError(f"unknown flash kernel {kernel!r}; one of {ROUTES}")
     flash_attention.launches += 1
     return o
 
 
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window=None,
+                    scale=None) -> torch.Tensor:
+    """q: (Sq, H, D); k, v: (Skv, Hkv, D) with Hkv | H (or all with a
+    leading batch dimension).  Returns q's shape and dtype."""
+    return launch_kernel(route(q.dtype, q.shape[-1]), q, k, v, causal=causal,
+                         window=window, scale=scale)
+
+
 flash_attention.launches = 0
+flash_attention.launches_sm90 = 0

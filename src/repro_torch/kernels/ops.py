@@ -127,6 +127,7 @@ def kernel_wrappers() -> dict:
 def reset_launch_counts() -> None:
     for f in kernel_wrappers().values():
         f.launches = 0
+    flash_attention.launches_sm90 = 0   # the wgmma route's share
 
 
 def launch_counts() -> dict:

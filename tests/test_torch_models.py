@@ -12,6 +12,9 @@ is held against the ref only.  Layers and whole-model logits in float32:
 rtol 1e-4, atol 1e-5 (the two frameworks sum in different orders).
 """
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -317,16 +320,31 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [16, 128])
-def test_cuda_flash_matches_plain(cuda_device, dt, D):
+@pytest.mark.parametrize("D", [16, 64, 128])
+@pytest.mark.parametrize("Sq,Skv,causal,window", [
+    (70, 90, True, 33), (300, 300, True, None), (96, 40, True, None),
+    (130, 257, False, None)])
+def test_cuda_flash_matches_plain(cuda_device, dt, D, Sq, Skv, causal,
+                                  window):
+    """Both kernels (route: bf16 D 64/128 -> the wgmma kernel, else the
+    first kernel) against the plain version on unscaled randn inputs, held
+    to chip_smoke's FLASH_TOL, whose limit scales with each query row."""
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
     g = torch.Generator(device=cuda_device).manual_seed(0)
-    q = (torch.randn(70, 8, D, generator=g, device=cuda_device) * .3).to(dt)
-    k = (torch.randn(90, 2, D, generator=g, device=cuda_device) * .3).to(dt)
-    v = torch.randn(90, 2, D, generator=g, device=cuda_device).to(dt)
-    before = FA.flash_attention.launches
-    got = FA.flash_attention(q, k, v, window=33)
-    want = FA.flash_attention_plain(q, k, v, window=33)
-    tol = 2e-4 if dt == torch.float32 else 5e-2
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
-                               atol=tol / 10 if dt == torch.float32 else tol)
-    assert FA.flash_attention.launches == before + 1
+    q = torch.randn(Sq, 8, D, generator=g, device=cuda_device).to(dt)
+    k = torch.randn(Skv, 2, D, generator=g, device=cuda_device).to(dt)
+    v = torch.randn(Skv, 2, D, generator=g, device=cuda_device).to(dt)
+    before = FA.flash_attention.launches, FA.flash_attention.launches_sm90
+    got = FA.flash_attention(q, k, v, causal=causal, window=window)
+    want = FA.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    chip_smoke.flash_check(got, want, f"{dt} D{D} {Sq}x{Skv}")
+    sm90 = FA.route(dt, D) == FA.SM90
+    assert (FA.flash_attention.launches,
+            FA.flash_attention.launches_sm90) == (before[0] + 1,
+                                                  before[1] + sm90)
+    if causal and Sq > Skv:
+        assert bool((got[: Sq - Skv] == 0).all())
