@@ -49,6 +49,12 @@ _SIGNATURES = {
     "sf_bcast_fused_copy": ("sf_pack", [_P, _P, _P, _P, _L, _L, _I, _P]),
     "sf_bcast_fused_cast": ("sf_pack", [_P, _P, _P, _P, _L, _L, _I, _I, _I,
                                         _P]),
+    "sf_gather_narrow": ("sf_pack", [_P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                     _P]),
+    "sf_bcast_narrow_copy": ("sf_pack", [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                         _I, _P]),
+    "sf_bcast_narrow_cast": ("sf_pack", [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                         _I, _I, _I, _P]),
     "sf_segment_reduce": ("sf_unpack", [_P, _P, _P, _P, _L, _L, _I, _I, _I,
                                         _P]),
     "sf_spmv_ell": ("spmv_ell", [_P, _P, _P, _P, _L, _I, _I, _P]),
@@ -180,7 +186,8 @@ def launch(name: str, *args) -> None:
     """Call C entry point ``name`` and raise if it reports an error."""
     rc = _func(name)(*args)
     if rc == -1:
-        raise RuntimeError(f"{name}: unsupported dtype or op code")
+        raise RuntimeError(f"{name}: unsupported dtype, op code, row width "
+                           f"or launch plan")
     if rc == -2:
         raise RuntimeError(f"{name}: cuTensorMapEncodeTiled refused a "
                            f"tensor map")

@@ -1,30 +1,74 @@
 // SF pack kernels for Hopper (sm_90a): row gathers and the fused local bcast.
 //
 // Replaces the Pallas functions of repro/kernels/sf_pack.py:
-//   pack          (sf_pack.py:60)   -> sf_gather_rows,    one row per CTA
-//   pack_blocked  (sf_pack.py:96)   -> sf_gather_rows,    block_rows rows per CTA
+//   pack          (sf_pack.py:60)   -> sf_gather_rows, one row per CTA
+//   pack_blocked  (sf_pack.py:96)   -> sf_gather_narrow for rows of 1-4
+//                                      32-bit words; sf_gather_rows (generic
+//                                      loop) for wider or odd rows
 //   pack_strided  (sf_pack.py:177)  -> sf_gather_strided, rows computed from
 //                                      (start, dims, strides), no index array
-//   bcast_fused   (sf_pack.py:141)  -> sf_bcast_fused_copy / _cast
+//   bcast_fused   (sf_pack.py:141)  -> sf_bcast_narrow_copy / _cast for rows
+//                                      of 1-4 words / elements;
+//                                      sf_bcast_fused_copy / _cast otherwise
 //
 // Bound on this card: bytes.  A gather does no arithmetic; it must read each
-// needed source row once and write each output row once (plus 4 bytes of
-// index per row), so its floor is those bytes over the 3.35 TB/s of HBM3.
-// Design against that bound: rows are copied as raw bytes in the widest word
-// (16/8/4/2/1 bytes) that the row size and both base pointers allow, so a
-// warp moves 512 contiguous bytes per instruction on aligned rows and the
-// kernel is dtype-agnostic (bool, bf16, the uint carriers of bitcast
-// bundles).  Neighbouring threads take neighbouring words of a row and then
-// the next row of the block, so stores are fully coalesced and loads are
-// coalesced within each source row.  Nothing is staged in shared memory:
-// every byte is touched once.
+// needed source row once, each index once and write each output row once,
+// so its floor is those bytes over the 3.35 TB/s of HBM3: 0.00082 ms for the
+// SpMV ghost pack (229,376 f32 rows, 2.75 MB), 0.0108 ms for the general
+// SF's bcast pack (4,194,304 f32 rows, about 36 MB), 0.0093 ms for the fused
+// bcast of the local-only SF (1,114,112 leaves of 3 f32, 31 MB).  The first
+// is so small that launch, CTA dispatch and two dependent memory round trips
+// (index, then row) set its time; the others need about 2 MB in flight
+// across the card (Little's law at ~0.7 us) to reach the bound.
+//
+// Narrow rows (the redesign): rows of 1-4 32-bit words, 32-bit-aligned
+// sources, a 16-byte-aligned output.  Each thread moves 4 rows' worth of
+// words per tile and starts all its index loads, then all its row loads
+// (through the read-only path), before its first store, so a thread has 4x
+// the bytes of the one-word-per-thread kernel in flight; the row width is a
+// template parameter, row indices are 32-bit, and no division by a runtime
+// value is left in the loop.  Two layouts:
+//   rows   where one load carries a row (1, 2 or 4 words, aligned): a
+//          thread owns 4 consecutive rows, loads their 4 indices in one
+//          16-byte load (4 scalar loads when the index array starts off the
+//          16-byte alignment) and writes them as 16-byte vectors (4 f32
+//          rows make one uint4), so a warp stores 512 contiguous bytes and
+//          the fused bcast reads each src_of_leaf entry once;
+//   lanes  otherwise (3-word rows, rows off the vector alignment): a warp
+//          owns 128 consecutive rows and lane l moves words l, l + 32, ...
+//          of them.  A thread that loaded a 12-byte row as three words
+//          sent three sector requests to L1/L2 per row; neighbouring lanes
+//          reading neighbouring words of a row send one, which is what
+//          bounds a gather of random rows (the 4M-row pack of 12-byte rows
+//          ran 1.3x slower in the rows layout than in this one).
+// The cast keeps the rows layout (it packs the converted bits of its 4 rows
+// into the widest vectors their size allows; on the card it was no slower
+// than the lanes layout).  A CTA of 128-256 threads walks tiles of
+// 4 x threads rows; the grid gives every CTA the same number of tiles within
+// the CTAs the SMs hold (one short wave for the SpMV pack, 4 tiles per CTA
+// for the 4M-row pack).  The copy bcast reads src_of_leaf and the leaf rows
+// evict-first (ld.global.cs) so that the root rows, read at random, stay in
+// L2 from call to call.  The plan (row width, layout, index vector, cache
+// flags, threads, tile, grid) is computed in Python (kernels/sf_pack.py,
+// row_plan), where a CPU test walks it in numpy and checks that every
+// output byte is written exactly once and every vector access is aligned.
+// Hopper's TMA has no row-gather mode, so the gather stays on per-thread
+// loads.
+//
+// Generic rows (the first design, kept for wide rows, rows that are not
+// whole 32-bit words, and pointers off 4-byte alignment): rows are copied
+// as raw bytes in the widest word (16/8/4/2/1 bytes) that the row size and
+// base pointers allow; neighbouring threads take neighbouring words of a
+// row, then the next row of a block of rows_per_cta rows.  pack and
+// pack_strided use it.
 //
 // The fused bcast avoids the packed intermediate entirely: the setup builds
 // the inverse map src_of_leaf[l] (root row feeding leaf l, or -1), and one
 // race-free pass writes every output row exactly once, from the root row or
 // from the old leaf row.
 //
-// Every entry point returns cudaGetLastError() after its launch.
+// Every entry point returns cudaGetLastError() after its launch (-1 for an
+// unsupported dtype pair, row width or launch plan).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -192,6 +236,323 @@ void launch_cast(const void* root, const void* leaf, void* out,
       (const TR*)root, (const TL*)leaf, (TL*)out, src, Nl, U, rows_per_cta);
 }
 
+
+// ------------------------------------------------------------ narrow rows
+constexpr int kRows = 4;          // output rows a thread owns
+constexpr int kMaxThreads = 256;  // threads of a CTA
+constexpr int kIdxVec = 1;        // flag: indices by one 16-byte load
+constexpr int kStreaming = 2;     // flag: evict-first (.cs) output stores
+constexpr int kLanes = 4;         // flag: the warp-cooperative layout
+constexpr int kStreamLoads = 8;   // flag: evict-first index and leaf loads
+
+// A load through the read-only path, or an evict-first (.cs) load.
+template <typename T>
+__device__ __forceinline__ T ld(const T* p, bool stream) {
+  return stream ? __ldcs(p) : __ldg(p);
+}
+
+// A row of W 32-bit words (W = 1, 2, 4) in one load.
+template <int W>
+struct Row;
+template <>
+struct Row<1> {
+  static __device__ __forceinline__ void load(const unsigned* p,
+                                              unsigned* w, bool stream) {
+    w[0] = ld(p, stream);
+  }
+};
+template <>
+struct Row<2> {
+  static __device__ __forceinline__ void load(const unsigned* p,
+                                              unsigned* w, bool stream) {
+    const uint2 v = ld(reinterpret_cast<const uint2*>(p), stream);
+    w[0] = v.x;
+    w[1] = v.y;
+  }
+};
+template <>
+struct Row<4> {
+  static __device__ __forceinline__ void load(const unsigned* p,
+                                              unsigned* w, bool stream) {
+    const uint4 v = ld(reinterpret_cast<const uint4*>(p), stream);
+    w[0] = v.x;
+    w[1] = v.y;
+    w[2] = v.z;
+    w[3] = v.w;
+  }
+};
+
+// The kRows indices of rows row0 .. row0 + 3.
+__device__ __forceinline__ void load_indices(const int* __restrict__ idx,
+                                             int row0, bool vec, bool stream,
+                                             int (&s)[kRows]) {
+  if (vec) {
+    const int4 v = ld(reinterpret_cast<const int4*>(idx + row0), stream);
+    s[0] = v.x;
+    s[1] = v.y;
+    s[2] = v.z;
+    s[3] = v.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) s[j] = ld(idx + row0 + j, stream);
+  }
+}
+
+// NW words to dst in the widest vectors NW allows; dst is aligned to them.
+template <int NW>
+__device__ __forceinline__ void store_words(unsigned* __restrict__ dst,
+                                            const unsigned (&w)[NW],
+                                            bool streaming) {
+  if constexpr (NW % 4 == 0) {
+#pragma unroll
+    for (int k = 0; k < NW / 4; ++k) {
+      const uint4 v = make_uint4(w[4 * k], w[4 * k + 1], w[4 * k + 2],
+                                 w[4 * k + 3]);
+      uint4* p = reinterpret_cast<uint4*>(dst) + k;
+      if (streaming) __stcs(p, v); else *p = v;
+    }
+  } else if constexpr (NW % 2 == 0) {
+#pragma unroll
+    for (int k = 0; k < NW / 2; ++k) {
+      const uint2 v = make_uint2(w[2 * k], w[2 * k + 1]);
+      uint2* p = reinterpret_cast<uint2*>(dst) + k;
+      if (streaming) __stcs(p, v); else *p = v;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < NW; ++k) {
+      if (streaming) __stcs(dst + k, w[k]); else dst[k] = w[k];
+    }
+  }
+}
+
+// The rows layout, for rows that one load carries (WPR = 1, 2, 4 words,
+// aligned).  A thread owns kRows consecutive rows: their indices in one
+// 16-byte load (idx_vec) or kRows scalar loads, then kRows independent row
+// loads, then the kRows x WPR words as 16-byte stores.  Gather (BCAST
+// false): dst[r] = src[idx[r]].  Fused bcast (BCAST true): dst[r] =
+// src[idx[r]] (root row) where idx[r] >= 0, else leaf[r].
+template <int WPR, bool BCAST>
+__global__ void __launch_bounds__(kMaxThreads)
+    rows_copy_kernel(const unsigned* __restrict__ src,
+                     const unsigned* __restrict__ leaf,
+                     unsigned* __restrict__ dst, const int* __restrict__ idx,
+                     int M, int tile_rows, int tiles, int flags) {
+  const bool idx_vec = flags & kIdxVec, streaming = flags & kStreaming;
+  const bool stream = flags & kStreamLoads;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int row0 = t * tile_rows + (int)threadIdx.x * kRows;
+    if (row0 + kRows <= M) {
+      int s[kRows];
+      load_indices(idx, row0, idx_vec, stream, s);
+      unsigned w[kRows * WPR];
+#pragma unroll
+      for (int j = 0; j < kRows; ++j) {
+        const bool own = BCAST && s[j] < 0;
+        Row<WPR>::load((own ? leaf + (long long)(row0 + j) * WPR
+                            : src + (long long)s[j] * WPR),
+                       w + j * WPR, own && stream);
+      }
+      store_words(dst + (long long)row0 * WPR, w, streaming);
+    } else {
+      for (int r = row0; r < M; ++r) {  // the ragged end: at most 3 rows
+        const int s = __ldg(idx + r);
+        const bool own = BCAST && s < 0;
+        unsigned w[WPR];
+        Row<WPR>::load(own ? leaf + (long long)r * WPR
+                           : src + (long long)s * WPR,
+                       w, false);
+#pragma unroll
+        for (int k = 0; k < WPR; ++k) dst[(long long)r * WPR + k] = w[k];
+      }
+    }
+  }
+}
+
+// The warp-cooperative layout, for rows that one load cannot carry (a row
+// of 3 words, or rows off the vector alignment).  A warp owns 32 x kRows
+// consecutive rows; lane l takes the words l, l + 32, ... of the warp's
+// kRows x WPR output words, so neighbouring lanes read neighbouring words
+// of a source row (one sector request per row and instruction, not one per
+// word) and every store instruction writes 128 contiguous bytes.  All
+// index loads, then all row loads, are in flight before the first store.
+template <int WPR, bool BCAST>
+__global__ void __launch_bounds__(kMaxThreads)
+    lanes_copy_kernel(const unsigned* __restrict__ src,
+                      const unsigned* __restrict__ leaf,
+                      unsigned* __restrict__ dst,
+                      const int* __restrict__ idx, int M, int tile_rows,
+                      int tiles, int flags) {
+  constexpr int K = kRows * WPR;  // words a lane moves per tile
+  const bool streaming = flags & kStreaming;
+  const bool stream = flags & kStreamLoads;
+  const int lane = (int)threadIdx.x & 31;
+  const int warp_row = ((int)threadIdx.x >> 5) * 32 * kRows;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int row0 = t * tile_rows + warp_row;
+    int s[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int r = row0 + (lane + 32 * k) / WPR;
+      s[k] = r < M ? ld(idx + r, stream) : 0;
+    }
+    unsigned w[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int p = lane + 32 * k;
+      const int r = row0 + p / WPR;
+      const bool own = BCAST && s[k] < 0;
+      const unsigned* q = (own ? leaf + (long long)r * WPR
+                               : src + (long long)s[k] * WPR) + p % WPR;
+      w[k] = r < M ? ld(q, own && stream) : 0u;
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int p = lane + 32 * k;
+      if (row0 + p / WPR < M) {
+        unsigned* q = dst + (long long)row0 * WPR + p;
+        if (streaming) __stcs(q, w[k]); else *q = w[k];
+      }
+    }
+  }
+}
+
+// The raw bits of element i of a row of T, little-endian, into words w.
+__device__ __forceinline__ void put_bits(unsigned* w, int i, float x) {
+  w[i] = __float_as_uint(x);
+}
+__device__ __forceinline__ void put_bits(unsigned* w, int i, double x) {
+  w[2 * i] = (unsigned)__double2loint(x);
+  w[2 * i + 1] = (unsigned)__double2hiint(x);
+}
+__device__ __forceinline__ void put_bits(unsigned* w, int i,
+                                         __nv_bfloat16 x) {
+  const unsigned b = __bfloat16_as_ushort(x);
+  w[i >> 1] = (i & 1) ? (w[i >> 1] | (b << 16)) : b;
+}
+
+// Fused bcast with a cast, rows of U elements, in the rows layout: out[r] =
+// cast(root[map[r]]) where map[r] >= 0, else leaf[r]; the converted bits of
+// a thread's kRows rows leave in the widest vectors their size allows.
+template <typename TR, typename TL, int U>
+__global__ void __launch_bounds__(kMaxThreads)
+    rows_cast_kernel(const TR* __restrict__ root,
+                     const TL* __restrict__ leaf, TL* __restrict__ out,
+                     const int* __restrict__ map, int M, int tile_rows,
+                     int tiles, int flags) {
+  constexpr int NE = kRows * U;
+  constexpr int NW = NE * (int)sizeof(TL) / 4;
+  const bool idx_vec = flags & kIdxVec, streaming = flags & kStreaming;
+  const bool stream = flags & kStreamLoads;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int row0 = t * tile_rows + (int)threadIdx.x * kRows;
+    if (row0 + kRows <= M) {
+      int s[kRows];
+      load_indices(map, row0, idx_vec, stream, s);
+      TR a[NE];
+      TL b[NE];
+#pragma unroll
+      for (int j = 0; j < kRows; ++j) {
+#pragma unroll
+        for (int e = 0; e < U; ++e) {
+          a[j * U + e] = s[j] >= 0 ? __ldg(root + (long long)s[j] * U + e)
+                                   : TR();
+          b[j * U + e] = s[j] < 0
+                             ? ld(leaf + (long long)(row0 + j) * U + e,
+                                  stream)
+                             : TL();
+        }
+      }
+      unsigned w[NW];
+#pragma unroll
+      for (int j = 0; j < kRows; ++j) {
+#pragma unroll
+        for (int e = 0; e < U; ++e) {
+          const int i = j * U + e;
+          put_bits(w, i, s[j] >= 0 ? cast<TL, TR>(a[i]) : b[i]);
+        }
+      }
+      store_words(reinterpret_cast<unsigned*>(out + (long long)row0 * U), w,
+                  streaming);
+    } else {
+      for (int r = row0; r < M; ++r) {  // the ragged end: at most 3 rows
+        const int s = __ldg(map + r);
+        for (int e = 0; e < U; ++e) {
+          out[(long long)r * U + e] =
+              s >= 0 ? cast<TL, TR>(root[(long long)s * U + e])
+                     : leaf[(long long)r * U + e];
+        }
+      }
+    }
+  }
+}
+
+bool bad_plan(int tile_rows, int grid) {
+  return tile_rows < kRows || tile_rows % kRows ||
+         tile_rows / kRows > kMaxThreads || grid < 1;
+}
+
+template <bool BCAST>
+int launch_narrow_copy(const void* src, const void* leaf, void* dst,
+                       const int* idx, int M, int wpr, int tile_rows,
+                       int tiles, int grid, int flags, cudaStream_t s) {
+  if (bad_plan(tile_rows, grid)) return -1;
+  const int threads = tile_rows / kRows;
+  const unsigned* a = (const unsigned*)src;
+  const unsigned* b = (const unsigned*)leaf;
+  unsigned* d = (unsigned*)dst;
+  switch ((flags & kLanes) ? -wpr : wpr) {
+#define ROWS_COPY(W)                                                    \
+  case W:                                                               \
+    rows_copy_kernel<W, BCAST>                                          \
+        <<<grid, threads, 0, s>>>(a, b, d, idx, M, tile_rows, tiles, flags); \
+    break;
+#define LANES_COPY(W)                                                   \
+  case -W:                                                              \
+    lanes_copy_kernel<W, BCAST>                                         \
+        <<<grid, threads, 0, s>>>(a, b, d, idx, M, tile_rows, tiles, flags); \
+    break;
+    ROWS_COPY(1)
+    ROWS_COPY(2)
+    ROWS_COPY(4)
+    LANES_COPY(2)
+    LANES_COPY(3)
+    LANES_COPY(4)
+#undef ROWS_COPY
+#undef LANES_COPY
+    default:
+      return -1;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename TR, typename TL>
+int launch_narrow_cast(const void* root, const void* leaf, void* out,
+                       const int* map, int M, int U, int tile_rows, int tiles,
+                       int grid, int flags, cudaStream_t s) {
+  if (bad_plan(tile_rows, grid)) return -1;
+  const int threads = tile_rows / kRows;
+  const TR* a = (const TR*)root;
+  const TL* b = (const TL*)leaf;
+  TL* d = (TL*)out;
+  if (flags & kLanes) return -1;
+  switch (U) {
+#define ROWS_CAST(N)                                                      \
+  case N:                                                                 \
+    rows_cast_kernel<TR, TL, N>                                           \
+        <<<grid, threads, 0, s>>>(a, b, d, map, M, tile_rows, tiles, flags); \
+    break;
+    ROWS_CAST(1)
+    ROWS_CAST(2)
+    ROWS_CAST(3)
+    ROWS_CAST(4)
+#undef ROWS_CAST
+    default:
+      return -1;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -290,6 +651,69 @@ int sf_bcast_fused_cast(const void* root, const void* leaf, void* out,
       return -1;
   }
   return (int)cudaGetLastError();
+}
+
+// Narrow rows (plan from kernels/sf_pack.py::row_plan): out[i] =
+// src[idx[i]] for i < M, rows of wpr 32-bit words (1-4; src 4-byte and dst
+// 16-byte aligned).  tile_rows = 4 x threads rows per CTA tile, tiles =
+// ceil(M / tile_rows), grid CTAs striding over them.  flags: 1 indices by
+// 16-byte loads (idx 16-byte aligned), 2 evict-first stores, 4 the lanes
+// layout (else the rows layout: wpr 1, 2 or 4 with src aligned to a row),
+// 8 evict-first index and leaf loads.
+int sf_gather_narrow(const void* src, void* dst, const int* idx, int M,
+                     int wpr, int tile_rows, int tiles, int grid, int flags,
+                     void* stream) {
+  return launch_narrow_copy<false>(src, nullptr, dst, idx, M, wpr, tile_rows,
+                                   tiles, grid, flags, (cudaStream_t)stream);
+}
+
+// Narrow fused bcast, same dtype: out[l] = src_of_leaf[l] >= 0 ?
+// root[src_of_leaf[l]] : leaf[l], the plan as for sf_gather_narrow (root
+// and leaf both aligned as src is there).
+int sf_bcast_narrow_copy(const void* root, const void* leaf, void* out,
+                         const int* src_of_leaf, int Nl, int wpr,
+                         int tile_rows, int tiles, int grid, int flags,
+                         void* stream) {
+  return launch_narrow_copy<true>(root, leaf, out, src_of_leaf, Nl, wpr,
+                                  tile_rows, tiles, grid, flags,
+                                  (cudaStream_t)stream);
+}
+
+// Narrow fused bcast with a cast, rows of U (1-4) elements in the rows
+// layout; dtype codes as for sf_bcast_fused_cast.
+int sf_bcast_narrow_cast(const void* root, const void* leaf, void* out,
+                         const int* src_of_leaf, int Nl, int U,
+                         int root_dtype, int leaf_dtype, int tile_rows,
+                         int tiles, int grid, int flags, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (root_dtype * 4 + leaf_dtype) {
+    case 0 * 4 + 1:
+      return launch_narrow_cast<float, double>(root, leaf, out, src_of_leaf,
+                                               Nl, U, tile_rows, tiles, grid,
+                                               flags, s);
+    case 0 * 4 + 3:
+      return launch_narrow_cast<float, __nv_bfloat16>(
+          root, leaf, out, src_of_leaf, Nl, U, tile_rows, tiles, grid, flags,
+          s);
+    case 1 * 4 + 0:
+      return launch_narrow_cast<double, float>(root, leaf, out, src_of_leaf,
+                                               Nl, U, tile_rows, tiles, grid,
+                                               flags, s);
+    case 1 * 4 + 3:
+      return launch_narrow_cast<double, __nv_bfloat16>(
+          root, leaf, out, src_of_leaf, Nl, U, tile_rows, tiles, grid, flags,
+          s);
+    case 3 * 4 + 0:
+      return launch_narrow_cast<__nv_bfloat16, float>(
+          root, leaf, out, src_of_leaf, Nl, U, tile_rows, tiles, grid, flags,
+          s);
+    case 3 * 4 + 1:
+      return launch_narrow_cast<__nv_bfloat16, double>(
+          root, leaf, out, src_of_leaf, Nl, U, tile_rows, tiles, grid, flags,
+          s);
+    default:
+      return -1;
+  }
 }
 
 const char* sf_cuda_error_string(int err) {

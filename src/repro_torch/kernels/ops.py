@@ -5,9 +5,11 @@ The SF hot path calls ``pack_rows``, ``segment_reduce_rows`` and
 there is no autotune sweep and no library candidate, so the path always
 runs the kernels and a kernel that fails to build raises:
 
-  * rows of fewer than ``WIDE_ROW`` elements: the blocked kernels,
-    ``PACK_BLOCK_ROWS`` rows / ``SEG_BLOCK`` segments per CTA, so that a
-    CTA has a few hundred words of work;
+  * rows of fewer than ``WIDE_ROW`` elements: the blocked kernels at
+    ``block_rows=PACK_BLOCK_ROWS`` / ``SEG_BLOCK`` segments per CTA.  The
+    gather's rows of 1–4 32-bit words take its narrow kernel (4 rows per
+    thread, 128-thread CTAs at this ``block_rows``, grid from
+    ``sf_pack.row_plan``); other rows its generic loop, 64 rows per CTA;
   * rows of ``WIDE_ROW`` elements or more: one row (one segment) per CTA
     (``pack`` / ``segment_reduce_sorted``).
 
@@ -30,7 +32,8 @@ kernel; ``models/layers.py::attention`` calls it).
 
 from __future__ import annotations
 
-import numpy as np
+import math
+
 import torch
 
 from . import ref
@@ -55,7 +58,7 @@ WIDE_ROW = 256
 
 
 def _row_elems(t: torch.Tensor) -> int:
-    return int(np.prod(t.shape[1:], dtype=np.int64))
+    return math.prod(t.shape[1:])     # per launch: cheaper than np.prod
 
 
 def pack_rows(data: torch.Tensor, idx) -> torch.Tensor:

@@ -2,14 +2,17 @@
 bcast — the Hopper port of ``repro/kernels/sf_pack.py``.
 
 Paper §5.2/§5.3: ``rootbuf[i] = rootdata[rootidx[i]]`` executed as a device
-kernel.  One CUDA kernel (``csrc/sf_pack.cu``) copies whole rows as raw
-bytes, so every dtype and every unit shape ``(n, *unit)`` goes through the
-same code; the source row comes from an int32 index list or is computed
-from a 3D box.  The source's note gives the bound (bytes) and the design.
+kernel.  The CUDA kernels (``csrc/sf_pack.cu``) copy rows as raw bits, so
+every dtype and every unit shape ``(n, *unit)`` goes through the same code;
+the source row comes from an int32 index list or is computed from a 3D box.
+The source's note gives the bound (bytes) and the design.
 
 Entry points (each counts its launches in ``<function>.launches``):
   * ``pack``          — one row per CTA (Pallas ``pack``, one row per step);
-  * ``pack_blocked``  — ``block_rows`` rows per CTA (Pallas ``pack_blocked``);
+  * ``pack_blocked``  — the blocked gather (Pallas ``pack_blocked``): rows
+                        of 1–4 32-bit words take the narrow kernel, 4 rows
+                        per thread, walked as :func:`row_plan` says; other
+                        rows the generic loop, ``block_rows`` rows per CTA;
   * ``pack_strided``  — paper §5.2 ¶3 parametric pack: rows
                         ``start + i + j*sy + k*sz`` for (i,j,k) < dims, k
                         outer, then j, then i; no index array exists;
@@ -17,7 +20,7 @@ Entry points (each counts its launches in ``<function>.launches``):
                         inverse map is set, else ``leaf[l]``: the local
                         pack→unpack of paper §5.2's local/remote split in
                         one race-free pass (``inverse_map`` builds the map
-                        at setup).
+                        at setup); narrow rows as ``pack_blocked``.
 
 Each has a plain PyTorch version (``*_plain``).  A wrapper takes the plain
 version only for tensors on the CPU; for a CUDA tensor it launches the
@@ -25,6 +28,10 @@ kernel or raises.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import functools
+import math
 
 import numpy as np
 import torch
@@ -34,18 +41,237 @@ from ._index import device_index, require_cuda_tensor
 
 __all__ = ["pack", "pack_blocked", "pack_strided", "bcast_fused",
            "inverse_map", "pack_plain", "pack_strided_plain",
-           "bcast_fused_plain"]
+           "bcast_fused_plain", "RowPlan", "row_plan",
+           "gather_generic", "bcast_variant"]
 
-# dtype codes of the cast kernel (csrc/sf_pack.cu)
+# dtype codes of the cast kernels (csrc/sf_pack.cu)
 _CAST_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 3}
+
+ROWS_PER_THREAD = 4     # csrc/sf_pack.cu kRows
+MIN_THREADS = 128       # narrow CTAs: 128-256 threads (kMaxThreads)
+MAX_THREADS = 256
+NARROW_WORDS = 4        # widest narrow row: 4 words (copy) / elements (cast)
+THREADS_PER_SM = 2048   # Hopper: resident threads per SM
+H100_SMS = 132
+BCAST_BLOCK_ROWS = 64   # bcast_fused's block_rows (its generic loop's rows
+                        # per CTA, as first built)
+_FLAG_IDX_VEC, _FLAG_STREAMING, _FLAG_LANES, _FLAG_STREAM_LOADS = 1, 2, 4, 8
 
 
 def _row_bytes(t: torch.Tensor) -> int:
-    return int(np.prod(t.shape[1:], dtype=np.int64)) * t.element_size()
+    # math.prod, not np.prod: this runs on every launch, where numpy's call
+    # overhead showed in the host time per call (PERF.md)
+    return math.prod(t.shape[1:]) * t.element_size()
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
     return t.device.type == "cpu"
+
+
+# ------------------------------------------------------------ launch plan
+@dataclasses.dataclass(frozen=True)
+class RowPlan:
+    """How one ``pack_blocked`` / ``bcast_fused`` launch walks its ``M``
+    output rows of ``row_bytes`` bytes.
+
+    Narrow (``narrow``): rows of ``words`` units of ``unit_bytes`` (32-bit
+    words for a copy, leaf elements for a cast); a CTA of ``threads``
+    threads takes tiles of ``tile_rows`` rows, CTA ``c`` of ``grid`` the
+    tiles ``c, c + grid, ...`` of ``tiles``, ``ROWS_PER_THREAD`` rows' worth
+    of units per thread.  Rows layout (``lanes`` false, one load of
+    ``load_words`` words carries a row): a thread owns 4 consecutive rows,
+    their indices in one 16-byte load when ``idx_vec``.  Lanes layout: a
+    warp owns 128 consecutive rows and lane ``l`` moves units ``l, l + 32,
+    ...`` of them.  ``streaming``: evict-first output stores;
+    ``stream_loads``: evict-first index and leaf loads.  Generic: the first
+    kernels' loop, ``rows_per_cta`` rows per CTA in ``word_bytes``-byte
+    words."""
+    M: int
+    row_bytes: int
+    narrow: bool
+    words: int = 0
+    unit_bytes: int = 4
+    load_words: int = 1
+    idx_vec: bool = False
+    lanes: bool = False
+    threads: int = 0
+    tile_rows: int = 0
+    tiles: int = 0
+    grid: int = 0
+    rows_per_cta: int = 0
+    word_bytes: int = 0
+    streaming: bool = False
+    stream_loads: bool = False
+
+    @property
+    def flags(self) -> int:
+        return (_FLAG_IDX_VEC if self.idx_vec else 0) | \
+            (_FLAG_STREAMING if self.streaming else 0) | \
+            (_FLAG_LANES if self.lanes else 0) | \
+            (_FLAG_STREAM_LOADS if self.stream_loads else 0)
+
+    @property
+    def store_bytes(self) -> int:
+        """Width of the narrow kernel's vector stores (``store_words``)."""
+        chunk = ROWS_PER_THREAD * self.row_bytes
+        return 16 if chunk % 16 == 0 else 8 if chunk % 8 == 0 else 4
+
+    def walk(self) -> dict:
+        """The launch's memory accesses as the kernel computes them, in
+        numpy: ``stores`` (byte offset, width) of every store into the
+        output, ``index_loads`` (byte offset, width) of every index load,
+        and ``row_load_bytes``, the width of a source-row load."""
+        if not self.narrow:
+            return self._walk_generic()
+        return self._walk_lanes() if self.lanes else self._walk_rows()
+
+    def _tile_starts(self) -> np.ndarray:
+        """The first row of every tile, in the order the CTAs walk them."""
+        if not self.tiles:
+            return np.zeros(0, np.int64)
+        return np.concatenate([np.arange(c, self.tiles, self.grid)
+                               for c in range(self.grid)]) * self.tile_rows
+
+    def _walk_lanes(self) -> dict:
+        M, W, ub = self.M, self.words, self.unit_bytes
+        tid = np.arange(self.threads)
+        # unit k of a thread: position lane + 32 k of its warp's 128 rows
+        warp_row0 = (tid // 32) * 32 * ROWS_PER_THREAD
+        p = (tid % 32)[:, None] + 32 * np.arange(ROWS_PER_THREAD * W)[None, :]
+        row0 = self._tile_starts()[:, None, None] + warp_row0[None, :, None]
+        rows = row0 + p // W
+        live = rows < M
+        starts = ((row0 * W + p) * ub)[live]
+        return {"stores": (starts, np.full(starts.size, ub)),
+                "index_loads": (rows[live] * 4, np.full(starts.size, 4)),
+                "row_load_bytes": ub}
+
+    def _walk_rows(self) -> dict:
+        R, M, rb = ROWS_PER_THREAD, self.M, self.row_bytes
+        row0 = (self._tile_starts()[:, None]
+                + np.arange(self.threads)[None, :] * R).reshape(-1)
+        full = row0[row0 + R <= M]
+        tail = row0[(row0 < M) & (row0 + R > M)]
+        sb = self.store_bytes
+        starts = [full * rb + k * sb for k in range(R * rb // sb)]
+        tail_rows = np.concatenate([np.arange(r, M) for r in tail]) \
+            if tail.size else np.zeros(0, np.int64)
+        ub = self.unit_bytes
+        starts += [tail_rows * rb + k * ub for k in range(rb // ub)]
+        widths = [np.full(full.size, sb)] * (R * rb // sb) + \
+            [np.full(tail_rows.size, ub)] * (rb // ub)
+        if self.idx_vec:
+            idx = [(full * 4, np.full(full.size, 16))]
+        else:
+            idx = [((full + j) * 4, np.full(full.size, 4)) for j in range(R)]
+        idx.append((tail_rows * 4, np.full(tail_rows.size, 4)))
+        return {"stores": (np.concatenate(starts), np.concatenate(widths)),
+                "index_loads": (np.concatenate([a for a, _ in idx]),
+                                np.concatenate([w for _, w in idx])),
+                "row_load_bytes": self.load_words * self.unit_bytes}
+
+    def _walk_generic(self) -> dict:
+        M, rb, rpc, wb = self.M, self.row_bytes, self.rows_per_cta, \
+            self.word_bytes
+        wpr = rb // wb
+        r0 = np.arange(0, M, rpc)
+        nrows = np.minimum(rpc, M - r0)
+        # CTA c, thread-stride item t < nrows * wpr: row r0 + t // wpr,
+        # word t % wpr
+        cta = np.repeat(np.arange(r0.size), nrows * wpr)
+        t = np.arange(cta.size) - np.repeat(np.cumsum(nrows * wpr)
+                                            - nrows * wpr, nrows * wpr)
+        rows = r0[cta] + t // wpr
+        starts = rows * rb + (t % wpr) * wb
+        item_rows = np.unique(rows)
+        return {"stores": (starts, np.full(starts.size, wb)),
+                "index_loads": (item_rows * 4, np.full(item_rows.size, 4)),
+                "row_load_bytes": wb}
+
+
+def _generic_word_bytes(ptrs, row_bytes: int) -> int:
+    """The generic kernels' word: the widest of 16/8/4/2/1 bytes dividing
+    the row size and every base pointer (csrc/sf_pack.cu word_bytes); the
+    pointers' offsets from 16-byte alignment decide it."""
+    p = int(row_bytes)
+    for q in ptrs:
+        p |= int(q)
+    return next(w for w in (16, 8, 4, 2, 1) if p % w == 0)
+
+
+def row_plan(M: int, row_bytes: int, block_rows: int, *, src_ptrs,
+             out_ptr: int, idx_ptr: int, cast_unit_bytes=None,
+             sms: int = H100_SMS) -> RowPlan:
+    """The launch plan of ``M`` rows of ``row_bytes`` bytes read from the
+    arrays at ``src_ptrs`` (the gather's data; the bcast's root and leaf)
+    into ``out_ptr``, indices at ``idx_ptr``.  ``cast_unit_bytes``: the
+    leaf element size of a casting bcast (rows of elements, not words).
+
+    Narrow rows — 1 to 4 words (or cast elements), 32-bit-aligned sources,
+    a 16-byte-aligned output — take the narrow kernels (the rows layout
+    where one load carries a row, else the lanes layout): threads
+    ``ceil(block_rows / 4)`` rounded up to a whole warp and held to
+    128–256, a tile of 4 rows per thread, and as many CTAs as give each
+    the same number of tiles within ``sms`` times the CTAs an SM holds
+    (one tile each while the tiles fit: one short wave).  Other rows take
+    the generic loop at ``block_rows`` rows per CTA.  Only the pointers'
+    offsets from 16-byte alignment matter, and plans are memoized on them:
+    the path asks for one on every launch."""
+    if int(block_rows) < 1:
+        raise ValueError("block_rows must be >= 1")
+    return _row_plan(int(M), int(row_bytes), int(block_rows),
+                     tuple(int(p) % 16 for p in src_ptrs), int(out_ptr) % 16,
+                     int(idx_ptr) % 16, cast_unit_bytes, int(sms))
+
+
+@functools.lru_cache(maxsize=1024)
+def _row_plan(M: int, rb: int, block_rows: int, src_mod: tuple, out_mod: int,
+              idx_mod: int, cast_unit_bytes, sms: int) -> RowPlan:
+    threads = -(-block_rows // ROWS_PER_THREAD)
+    threads = min(MAX_THREADS, max(MIN_THREADS, -(-threads // 32) * 32))
+    tile = threads * ROWS_PER_THREAD
+    if cast_unit_bytes is None:
+        unit = 4
+        ok = rb % 4 == 0 and all(p % 4 == 0 for p in src_mod)
+    else:
+        unit = int(cast_unit_bytes)
+        ok = rb % unit == 0
+    words = rb // unit if ok else 0
+    narrow = ok and 1 <= words <= NARROW_WORDS and out_mod == 0 \
+        and M + tile < 2 ** 31
+    if not narrow:
+        wb = unit if cast_unit_bytes is not None \
+            else _generic_word_bytes(src_mod + (out_mod,), rb)
+        return RowPlan(M=M, row_bytes=rb, narrow=False,
+                       rows_per_cta=block_rows, word_bytes=wb)
+    lw = 1
+    if cast_unit_bytes is None:
+        lw = next(w for w in (4, 2, 1) if words % w == 0
+                  and all(p % (4 * w) == 0 for p in src_mod))
+    # one load per row: the rows layout; else neighbouring lanes take
+    # neighbouring words of a row (the cast keeps the rows layout, which
+    # measured no slower than the lanes one on the card)
+    lanes = cast_unit_bytes is None and lw < words
+    tiles = -(-M // tile)
+    # every CTA walks the same number of tiles, as few as the resident
+    # CTAs (sms x CTAs per SM) allow
+    per_cta = -(-tiles // (sms * (THREADS_PER_SM // threads)))
+    grid = -(-tiles // per_cta) if tiles else 0
+    return RowPlan(M=M, row_bytes=rb, narrow=True, words=words,
+                   unit_bytes=unit, load_words=lw, lanes=lanes,
+                   idx_vec=not lanes and idx_mod == 0,
+                   threads=threads, tile_rows=tile, tiles=tiles, grid=grid)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _device_sms(t: torch.Tensor) -> int:
+    """The SMs of ``t``'s card (an H100's 132 for a CPU tensor, whose plan
+    is only read, never launched)."""
+    return H100_SMS if _on_cpu(t) else _sm_count(t.device.index)
 
 
 # ------------------------------------------------------------------ plain
@@ -79,42 +305,97 @@ def bcast_fused_plain(rootdata: torch.Tensor, leafdata: torch.Tensor,
 
 
 # ---------------------------------------------------------------- kernels
-def _gather(counter, data: torch.Tensor, idx, rows_per_cta: int
-            ) -> torch.Tensor:
+def _gather_args(data: torch.Tensor, idx):
+    """idx as an int32 tensor on data's device, after the bounds and device
+    checks."""
     idx, lo, hi = device_index(idx, data.device, "idx")
     N = int(data.shape[0])
     if idx.numel() and (lo < 0 or hi >= N):
         raise IndexError(f"pack index range [{lo}, {hi}] outside the "
                          f"{N} rows of data")
-    if _on_cpu(data):
-        return pack_plain(data, idx)
-    require_cuda_tensor(data, "data")
-    out = torch.empty(tuple(idx.shape) + tuple(data.shape[1:]),
-                      dtype=data.dtype, device=data.device)
-    M, rb = idx.numel(), _row_bytes(data)
-    if M == 0 or rb == 0:
-        return out
-    if -(-M // rows_per_cta) >= 2 ** 31:
-        raise ValueError(f"{M} rows need more than 2**31 CTAs")
+    if idx.numel() >= 2 ** 31:
+        raise ValueError(f"{idx.numel()} rows exceed the kernels' int32 "
+                         f"row count")
+    if not _on_cpu(data):
+        require_cuda_tensor(data, "data")
+    return idx
+
+
+def _empty_rows(data: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return torch.empty(tuple(idx.shape) + tuple(data.shape[1:]),
+                       dtype=data.dtype, device=data.device)
+
+
+def _launch_generic_gather(data, idx, out, rows_per_cta: int) -> None:
     _build.launch("sf_gather_rows", data.data_ptr(), out.data_ptr(),
-                  idx.data_ptr(), M, rb, int(rows_per_cta),
-                  _build.stream_of(data))
-    counter.launches += 1
-    return out
+                  idx.data_ptr(), idx.numel(), _row_bytes(data),
+                  int(rows_per_cta), _build.stream_of(data))
+
+
+def _generic_gather(data: torch.Tensor, idx, rows_per_cta: int):
+    """(out, launched): the generic gather loop at ``rows_per_cta`` rows
+    per CTA (the plain version on the CPU)."""
+    idx = _gather_args(data, idx)
+    if _on_cpu(data):
+        return pack_plain(data, idx), False
+    out = _empty_rows(data, idx)
+    if idx.numel() == 0 or _row_bytes(data) == 0:
+        return out, False
+    _launch_generic_gather(data, idx, out, rows_per_cta)
+    return out, True
 
 
 def pack(data: torch.Tensor, idx) -> torch.Tensor:
     """out[i] = data[idx[i]], one row per CTA.  data: (N, *unit) of any
     dtype; idx: (M,) integers (tensor on data's device, or numpy)."""
-    return _gather(pack, data, idx, 1)
+    out, launched = _generic_gather(data, idx, 1)
+    pack.launches += launched
+    return out
+
+
+def gather_plan(data: torch.Tensor, idx: torch.Tensor, out: torch.Tensor,
+                block_rows: int) -> RowPlan:
+    """The :func:`row_plan` of ``pack_blocked`` on these tensors."""
+    return row_plan(idx.numel(), _row_bytes(data), block_rows,
+                    src_ptrs=(data.data_ptr(),), out_ptr=out.data_ptr(),
+                    idx_ptr=idx.data_ptr(), sms=_device_sms(data))
 
 
 def pack_blocked(data: torch.Tensor, idx, *, block_rows: int
                  ) -> torch.Tensor:
-    """out[i] = data[idx[i]] with ``block_rows`` rows per CTA."""
+    """out[i] = data[idx[i]].  Rows of 1–4 32-bit words take the narrow
+    kernel, whose CTA tile ``block_rows`` sets (``ceil(block_rows / 4)``
+    threads rounded up to a warp, held to 128–256, 4 rows each); other
+    rows the generic loop at ``block_rows`` rows per CTA.  The output is
+    the same for every ``block_rows >= 1``."""
     if int(block_rows) < 1:
         raise ValueError("block_rows must be >= 1")
-    return _gather(pack_blocked, data, idx, int(block_rows))
+    idx = _gather_args(data, idx)
+    if _on_cpu(data):
+        return pack_plain(data, idx)
+    out = _empty_rows(data, idx)
+    if idx.numel() == 0 or _row_bytes(data) == 0:
+        return out
+    plan = gather_plan(data, idx, out, block_rows)
+    if plan.narrow:
+        _build.launch("sf_gather_narrow", data.data_ptr(), out.data_ptr(),
+                      idx.data_ptr(), plan.M, plan.words, plan.tile_rows,
+                      plan.tiles, plan.grid, plan.flags,
+                      _build.stream_of(data))
+    else:
+        _launch_generic_gather(data, idx, out, plan.rows_per_cta)
+    pack_blocked.launches += 1
+    return out
+
+
+def gather_generic(data: torch.Tensor, idx, *, rows_per_cta: int
+                   ) -> torch.Tensor:
+    """The generic gather loop (the first blocked kernel) at
+    ``rows_per_cta`` rows per CTA on a CUDA tensor, whatever the row
+    width: the yardstick ``chip_smoke.py`` times the narrow kernel
+    against (the plain version on the CPU).  Counts no launch (it is on no
+    path)."""
+    return _generic_gather(data, idx, rows_per_cta)[0]
 
 
 def pack_strided(data: torch.Tensor, *, start: int, dims, strides,
@@ -159,12 +440,8 @@ def inverse_map(gr: np.ndarray, gl: np.ndarray, nleaf: int) -> np.ndarray:
     return src
 
 
-def bcast_fused(rootdata: torch.Tensor, leafdata: torch.Tensor,
-                src_of_leaf) -> torch.Tensor:
-    """A copy of ``leafdata`` with row ``l`` replaced by
-    ``rootdata[src_of_leaf[l]]`` cast to the leaf dtype wherever the map is
-    >= 0.  Same dtypes copy bytes (any dtype); float32 / float64 / bfloat16
-    pairs cast; other pairs raise."""
+def _bcast_args(rootdata, leafdata, src_of_leaf):
+    """src_of_leaf as int32 on the leaf's device, after every check."""
     Nl, Nr = int(leafdata.shape[0]), int(rootdata.shape[0])
     if tuple(rootdata.shape[1:]) != tuple(leafdata.shape[1:]):
         raise ValueError(f"root rows {tuple(rootdata.shape[1:])} and leaf "
@@ -176,36 +453,115 @@ def bcast_fused(rootdata: torch.Tensor, leafdata: torch.Tensor,
     if Nl and (lo < -1 or hi >= Nr):
         raise IndexError(f"src_of_leaf range [{lo}, {hi}] outside the {Nr} "
                          f"root rows")
-    same = rootdata.dtype == leafdata.dtype
-    if not same and (rootdata.dtype not in _CAST_CODES
-                     or leafdata.dtype not in _CAST_CODES):
+    if rootdata.dtype != leafdata.dtype and (
+            rootdata.dtype not in _CAST_CODES
+            or leafdata.dtype not in _CAST_CODES):
         raise TypeError(f"bcast_fused casts only between float32, float64 "
                         f"and bfloat16, not {rootdata.dtype} -> "
                         f"{leafdata.dtype}")
     if rootdata.device != leafdata.device:
         raise ValueError(f"rootdata on {rootdata.device}, leafdata on "
                          f"{leafdata.device}")
+    if Nl >= 2 ** 31:
+        raise ValueError(f"{Nl} leaves exceed the kernels' int32 row count")
+    if not _on_cpu(leafdata):
+        require_cuda_tensor(rootdata, "rootdata")
+        require_cuda_tensor(leafdata, "leafdata")
+    return src
+
+
+def bcast_plan(rootdata, leafdata, src, out) -> RowPlan:
+    """The :func:`row_plan` of ``bcast_fused`` on these tensors."""
+    cast = None if rootdata.dtype == leafdata.dtype \
+        else leafdata.element_size()
+    plan = row_plan(leafdata.shape[0], _row_bytes(leafdata), BCAST_BLOCK_ROWS,
+                    src_ptrs=(rootdata.data_ptr(), leafdata.data_ptr()),
+                    out_ptr=out.data_ptr(), idx_ptr=src.data_ptr(),
+                    cast_unit_bytes=cast, sms=_device_sms(leafdata))
+    return _bcast_policy(plan) if cast is None else plan
+
+
+@functools.lru_cache(maxsize=1024)
+def _bcast_policy(plan: RowPlan) -> RowPlan:
+    """A copy bcast reads src_of_leaf and the leaf rows evict-first, so
+    that the root rows it reads at random stay in L2 from call to call."""
+    return dataclasses.replace(plan, stream_loads=plan.narrow)
+
+
+def _launch_bcast(rootdata, leafdata, src, out, plan: RowPlan) -> None:
+    ptrs = (rootdata.data_ptr(), leafdata.data_ptr(), out.data_ptr(),
+            src.data_ptr())
+    stream = _build.stream_of(leafdata)
+    same = rootdata.dtype == leafdata.dtype
+    codes = (_CAST_CODES.get(rootdata.dtype), _CAST_CODES.get(leafdata.dtype))
+    if plan.narrow:
+        tail = (plan.tile_rows, plan.tiles, plan.grid, plan.flags, stream)
+        if same:
+            _build.launch("sf_bcast_narrow_copy", *ptrs, plan.M, plan.words,
+                          *tail)
+        else:
+            _build.launch("sf_bcast_narrow_cast", *ptrs, plan.M, plan.words,
+                          *codes, *tail)
+    elif same:
+        _build.launch("sf_bcast_fused_copy", *ptrs, plan.M, plan.row_bytes,
+                      plan.rows_per_cta, stream)
+    else:
+        _build.launch("sf_bcast_fused_cast", *ptrs, plan.M,
+                      plan.row_bytes // leafdata.element_size(), *codes,
+                      plan.rows_per_cta, stream)
+
+
+def bcast_fused(rootdata: torch.Tensor, leafdata: torch.Tensor,
+                src_of_leaf) -> torch.Tensor:
+    """A copy of ``leafdata`` with row ``l`` replaced by
+    ``rootdata[src_of_leaf[l]]`` cast to the leaf dtype wherever the map is
+    >= 0.  Same dtypes copy bits (any dtype); float32 / float64 / bfloat16
+    pairs cast; other pairs raise.  Rows of 1–4 words (elements, for a
+    cast) take the narrow kernel, others the generic loop."""
+    src = _bcast_args(rootdata, leafdata, src_of_leaf)
     if _on_cpu(leafdata):
         return bcast_fused_plain(rootdata, leafdata, src)
-    require_cuda_tensor(rootdata, "rootdata")
-    require_cuda_tensor(leafdata, "leafdata")
     out = torch.empty_like(leafdata)
-    rb = _row_bytes(leafdata)
-    if Nl == 0 or rb == 0:
+    if leafdata.shape[0] == 0 or _row_bytes(leafdata) == 0:
         return out
-    rows_per_cta = 64
-    stream = _build.stream_of(leafdata)
-    if same:
-        _build.launch("sf_bcast_fused_copy", rootdata.data_ptr(),
-                      leafdata.data_ptr(), out.data_ptr(), src.data_ptr(), Nl,
-                      rb, rows_per_cta, stream)
-    else:
-        _build.launch("sf_bcast_fused_cast", rootdata.data_ptr(),
-                      leafdata.data_ptr(), out.data_ptr(), src.data_ptr(), Nl,
-                      rb // leafdata.element_size(),
-                      _CAST_CODES[rootdata.dtype],
-                      _CAST_CODES[leafdata.dtype], rows_per_cta, stream)
+    _launch_bcast(rootdata, leafdata, src, out,
+                  bcast_plan(rootdata, leafdata, src, out))
     bcast_fused.launches += 1
+    return out
+
+
+def bcast_variant(rootdata: torch.Tensor, leafdata: torch.Tensor,
+                  src_of_leaf, *, route: str = "generic", out=None,
+                  streaming: bool = False, stream_loads=None
+                  ) -> torch.Tensor:
+    """``bcast_fused`` on CUDA tensors by a chosen route, for comparisons in
+    ``chip_smoke.py``: ``"generic"``, the generic loop (the first kernel,
+    64 rows per CTA), or ``"narrow"``, with evict-first output stores when
+    ``streaming`` and its evict-first loads as ``stream_loads`` says (None:
+    as ``bcast_fused``); into ``out`` when given, else a new tensor (the
+    plain version on the CPU).  Counts no launch (it is on no path)."""
+    if route not in ("generic", "narrow"):
+        raise ValueError(f"route must be 'generic' or 'narrow', not {route!r}")
+    src = _bcast_args(rootdata, leafdata, src_of_leaf)
+    if _on_cpu(leafdata):
+        return bcast_fused_plain(rootdata, leafdata, src)
+    out = torch.empty_like(leafdata) if out is None else out
+    require_cuda_tensor(out, "out")
+    if out.shape != leafdata.shape or out.dtype != leafdata.dtype:
+        raise ValueError("out must match leafdata")
+    if leafdata.shape[0] == 0 or _row_bytes(leafdata) == 0:
+        return out
+    plan = bcast_plan(rootdata, leafdata, src, out)
+    if route == "narrow":
+        if not plan.narrow:
+            raise ValueError("these rows take the generic loop")
+        plan = dataclasses.replace(plan, streaming=bool(streaming))
+        if stream_loads is not None:
+            plan = dataclasses.replace(plan, stream_loads=bool(stream_loads))
+    else:
+        plan = RowPlan(M=plan.M, row_bytes=plan.row_bytes, narrow=False,
+                       rows_per_cta=BCAST_BLOCK_ROWS)
+    _launch_bcast(rootdata, leafdata, src, out, plan)
     return out
 
 

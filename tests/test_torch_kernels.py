@@ -5,25 +5,33 @@ does not run on this jax (``pack_strided``, ``segment_reduce_sorted``).
 
 Copies and integer ops are bitwise; float sum/prod use rtol 1e-6 (the
 reference's ``jnp.sum`` is not taken in buffer order); spmv uses rtol 1e-5.
-The ``cuda``-marked tests hold the CUDA kernels against their plain
-versions and skip without a card; ``chip_smoke.py`` runs them there.
+The launch-plan tests walk ``sf_pack.row_plan`` in numpy.  The
+``cuda``-marked tests hold the CUDA kernels against their plain versions
+and skip without a card; the reference tests skip without JAX, so on the
+card's machine ``python -m pytest -m cuda tests/test_torch_kernels.py``
+runs the card tests alone.
 """
 
 import numpy as np
 import pytest
 
-pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-import jax.numpy as jnp  # noqa: E402
-
-from repro.kernels import ref as R  # noqa: E402
-from repro.kernels.sf_pack import bcast_fused as ref_bcast_fused  # noqa: E402
-from repro.kernels.sf_pack import pack as ref_pack  # noqa: E402
-from repro.kernels.sf_pack import pack_blocked as ref_pack_blocked  # noqa: E402
-from repro.kernels.sf_unpack import segment_reduce_blocked as ref_seg_blocked  # noqa: E402
-from repro.kernels.spmv_ell import spmv_ell as ref_spmv_ell  # noqa: E402
+try:
+    import jax.numpy as jnp
+    from repro.kernels import ref as R
+    from repro.kernels.sf_pack import bcast_fused as ref_bcast_fused
+    from repro.kernels.sf_pack import pack as ref_pack
+    from repro.kernels.sf_pack import pack_blocked as ref_pack_blocked
+    from repro.kernels.sf_unpack import \
+        segment_reduce_blocked as ref_seg_blocked
+    from repro.kernels.spmv_ell import spmv_ell as ref_spmv_ell
+    HAVE_JAX = True
+except ImportError:          # the card's machine has no JAX
+    HAVE_JAX = False
+needs_reference = pytest.mark.skipif(
+    not HAVE_JAX, reason="needs jax and the JAX package (the reference)")
 
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import ref as PR  # noqa: E402
@@ -50,6 +58,7 @@ def _segments(rng, M, S):
 
 
 # ------------------------------------------------------------------ pack
+@needs_reference
 @pytest.mark.parametrize("N,unit,M", [(16, (8,), 5), (33, (3,), 17),
                                       (40, (), 64), (20, (2, 2), 9)])
 @pytest.mark.parametrize("dt", [np.float32, np.int32])
@@ -67,6 +76,7 @@ def test_pack_matches_pallas(N, unit, M, dt, rng):
     np.testing.assert_array_equal(PR.pack_ref(td, idx).numpy(), want)
 
 
+@needs_reference
 @pytest.mark.parametrize("B", [1, 4, 64])
 @pytest.mark.parametrize("dt", [np.float32, np.int32])
 def test_pack_blocked_matches_pallas(B, dt, rng):
@@ -78,6 +88,7 @@ def test_pack_blocked_matches_pallas(B, dt, rng):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@needs_reference
 @pytest.mark.parametrize("dims,strides,start", [
     ((4, 3, 2), (1, 8, 48), 2),
     ((8, 1, 1), (1, 8, 8), 0),
@@ -107,6 +118,7 @@ def test_pack_strided_checks_bounds_and_stride():
         sf_pack.pack_strided(data, start=0, dims=(2, 1, 1), strides=(2, 4, 4))
 
 
+@needs_reference
 @pytest.mark.parametrize("unit", [(), (3,)])
 @pytest.mark.parametrize("dt", [np.float32, np.int32])
 def test_bcast_fused_matches_pallas(unit, dt, rng):
@@ -141,7 +153,118 @@ def test_bcast_fused_casts_and_refuses():
         sf_pack.inverse_map([0, 1], [2, 2], 4)
 
 
+# ------------------------------------------------------------ launch plan
+RAGGED_K = 2100          # 4k + r rows: more tiles than one SM's CTAs hold
+
+
+def _ragged_counts(row_bytes):
+    k = RAGGED_K if row_bytes <= 16 else 40
+    return [0, 1, 3, 4 * k + 1, 4 * k + 2, 4 * k + 3]
+
+
+def _check_walk(plan, *, src_ptrs, out_ptr, idx_ptr):
+    """The plan's walk writes every output byte exactly once, touches no
+    row outside [0, M), and makes every vector access aligned."""
+    M, rb = plan.M, plan.row_bytes
+    w = plan.walk()
+    starts, widths = w["stores"]
+    assert starts.size == 0 or (starts.min() >= 0
+                                and (starts + widths).max() <= M * rb)
+    touched = [np.zeros(0, np.int64)] + [
+        starts[widths == b] + k for b in np.unique(widths) for k in range(b)]
+    hits = np.bincount(np.concatenate(touched).astype(np.int64),
+                       minlength=M * rb)
+    assert hits.size == M * rb and (hits == 1).all()
+    assert ((out_ptr + starts) % widths == 0).all()
+    ioff, iw = w["index_loads"]
+    assert ioff.size == 0 or (ioff.min() >= 0 and (ioff + iw).max() <= 4 * M)
+    assert ((idx_ptr + ioff) % iw == 0).all()
+    rl = w["row_load_bytes"]
+    assert rb % rl == 0 and all(p % rl == 0 for p in src_ptrs)
+    if plan.narrow:
+        assert 128 <= plan.threads <= 256 and plan.threads % 32 == 0
+        assert plan.tile_rows == 4 * plan.threads
+        assert plan.tiles == -(-M // plan.tile_rows)
+        assert (plan.grid == 0) == (M == 0) and plan.grid <= plan.tiles
+
+
+# data / index bases: aligned, data[1:] (one row in), idx[1:] (4 bytes in)
+_BASES = {"aligned": (0, 0), "data[1:]": (1, 0), "idx[1:]": (0, 4)}
+
+
+@pytest.mark.parametrize("base", sorted(_BASES))
+@pytest.mark.parametrize("row_bytes", [1, 2, 3, 4, 8, 12, 16, 1020])
+def test_gather_plan_covers_every_word_once(row_bytes, base):
+    """pack_blocked's launch plan, walked in numpy as the kernel walks it,
+    over ragged row counts, block_rows 1 / 5 / 64 / 1024 and one SM or
+    132 (the grid-stride loop and one wave)."""
+    data_rows, idx_off = _BASES[base]
+    src = (1 << 20) + data_rows * row_bytes
+    out, idx = 1 << 21, (1 << 22) + idx_off
+    for M in _ragged_counts(row_bytes):
+        for block_rows in (1, 5, 64, 1024):
+            for sms in (1, 132):
+                plan = sf_pack.row_plan(M, row_bytes, block_rows,
+                                        src_ptrs=(src,), out_ptr=out,
+                                        idx_ptr=idx, sms=sms)
+                assert plan.narrow == (row_bytes in (4, 8, 12, 16))
+                # one load per row: the rows layout, else the lanes one
+                assert plan.lanes == (plan.narrow
+                                      and plan.load_words < plan.words)
+                assert plan.idx_vec == (plan.narrow and not plan.lanes
+                                        and idx_off == 0)
+                _check_walk(plan, src_ptrs=(src,), out_ptr=out,
+                            idx_ptr=idx)
+
+
+@pytest.mark.parametrize("base", sorted(_BASES))
+@pytest.mark.parametrize("unit_bytes,elems", [(2, 1), (2, 3), (4, 3),
+                                              (8, 2), (8, 4), (4, 5)])
+def test_bcast_plan_covers_every_word_once(unit_bytes, elems, base):
+    """bcast_fused's plans (copy of rows of elems x unit_bytes, and a cast
+    into leaf elements of unit_bytes) walked as the kernels walk them."""
+    data_rows, idx_off = _BASES[base]
+    rb = unit_bytes * elems
+    root, leaf = (1 << 20) + data_rows * rb, (1 << 23) + data_rows * rb
+    out, idx = 1 << 21, (1 << 22) + idx_off
+    for M in _ragged_counts(rb):
+        for cast in (None, unit_bytes):
+            plan = sf_pack.row_plan(M, rb, 64, src_ptrs=(root, leaf),
+                                    out_ptr=out, idx_ptr=idx,
+                                    cast_unit_bytes=cast)
+            words = rb // 4 if cast is None else elems
+            assert plan.narrow == (1 <= words <= 4
+                                   and (cast is not None or rb % 4 == 0))
+            _check_walk(plan, src_ptrs=(root, leaf) if cast is None else (),
+                        out_ptr=out, idx_ptr=idx)
+
+
+def test_plan_takes_narrow_path_on_main_shapes():
+    """The SpMV ghost pack is one short wave; the general SF's 4M-row
+    packs and the local-only fused bcast stride with equal tiles per
+    CTA."""
+    def plan(M, rb, cast=None, src=(0,)):
+        return sf_pack.row_plan(M, rb, kops.PACK_BLOCK_ROWS, src_ptrs=src,
+                                out_ptr=0, idx_ptr=0, cast_unit_bytes=cast)
+    spmv = plan(229376, 4)
+    assert spmv.narrow and spmv.idx_vec and spmv.grid == spmv.tiles
+    assert spmv.grid <= 132 * (2048 // spmv.threads)
+    for rb in (4, 12):
+        gen = plan(4194304, rb)
+        assert gen.narrow and gen.words == rb // 4 and gen.grid < gen.tiles
+        assert gen.lanes == (rb == 12)
+        assert gen.tiles % gen.grid == 0
+    for cast, rb in ((None, 12), (2, 6)):
+        p = plan(1114112, rb, cast, (0, 0))
+        assert p.narrow and p.lanes == (cast is None) and p.words == 3
+        assert p.tiles % p.grid == 0
+    assert not plan(65536, 1024).narrow         # the wide-row SF: generic
+    with pytest.raises(ValueError):
+        sf_pack.row_plan(4, 4, 0, src_ptrs=(0,), out_ptr=0, idx_ptr=0)
+
+
 # ---------------------------------------------------------- segment reduce
+@needs_reference
 @pytest.mark.parametrize("op", OPS)
 @pytest.mark.parametrize("dt", [np.float32, np.int32])
 @pytest.mark.parametrize("SB", [1, 8, 64])
@@ -165,6 +288,7 @@ def test_segment_reduce_blocked_matches_pallas(op, dt, SB, rng):
         np.testing.assert_array_equal(got.numpy(), want)
 
 
+@needs_reference
 @pytest.mark.parametrize("op", OPS)
 @pytest.mark.parametrize("unit", [(), (2, 2)])
 def test_segment_reduce_sorted_matches_ref(op, unit, rng):
@@ -202,6 +326,7 @@ def test_segment_reduce_plain_is_sequential_fold_with_nan():
     assert torch.isnan(mn[1]) and mn[3] == float("inf")
 
 
+@needs_reference
 @pytest.mark.parametrize("op", OPS)
 def test_sf_unpack_matches_ref(op, rng):
     """Segment reduce + duplicate-free scatter, against the reference
@@ -236,6 +361,7 @@ def test_segment_reduce_refuses_bad_input():
 
 
 # ------------------------------------------------------------------- spmv
+@needs_reference
 @pytest.mark.parametrize("N,K,Nx", [(50, 7, 40), (256, 16, 300), (8, 1, 8)])
 def test_spmv_ell_matches_pallas(N, K, Nx, rng):
     data = rng.standard_normal((N, K)).astype(np.float32)
@@ -311,8 +437,9 @@ def test_cuda_pack_kernels_match_plain(cuda_device, dt):
 def test_cuda_segment_reduce_matches_plain_bitwise(cuda_device, op):
     buf = torch.randn(500, 2, device=cuda_device)
     start, length = _segments(np.random.default_rng(1), 500, 60)
-    want = sf_unpack.segment_reduce_plain(buf, torch.as_tensor(start),
-                                          torch.as_tensor(length), op)
+    want = sf_unpack.segment_reduce_plain(
+        buf, torch.as_tensor(start, device=cuda_device),
+        torch.as_tensor(length, device=cuda_device), op)
     for got in (sf_unpack.segment_reduce_sorted(buf, start, length, op=op),
                 sf_unpack.segment_reduce_blocked(buf, start, length,
                                                  segs_per_block=8, op=op)):
@@ -333,3 +460,61 @@ def test_cuda_spmv_and_fused_bcast_match_plain(cuda_device):
                                               30), device=cuda_device)
     assert torch.equal(sf_pack.bcast_fused(root, leaf, src),
                        sf_pack.bcast_fused_plain(root, leaf, src))
+
+
+def _ragged_cases(device, rng, dt, unit):
+    """(data, idx) pairs: ragged row counts, data[1:] and idx[1:]."""
+    n = 700
+    if dt == torch.bool:
+        data = torch.as_tensor(rng.random((n,) + unit) > .5, device=device)
+    else:
+        data = torch.as_tensor(rng.standard_normal((n,) + unit) * 100,
+                               device=device).to(dt)
+    for M in (1, 3, 4 * 101 + 1, 4 * 101 + 2, 4 * 101 + 3, 4 * 3000 + 1):
+        idx = torch.as_tensor(rng.integers(0, n - 1, M + 1),
+                              dtype=torch.int32, device=device)
+        yield data, idx[:M]
+        yield data[1:], idx[1:]
+
+
+_DTYPES = [torch.float32, torch.float64, torch.int32, torch.bfloat16,
+           torch.int8, torch.bool]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("unit", [(), (2,), (3,), (4,), (2, 2), (5,)])
+@pytest.mark.parametrize("dt", _DTYPES)
+def test_cuda_pack_blocked_ragged_misaligned(cuda_device, dt, unit):
+    rng = np.random.default_rng(3)
+    for data, idx in _ragged_cases(cuda_device, rng, dt, unit):
+        want = sf_pack.pack_plain(data, idx)
+        for block_rows in (1, 5, 64, 1024):
+            got = sf_pack.pack_blocked(data, idx, block_rows=block_rows)
+            assert torch.equal(got, want), (dt, unit, idx.numel(),
+                                            block_rows)
+        assert torch.equal(sf_pack.gather_generic(data, idx,
+                                                  rows_per_cta=64), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("unit", [(), (2,), (3,), (4,), (5,)])
+@pytest.mark.parametrize("rdt,ldt", [(a, a) for a in _DTYPES] + [
+    (a, b) for a in (torch.float32, torch.float64, torch.bfloat16)
+    for b in (torch.float32, torch.float64, torch.bfloat16) if a != b])
+def test_cuda_bcast_fused_ragged_misaligned(cuda_device, rdt, ldt, unit):
+    rng = np.random.default_rng(4)
+    for root, idx in _ragged_cases(cuda_device, rng, rdt, unit):
+        M = idx.numel()
+        leaf = torch.as_tensor(rng.standard_normal((M + 1,) + unit) * 100,
+                               device=cuda_device).to(ldt)[1:] \
+            if ldt != torch.bool else torch.zeros((M,) + unit,
+                                                  dtype=torch.bool,
+                                                  device=cuda_device)
+        src = idx.clone()
+        src[torch.as_tensor(rng.random(M) < 0.3, device=cuda_device)] = -1
+        for s in (src, torch.cat([src[:1], src])[1:]):     # map off 16 B
+            want = sf_pack.bcast_fused_plain(root, leaf, s)
+            assert torch.equal(sf_pack.bcast_fused(root, leaf, s).view(
+                torch.uint8), want.view(torch.uint8)), (rdt, ldt, unit, M)
+            got = sf_pack.bcast_variant(root, leaf, s, route="generic")
+            assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
