@@ -7,7 +7,8 @@ Phases, each printing one JSON line and asserting as it goes:
 
   env      torch / CUDA versions, the card, ``nvidia-smi`` name and power
            limit, the time to build the CUDA kernels from ``src``, and the
-           flash kernels' registers, spills and shared memory (ptxas -v).
+           flash, narrow and strided kernels' registers, spills and shared
+           memory (ptxas -v).
   setup    the main path's objects: a 7-point Poisson matrix on a 128^3 grid
            (2,097,152 unknowns) as ``ParCSR`` over 8 logical ranks in
            z-slabs, a random general star forest (8 ranks, 2^20 roots,
@@ -26,7 +27,16 @@ Phases, each printing one JSON line and asserting as it goes:
            warm-against-cold study (fresh or preallocated output, plain or
            evict-first stores and loads, the write-back each leaves behind);
            the sweep adds ragged row counts and bases off the 16-byte alignment
-           for both.
+           for both.  ``pack_strided`` at five shapes (``strided_shapes``):
+           the box halo SF's box (rows of 3 f32 and of 1), the 256^3
+           interior of a 258^3 ghosted local array (rows of 3 f32 and of 1;
+           its source is four times L2) and that array's x-face, each
+           against its first kernel in turns (``prev_ms``), with L2
+           scrubbed, beside ``as_strided(...).contiguous()`` (its library
+           call), ``index_select`` and both panel designs; its sweep covers
+           every route over units () to (64,), five dtypes, skewed starts,
+           ``data[1:]``, a 258-pitch plane and x-faces, and every route the
+           plan can pick must be taken.
            ``flash_attention`` at the serving prefill's shape for every bucket
            the trace uses (bf16, Sq = Skv, 32 query / 8 KV heads of 128,
            causal) and over a sweep (float32 / bf16, head sizes 16-128, GQA
@@ -72,6 +82,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -134,6 +145,8 @@ class Sizes:
     gen_edges: int = 1 << 22
     local_roots: int = 1 << 20    # local-only SF
     box: tuple = (100, 100, 8)    # halo box inside a grid^3 root block
+    ghost: int = 258              # edge of the ghosted local array whose
+                                  # (ghost - 2)^3 interior pack_strided packs
     wide_roots: int = 1 << 14     # wide-row SF (unit (WIDE,))
     wide_edges: int = 1 << 16
     cg_maxiter: int = 2000
@@ -560,12 +573,22 @@ def kernel_records(objs, sz: Sizes, dev) -> dict:
     check(s3 is not None and s3.dims == tuple(sz.box),
           f"detect_strided missed the halo box: {s3}")
     broot = torch.randn(objs["box"].nroots_total, 3, generator=g, device=dev)
-    rows64 = sf_pack.strided_rows(s3.start, s3.dims, s3.strides, dev)
-    M = rows64.numel()
+    M = math.prod(s3.dims)
     record("pack_strided", lambda: kops.pack_strided_rows(broot, s3),
            lambda: sf_pack.pack_strided_plain(broot, s3.start, s3.dims,
                                               s3.strides),
-           lambda: torch.index_select(broot, 0, rows64), M * 12 * 2)
+           lambda: strided_view(broot, s3.start, s3.dims,
+                                s3.strides).contiguous(), M * 12 * 2)
+    recs["pack_strided"]["library"] = "torch.as_strided(...).contiguous()"
+    recs["pack_strided"]["strided_shapes"] = strided_shapes(
+        broot[:, 0].contiguous(), broot, s3, sz, dev, it)
+    main = recs["pack_strided"]["strided_shapes"][0]
+    recs["pack_strided"].update(
+        {k: main[k] for k in ("ms_in_turns", "ms_runs", "prev_ms",
+                              "prev_ms_runs", "prev_ms_cold_l2",
+                              "prev_source", "index_select_ms", "plan",
+                              "variants")})
+    recs["pack_strided"]["host_cost"] = strided_host_cost(broot, s3, dev, it)
 
     # bcast_fused: the local-only SF's replace bcast, f32 rows of 3
     loc_be = CudaBackend(objs["local"], device=dev)
@@ -620,6 +643,132 @@ def gather_against_prev(data, idx, dev, it: int) -> dict:
             "prev_ms_cold_l2": cold_device_ms(prev, dev, it),
             "prev_source": "sf_gather_rows, 64 rows per CTA (generic loop)",
             "plan": dataclasses.asdict(plan)}
+
+
+def strided_view(data, start: int, dims, strides):
+    """``data``'s strided box as a view of shape ``(dz, dy, dx, *unit)``:
+    ``.contiguous()`` of it is the one library call that packs the box."""
+    import torch
+    dx, dy, dz = dims
+    _, sy, sz = strides
+    r = data.stride(0)
+    return torch.as_strided(data, (dz, dy, dx) + tuple(data.shape[1:]),
+                            (sz * r, sy * r, r) + tuple(data.stride()[1:]),
+                            data.storage_offset() + start * r)
+
+
+def strided_record(data, start: int, dims, strides, dev, it: int) -> dict:
+    """pack_strided on one box: bitwise against the plain version, the
+    first kernel (``prev``, the generic loop at 64 rows per CTA) and
+    ``as_strided().contiguous()``; warm in turns with ``prev`` and cold-L2
+    device ms, the other kernel routes that can copy the box (``variants``),
+    ``as_strided().contiguous()`` and ``index_select`` beside them."""
+    import torch
+    from repro_torch.kernels import sf_pack
+    kw = dict(start=start, dims=dims, strides=strides)
+    run = lambda: sf_pack.pack_strided(data, **kw)
+    prev = lambda: sf_pack.strided_variant(data, route="generic", **kw)
+    lib = lambda: strided_view(data, start, dims, strides).contiguous()
+    rows64 = sf_pack.strided_rows(start, dims, strides, dev)
+    isel = lambda: torch.index_select(data, 0, rows64)
+    want = sf_pack.pack_strided_plain(data, start, dims, strides)
+    for what, fn in (("kernel", run), ("prev", prev), ("isel", isel)):
+        check(same_bits(fn(), want), f"pack_strided {dims}: {what} differs")
+    check(same_bits(lib().reshape(want.shape), want),
+          f"pack_strided {dims}: as_strided differs")
+    out = run()
+    rb = out[:1].numel() * out.element_size()
+    plan = sf_pack.box_plan(data, out, start, dims, strides)
+    others = [r for r in ("panel", "lanes") if r != plan.route
+              and plan.route != "generic"
+              and (r == "panel" or plan.panel_words
+                   <= sf_pack.LANES_MAX_WORDS)]
+    variants = {}
+    for route in others:
+        fn = lambda route=route: sf_pack.strided_variant(data, route=route,
+                                                         **kw)
+        check(same_bits(fn(), want), f"pack_strided {dims} {route} differs")
+        variants[route] = {"ms": device_ms(fn, dev, it),
+                           "ms_cold_l2": cold_device_ms(fn, dev, it)}
+    del want, out
+    (ms, ms_runs), (prev_ms, prev_runs) = in_turns(run, prev, dev, it)
+    M = math.prod(dims)
+    bms = bound(2 * M * rb)[0]
+    rec = {"dims": list(dims), "strides": list(strides), "start": start,
+           "unit": list(data.shape[1:]), "dtype": str(data.dtype),
+           "rows": M, "bytes": 2 * M * rb, "plan_route": plan.route,
+           "plan": dataclasses.asdict(plan),
+           "ms_in_turns": ms, "ms_runs": ms_runs,
+           "ms_cold_l2": cold_device_ms(run, dev, it),
+           "prev_ms": prev_ms, "prev_ms_runs": prev_runs,
+           "prev_ms_cold_l2": cold_device_ms(prev, dev, it),
+           "prev_source": "sf_gather_strided, 64 rows per CTA (the first "
+                          "kernel's generic loop)",
+           "bound_ms": bms, "library_ms": device_ms(lib, dev, it),
+           "library_ms_cold_l2": cold_device_ms(lib, dev, it),
+           "index_select_ms": device_ms(isel, dev, it),
+           "variants": variants}
+    rec["share_of_bound"] = bms / ms
+    rec["share_of_bound_cold_l2"] = bms / rec["ms_cold_l2"]
+    return rec
+
+
+def strided_host_cost(data, s3, dev, it: int) -> dict:
+    """The host's share of the path's ``pack_strided`` call on the main
+    path's box, against the first kernel's wrapper (the contract's checks,
+    ``torch.empty`` and one ``sf_gather_strided`` launch, no plan):
+    ``call_ms`` of each (host included) in turns, run, prev, prev, run,
+    and the host microseconds of the plan lookup alone."""
+    import torch
+    from repro_torch.kernels import _build, ops as kops, sf_pack
+    run = lambda: kops.pack_strided_rows(data, s3)
+
+    def prev():
+        start, (dx, dy, dz), (_, sy, sz) = sf_pack._strided_args(
+            data, s3.start, s3.dims, s3.strides)
+        M = dx * dy * dz
+        out = torch.empty((M,) + tuple(data.shape[1:]), dtype=data.dtype,
+                          device=data.device)
+        if dev.type == "cuda":
+            _build.launch("sf_gather_strided", data.data_ptr(),
+                          out.data_ptr(), M, sf_pack._row_bytes(data), 64,
+                          start, dx, dy, sy, sz, _build.stream_of(data))
+        else:
+            out.copy_(sf_pack.pack_strided_plain(data, start, s3.dims,
+                                                 s3.strides))
+        return out
+    check(same_bits(prev(), run()), "pack_strided != the first wrapper")
+    ms = [call_ms(run, dev, it)]
+    prev_ms = [call_ms(prev, dev, it), call_ms(prev, dev, it)]
+    ms.append(call_ms(run, dev, it))
+    out, n = run(), 10000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        sf_pack.box_plan(data, out, s3.start, s3.dims, s3.strides)
+    return {"call_ms": min(ms), "call_ms_runs": ms,
+            "prev_wrapper_call_ms": min(prev_ms),
+            "prev_wrapper_call_ms_runs": prev_ms,
+            "plan_lookup_us": (time.perf_counter() - t0) * 1e6 / n}
+
+
+def strided_shapes(root1, root3, s3, sz: Sizes, dev, it: int) -> list:
+    """pack_strided at the five timed shapes: the main path's box halo
+    (f32 rows of 3, then of 1), the (ghost - 2)^3 interior of a ghost^3
+    ghosted local array (rows of 3 f32, then f32; 206 MB of source at
+    258^3, four times L2) and that array's x-face (rows of 3 f32)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(3)
+    out = [strided_record(root3, s3.start, s3.dims, s3.strides, dev, it),
+           strided_record(root1, s3.start, s3.dims, s3.strides, dev, it)]
+    e = sz.ghost
+    n = e - 2
+    strides, start = (1, e, e * e), 1 + e + e * e
+    for unit, dims in (((3,), (n, n, n)), ((), (n, n, n)),
+                       ((3,), (1, n, n))):
+        data = torch.randn((e ** 3,) + unit, generator=g, device=dev)
+        out.append(strided_record(data, start, dims, strides, dev, it))
+        del data
+    return out
 
 
 def scrub_ms(fn, dev, iters: int) -> dict:
@@ -785,11 +934,14 @@ def kernel_sweep(dev) -> int:
             for dims, strides, start in [((4, 3, 2), (1, 8, 48), 2),
                                          ((8, 1, 1), (1, 8, 8), 0),
                                          ((2, 5, 4), (1, 16, 80), 7)]:
-                got = sf_pack.pack_strided(data, start=start, dims=dims,
-                                           strides=strides, block_rows=3)
-                check(same_bits(got, sf_pack.pack_strided_plain(
-                    data, start, dims, strides)), f"pack_strided {dt}")
-                cases += 1
+                want = sf_pack.pack_strided_plain(data, start, dims,
+                                                  strides)
+                kw = dict(start=start, dims=dims, strides=strides)
+                for got in (sf_pack.pack_strided(data, **kw),
+                            sf_pack.strided_variant(data, route="generic",
+                                                    **kw)):
+                    check(same_bits(got, want), f"pack_strided {dt}")
+                    cases += 1
             leaf = rand((600,) + unit, dt) if dt != torch.bool else \
                 torch.zeros((600,) + unit, dtype=torch.bool, device=dev)
             src = np.full(600, -1, np.int32)
@@ -800,6 +952,7 @@ def kernel_sweep(dev) -> int:
                             sf_pack.bcast_fused_plain(data, leaf, src)),
                   f"bcast_fused {unit} {dt}")
             cases += 1
+    cases += strided_sweep(dev, rng)
     fl = [torch.float32, torch.float64, torch.bfloat16]
     for rdt in fl:
         for ldt in fl:
@@ -890,6 +1043,73 @@ def kernel_sweep(dev) -> int:
             check(max_abs(got, want) <= 1e-5 * float(want.abs().max()),
                   f"spmv_ell {N} {K} {dt}")
             cases += 1
+    return cases
+
+
+# the strided sweep's boxes: (dims, strides, start) in an array of
+# STRIDED_SWEEP_ROWS rows: starts skewed 0-3 rows, a 258-pitch plane (the
+# ghosted array's rows) and its x-face, a box whose panels start on a
+# 16-byte boundary for 4-byte rows, 1,500 panels of 4 rows, a single
+# plane, a single row of panels, a contiguous run
+STRIDED_SWEEP_ROWS = 258 * 16 * 3 + 64
+STRIDED_SWEEP_BOXES = (
+    [((30, 7, 3), (1, 64, 64 * 8), s) for s in range(4)]
+    + [((256, 4, 2), (1, 258, 258 * 16), 1 + 258),
+       ((1, 14, 3), (1, 258, 258 * 16), 1 + 258),
+       ((12, 6, 3), (1, 16, 256), 4 + 16 + 256),
+       ((4, 1, 1500), (1, 8, 8), 0),
+       ((40, 1, 3), (1, 50, 300), 7),
+       ((40, 5, 1), (1, 50, 300), 7),
+       ((500, 1, 1), (1, 500, 500), 3)])
+
+
+def strided_sweep(dev, rng) -> int:
+    """pack_strided bitwise against its plain version over units (), (2,),
+    (3,), (4,), (5,), (64,), dtypes float32 / bfloat16 / float64 / int8 /
+    bool, the boxes of STRIDED_SWEEP_BOXES on data and on data[1:] (a base
+    off the 16-byte alignment): the plan's route and every other route
+    that can copy the box.  Every route the plan can
+    pick must have been taken.  Returns the number of cases."""
+    import torch
+    from repro_torch.kernels import sf_pack
+    before = dict(sf_pack.pack_strided.routes)
+    cases = 0
+    for unit in [(), (2,), (3,), (4,), (5,), (64,)]:
+        for dt in (torch.float32, torch.bfloat16, torch.float64, torch.int8,
+                   torch.bool):
+            a = torch.as_tensor(rng.standard_normal(
+                (STRIDED_SWEEP_ROWS,) + unit) * 100, device=dev)
+            data = a > 0 if dt == torch.bool else a.to(dt)
+            rb = data[:1].numel() * data.element_size()
+            for d in (data, data[1:]):
+                for dims, strides, start in STRIDED_SWEEP_BOXES:
+                    kw = dict(start=start, dims=dims, strides=strides)
+                    want = sf_pack.pack_strided_plain(d, start, dims,
+                                                      strides)
+                    check(same_bits(sf_pack.pack_strided(d, **kw), want),
+                          f"pack_strided {unit} {dt} {dims} {start}")
+                    cases += 1
+                    plan = sf_pack.strided_plan(dims, strides, rb,
+                                                start=start,
+                                                src_ptr=d.data_ptr(),
+                                                out_ptr=0)
+                    forced = [dict(route="generic")]
+                    if plan.route != "generic":
+                        forced.append(dict(route="panel"))
+                        if plan.panel_words <= sf_pack.LANES_MAX_WORDS:
+                            forced.append(dict(route="lanes"))
+                    for opts in forced:
+                        got = sf_pack.strided_variant(d, **opts, **kw)
+                        check(same_bits(got, want),
+                              f"pack_strided {opts} {unit} {dt} {dims} "
+                              f"{start}")
+                        cases += 1
+    taken = {r for r, n in sf_pack.pack_strided.routes.items()
+             if n > before[r]}
+    can = set(sf_pack.STRIDED_ROUTES)
+    check(dev.type != "cuda" or taken == can,
+          f"the sweep took pack_strided routes {sorted(taken)}, the plan "
+          f"can pick {sorted(can)}")
     return cases
 
 
@@ -1179,6 +1399,7 @@ def phase_sf_ops(objs, dev) -> dict:
           and bcu.backend._reduce_strided is not None,
           "detect_strided did not match the halo box")
     before = kops.pack_strided.launches
+    routes = dict(kops.pack_strided.routes)
     for unit in [(), (3,)]:
         root = torch.randn((box.nroots_total,) + unit, generator=g,
                            device=dev)
@@ -1189,6 +1410,9 @@ def phase_sf_ops(objs, dev) -> dict:
              f"box reduce {unit}")
     check(kops.pack_strided.launches == before + 4 or not on_card,
           "halo box packs did not take pack_strided")
+    out["box_halo_routes"] = {k: v - routes[k] for k, v in
+                              kops.pack_strided.routes.items()
+                              if v > routes[k]}
 
     # wide rows: one row / one segment per CTA
     wide = objs["wide"]
@@ -1625,7 +1849,12 @@ def main() -> int:
           "flash_ptxas": flash_ptxas(),
           "sf_pack_narrow_ptxas": [
               r for r in _build.ptxas_report("sf_pack")
-              if "rows_c" in r["function"] or "lanes_c" in r["function"]]})
+              if ("rows_c" in r["function"] or "lanes_c" in r["function"])
+              and "BoxRows" not in r["function"]],
+          "sf_pack_strided_ptxas": [
+              r for r in _build.ptxas_report("sf_pack")
+              if any(k in r["function"] for k in ("panel_c", "BoxRows",
+                                                  "gather_rows_kernel"))]})
     kernels = run(dev, Sizes())
     emit({"phase": "profiler", "windows": PROFILER_WINDOWS["taken"],
           "retaken": PROFILER_WINDOWS["retaken"]})

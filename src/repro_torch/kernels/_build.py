@@ -55,6 +55,10 @@ _SIGNATURES = {
                                          _I, _P]),
     "sf_bcast_narrow_cast": ("sf_pack", [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                          _I, _I, _I, _P]),
+    "sf_strided_panels": ("sf_pack", [_P, _P, _L, _L, _L, _I, _I, _I, _I,
+                                      _I, _I, _P]),
+    "sf_strided_lanes": ("sf_pack", [_P, _P, _I, _I, _L, _L, _L, _I, _I, _I,
+                                     _I, _P]),
     "sf_segment_reduce": ("sf_unpack", [_P, _P, _P, _P, _L, _L, _I, _I, _I,
                                         _P]),
     "sf_spmv_ell": ("spmv_ell", [_P, _P, _P, _P, _L, _I, _I, _P]),

@@ -5,8 +5,12 @@
 //   pack_blocked  (sf_pack.py:96)   -> sf_gather_narrow for rows of 1-4
 //                                      32-bit words; sf_gather_rows (generic
 //                                      loop) for wider or odd rows
-//   pack_strided  (sf_pack.py:177)  -> sf_gather_strided, rows computed from
-//                                      (start, dims, strides), no index array
+//   pack_strided  (sf_pack.py:177)  -> sf_strided_panels (aligned 16-byte
+//                                      vectors, a warp per panel item);
+//                                      sf_strided_lanes for panels of 1-4
+//                                      words; sf_gather_strided (generic
+//                                      loop) for rows that are not whole
+//                                      32-bit words or bases off 4 bytes
 //   bcast_fused   (sf_pack.py:141)  -> sf_bcast_narrow_copy / _cast for rows
 //                                      of 1-4 words / elements;
 //                                      sf_bcast_fused_copy / _cast otherwise
@@ -59,8 +63,29 @@
 // whole 32-bit words, and pointers off 4-byte alignment): rows are copied
 // as raw bytes in the widest word (16/8/4/2/1 bytes) that the row size and
 // base pointers allow; neighbouring threads take neighbouring words of a
-// row, then the next row of a block of rows_per_cta rows.  pack and
-// pack_strided use it.
+// row, then the next row of a block of rows_per_cta rows.  pack uses it,
+// and pack_strided for such rows (its strided form divides every word's
+// index into (i, j, k) with 64-bit divisions).
+//
+// The strided pack (the redesign): every (j, k) panel of a box is dx rows,
+// contiguous in the source and in the output, so the pack is dy x dz
+// copies with no index; its bound is bytes (each box byte read once and
+// written once: 0.00057 ms for the box halo SF's 100x100x8 rows of 3 f32,
+// 0.120 ms for the 256^3 interior of a 258^3 ghosted array of rows of 3
+// f32, whose 206 MB source is four times L2).  A warp owns an item (up to
+// 32 x K aligned 16-byte output vectors of a panel); panel origins come
+// from (j, k) once per item, and each lane starts all its loads before its
+// first store.  A panel's source and output starts may disagree mod 16
+// (the box halo's by 4 bytes: its first row is 36 bytes into a 16-byte
+// granule); aligned source vectors are then shifted by whole words through
+// warp shuffles.  Staging the vectors through shared memory (cp.async in,
+// the shift on the way out) was tried and removed: no faster on the card
+// (PERF.md).
+// Panels of 1-4 words (x-faces) take the lanes layout with the panel's
+// source word computed from (j, k).  Hopper's TMA box copy was tried and
+// removed: its box must start on a 16-byte boundary (the card faults on a
+// box 4 or 8 bytes in), which the box halo's rows are not, and where a box
+// did qualify it read slower than the vectors (PERF.md).
 //
 // The fused bcast avoids the packed intermediate entirely: the setup builds
 // the inverse map src_of_leaf[l] (root row feeding leaf l, or -1), and one
@@ -73,6 +98,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
 
 namespace {
 
@@ -369,32 +395,60 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
+// Where the lanes kernel finds row r.  key(r) is read for all of a lane's
+// rows before any row load; word(key) is the first source word of the row.
+// An index list: key = idx[r] (in the fused bcast, < 0 means the leaf row).
+template <int WPR>
+struct IndexRows {
+  const int* __restrict__ idx;
+  __device__ __forceinline__ int key(int r, bool stream) const {
+    return ld(idx + r, stream);
+  }
+  __device__ __forceinline__ long long word(int key) const {
+    return (long long)key * WPR;
+  }
+};
+
+// The panels of a 3D box (pack_strided's x-faces and other panels of at
+// most 4 words): row r is panel (j, k) = (r % dy, r / dy), whose first word
+// is start + j * sy + k * sz (all in words), computed, not loaded.
+struct BoxRows {
+  long long start, sy, sz;
+  unsigned dy;
+  __device__ __forceinline__ int key(int r, bool) const { return r; }
+  __device__ __forceinline__ long long word(int r) const {
+    const unsigned j = (unsigned)r % dy, k = (unsigned)r / dy;
+    return start + j * sy + k * sz;
+  }
+};
+
 // The warp-cooperative layout, for rows that one load cannot carry (a row
-// of 3 words, or rows off the vector alignment).  A warp owns 32 x kRows
+// of 3 words, or rows off the vector alignment).  A warp owns 32 x ROWS
 // consecutive rows; lane l takes the words l, l + 32, ... of the warp's
-// kRows x WPR output words, so neighbouring lanes read neighbouring words
+// ROWS x WPR output words, so neighbouring lanes read neighbouring words
 // of a source row (one sector request per row and instruction, not one per
 // word) and every store instruction writes 128 contiguous bytes.  All
 // index loads, then all row loads, are in flight before the first store.
-template <int WPR, bool BCAST>
+// The gathers take ROWS = kRows; the box panels ROWS = 1 (four times the
+// warps: their rows cost no index load to amortise).
+template <int WPR, bool BCAST, typename Rows, int ROWS = kRows>
 __global__ void __launch_bounds__(kMaxThreads)
     lanes_copy_kernel(const unsigned* __restrict__ src,
                       const unsigned* __restrict__ leaf,
-                      unsigned* __restrict__ dst,
-                      const int* __restrict__ idx, int M, int tile_rows,
-                      int tiles, int flags) {
-  constexpr int K = kRows * WPR;  // words a lane moves per tile
+                      unsigned* __restrict__ dst, const Rows rows, int M,
+                      int tile_rows, int tiles, int flags) {
+  constexpr int K = ROWS * WPR;  // words a lane moves per tile
   const bool streaming = flags & kStreaming;
   const bool stream = flags & kStreamLoads;
   const int lane = (int)threadIdx.x & 31;
-  const int warp_row = ((int)threadIdx.x >> 5) * 32 * kRows;
+  const int warp_row = ((int)threadIdx.x >> 5) * 32 * ROWS;
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
     const int row0 = t * tile_rows + warp_row;
     int s[K];
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       const int r = row0 + (lane + 32 * k) / WPR;
-      s[k] = r < M ? ld(idx + r, stream) : 0;
+      s[k] = r < M ? rows.key(r, stream) : 0;
     }
     unsigned w[K];
 #pragma unroll
@@ -403,7 +457,7 @@ __global__ void __launch_bounds__(kMaxThreads)
       const int r = row0 + p / WPR;
       const bool own = BCAST && s[k] < 0;
       const unsigned* q = (own ? leaf + (long long)r * WPR
-                               : src + (long long)s[k] * WPR) + p % WPR;
+                               : src + rows.word(s[k])) + p % WPR;
       w[k] = r < M ? ld(q, own && stream) : 0u;
     }
 #pragma unroll
@@ -509,8 +563,8 @@ int launch_narrow_copy(const void* src, const void* leaf, void* dst,
     break;
 #define LANES_COPY(W)                                                   \
   case -W:                                                              \
-    lanes_copy_kernel<W, BCAST>                                         \
-        <<<grid, threads, 0, s>>>(a, b, d, idx, M, tile_rows, tiles, flags); \
+    lanes_copy_kernel<W, BCAST, IndexRows<W>><<<grid, threads, 0, s>>>( \
+        a, b, d, IndexRows<W>{idx}, M, tile_rows, tiles, flags);        \
     break;
     ROWS_COPY(1)
     ROWS_COPY(2)
@@ -547,6 +601,119 @@ int launch_narrow_cast(const void* root, const void* leaf, void* out,
     ROWS_CAST(3)
     ROWS_CAST(4)
 #undef ROWS_CAST
+    default:
+      return -1;
+  }
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------ box panels
+// pack_strided: out[i + dx (j + dy k)] = src[start + i + j sy + k sz].
+// Every (j, k) panel is dx rows, lw words, contiguous in the source and in
+// the output, so the pack is dy x dz copies of lw words with no index.
+constexpr int kPanelThreads = 128;  // 4 warps; a warp owns an item
+
+struct Panels {
+  long long s0;      // source word of panel (0, 0) from the 16-byte base
+  long long sy, sz;  // source words between panels along j and along k
+  long long d0;      // output word of panel 0 from the 16-byte base
+  int lw;            // words per panel
+  int dy;            // panels along j
+  int per_panel;     // items per panel
+  int items;         // panels x per_panel
+};
+
+// Words r .. r + 3 of the eight words lo, hi (r is warp-uniform).
+__device__ __forceinline__ uint4 funnel(const uint4& lo, const uint4& hi,
+                                        int r) {
+  switch (r) {
+    case 0: return lo;
+    case 1: return make_uint4(lo.y, lo.z, lo.w, hi.x);
+    case 2: return make_uint4(lo.z, lo.w, hi.x, hi.y);
+    default: return make_uint4(lo.w, hi.x, hi.y, hi.z);
+  }
+}
+
+// A warp owns an item: up to 32 x K aligned 16-byte output vectors of one
+// panel (item c of the panel's per_panel), and the 0-3 words before the
+// first of them (head, item 0) or after the last (tail, last item).  The
+// panel's source and output words come from (j, k) once per item; within
+// the item all offsets are 32-bit.  Output vector v holds the source words
+// 4v + delta ..  (delta = panel source word - panel output word), which
+// lie in the aligned source vectors v + (delta >> 2) and the next one,
+// shifted by r = delta & 3 words.  Lane l loads the aligned source vectors
+// l, l + 32, ... of the item (and lane 0 the one after the last), all
+// before its first store, then joins its own vector with the next lane's,
+// which comes from lane l + 1 by warp shuffles (lane 31 takes lane 0's next
+// one); the word shift is a select in registers.  Every global load and
+// store is an aligned 16-byte vector and a warp instruction covers 512
+// contiguous bytes.
+template <int K>
+__global__ void __launch_bounds__(kPanelThreads)
+    panel_copy_kernel(const uint4* __restrict__ src, uint4* __restrict__ dst,
+                      const Panels b) {
+  constexpr int N = 32 * K;
+  constexpr unsigned kAll = 0xffffffffu;
+  const unsigned* sw = reinterpret_cast<const unsigned*>(src);
+  unsigned* dw = reinterpret_cast<unsigned*>(dst);
+  const int lane = (int)threadIdx.x & 31;
+  const int warps = kPanelThreads / 32;
+  for (int it = blockIdx.x * warps + ((int)threadIdx.x >> 5); it < b.items;
+       it += gridDim.x * warps) {
+    const int p = it / b.per_panel, c = it - p * b.per_panel;
+    const int j = p % b.dy, k = p / b.dy;
+    const long long s = b.s0 + j * b.sy + k * b.sz;  // panel's source word
+    const long long d = b.d0 + (long long)p * b.lw;  // its output word
+    const int h = min((int)(-d & 3), b.lw);          // head words
+    const int nb = (b.lw - h) >> 2;                  // aligned vectors
+    const long long delta = s - d;
+    const int r = (int)(delta & 3);
+    const long long v0 = ((d + h) >> 2) + (long long)c * N;
+    const uint4* a = src + (v0 + (delta >> 2));  // source vector of v0
+    uint4* o = dst + v0;
+    const int n = min(max(nb - c * N, 0), N);   // vectors of this item
+    const int nl = n ? n + (r != 0) : 0;        // source vectors it reads
+    uint4 x[K];
+    uint4 ex = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      const int pos = lane + 32 * q;
+      x[q] = pos < nl ? __ldg(a + pos) : make_uint4(0u, 0u, 0u, 0u);
+    }
+    if (lane == 0 && N < nl) ex = __ldg(a + N);
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      uint4 hi = x[q];
+      if (r != 0) {  // warp-uniform
+        const uint4 give = lane == 0 ? (q + 1 < K ? x[q + 1] : ex) : x[q];
+        const int from = (lane + 1) & 31;
+        hi.x = __shfl_sync(kAll, give.x, from);
+        hi.y = __shfl_sync(kAll, give.y, from);
+        hi.z = __shfl_sync(kAll, give.z, from);
+        hi.w = __shfl_sync(kAll, give.w, from);
+      }
+      const int pos = lane + 32 * q;
+      if (pos < n) o[pos] = funnel(x[q], hi, r);
+    }
+    if (c == 0 && lane < h) dw[d + lane] = __ldg(sw + s + lane);
+    const int tail = b.lw - h - 4 * nb, at = h + 4 * nb;
+    if (c == b.per_panel - 1 && lane < tail)
+      dw[d + at + lane] = __ldg(sw + s + at + lane);
+  }
+}
+
+int launch_panels(const uint4* src, uint4* dst, const Panels& b, int K,
+                  int grid, cudaStream_t s) {
+  switch (K) {
+#define PANELS(N)                                                    \
+  case N:                                                            \
+    panel_copy_kernel<N><<<grid, kPanelThreads, 0, s>>>(src, dst, b); \
+    break;
+    PANELS(1)
+    PANELS(2)
+    PANELS(3)
+    PANELS(4)
+#undef PANELS
     default:
       return -1;
   }
@@ -714,6 +881,55 @@ int sf_bcast_narrow_cast(const void* root, const void* leaf, void* out,
     default:
       return -1;
   }
+}
+
+// pack_strided's routes (plan from kernels/sf_pack.py::strided_plan).  All
+// offsets and strides are in 32-bit words; src and dst must be 4-byte
+// aligned (-1 otherwise).
+
+// The panel route: panels of lw words, s0 = start x row words, sy / sz in
+// words, per_panel items per panel, items = dy x dz x per_panel, K vectors
+// per lane per item (1-4).
+int sf_strided_panels(const void* src, void* dst, long long s0, long long sy,
+                      long long sz, int lw, int dy, int per_panel, int items,
+                      int K, int grid, void* stream) {
+  const uintptr_t sa = (uintptr_t)src, da = (uintptr_t)dst;
+  if (sa % 4 || da % 4 || grid < 1 || per_panel < 1 || lw < 1) return -1;
+  const Panels b{s0 + (long long)(sa % 16) / 4, sy, sz,
+                 (long long)(da % 16) / 4, lw, dy, per_panel, items};
+  const uint4* s4 = (const uint4*)(sa - sa % 16);
+  uint4* d4 = (uint4*)(da - da % 16);
+  return launch_panels(s4, d4, b, K, grid, (cudaStream_t)stream);
+}
+
+// The lanes route (panels of 1-4 words): M = dy x dz panels of wpr words,
+// one panel's worth of words a lane, tiles of tile_rows = threads panels,
+// grid CTAs striding over them.
+int sf_strided_lanes(const void* src, void* dst, int M, int wpr,
+                     long long start, long long sy, long long sz, int dy,
+                     int tile_rows, int tiles, int grid, void* stream) {
+  if ((uintptr_t)src % 4 || (uintptr_t)dst % 4 || grid < 1 ||
+      tile_rows % 32 || tile_rows < 32 || tile_rows > kMaxThreads)
+    return -1;
+  const unsigned* a = (const unsigned*)src;
+  unsigned* d = (unsigned*)dst;
+  const BoxRows rows{start, sy, sz, (unsigned)dy};
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (wpr) {
+#define BOX_LANES(W)                                                     \
+  case W:                                                                \
+    lanes_copy_kernel<W, false, BoxRows, 1><<<grid, tile_rows, 0, s>>>(  \
+        a, nullptr, d, rows, M, tile_rows, tiles, 0);                    \
+    break;
+    BOX_LANES(1)
+    BOX_LANES(2)
+    BOX_LANES(3)
+    BOX_LANES(4)
+#undef BOX_LANES
+    default:
+      return -1;
+  }
+  return (int)cudaGetLastError();
 }
 
 const char* sf_cuda_error_string(int err) {

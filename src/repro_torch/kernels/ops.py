@@ -11,7 +11,9 @@ runs the kernels and a kernel that fails to build raises:
     thread, 128-thread CTAs at this ``block_rows``, grid from
     ``sf_pack.row_plan``); other rows its generic loop, 64 rows per CTA;
   * rows of ``WIDE_ROW`` elements or more: one row (one segment) per CTA
-    (``pack`` / ``segment_reduce_sorted``).
+    (``pack`` / ``segment_reduce_sorted``);
+  * a strided box (``pack_strided_rows``): the route and grid that
+    ``sf_pack.strided_plan`` computes from the box and the pointers.
 
 ``chip_smoke.py`` times both variants on f32 rows of 64, 256 and 1024
 elements (see ``PERF.md``).  For the segment reduce the one-segment-per-CTA
@@ -72,9 +74,10 @@ def pack_rows(data: torch.Tensor, idx) -> torch.Tensor:
 
 def pack_strided_rows(data: torch.Tensor, strided) -> torch.Tensor:
     """The rows a :class:`repro_torch.core.patterns.Strided3D` enumerates,
-    through the strided pack kernel."""
+    through the strided pack kernels (route and grid from
+    ``sf_pack.strided_plan``)."""
     return pack_strided(data, start=strided.start, dims=strided.dims,
-                        strides=strided.strides, block_rows=PACK_BLOCK_ROWS)
+                        strides=strided.strides)
 
 
 def segment_reduce_rows(sorted_vals: torch.Tensor, seg_first, seg_len, *,
@@ -105,8 +108,7 @@ def sf_pack(data, idx):
 def sf_pack_strided(data, *, start, dims, strides):
     return pack_strided(data, start=int(start),
                         dims=tuple(int(d) for d in dims),
-                        strides=tuple(int(s) for s in strides),
-                        block_rows=PACK_BLOCK_ROWS)
+                        strides=tuple(int(s) for s in strides))
 
 
 def sf_unpack(target, buf_sorted, seg_start, seg_len, seg_dst, *, op="sum"):
@@ -131,6 +133,7 @@ def reset_launch_counts() -> None:
     for f in kernel_wrappers().values():
         f.launches = 0
     flash_attention.launches_sm90 = 0   # the wgmma route's share
+    pack_strided.routes = {r: 0 for r in pack_strided.routes}
 
 
 def launch_counts() -> dict:
