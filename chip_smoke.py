@@ -50,9 +50,30 @@ Phases, each printing one JSON line and asserting as it goes:
            must fail it.  Each bucket also times the other bf16 kernel
            (``prev_ms``) and gives the achieved TFLOP/s.  SDPA is its library
            call.
+           ``segment_reduce_blocked`` also sums the general SF's reduce in
+           float16 and int64 (``dtype_shapes``), and the sweep holds every
+           segment-reduce dtype (int8, uint8, int16, int64, float16 beside
+           the first four) bitwise with ragged and empty segments.
   sf_ops   ``SFComm(backend="cuda")`` against ``SFComm(backend="global")``.
-  spmv_cg  SpMV / SpMV^T against scipy in float64, then CG and CGAsync on
-           the Poisson matrix through the ELL kernel.
+  spmv_cg  SpMV / SpMV^T against scipy in float64, then both CG loops on the
+           Poisson matrix through the ELL kernel (``cg_loops``): the
+           host-stepped ``cg`` and ``cg_async``, replayed as a CUDA graph,
+           each solve timed twice in turns, the graph's capture timed apart,
+           the graph against its guarded chunks run eagerly, and a profiled
+           20-iteration window of each loop (launch counters against the
+           profiler's kernels; a replay counts its captured launches).
+  dmda     the structured-grid path: a 128^3 DMDA over 2x2x2 ranks, box
+           stencil, width 1 (PETSc's ``snes/tutorials/ex19.c`` multi-dof
+           exchange in 3D), in both interior modes: five fields (f32 (3,),
+           f32, f32, int32, bf16, NaN payload bits) through ``bcast_multi``
+           (a 6-column uint32 carrier and a bf16 group) bitwise against the
+           grid's geometry, ``reduce_multi`` sum against ``np.add.at`` in
+           float64 and bitwise between runs and against the global
+           backend, one pack (and segment reduce) per group, and the fused
+           bundle against five sequential bcasts in turns; then the star
+           stencil's ``ParCSR.from_dmda_stencil`` (``ksp/tutorials/ex45.c``:
+           2,097,152 unknowns) against scipy, ``diagonal()``, and
+           ``cg_loops`` on it.
   serve    qwen3-4b at its published size in bf16 (random weights from a
            seeded generator): the flash kernel held against the plain decode
            attention through the whole model (prefill(p) vs prefill(p[:-1])
@@ -64,10 +85,12 @@ Phases, each printing one JSON line and asserting as it goes:
            launch on the wgmma route), and profiled windows of prefills and
            decode steps.
 
-Two paths carry the kernels: ``sf_ops`` + ``spmv_cg`` (the SF kernels) and
+Three paths carry the kernels: ``sf_ops`` + ``spmv_cg`` (the SF kernels),
+``dmda`` (``pack_blocked``, ``segment_reduce_blocked``, ``spmv_ell``) and
 the serve phase's drive (``flash_attention``).  Every launch counter is set
 to 0 just before each and read just after, and each kernel must have
-launched on its path; the ``launches`` of a kernel are its path's count.
+launched on its path; a kernel's ``launches_by_path`` are those counts and
+its ``launches`` their sum.
 A ``profiler`` line counts the profiled windows and those taken again
 because the profiler returned them without all their device events.
 The line before the last two is ``{"kernels": [...]}``, then the card's
@@ -134,6 +157,7 @@ SOURCES = {
 }
 SF_PATH = ("pack", "pack_blocked", "pack_strided", "bcast_fused",
            "segment_reduce_sorted", "segment_reduce_blocked", "spmv_ell")
+DMDA_PATH = ("pack_blocked", "segment_reduce_blocked", "spmv_ell")
 SERVE_PATH = ("flash_attention",)
 
 
@@ -149,6 +173,7 @@ class Sizes:
                                   # (ghost - 2)^3 interior pack_strided packs
     wide_roots: int = 1 << 14     # wide-row SF (unit (WIDE,))
     wide_edges: int = 1 << 16
+    dmda_grid: int = 128          # DMDA edge (the halo and CG configs)
     cg_maxiter: int = 2000
     timing_iters: int = 20
     # serve: qwen3-4b at its published size, bf16 (smoke=True: its smoke
@@ -273,8 +298,9 @@ def profiled_whole(fn, dev, calls: int = 1, whole=None) -> dict:
                 and (whole is None or whole(counts))):
             return by_name
         PROFILER_WINDOWS["retaken"] += 1
-    raise AssertionError(f"torch.profiler returned no whole window in "
-                         f"{1 + len(RETAKE_WAITS_S)} tries")
+    raise AssertionError(f"torch.profiler returned no whole window of "
+                         f"{calls} calls in {1 + len(RETAKE_WAITS_S)} tries; "
+                         f"the last counted {counts}")
 
 
 def device_ms(fn, dev, iters: int) -> float:
@@ -290,6 +316,40 @@ def device_ms(fn, dev, iters: int) -> float:
         for _ in range(iters):
             fn()
     return sum(profiled_whole(many, dev, iters).values()) / iters
+
+
+def graph_ms(fn, dev, iters: int) -> float:
+    """Mean device milliseconds per ``fn()`` with the host out of the way:
+    ``fn`` captured once into a CUDA graph (after a side-stream warm-up)
+    and replayed ``iters`` times between CUDA events, its kernels back to
+    back (the host's time per call on the CPU).  The launch counters count
+    the replays' launches, not the capture's."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    if dev.type != "cuda":
+        return call_ms(fn, dev, iters)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    before = kops.launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    captured = {k: v - before[k] for k, v in kops.launch_counts().items()}
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    kops.add_launches(captured, iters)     # 1 + iters replays, 1 capture
+    del graph
+    return start.elapsed_time(end) / iters
 
 
 _SCRUB_KERNELS = {}
@@ -542,7 +602,7 @@ def kernel_records(objs, sz: Sizes, dev) -> dict:
            lambda: torch.index_select(root, 0, widx64),
            int(torch.unique(widx).numel()) * rb + widx.numel() * (rb + 4))
     sv = sf_pack.pack_plain(leaf, wide._k_gl_sorted)
-    st, ln = wide._k_seg_first, wide._k_seg_len
+    st, ln = wide._unpack.seg_first, wide._unpack.seg_len
     S = st.numel()
     ln64 = ln.long()
     record("segment_reduce_sorted",
@@ -556,7 +616,7 @@ def kernel_records(objs, sz: Sizes, dev) -> dict:
     # segment_reduce_blocked: the general SF's reduce (sum) unpack
     gleaf = torch.randn(objs["gen"].nleafspace_total, generator=g, device=dev)
     gsv = sf_pack.pack_plain(gleaf, gen_be._k_gl_sorted)
-    gst, gln = gen_be._k_seg_first, gen_be._k_seg_len
+    gst, gln = gen_be._unpack.seg_first, gen_be._unpack.seg_len
     gln64 = gln.long()
     run_seg = lambda: sf_unpack.segment_reduce_blocked(
         gsv, gst, gln, segs_per_block=kops.SEG_BLOCK, op="sum")
@@ -566,6 +626,8 @@ def kernel_records(objs, sz: Sizes, dev) -> dict:
            gsv.numel() * 4 + gst.numel() * 12)
     check(same_bits(run_seg(), run_seg()), "segment reduce not bitwise "
           "identical run to run")
+    recs["segment_reduce_blocked"]["dtype_shapes"] = segment_dtype_shapes(
+        gsv, gst, gln, dev, it)
 
     # pack_strided: the box halo SF's bcast pack
     box_be = CudaBackend(objs["box"], device=dev)
@@ -615,6 +677,48 @@ def kernel_records(objs, sz: Sizes, dev) -> dict:
            lambda: torch.mv(csr, xz),
            N * K * 8 + (blk.n + 1) * 4 + N * 4, 2.0 * nnz, tol=1e-5)
     return recs, wide_ms
+
+
+def segment_dtype_shapes(sv, st, ln, dev, it: int) -> list:
+    """segment_reduce_blocked's sum at the general SF's reduce (4,194,304
+    rows, 1 M segments) in float16 and int64, two of the dtypes added for
+    the structured-grid slice: kernel against plain bitwise, device ms warm
+    and with L2 scrubbed, bound, and one library call (``segment_reduce``
+    for float16; ``index_add_`` over the segment ids for int64, which
+    ``segment_reduce`` does not take)."""
+    import torch
+    from repro_torch.kernels import ops as kops, sf_unpack
+    S, M = st.numel(), sv.shape[0]
+    ln64 = ln.long()
+    seg_ids = torch.repeat_interleave(torch.arange(S, device=dev), ln64)
+    out = []
+    for dt in (torch.float16, torch.int64):
+        buf = sv.to(dt) if dt.is_floating_point else (sv * 1000).to(dt)
+        run = lambda: sf_unpack.segment_reduce_blocked(
+            buf, st, ln, segs_per_block=kops.SEG_BLOCK, op="sum")
+        plain = lambda: sf_unpack.segment_reduce_plain(buf, st, ln, "sum")
+        check(same_bits(run(), plain()),
+              f"segment_reduce_blocked {dt}: kernel != plain version")
+        if dt.is_floating_point:
+            library = lambda: torch.segment_reduce(buf, "sum", lengths=ln64)
+            lib_name = "torch.segment_reduce"
+        else:
+            library = lambda: torch.zeros(S, dtype=dt, device=dev).index_add_(
+                0, seg_ids, buf)
+            lib_name = "torch.zeros().index_add_"
+        check(max_abs(library(), plain()) <= (
+            0 if not dt.is_floating_point else
+            2e-2 * float(plain().abs().max())), f"library sum {dt} disagrees")
+        rb = buf.element_size()
+        bms, by = bound(M * rb + S * (8 + rb))
+        out.append({"dtype": str(dt)[6:], "rows": M, "segments": S,
+                    "ms": device_ms(run, dev, it),
+                    "ms_cold_l2": cold_device_ms(run, dev, it),
+                    "plain_ms": device_ms(plain, dev, it),
+                    "library": lib_name, "library_ms": device_ms(
+                        library, dev, it),
+                    "bound_ms": bms, "bound_by": by})
+    return out
 
 
 def in_turns(run, prev, dev, it: int):
@@ -862,7 +966,7 @@ def wide_row_variants(sf, be, g, dev, it: int) -> dict:
     variant is timed twice, in turns with the others."""
     import torch
     from repro_torch.kernels import ops as kops, sf_pack, sf_unpack
-    idx, st, ln = be._k_gr, be._k_seg_first, be._k_seg_len
+    idx, st, ln = be._k_gr, be._unpack.seg_first, be._unpack.seg_len
     out = {}
     for w in (64, 256, 1024):
         root = torch.randn(sf.nroots_total, w, generator=g, device=dev)
@@ -1012,10 +1116,22 @@ def kernel_sweep(dev) -> int:
     check(int(lens.sum()) <= M, "sweep segments exceed buffer")
     st = torch.as_tensor(starts, device=dev)
     ln = torch.as_tensor(lens, device=dev)
+    # the dtypes added with the structured-grid slice: integers over their
+    # whole range (sums and products wrap), float16
+    def seg_rand(shape, dt):
+        if dt.is_floating_point or dt == torch.int32:
+            return rand(shape, dt)
+        info = torch.iinfo(dt)
+        return torch.as_tensor(rng.integers(info.min, info.max, shape,
+                                            endpoint=True), device=dev
+                               ).to(dt)
+
+    seg_dtypes = dtypes + [torch.int8, torch.uint8, torch.int16, torch.int64,
+                           torch.float16]
     for unit in [(), (3,), (2, 2)]:
-        for dt in dtypes:
+        for dt in seg_dtypes:
             for op in ["sum", "prod", "max", "min"]:
-                buf = rand((M,) + unit, dt)
+                buf = seg_rand((M,) + unit, dt)
                 if op == "prod" and dt.is_floating_point:
                     buf = (1 + 0.05 * buf.float()).to(dt)
                 if op in ("max", "min") and dt.is_floating_point:
@@ -1438,8 +1554,6 @@ def phase_sf_ops(objs, dev) -> dict:
 def phase_spmv_cg(objs, sz: Sizes, dev) -> dict:
     import scipy.sparse as sp
     import torch
-    from repro_torch.kernels import ops as kops
-    from repro_torch.solvers import cg, cg_async
     A = objs["A"]
     n, rows, cols, vals = objs["coo"]
     check(A.comm.backend_name == "cuda" or dev.type != "cuda",
@@ -1458,49 +1572,61 @@ def phase_spmv_cg(objs, sz: Sizes, dev) -> dict:
         err = float(np.abs(got.double().cpu().numpy() - ref).max())
         check(err <= 1e-5 * np.abs(ref).max(), f"{name}: max|d| {err}")
         errs[name] = err
-
     bh = rng.standard_normal(n).astype(np.float32)
-    b = torch.as_tensor(bh, device=dev)
-    mv = lambda v: A.spmv(v, use_kernel=True)
+    loops = cg_loops(A, S, bh, sz, dev)
+    host, graph = loops["cg"], loops["cg_async_graph"]
+    return {"phase": "spmv_cg", "backend": A.comm.backend_name,
+            "unknowns": n, "spmv_max_abs_err": errs,
+            "cg_iters": host["iters"],
+            "cg_true_rel_residual": host["true_rel_residual"],
+            "cg_ms_per_iter": host["ms_per_iter"],
+            "cg_launches_per_iter": host["launches_per_iter"],
+            "cg_async_iters": graph["iters"],
+            "cg_async_ms_per_iter": graph["ms_per_iter"],
+            "cg_async_launches_per_iter": graph["launches_per_iter"],
+            **loops}
 
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
 
+def cg_solve(run, S, bh, dev) -> dict:
+    """One CG solve by ``run()``: iterations, true relative residual (float64,
+    scipy), host ms per iteration (synchronized) and kernel launches per
+    iteration from the launch counters."""
+    import torch
+    from repro_torch.kernels import ops as kops
     before = kops.launch_counts()
     gc.collect()
-    sync()
+    sync(dev)
     t0 = time.perf_counter()
-    res = cg(mv, b, tol=1e-5, maxiter=sz.cg_maxiter)
-    sync()
-    t_cg = time.perf_counter() - t0
-    per_it = {k: (v - before[k]) / max(res.iters, 1)
-              for k, v in kops.launch_counts().items() if v != before[k]}
+    res = run()
+    sync(dev)
+    dt = time.perf_counter() - t0
+    it = max(res.iters, 1)
     xs = res.x.double().cpu().numpy()
-    true_rel = float(np.linalg.norm(bh - S @ xs) / np.linalg.norm(bh))
-    check(res.converged, f"cg did not converge in {res.iters} iterations")
-    check(true_rel <= 1e-4, f"cg true relative residual {true_rel}")
-    check(bool(torch.isfinite(res.x).all()), "cg x not finite")
+    check(bool(torch.isfinite(res.x).all()), "CG x not finite")
+    return {"iters": res.iters, "converged": res.converged,
+            "true_rel_residual": float(np.linalg.norm(bh - S @ xs)
+                                       / np.linalg.norm(bh)),
+            "ms_per_iter": dt * 1e3 / it, "graph_replays": res.graph_replays,
+            "launches_per_iter": {k: (v - before[k]) / it for k, v in
+                                  kops.launch_counts().items()
+                                  if v != before[k]}, "x": res.x}
 
-    sync()
-    t0 = time.perf_counter()
-    ares = cg_async(mv, b, tol=1e-5, maxiter=50, check_every=0)
-    sync()
-    t_async = time.perf_counter() - t0
-    check(ares.iters == 50, f"cg_async(check_every=0) ran {ares.iters}")
-    check(bool(torch.isfinite(ares.x).all()), "cg_async x not finite")
 
-    # where a CG iteration's time goes: 20 iterations under the profiler
-    # (taken again until the profiler saw every spmv_ell launch of it)
-    cg20 = lambda: cg_async(mv, b, maxiter=20, check_every=0)
+def cg_window(run, dev, iters: int, A) -> dict:
+    """A profiled window of ``iters`` CG iterations made by ``run()``: wall
+    and device ms, idle share, the top kernels, and ``spmv_ell`` on the main
+    path against the byte bound of the SpMV blocks it streams.  The window
+    is taken again until the profiler saw every spmv_ell launch the launch
+    counter counted in it (a graph replay counts its captured launches)."""
+    from repro_torch.kernels import ops as kops
     for wait in (0.0,) + RETAKE_WAITS_S:
         ell0 = kops.spmv_ell.launches
         if dev.type != "cuda":
-            by_name, wall = profiled(cg20, dev)
+            by_name, wall = profiled(run, dev)
             ell_launches = kops.spmv_ell.launches - ell0
             break
         time.sleep(wait)
-        by_name, counts, wall = _profile(cg20, dev)
+        by_name, counts, wall = _profile(run, dev)
         ell_launches = kops.spmv_ell.launches - ell0
         if ell_launches and sum(c for k, c in counts.items()
                                 if "spmv_ell_kernel" in k) == ell_launches:
@@ -1508,30 +1634,354 @@ def phase_spmv_cg(objs, sz: Sizes, dev) -> dict:
         PROFILER_WINDOWS["retaken"] += 1
     else:
         raise AssertionError("torch.profiler missed spmv_ell launches of "
-                             "the profiled CG window in every try")
+                             "a profiled CG window in every try")
     busy = sum(by_name.values())
-    # spmv_ell on the main path, where one SpMV's 16 blocks (about 130 MB)
-    # stream through the 50 MB L2, against the byte bound of those blocks
+    blocks = A._diag_ell + A._offd_ell
     ell_ms = sum(v for k, v in by_name.items() if "spmv_ell_kernel" in k)
     spmv_bytes = sum(blk.data.numel() * 8 + (blk.n + 1) * 4
-                     + blk.data.shape[0] * 4
-                     for blk in A._diag_ell + A._offd_ell)
+                     + blk.data.shape[0] * 4 for blk in blocks)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return {"phase": "spmv_cg", "backend": A.comm.backend_name,
-            "unknowns": n, "spmv_max_abs_err": errs,
-            "cg_iters": res.iters, "cg_true_rel_residual": true_rel,
-            "cg_ms_per_iter": t_cg * 1e3 / max(res.iters, 1),
-            "cg_launches_per_iter": per_it,
-            "cg_async_iters": ares.iters,
-            "cg_async_ms_per_iter": t_async * 1e3 / ares.iters,
-            "profiled_20_iters": {
-                "wall_ms": wall, "device_ms": busy,
-                "device_idle_share": 1.0 - busy / wall if wall else None,
-                "spmv_ell_launches": ell_launches,
-                "spmv_ell_ms": ell_ms,
-                "spmv_ell_bound_ms": bound(spmv_bytes)[0]
-                * ell_launches / len(A._diag_ell + A._offd_ell),
-                "top_kernels_ms": {k[:60]: v for k, v in top}}}
+    return {"iters": iters, "wall_ms": wall, "device_ms": busy,
+            "wall_ms_per_iter": wall / iters,
+            "device_ms_per_iter": busy / iters,
+            "device_idle_share": 1.0 - busy / wall if wall else None,
+            "spmv_ell_launches": ell_launches, "spmv_ell_ms": ell_ms,
+            "spmv_ell_bound_ms": bound(spmv_bytes)[0] * ell_launches
+            / len(blocks),
+            "top_kernels_ms": {k[:60]: v for k, v in top}}
+
+
+def cg_loops(A, S, bh, sz: Sizes, dev, tol: float = 1e-5) -> dict:
+    """Both CG loops on ``A`` to ``tol``: the host-stepped ``cg`` and
+    ``cg_async`` (check_every=1), a CUDA graph on the card, each solve
+    timed twice in turns (cg, graph, graph, cg); the graph's stages timed
+    apart (warm-up and first residual, capture, replays); the graph against
+    the same guarded chunks run eagerly (iterations equal, x compared);
+    ``check_every=0`` running exactly 50 iterations; a profiled 20-iteration
+    window of each loop (the graph's: replays of a chunk captured before
+    the window)."""
+    import torch
+    from repro_torch.solvers import cg, cg_async
+    from repro_torch.solvers.cg import (GRAPH_ITERS, _capture, _cg_async,
+                                        _prepare, _replay)
+    b = torch.as_tensor(bh, device=dev)
+    mv = lambda v: A.spmv(v, use_kernel=True)
+    host = lambda: cg(mv, b, tol=tol, maxiter=sz.cg_maxiter)
+    graph = lambda: cg_async(mv, b, tol=tol, maxiter=sz.cg_maxiter)
+    runs = [cg_solve(f, S, bh, dev) for f in (host, graph, graph, host)]
+    for r in runs:
+        check(r["converged"], f"CG did not converge in {r['iters']}")
+        check(r["true_rel_residual"] <= 1e-4,
+              f"CG true relative residual {r['true_rel_residual']}")
+    check(runs[1]["iters"] == runs[2]["iters"], "graph CG iterations differ "
+          "from run to run")
+    check(same_bits(runs[1]["x"], runs[2]["x"]), "graph CG x differs from "
+          "run to run")
+    check(dev.type != "cuda" or runs[1]["graph_replays"] > 0,
+          "cg_async did not replay a CUDA graph")
+    eager = cg_solve(lambda: _cg_async(mv, b, None, tol,
+                                              sz.cg_maxiter, 1, graph=False),
+                     S, bh, dev)
+    check(eager["iters"] == runs[1]["iters"],
+          f"graph CG ran {runs[1]['iters']} iterations, the eager guarded "
+          f"chunks {eager['iters']}")
+    x_diff = max_abs(eager["x"], runs[1]["x"])
+    # the graph's stages, timed apart
+    sync(dev)
+    t0 = time.perf_counter()
+    loop = _prepare(mv, b, None, tol, sz.cg_maxiter, 1)
+    sync(dev)
+    t1 = time.perf_counter()
+    stages = {"prepare_ms": (t1 - t0) * 1e3}
+    if dev.type == "cuda":
+        g, captured = _capture(loop)
+        sync(dev)
+        t2 = time.perf_counter()
+        replays = _replay(loop, g, captured)
+        sync(dev)
+        t3 = time.perf_counter()
+        it = int(loop.it)
+        stages.update({"capture_ms": (t2 - t1) * 1e3,
+                       "replay_ms": (t3 - t2) * 1e3, "replays": replays,
+                       "iters": it, "replay_ms_per_iter": (t3 - t2) * 1e3
+                       / it, "captured_launches_per_chunk": captured,
+                       "iters_per_graph": GRAPH_ITERS})
+        check(it == runs[1]["iters"], "staged graph CG iterations differ")
+    a0 = cg_async(mv, b, tol=tol, maxiter=50, check_every=0)
+    check(a0.iters == 50, f"cg_async(check_every=0) ran {a0.iters}")
+    check(bool(torch.isfinite(a0.x).all()), "cg_async x not finite")
+    # profiled windows of 20 iterations: the host loop, and two replays of
+    # a chunk of GRAPH_ITERS guarded iterations captured outside the window
+    windows = {"cg": cg_window(lambda: cg(mv, b, tol=0.0, maxiter=20), dev,
+                               20, A)}
+    if dev.type == "cuda":
+        check(20 % GRAPH_ITERS == 0, "window is not whole chunks")
+        win = _prepare(mv, b, None, 0.0, 20, 0)
+        g, captured = _capture(win)
+
+        def replays():
+            win.it.zero_()
+            win.go.fill_(True)
+            _replay(win, g, captured)
+        windows["cg_async_graph"] = cg_window(replays, dev, 20, A)
+    for r in runs + [eager]:
+        del r["x"]
+    return {"cg": runs[0], "cg_async_graph": runs[1],
+            "in_turns_ms_per_iter": {"cg": [runs[0]["ms_per_iter"],
+                                            runs[3]["ms_per_iter"]],
+                                     "cg_async_graph": [
+                                         runs[1]["ms_per_iter"],
+                                         runs[2]["ms_per_iter"]]},
+            "cg_async_eager_chunks": eager,
+            "graph_vs_eager_x_max_abs_diff": x_diff,
+            "graph_stages": stages,
+            "cg_async_check_every_0_iters": a0.iters,
+            "profiled_20_iters": windows}
+
+
+# ------------------------------------------------------------------- dmda
+def dmda_fields(n: int, g, dev) -> list:
+    """The halo configuration's five fields on ``n`` cells, from the seeded
+    generator ``g``: velocity f32 (3,), pressure f32, temperature f32,
+    material id int32, density bf16; some float entries carry NaN payload
+    bits (quiet and signalling, both signs)."""
+    import torch
+    f = [torch.randn(n, 3, generator=g, device=dev),
+         torch.randn(n, generator=g, device=dev),
+         300 + torch.randn(n, generator=g, device=dev),
+         torch.randint(0, 64, (n,), generator=g, device=dev,
+                       dtype=torch.int32),
+         (1 + 0.1 * torch.randn(n, generator=g, device=dev)).to(
+             torch.bfloat16)]
+    f[0].view(torch.int32)[::997, 1] = 0x7FC01234
+    f[1].view(torch.int32)[::1009] = -0x003FFFFF        # 0xFFC00001
+    f[2].view(torch.int32)[5::1013] = 0x7F800123         # signalling
+    f[4].view(torch.int16)[::991] = 0x7FC1
+    return f
+
+
+def _int_view(t):
+    """A tensor's bits as a numpy integer array of its width."""
+    import torch
+    view = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+            8: torch.int64}[t.element_size()]
+    return t.contiguous().view(view).cpu().numpy()
+
+
+def dmda_leaf_map(da, skip: bool):
+    """(local positions, global cells) of every local array entry that
+    DMGlobalToLocal fills, from the grid's geometry alone: the ghosted box
+    of each rank, wrapped, off-domain cells and star corners left as holes,
+    and (pure halo, ``skip``) the owned box left out."""
+    pos, gid = [], []
+    for r in range(da.nranks):
+        nat = da.box_coords(da.ghosted_box(r))
+        wrapped, valid = da.wrap_coords(nat)
+        outside = np.zeros(nat.shape[0], dtype=np.int64)
+        for d, (lo, hi) in enumerate(da.owned_box(r)):
+            outside += (nat[:, d] < lo) | (nat[:, d] >= hi)
+        if da.stencil == "star":
+            valid &= outside <= 1
+        if skip:
+            valid &= outside > 0
+        p = np.flatnonzero(valid)
+        pos.append(da.local_offsets[r] + p)
+        gid.append(da.natural_to_global(wrapped[p]))
+    return np.concatenate(pos), np.concatenate(gid)
+
+
+def exchange_bytes(fields, nglobal: int, nlocal: int, pos, gid) -> float:
+    """The least bytes of a functional replace bcast of ``fields``: each
+    root cell it reads once, each leaf it keeps read once, the whole leaf
+    array written once, and a 4-byte index per edge each way."""
+    row = sum(f[:1].numel() * f.element_size() for f in fields)
+    return float(row * (np.unique(gid).size + (nlocal - pos.size) + nlocal)
+                 + 8 * pos.size)
+
+
+def halo_variant(da, fields_g, sz: Sizes, dev, g) -> dict:
+    """One DMDA halo variant: ``bcast_multi`` of the five fields on the
+    kernel backend held bit for bit against the geometry's oracle, the
+    fused exchange count and launches per group, ``reduce_multi`` sum
+    against an ``np.add.at`` float64 oracle (and bitwise run to run and
+    against the global backend), and the fused bundle against five
+    sequential bcasts in turns."""
+    import torch
+    from repro_torch.core import sflog
+    from repro_torch.kernels import ops as kops, sf_pack
+    it = sz.timing_iters
+    skip = da.interior == "skip"
+    t0 = time.perf_counter()
+    comm = da.comm("cuda", device=dev)
+    t_plan = time.perf_counter() - t0
+    nl = da.nlocal_total
+    pos, gid = dmda_leaf_map(da, skip)
+    check(pos.size == da.sf.nedges_total,
+          f"geometry fills {pos.size} leaves, the SF has "
+          f"{da.sf.nedges_total} edges")
+    leaves = dmda_fields(nl, g, dev)
+    bundle = comm._bundle(fields_g)
+    groups = [{"fields": list(grp.members), "width": grp.width,
+               "carrier": str(grp.carrier)[6:]}
+              for grp in bundle._byte_groups]
+    counters0, launches0 = sflog.counters(), kops.launch_counts()
+    outs = comm.bcast_multi(fields_g, leaves)
+    counters1, launches1 = sflog.counters(), kops.launch_counts()
+    for k, (o, f, lf) in enumerate(zip(outs, fields_g, leaves)):
+        want = _int_view(lf)
+        want[pos] = _int_view(f)[gid]
+        check(np.array_equal(_int_view(o), want),
+              f"bcast_multi field {k} != the grid oracle ({da.interior})")
+    exch = counters1["fields.fused_exchanges"] \
+        - counters0.get("fields.fused_exchanges", 0)
+    check(exch == bundle.ngroups("replace") == 2,
+          f"bcast_multi ran {exch} exchanges for 2 groups")
+    launched = {k: v - launches0[k] for k, v in launches1.items()
+                if v != launches0[k]}
+    packs = sum(launched.get(k, 0) for k in ("pack", "pack_blocked",
+                                             "pack_strided"))
+    check(dev.type != "cuda" or packs == 2,
+          f"bcast_multi launched {launched}, not one pack per group")
+    # the route each fused payload's pack takes
+    plans = []
+    for grp in bundle._byte_groups:
+        payload = bundle._fused(grp, fields_g, da.nglobal)
+        plans.append(dataclasses.asdict(sf_pack.gather_plan(
+            payload, comm.backend._k_gr,
+            torch.empty((pos.size,) + payload.shape[1:],
+                        dtype=payload.dtype, device=dev),
+            kops.PACK_BLOCK_ROWS)))
+    out = {"interior": da.interior, "leaves": nl,
+           "edges": int(da.sf.nedges_total), "plan_setup_s": t_plan,
+           "replace_groups": groups, "reduce_groups": bundle.ngroups("sum"),
+           "bcast_launches": launched, "pack_plans": plans}
+    # reduce_multi sum: all five fields, the f32 ones as one 5-column group
+    lv = dmda_fields(nl, g, dev)
+    lv[0].copy_(torch.nan_to_num(lv[0]))
+    lv[1].copy_(torch.nan_to_num(lv[1]))
+    lv[2].copy_(torch.nan_to_num(lv[2]))
+    lv[4].copy_(torch.nan_to_num(lv[4]))
+    gz = [torch.zeros_like(f) for f in fields_g]
+    launches0 = kops.launch_counts()
+    sums = comm.reduce_multi(lv, gz, "sum")
+    launched = {k: v - launches0[k] for k, v in kops.launch_counts().items()
+                if v != launches0[k]}
+    check(dev.type != "cuda" or (
+        launched.get("segment_reduce_blocked", 0) == 3
+        and sum(launched.get(k, 0) for k in ("pack", "pack_blocked",
+                                             "pack_strided")) == 3),
+        f"reduce_multi launched {launched}, not one pack and one segment "
+        f"reduce per group")
+    again = comm.reduce_multi(lv, gz, "sum")
+    glob = da.comm("global", device=dev).reduce_multi(lv, gz, "sum")
+    errs = []
+    for k, (s_, a_, gl_, f) in enumerate(zip(sums, again, glob, lv)):
+        check(same_bits(s_, a_), f"reduce_multi field {k} differs run to run")
+        check(same_bits(s_, gl_), f"reduce_multi field {k}: cuda != global")
+        leaf = f.double().cpu().numpy()
+        want = np.zeros((da.nglobal,) + leaf.shape[1:])
+        np.add.at(want, gid, leaf[pos])
+        got = s_.double().cpu().numpy()
+        err = float(np.abs(got - want).max()) if got.size else 0.0
+        scale = float(np.abs(want).max())
+        # f32: 1e-6 of the largest sum; bf16 rounds every step to 8 bits
+        # (at most 8 contributions a cell: 8 * 2^-8); int32 exact
+        tol = {torch.float32: 1e-6, torch.bfloat16: 8 * 2 ** -8,
+               torch.int32: 0.0}[f.dtype]
+        check(err <= tol * scale, f"reduce_multi field {k} ({f.dtype}): "
+              f"max|d| {err} > {tol} * {scale}")
+        errs.append({"dtype": str(f.dtype)[6:], "max_abs_err": err,
+                     "scale": scale, "tol_rel": tol})
+    out["reduce_launches"] = launched
+    out["reduce_errors"] = errs
+    # fused against five sequential bcasts, in turns.  Device time is a
+    # CUDA graph's replay of the call: on the H100 torch.profiler dropped
+    # one of the fused bundle's concat kernels in every window of 10 or 20
+    # calls (7 tries each, PERF.md §6), so its windows cannot be held whole
+    fused = lambda: comm.bcast_multi(fields_g, leaves)
+    seq = lambda: [comm.bcast(f, lf) for f, lf in zip(fields_g, leaves)]
+    ms, call = {"fused": [], "sequential": []}, {"fused": [],
+                                                 "sequential": []}
+    for name, fn in (("fused", fused), ("sequential", seq),
+                     ("sequential", seq), ("fused", fused)):
+        ms[name].append(graph_ms(fn, dev, it))
+        call[name].append(call_ms(fn, dev, it))
+    bms, _ = bound(exchange_bytes(fields_g, da.nglobal, nl, pos, gid))
+    out.update({"device_ms": ms, "device_ms_method": "CUDA-graph replay",
+                "call_ms": call, "bound_ms": bms, "bound_by": "bytes"})
+    if dev.type == "cuda":
+        # where each formulation's device time goes, per call: one profiled
+        # window each (not held whole, see above)
+        for name, fn in (("fused", fused), ("sequential", seq)):
+            def many(fn=fn):
+                for _ in range(it):
+                    fn()
+            by_name, _ = profiled(many, dev)
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+            out[f"{name}_top_kernels_ms"] = {k[:70]: v / it for k, v in top}
+    return out
+
+
+def phase_dmda(sz: Sizes, dev) -> dict:
+    """The structured-grid path (PETSc's DMDA tutorials) through the user
+    entry points: a 5-field halo on a box-stencil DMDA in both interior
+    modes (after ``src/snes/tutorials/ex19.c``'s multi-dof exchange, in
+    3D), then the star-stencil Laplacian as ``ParCSR.from_dmda_stencil``
+    and both CG loops on it (after ``src/ksp/ksp/tutorials/ex45.c``)."""
+    import scipy.sparse as sp
+    import torch
+    from repro_torch.meshdist import DMDA
+    from repro_torch.sparse import ParCSR
+    shape = (sz.dmda_grid,) * 3
+    g = torch.Generator(device=dev).manual_seed(4)
+    out = {"phase": "dmda", "shape": list(shape), "nranks": sz.nranks}
+    halo = {}
+    for interior in ("connect", "skip"):
+        t0 = time.perf_counter()
+        da = DMDA(shape, sz.nranks, stencil="box", width=1, periodic=False,
+                  interior=interior)
+        t_da = time.perf_counter() - t0
+        check(da.proc_grid == (2, 2, 2) or sz.nranks != 8,
+              f"proc grid {da.proc_grid}")
+        fields_g = dmda_fields(da.nglobal, g, dev)
+        halo[interior] = {"dmda_setup_s": t_da,
+                          **halo_variant(da, fields_g, sz, dev, g)}
+        del da, fields_g
+    out["halo"] = halo
+    # the CG configuration
+    t0 = time.perf_counter()
+    da = DMDA(shape, sz.nranks, stencil="star", width=1, periodic=False)
+    t_da = time.perf_counter() - t0
+    A = ParCSR.from_dmda_stencil(da, device=dev, backend=None
+                                 if dev.type == "cuda" else "cuda")
+    t_mat = time.perf_counter() - t0 - t_da
+    check(A.comm.backend_name == "cuda", f"select_backend picked "
+          f"{A.comm.backend_name!r} for the stencil's ghost SF")
+    n, rows, cols, vals = poisson_coo(sz.dmda_grid)
+    nnz = sum(c.nnz for c in A.diag + A.offd)
+    check(A.shape == (n, n) and nnz == rows.size,
+          f"stencil matrix {A.shape}, {nnz} nonzeros")
+    # the natural-order Laplacian in the DMDA's ordering: an oracle that
+    # does not go through from_dmda_stencil
+    idx = np.arange(n, dtype=np.int64)
+    gg = sz.dmda_grid
+    perm = da.natural_to_global(np.stack([idx // (gg * gg), (idx // gg) % gg,
+                                          idx % gg], axis=1))
+    S = sp.csr_matrix((vals, (perm[rows], perm[cols])), shape=(n, n))
+    diag = A.diagonal()
+    check(bool((diag == 6).all()), "diagonal() is not 6 everywhere")
+    rng = np.random.default_rng(5)
+    xh = rng.standard_normal(n).astype(np.float32)
+    want = S @ xh.astype(np.float64)
+    got = A.spmv(torch.as_tensor(xh, device=dev), use_kernel=True)
+    err = float(np.abs(got.double().cpu().numpy() - want).max())
+    check(err <= 1e-5 * np.abs(want).max(), f"stencil spmv max|d| {err}")
+    bh = rng.standard_normal(n).astype(np.float32)
+    out["cg"] = {"dmda_setup_s": t_da, "from_dmda_stencil_s": t_mat,
+                 "unknowns": n, "nnz": nnz, "spmv_max_abs_err": err,
+                 "ghost_edges": int(A.sf.nedges_total),
+                 **cg_loops(A, S, bh, sz, dev)}
+    return out
 
 
 # ------------------------------------------------------------------ serve
@@ -1812,12 +2262,20 @@ def run(dev, sz: Sizes) -> list:
     kops.reset_launch_counts()
     emit(phase_sf_ops(objs, dev))
     emit(phase_spmv_cg(objs, sz, dev))
-    counts = kops.launch_counts()
-    missing = [k for k in SF_PATH if counts[k] == 0]
+    by_path = {"sf": kops.launch_counts()}
+    missing = [k for k in SF_PATH if by_path["sf"][k] == 0]
     check(not missing or not on_card, f"SF path never launched {missing}")
-    for name in SF_PATH:
-        recs[name]["launches"] = counts[name]
     del objs
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # the structured-grid path: counters from 0 again
+    kops.reset_launch_counts()
+    emit(phase_dmda(sz, dev))
+    by_path["dmda"] = kops.launch_counts()
+    missing = [k for k in DMDA_PATH if by_path["dmda"][k] == 0]
+    check(not missing or not on_card, f"DMDA path never launched {missing}")
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
@@ -1825,10 +2283,12 @@ def run(dev, sz: Sizes) -> list:
     # the serving path: phase_serve zeroes the counters before its drive
     serve = phase_serve(sz, dev)
     emit(serve)
-    missing = [k for k in SERVE_PATH if serve["launches"][k] == 0]
+    by_path["serve"] = serve["launches"]
+    missing = [k for k in SERVE_PATH if by_path["serve"][k] == 0]
     check(not missing or not on_card, f"serving never launched {missing}")
-    for name in SERVE_PATH:
-        recs[name]["launches"] = serve["launches"][name]
+    for name, rec in recs.items():
+        rec["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
+        rec["launches"] = sum(rec["launches_by_path"].values())
     return [recs[k] for k in REPLACES]
 
 

@@ -9,6 +9,7 @@ Public API:
   UnitSpec                   §3.2 MPI_Datatype unit: payload rows are
                              (n, *unit) dof blocks on every path
   SFOps                      plain torch ops on global tensors
+  FieldBundle, FieldSpec     fused multi-field exchange (SFComm.*_multi)
   patterns.analyze           §5.2 pattern discovery
   redplan                    shared sort-segment reduction machinery (§3.3)
   PlanCache                  signature-keyed cache of plans / programs
@@ -20,6 +21,7 @@ from .graph import PairInfo, RankGraph, StarForest, ragged_offsets
 from .mpiops import Op, get_op
 from .unit import UnitSpec, resolve_unit
 from .ops import PendingComm, SFOps
+from .fields import FieldBundle, FieldSpec, PendingMulti
 from .plan import GlobalPlan, build_global_plan
 from .redplan import ReductionPlan, build_reduction_plan
 from .backend import (CudaBackend, GlobalBackend, SFBackend, SFComm,
@@ -34,6 +36,7 @@ __all__ = [
     "Op", "get_op",
     "UnitSpec", "resolve_unit",
     "PendingComm", "SFOps",
+    "FieldBundle", "FieldSpec", "PendingMulti",
     "GlobalPlan", "build_global_plan",
     "ReductionPlan", "build_reduction_plan",
     "SFBackend", "SFComm", "GlobalBackend", "CudaBackend",

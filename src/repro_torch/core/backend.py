@@ -22,8 +22,11 @@ lets downstream code add implementations without touching this module.
 
 The user-facing object is :class:`SFComm`: build once per StarForest on a
 device (the card unless ``device="cpu"`` is asked for), then call
-``bcast``/``reduce``/``fetch_and_op``/``gather``/``scatter`` on global
-tensors on that device regardless of which backend executes them.
+``bcast``/``reduce``/``fetch_and_op``/``gather``/``scatter`` (and the fused
+multi-field ``bcast_multi``/``reduce_multi``) on global tensors on that
+device regardless of which backend executes them.  Both backends finish
+reductions with :class:`repro_torch.core.ops.SortedUnpack`, so a float
+reduction is the same bits on either, from run to run.
 """
 
 from __future__ import annotations
@@ -31,18 +34,18 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional, Protocol, Tuple, \
     runtime_checkable
 
-import numpy as np
 import torch
 
-from .device import check_payload, index_tensor, resolve_device
+from .device import check_payload, index_tensor, kernel_index, resolve_device
+from .fields import FieldBundle
 from .graph import StarForest
 from .mpiops import SUM, get_op
-from .ops import PendingComm, SFOps, _apply_unique, exclusive_segment_prefix
+from .ops import (PendingComm, SFOps, SortedUnpack, _apply_unique,
+                  exclusive_segment_prefix, unsigned_payloads)
 from .plan import GlobalPlan, build_global_plan
 from .unit import check_plan_unit
 from . import patterns as pat
 from ..kernels import ops as kops
-from ..kernels._index import device_index, segment_meta
 
 __all__ = [
     "SFBackend", "SFComm",
@@ -135,17 +138,7 @@ class GlobalBackend(SFOps):
 # --------------------------------------------------------------------------
 # "cuda" — kernel pack/unpack on the general path (paper §5.2–§5.3)
 # --------------------------------------------------------------------------
-def _kernel_index(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A setup-time index list as the int32 device tensor the kernels take,
-    bounds-checked now so that every later launch skips the check."""
-    a = np.asarray(a, dtype=np.int64)
-    if a.size and (a.min() < -2 ** 31 or a.max() >= 2 ** 31):
-        raise ValueError("index list does not fit in int32")
-    t = torch.as_tensor(a.astype(np.int32), device=device)
-    device_index(t, device)
-    return t
-
-
+@unsigned_payloads
 class CudaBackend:
     """Global-array execution with the CUDA pack/unpack kernels on the hot
     path.
@@ -181,27 +174,20 @@ class CudaBackend:
         self._bcast_strided = pat.detect_strided(p.gr) if p.nedges else None
         self._reduce_strided = pat.detect_strided(gl_sorted) \
             if p.nedges else None
-        self._k_gr = _kernel_index(p.gr, d)
-        self._k_gl = _kernel_index(p.gl, d)
-        self._k_gl_sorted = _kernel_index(gl_sorted, d)
-        self._k_gr_sorted = _kernel_index(gr_sorted, d)
-        self._k_inv_perm = _kernel_index(red.inv_perm, d)
-        self._k_multi_slot = _kernel_index(p.multi_slot, d)
-        self._k_seg_first = _kernel_index(red.seg_first, d)
-        self._k_seg_len = _kernel_index(red.seg_len, d)
-        segment_meta(self._k_seg_first, self._k_seg_len, d)
+        self._k_gr = kernel_index(p.gr, d)
+        self._k_gl = kernel_index(p.gl, d)
+        self._k_gl_sorted = kernel_index(gl_sorted, d)
+        self._k_gr_sorted = kernel_index(gr_sorted, d)
+        self._k_inv_perm = kernel_index(red.inv_perm, d)
+        self._k_multi_slot = kernel_index(p.multi_slot, d)
         self._gl = index_tensor(p.gl, d)
         self._multi_slot = index_tensor(p.multi_slot, d)
-        self._win_src = index_tensor(red.win_src, d)
-        self._win_dst = index_tensor(red.win_dst, d)
-        self._dst_sorted = index_tensor(red.dst_sorted, d)
-        self._seg_dst = index_tensor(red.seg_dst, d)
-        self._seg_of_slot = index_tensor(red.seg_of_slot, d)
         self._seg_start_of_slot = index_tensor(red.seg_start_of_slot, d)
+        self._unpack = SortedUnpack(red, d)
         self._k_src_of_leaf = None
         if p.nedges and p.pattern is not None \
                 and p.pattern.kind == pat.LOCAL_ONLY:
-            self._k_src_of_leaf = _kernel_index(
+            self._k_src_of_leaf = kernel_index(
                 kops.inverse_map(p.gr, p.gl, p.nleafspace), d)
 
     @property
@@ -220,12 +206,6 @@ class CudaBackend:
         if strided is None:
             return kops.pack_rows(data, idx)
         return kops.pack_strided_rows(data, strided)
-
-    def _segment_reduce(self, sorted_vals: torch.Tensor, opname: str
-                        ) -> torch.Tensor:
-        """sf_unpack kernel over the sorted slot buffer -> one row/segment."""
-        return kops.segment_reduce_rows(sorted_vals, self._k_seg_first,
-                                        self._k_seg_len, op=opname)
 
     # ------------------------------------------------------------- bcast
     def bcast_begin(self, rootdata: torch.Tensor, op="replace") -> PendingComm:
@@ -269,26 +249,9 @@ class CudaBackend:
     def reduce_end(self, pending: PendingComm,
                    rootdata: torch.Tensor) -> torch.Tensor:
         assert pending.kind == "reduce"
-        red, op = self.plan.red, pending.op
         rootdata = self._arg(rootdata, "rootdata")
-        sv = pending.payload                   # (E, *unit), sorted by root
-        if self.plan.nedges == 0:
-            return rootdata.clone()
-        if op.name == "replace":
-            # deterministic last-writer wins, precomputed at setup
-            out = rootdata.clone()
-            out[self._win_dst] = sv[self._win_src].to(rootdata.dtype)
-            return out
-        usize = int(np.prod(sv.shape[1:], dtype=np.int64))
-        if op.name in ("sum", "prod", "max", "min") and usize:
-            if red.duplicate_free:
-                # one slot per root: the unpack scatter is the reduction
-                return _apply_unique(rootdata, self._dst_sorted, sv, op)
-            seg = self._segment_reduce(sv, op.name)
-            return _apply_unique(rootdata, self._seg_dst, seg, op)
-        # logical ops reduce as max/min over the int32 view (as mpiops does)
-        seg = op.segment(sv, self._seg_of_slot, red.nseg)
-        return _apply_unique(rootdata, self._seg_dst, seg, op)
+        # the payload is (E, *unit) sorted by root: fold it in the leaf dtype
+        return self._unpack(rootdata, pending.payload, pending.op)
 
     def reduce(self, leafdata, rootdata, op="sum"):
         return self.reduce_end(self.reduce_begin(leafdata, op), rootdata)
@@ -314,9 +277,7 @@ class CudaBackend:
         # the roots' totals: the deterministic segment reduce of the same
         # sorted buffer (no atomics), cast to the root dtype first as the
         # reference's ``.at[].add(sv.astype(root.dtype))`` does
-        root_out = self.reduce_end(
-            PendingComm("reduce", sv.to(rootdata.dtype), SUM, self), rootdata)
-        return root_out, leafupdate
+        return self._unpack(rootdata, sv.to(rootdata.dtype), SUM), leafupdate
 
     # ------------------------------------------------------ gather/scatter
     @property
@@ -388,6 +349,7 @@ class SFComm:
             else select_backend(sf, device=self.device)
         self.backend = make_backend(name, sf, device=self.device, unit=unit,
                                     **backend_kwargs)
+        self._bundles: Dict[tuple, "FieldBundle"] = {}
 
     @property
     def backend_name(self) -> str:
@@ -428,6 +390,44 @@ class SFComm:
 
     def scatter(self, multirootdata, leafdata=None):
         return self.backend.scatter(multirootdata, leafdata)
+
+    # fused multi-field exchange (VecScatter analogue) -------------------
+    def _bundle(self, fields) -> "FieldBundle":
+        """The cached :class:`repro_torch.core.fields.FieldBundle` of a
+        field list's signature (unit shape and dtype of each field)."""
+        key = tuple((tuple(int(d) for d in f.shape[1:]), f.dtype)
+                    for f in fields)
+        if key not in self._bundles:
+            self._bundles[key] = FieldBundle.for_data(self, fields)
+        return self._bundles[key]
+
+    def bcast_multi(self, rootfields, leaffields, op="replace"):
+        """Broadcast k same-pattern fields through ONE fused exchange per
+        byte-compatible group.  Returns the list of updated leaf fields."""
+        return self._bundle(rootfields).bcast_multi(rootfields, leaffields,
+                                                    op)
+
+    def reduce_multi(self, leaffields, rootfields, op="sum"):
+        """Reduce k same-pattern fields through ONE fused exchange per
+        fusable group.  Returns the list of updated root fields."""
+        return self._bundle(leaffields).reduce_multi(leaffields, rootfields,
+                                                     op)
+
+    def bcast_multi_begin(self, rootfields, op="replace"):
+        """Begin half of :meth:`bcast_multi`; complete with
+        :meth:`bcast_multi_end` (or ``pending.end(leaffields)``)."""
+        return self._bundle(rootfields).bcast_multi_begin(rootfields, op)
+
+    def bcast_multi_end(self, pending, leaffields):
+        return pending.end(leaffields)
+
+    def reduce_multi_begin(self, leaffields, op="sum"):
+        """Begin half of :meth:`reduce_multi`: packs every fusable group and
+        returns a :class:`repro_torch.core.fields.PendingMulti`."""
+        return self._bundle(leaffields).reduce_multi_begin(leaffields, op)
+
+    def reduce_multi_end(self, pending, rootfields):
+        return pending.end(rootfields)
 
     def compute_degrees(self):
         return self.backend.compute_degrees()

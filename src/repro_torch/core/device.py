@@ -12,7 +12,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "check_payload", "index_tensor"]
+from ..kernels._index import device_index
+
+__all__ = ["resolve_device", "check_payload", "index_tensor", "kernel_index"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -43,3 +45,14 @@ def check_payload(t, device: torch.device, what: str) -> torch.Tensor:
 def index_tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """A setup-time index array as an int64 tensor on ``device``."""
     return torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
+
+
+def kernel_index(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A setup-time index list as the int32 device tensor the kernels take,
+    bounds-checked now so that every later launch skips the check."""
+    a = np.asarray(a, dtype=np.int64)
+    if a.size and (a.min() < -2 ** 31 or a.max() >= 2 ** 31):
+        raise ValueError("index list does not fit in int32")
+    t = torch.as_tensor(a.astype(np.int32), device=device)
+    device_index(t, device)
+    return t

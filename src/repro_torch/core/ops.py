@@ -13,22 +13,35 @@ end is independent of the in-flight buffer.
 
 Operations are functional: they return new tensors and leave the caller's
 ``rootdata`` / ``leafdata`` untouched.
+
+Two pieces here serve both backends.  :class:`SortedUnpack` finishes every
+reduction the same way on each: the buffer sorted by destination root is
+folded segment by segment in buffer order (the ``sf_unpack`` kernel on the
+card), then written with one duplicate-free scatter, so a float reduction
+is the same bits on every run and on either backend.  :func:`unsigned_payloads`
+carries uint16 / uint32 payloads, which torch can neither gather nor
+combine, through signed types.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 from typing import Optional, Tuple
 
 import torch
 
-from .device import check_payload, index_tensor, resolve_device
+from .device import check_payload, index_tensor, kernel_index, resolve_device
 from .graph import StarForest
-from .mpiops import Op, expand_rows, get_op
+from .mpiops import SUM, Op, get_op
 from .plan import GlobalPlan, build_global_plan
+from .redplan import ReductionPlan
 from .unit import check_plan_unit
+from ..kernels import ops as kops
+from ..kernels._index import segment_meta
 
-__all__ = ["SFOps", "PendingComm"]
+__all__ = ["SFOps", "PendingComm", "SortedUnpack", "unsigned_payloads"]
 
 _AT = {"add": torch.add, "multiply": torch.mul, "max": torch.maximum,
        "min": torch.minimum}
@@ -41,6 +54,7 @@ class PendingComm:
     payload: torch.Tensor
     op: Op
     owner: object = None
+    dtype: Optional[torch.dtype] = None   # the payload's own dtype
 
     def end(self, data: torch.Tensor) -> torch.Tensor:
         """Complete the operation against the destination array."""
@@ -62,6 +76,152 @@ def _apply_unique(target: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
     return out
 
 
+class SortedUnpack:
+    """The unpack of a reduction without atomics (paper §5.3; the
+    reference's sort-segment plan, :mod:`repro_torch.core.redplan`).
+
+    ``sv`` holds one row per slot in ``red.perm`` order, so the slots of one
+    root form a segment.  Replace takes each segment's last writer; sum,
+    prod, max and min fold each segment in buffer order through
+    ``kops.segment_reduce_rows`` (the ``sf_unpack`` kernel on a CUDA
+    tensor, its plain version on the CPU), then one duplicate-free scatter
+    combines the segment rows into a copy of ``rootdata``.  Logical ops
+    reduce through the plain segment ops over their int32 view.
+    """
+
+    def __init__(self, red: ReductionPlan, device: torch.device):
+        self.nseg, self.duplicate_free = red.nseg, red.duplicate_free
+        self.win_src = index_tensor(red.win_src, device)
+        self.win_dst = index_tensor(red.win_dst, device)
+        self.dst_sorted = index_tensor(red.dst_sorted, device)
+        self.seg_dst = index_tensor(red.seg_dst, device)
+        self.seg_of_slot = index_tensor(red.seg_of_slot, device)
+        self.seg_first = kernel_index(red.seg_first, device)
+        self.seg_len = kernel_index(red.seg_len, device)
+        segment_meta(self.seg_first, self.seg_len, device)
+
+    def __call__(self, rootdata: torch.Tensor, sv: torch.Tensor,
+                 op: Op) -> torch.Tensor:
+        if sv.shape[0] == 0:
+            return rootdata.clone()
+        if op.name == "replace":
+            out = rootdata.clone()
+            out[self.win_dst] = sv[self.win_src].to(rootdata.dtype)
+            return out
+        if op.name in _FOLDS and math.prod(sv.shape[1:]):
+            if self.duplicate_free:
+                # one slot per root: the unpack scatter is the reduction
+                return _apply_unique(rootdata, self.dst_sorted, sv, op)
+            seg = kops.segment_reduce_rows(sv, self.seg_first, self.seg_len,
+                                           op=op.name)
+        else:
+            seg = op.segment(sv, self.seg_of_slot, self.nseg)
+        return _apply_unique(rootdata, self.seg_dst, seg, op)
+
+
+_FOLDS = ("sum", "prod", "max", "min")
+
+# torch implements no gather, scatter or arithmetic for uint16 / uint32 on
+# the CPU.  Replace, sum and prod give the same bits in two's complement, so
+# they move such payloads as same-width signed views; max, min and the
+# logical ops compare, so they widen them (and narrow the result back).
+_SIGNED = {torch.uint16: torch.int16, torch.uint32: torch.int32}
+_WIDE = {torch.uint16: torch.int32, torch.uint32: torch.int64}
+
+
+def _keeps_bits(op) -> bool:
+    return get_op(op).name in ("replace", "sum", "prod")
+
+
+def _carry(t, view: bool):
+    if not isinstance(t, torch.Tensor) or t.dtype not in _SIGNED:
+        return t      # (a payload that is no tensor raises in the backend)
+    return t.view(_SIGNED[t.dtype]) if view else t.to(_WIDE[t.dtype])
+
+
+def _dtype(t):
+    return getattr(t, "dtype", None)
+
+
+def _uncarry(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    if dtype not in _SIGNED or t.dtype == dtype:
+        return t
+    return t.view(dtype) if t.dtype == _SIGNED[dtype] else t.to(dtype)
+
+
+def unsigned_payloads(cls):
+    """Class decorator for an SF backend: every operation takes uint16 and
+    uint32 payloads, carried as signed views (replace, sum, prod, between
+    payloads of one dtype) or widened (otherwise), its result returned in
+    the caller's dtype.  A begin records its payload's dtype on the
+    :class:`PendingComm`; an end whose destination has another dtype first
+    converts the payload to it by value, as the reduction itself would."""
+    def pair(f, default):
+        @functools.wraps(f)
+        def run(self, src, dst, op=default):
+            view = _keeps_bits(op) and _dtype(src) == _dtype(dst)
+            return _uncarry(f(self, _carry(src, view), _carry(dst, view), op),
+                            _dtype(dst))
+        return run
+
+    def begin(f, default):
+        @functools.wraps(f)
+        def run(self, src, op=default):
+            pend = f(self, _carry(src, _keeps_bits(op)), op)
+            pend.dtype = src.dtype           # f checked that it is a tensor
+            return pend
+        return run
+
+    def end(f):
+        @functools.wraps(f)
+        def run(self, pending, dst):
+            view, dt = _keeps_bits(pending.op), _dtype(dst)
+            if dt is not None and pending.dtype not in (None, dt) and (
+                    pending.dtype in _SIGNED or dt in _SIGNED):
+                vals = _uncarry(pending.payload, pending.dtype).to(dt)
+                pending = dataclasses.replace(
+                    pending, payload=_carry(vals, view), dtype=dt)
+            return _uncarry(f(self, pending, _carry(dst, view)), dt)
+        return run
+
+    def fetch(f):
+        @functools.wraps(f)
+        def run(self, rootdata, leafdata, op="sum"):
+            view = _dtype(rootdata) == _dtype(leafdata)
+            root, leaf = f(self, _carry(rootdata, view),
+                           _carry(leafdata, view), op)
+            return (_uncarry(root, rootdata.dtype),
+                    _uncarry(leaf, leafdata.dtype))
+        return run
+
+    def gather(f):
+        @functools.wraps(f)
+        def run(self, leafdata):
+            return _uncarry(f(self, _carry(leafdata, True)), _dtype(leafdata))
+        return run
+
+    def scatter(f):
+        @functools.wraps(f)
+        def run(self, multirootdata, leafdata=None):
+            like = multirootdata if leafdata is None else leafdata
+            view = _dtype(like) == _dtype(multirootdata)
+            return _uncarry(f(self, _carry(multirootdata, view),
+                              _carry(leafdata, view)), _dtype(like))
+        return run
+
+    cls.bcast = pair(cls.bcast, "replace")
+    cls.reduce = pair(cls.reduce, "sum")
+    cls.bcast_begin = begin(cls.bcast_begin, "replace")
+    cls.reduce_begin = begin(cls.reduce_begin, "sum")
+    cls.bcast_end = end(cls.bcast_end)
+    cls.reduce_end = end(cls.reduce_end)
+    cls.fetch_and_op = fetch(cls.fetch_and_op)
+    cls.gather = gather(cls.gather)
+    cls.scatter = scatter(cls.scatter)
+    return cls
+
+
+@unsigned_payloads
 class SFOps:
     """Executable operations bound to one StarForest template.
 
@@ -83,18 +243,14 @@ class SFOps:
         else:
             self.plan = build_global_plan(sf, unit=unit)
         p, d = self.plan, self.device
-        win_edges = p.red_perm[p.replace_last]
         self._gr = index_tensor(p.gr, d)
         self._gl = index_tensor(p.gl, d)
         self._perm = index_tensor(p.red_perm, d)
         self._inv_perm = index_tensor(p.red.inv_perm, d)
         self._gr_sorted = index_tensor(p.gr[p.red_perm], d)
-        self._win_edges = index_tensor(win_edges, d)
-        self._win_dst = index_tensor(p.gr[win_edges], d)
-        self._seg_of_edge = index_tensor(p.red_seg_of_edge, d)
         self._seg_start = index_tensor(p.red_seg_start, d)
-        self._seg_root = index_tensor(p.red_seg_root, d)
         self._multi_slot = index_tensor(p.multi_slot, d)
+        self._unpack = SortedUnpack(p.red, d)
 
     @property
     def unit(self):
@@ -135,26 +291,11 @@ class SFOps:
     def reduce_end(self, pending: PendingComm,
                    rootdata: torch.Tensor) -> torch.Tensor:
         assert pending.kind == "reduce"
-        op = pending.op
         rootdata = self._arg(rootdata, "rootdata")
-        vals = pending.payload.to(rootdata.dtype)
-        if op.name == "replace":
-            # deterministic last-writer wins, precomputed at setup
-            out = rootdata.clone()
-            out[self._win_dst] = vals.index_select(0, self._win_edges)
-            return out
-        if op.name == "sum":
-            return rootdata.clone().index_add_(0, self._gr, vals)
-        if op.name in ("prod", "max", "min"):
-            how = {"prod": "prod", "max": "amax", "min": "amin"}[op.name]
-            return rootdata.clone().scatter_reduce_(
-                0, expand_rows(self._gr, vals), vals, how,
-                include_self=True)
-        # logical ops: reduce via segment machinery for exactness
-        sorted_vals = pending.payload.index_select(0, self._perm)
-        seg = op.segment(sorted_vals, self._seg_of_edge,
-                         int(self.plan.red_seg_root.shape[0]))
-        return _apply_unique(rootdata, self._seg_root, seg, op)
+        # values cast to the root dtype, sorted by root: the deterministic
+        # sorted-segment unpack (no atomics on the card)
+        sv = pending.payload.to(rootdata.dtype).index_select(0, self._perm)
+        return self._unpack(rootdata, sv, pending.op)
 
     def reduce(self, leafdata, rootdata, op="sum"):
         return self.reduce_end(self.reduce_begin(leafdata, op), rootdata)
@@ -180,9 +321,7 @@ class SFOps:
         fetched = fetched_sorted.index_select(0, self._inv_perm)
         leafupdate = leafdata.clone()
         leafupdate[self._gl] = fetched.to(leafdata.dtype)
-        root_out = rootdata.clone().index_add_(0, self._gr,
-                                               vals.to(rootdata.dtype))
-        return root_out, leafupdate
+        return self._unpack(rootdata, sv.to(rootdata.dtype), SUM), leafupdate
 
     # ------------------------------------------------------ gather/scatter
     @property

@@ -44,8 +44,10 @@ def _cached(sources: tuple, device: torch.device, tag: str, build):
             return value
     value = build()
 
-    def _drop(_ref, key=key):
-        _CACHE.pop(key, None)
+    def _drop(_ref, key=key, cache=_CACHE):
+        # the dict is bound here: at interpreter exit the module's globals
+        # are cleared before the last weak references die
+        cache.pop(key, None)
 
     _CACHE[key] = (tuple(weakref.ref(o, _drop) for o in objs), versions,
                    value)

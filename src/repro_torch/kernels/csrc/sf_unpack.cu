@@ -13,9 +13,12 @@
 // and walks the segment's rows in buffer order, so the float result is the
 // left-to-right fold of the sorted buffer on every run and matches the plain
 // version bit for bit.  No atomics anywhere.  max/min propagate NaN as
-// torch.maximum / jnp.maximum do (fmaxf / fminf would drop it).  bf16 folds
-// in float and rounds to bf16 after every step, as bf16 tensor arithmetic
-// does.  Only rows < len are read, so the buffer needs no padding.
+// torch.maximum / jnp.maximum do (fmaxf / fminf would drop it).  bf16 and
+// fp16 fold in float and round after every step, as their tensor arithmetic
+// does; integers wrap.  Only rows < len are read, so the buffer needs no
+// padding.  Dtypes: float32, float64, bfloat16, float16, int8, uint8, int16,
+// int32, int64 (uint16 / uint32 payloads arrive as int16 / int32 views or
+// widened, core/ops.py).
 //
 // Bound on this card: bytes.  The work is one combine per input element;
 // the floor is reading the sum of the segment lengths in rows once, the
@@ -28,6 +31,7 @@
 // Every entry point returns cudaGetLastError() after its launch.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -48,21 +52,55 @@ struct Num {
   __device__ static bool gt(T a, T b) { return a > b; }
 };
 
+// Integers wrap around as torch's integer tensors do: the sum and product
+// are taken in the unsigned type W of at least T's width (an int8 or int16
+// product in int would overflow a signed int) and cut back to T's width.
+template <typename T, typename W, long long LO, long long HI>
+struct IntNum {
+  __device__ static T lowest() { return (T)LO; }
+  __device__ static T highest() { return (T)HI; }
+  __device__ static T zero() { return T(0); }
+  __device__ static T one() { return T(1); }
+  __device__ static T add(T a, T b) { return (T)((W)a + (W)b); }
+  __device__ static T mul(T a, T b) { return (T)((W)a * (W)b); }
+  __device__ static bool isnan_(T) { return false; }
+  __device__ static bool gt(T a, T b) { return a > b; }
+};
+
 template <>
-struct Num<int> {
-  __device__ static int lowest() { return INT_MIN; }
-  __device__ static int highest() { return INT_MAX; }
-  __device__ static int zero() { return 0; }
-  __device__ static int one() { return 1; }
-  // wrap-around arithmetic, as torch's int32 tensors
-  __device__ static int add(int a, int b) {
-    return (int)((unsigned)a + (unsigned)b);
+struct Num<int> : IntNum<int, unsigned, INT_MIN, INT_MAX> {};
+template <>
+struct Num<signed char> : IntNum<signed char, unsigned, -128, 127> {};
+template <>
+struct Num<unsigned char> : IntNum<unsigned char, unsigned, 0, 255> {};
+template <>
+struct Num<short> : IntNum<short, unsigned, -32768, 32767> {};
+template <>
+struct Num<long long>
+    : IntNum<long long, unsigned long long, LLONG_MIN, LLONG_MAX> {};
+
+// Half-width floats fold in float and round after every step, as torch's
+// bf16 and fp16 tensor arithmetic does.
+template <>
+struct Num<__half> {
+  typedef __half T;
+  __device__ static T lowest() { return __float2half_rn(-INFINITY); }
+  __device__ static T highest() { return __float2half_rn(INFINITY); }
+  __device__ static T zero() { return __float2half_rn(0.f); }
+  __device__ static T one() { return __float2half_rn(1.f); }
+  __device__ static T add(T a, T b) {
+    return __float2half_rn(__half2float(a) + __half2float(b));
   }
-  __device__ static int mul(int a, int b) {
-    return (int)((unsigned)a * (unsigned)b);
+  __device__ static T mul(T a, T b) {
+    return __float2half_rn(__half2float(a) * __half2float(b));
   }
-  __device__ static bool isnan_(int) { return false; }
-  __device__ static bool gt(int a, int b) { return a > b; }
+  __device__ static bool isnan_(T a) {
+    const float f = __half2float(a);
+    return f != f;
+  }
+  __device__ static bool gt(T a, T b) {
+    return __half2float(a) > __half2float(b);
+  }
 };
 
 template <>
@@ -168,28 +206,29 @@ int launch(const void* buf, void* out, const int* seg_start,
 
 extern "C" {
 
-// Dtype codes: 0 float32, 1 float64, 2 int32, 3 bfloat16.
-// Op codes: 0 sum, 1 prod, 2 max, 3 min.  Returns -1 for an unknown code.
+// Dtype codes: 0 float32, 1 float64, 2 int32, 3 bfloat16, 4 int8, 5 uint8,
+// 6 int16, 7 int64, 8 float16.  Op codes: 0 sum, 1 prod, 2 max, 3 min.
+// Returns -1 for an unknown code.
 int sf_segment_reduce(const void* buf, void* out, const int* seg_start,
                       const int* seg_len, long long S, long long U, int dtype,
                       int op, int segs_per_cta, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+#define SF_REDUCE_AS(T) \
+  return launch<T>(buf, out, seg_start, seg_len, S, U, op, segs_per_cta, s)
   switch (dtype) {
-    case 0:
-      return launch<float>(buf, out, seg_start, seg_len, S, U, op,
-                           segs_per_cta, s);
-    case 1:
-      return launch<double>(buf, out, seg_start, seg_len, S, U, op,
-                            segs_per_cta, s);
-    case 2:
-      return launch<int>(buf, out, seg_start, seg_len, S, U, op, segs_per_cta,
-                         s);
-    case 3:
-      return launch<__nv_bfloat16>(buf, out, seg_start, seg_len, S, U, op,
-                                   segs_per_cta, s);
+    case 0: SF_REDUCE_AS(float);
+    case 1: SF_REDUCE_AS(double);
+    case 2: SF_REDUCE_AS(int);
+    case 3: SF_REDUCE_AS(__nv_bfloat16);
+    case 4: SF_REDUCE_AS(signed char);
+    case 5: SF_REDUCE_AS(unsigned char);
+    case 6: SF_REDUCE_AS(short);
+    case 7: SF_REDUCE_AS(long long);
+    case 8: SF_REDUCE_AS(__half);
     default:
       return -1;
   }
+#undef SF_REDUCE_AS
 }
 
 }  // extern "C"

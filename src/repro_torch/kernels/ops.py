@@ -52,6 +52,7 @@ __all__ = [
     "sf_pack", "sf_pack_strided", "sf_unpack", "spmv_ell", "flash_attention",
     "ref",
     "kernel_wrappers", "reset_launch_counts", "launch_counts",
+    "add_launches",
 ]
 
 PACK_BLOCK_ROWS = 64
@@ -138,3 +139,14 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     return {n: f.launches for n, f in kernel_wrappers().items()}
+
+
+def add_launches(counts: dict, times: int) -> None:
+    """Add ``times`` × ``counts[name]`` to each kernel's count: the launches
+    of ``times`` replays of a CUDA graph whose capture recorded ``counts``
+    (by name, as :func:`launch_counts` gives).  ``times=-1`` takes back what
+    the wrappers counted while the graph was captured, which launched
+    nothing."""
+    wrappers = kernel_wrappers()
+    for name, c in counts.items():
+        wrappers[name].launches += c * times

@@ -19,9 +19,11 @@ Entry points (each counts its launches in ``<function>.launches``):
                                  scatter into ``target``.
 
 Ops: sum, prod, max, min (max/min propagate NaN); dtypes float32, float64,
-int32, bfloat16.  The kernel reads only rows ``< len``, so the buffer needs
-no ``Lmax`` pad.  A wrapper takes the plain version only for tensors on the
-CPU; for a CUDA tensor it launches the kernel or raises.
+bfloat16, float16, int8, uint8, int16, int32, int64 (uint16 and uint32
+payloads reach it as signed views or widened, ``core/ops.py``).  The
+kernel reads only rows ``< len``, so the buffer needs no ``Lmax`` pad.  A
+wrapper takes the plain version only for tensors on the CPU; for a CUDA
+tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -38,7 +40,8 @@ __all__ = ["segment_reduce_sorted", "segment_reduce_blocked",
            "unpack_segments", "segment_reduce_plain"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.int32: 2,
-                torch.bfloat16: 3}
+                torch.bfloat16: 3, torch.int8: 4, torch.uint8: 5,
+                torch.int16: 6, torch.int64: 7, torch.float16: 8}
 _OP_CODES = {"sum": 0, "prod": 1, "max": 2, "min": 3}
 _COMBINE = {"sum": torch.add, "prod": torch.mul, "max": torch.maximum,
             "min": torch.minimum}
@@ -83,8 +86,10 @@ def _reduce(counter, buf: torch.Tensor, seg_start, seg_len, op: str,
         raise ValueError(f"segment reduce op must be one of "
                          f"{sorted(_OP_CODES)}, got {op!r}")
     if buf.dtype not in _DTYPE_CODES:
-        raise TypeError(f"segment reduce takes float32, float64, int32 or "
-                        f"bfloat16, not {buf.dtype}")
+        raise TypeError(f"segment reduce takes "
+                        f"{', '.join(str(d)[6:] for d in _DTYPE_CODES)}, "
+                        f"not "
+                        f"{buf.dtype}")
     start, length, end, lmax = segment_meta(seg_start, seg_len, buf.device)
     M = int(buf.shape[0])
     if end > M:

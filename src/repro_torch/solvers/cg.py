@@ -12,12 +12,16 @@ The paper contrasts two executions of the same Krylov iteration:
 
 ``cg`` below reads the residual norm back to the host every iteration —
 the paper's blocking structure.  ``cg_async`` keeps every scalar on the
-device and reads the device's convergence flag only at iterations where a
-check falls (every ``check_every``; never with ``check_every=0``, the
-paper's CGAsync, which runs to ``maxiter``).  Its loop condition is the
-reference's exactly: ``it < maxiter and (rr > tol² · max(b², 1e-30) or
-it % check_every != 0)``.  The reference fuses the loop into one
-``lax.while_loop``; here the host issues the iterations.
+device and runs the reference's ``lax.while_loop`` as a loop of guarded
+iterations: each takes the reference's loop condition ``it < maxiter and
+(rr > tol² · max(b², 1e-30) or it % check_every != 0)`` (``check_every=0``,
+the paper's CGAsync, runs to ``maxiter``) on the device and keeps the old
+state where it is false, so iterations past the end change nothing and the
+count is the reference's.  On a CUDA device ``GRAPH_ITERS`` guarded
+iterations are captured once into a CUDA graph over static state buffers
+and the graph is replayed until the device flag says the loop is done: the
+host reads one flag per replay and issues no kernel.  On the CPU the same
+chunks run eagerly.
 """
 
 from __future__ import annotations
@@ -27,7 +31,13 @@ from typing import Callable, Optional
 
 import torch
 
-__all__ = ["CGResult", "cg", "cg_async", "as_matvec"]
+from ..kernels import ops as kops
+
+__all__ = ["CGResult", "cg", "cg_async", "as_matvec", "GRAPH_ITERS"]
+
+# guarded iterations per CUDA graph: the host reads the loop's flag once per
+# replay, and a converged loop runs at most GRAPH_ITERS - 1 idle iterations
+GRAPH_ITERS = 10
 
 
 def as_matvec(op) -> Callable:
@@ -47,6 +57,7 @@ class CGResult:
     iters: int
     rnorm: float
     converged: bool
+    graph_replays: int = 0      # cg_async on a CUDA device
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -92,24 +103,125 @@ def cg(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
     return CGResult(x, it, rnorm, rnorm <= tol * max(bnorm, 1e-30))
 
 
+class _GuardedLoop:
+    """The state of ``cg_async``'s loop in fixed buffers, and a chunk of
+    ``GRAPH_ITERS`` guarded iterations that updates them in place and sets
+    ``go``, the loop condition after the chunk."""
+
+    def __init__(self, matvec, x, r, rr, tol2, maxiter: int,
+                 check_every: int):
+        self.matvec, self.tol2 = matvec, tol2
+        self.maxiter, self.check_every = maxiter, check_every
+        self.x, self.r, self.p = x.clone(), r.clone(), r.clone()
+        self.rr = rr.clone()
+        self.it = torch.zeros((), dtype=torch.int32, device=x.device)
+        self.go = self.cond(self.rr, self.it)
+
+    def cond(self, rr, it):
+        """The reference's while-loop condition, on the device."""
+        go = it < self.maxiter
+        if self.check_every:
+            go = go & ((rr > self.tol2) | (it % self.check_every != 0))
+        return go
+
+    def chunk(self) -> None:
+        x, r, p, rr, it = self.x, self.r, self.p, self.rr, self.it
+        for _ in range(GRAPH_ITERS):
+            go = self.cond(rr, it)
+            nx, nr, np_, nrr = _step(self.matvec, x, r, p, rr)
+            # where, not a multiply by the flag: an idle step may hold NaN
+            x, r = torch.where(go, nx, x), torch.where(go, nr, r)
+            p, rr = torch.where(go, np_, p), torch.where(go, nrr, rr)
+            it = it + go.to(it.dtype)
+        for buf, new in ((self.x, x), (self.r, r), (self.p, p),
+                         (self.rr, rr), (self.it, it),
+                         (self.go, self.cond(rr, it))):
+            buf.copy_(new)
+
+
+def _capture(loop: _GuardedLoop):
+    """One chunk of ``loop`` captured into a CUDA graph, and the kernel
+    launches the capture recorded (by name, as ``kops.launch_counts``).  A
+    capture launches nothing, so what the wrappers counted during it is
+    taken back; :func:`_replay` counts the launches of every replay."""
+    dev = loop.x.device
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        # warm-up on a side stream, as CUDA-graph capture asks, on copies
+        # of the state: lazy library setup happens outside the capture
+        _GuardedLoop(loop.matvec, loop.x, loop.r, loop.rr, loop.tol2,
+                     loop.maxiter, loop.check_every).chunk()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    before = kops.launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        loop.chunk()
+    captured = {k: v - before[k] for k, v in kops.launch_counts().items()}
+    kops.add_launches(captured, -1)
+    return graph, captured
+
+
+def _replay(loop: _GuardedLoop, graph, captured: dict) -> int:
+    """Replay ``graph`` until the loop's flag drops; returns the replays.
+    A replay launches every kernel the capture recorded, so the launch
+    counters gain the captured launches once per replay."""
+    replays = 0
+    while True:
+        graph.replay()
+        replays += 1
+        if not bool(loop.go):            # the one host read per replay
+            break
+    kops.add_launches(captured, replays)
+    return replays
+
+
 def cg_async(matvec: Callable, b: torch.Tensor,
              x0: Optional[torch.Tensor] = None, *, tol: float = 1e-8,
              maxiter: int = 500, check_every: int = 1) -> CGResult:
-    """CG whose scalars stay on the device: the host reads the convergence
-    flag ``rr > tol² · max(b², 1e-30)`` only at iterations that are
-    multiples of ``check_every``, and never when ``check_every == 0`` (the
-    paper's CGAsync, which runs to ``maxiter``)."""
+    """CG whose scalars stay on the device, the reference's fused loop: the
+    convergence flag ``rr > tol² · max(b², 1e-30)`` is observed only at
+    iterations that are multiples of ``check_every``, and never when
+    ``check_every == 0`` (the paper's CGAsync, which runs to ``maxiter``).
+    On a CUDA device the loop runs as a replayed CUDA graph; a capture that
+    fails raises."""
+    return _cg_async(matvec, b, x0, tol, maxiter, check_every,
+                     graph=b.device.type == "cuda")
+
+
+def _prepare(matvec, b, x0, tol, maxiter, check_every) -> _GuardedLoop:
+    """The loop's start: the warm-up SpMV, the first residual and the
+    tolerance, all on the device."""
     matvec = as_matvec(matvec)
-    x, r, p, rr = _init(matvec, b, x0)
-    b2 = _dot(b, b)
+    x = torch.zeros_like(b) if x0 is None else x0
+    # one eager application before the loop, as the reference does before
+    # tracing: the first SpMV prepares its index caches, which reads the
+    # device on the host, and such a read would break a capture
+    matvec(x)
+    x, r, _, rr = _init(matvec, b, x)
     tol2 = torch.as_tensor(tol, dtype=rr.dtype, device=rr.device) ** 2 \
-        * torch.clamp(b2, min=1e-30)
-    it = 0
-    while it < maxiter:
-        if check_every and it % check_every == 0 and not bool(rr > tol2):
-            break
-        x, r, p, rr = _step(matvec, x, r, p, rr)
-        it += 1
-    rnorm = float(torch.sqrt(rr))
-    bnorm = float(torch.sqrt(b2))
-    return CGResult(x, it, rnorm, rnorm <= tol * max(bnorm, 1e-30))
+        * torch.clamp(_dot(b, b), min=1e-30)
+    return _GuardedLoop(matvec, x, r, rr, tol2, maxiter, check_every)
+
+
+def _result(loop: _GuardedLoop, b, tol, replays: int) -> CGResult:
+    rnorm = float(torch.sqrt(loop.rr))
+    bnorm = float(torch.sqrt(_dot(b, b)))
+    return CGResult(loop.x.clone(), int(loop.it), rnorm,
+                    rnorm <= tol * max(bnorm, 1e-30), replays)
+
+
+def _cg_async(matvec, b, x0, tol, maxiter, check_every, *,
+              graph: bool) -> CGResult:
+    """:func:`cg_async`, its guarded chunks replayed as a CUDA graph or run
+    eagerly (the CPU's way, and the graph's check on the card)."""
+    loop = _prepare(matvec, b, x0, tol, maxiter, check_every)
+    replays = 0
+    if bool(loop.go):
+        if graph:
+            replays = _replay(loop, *_capture(loop))
+        else:
+            loop.chunk()
+            while bool(loop.go):
+                loop.chunk()
+    return _result(loop, b, tol, replays)

@@ -11,8 +11,9 @@ provides all communication:
   SpMV     y = A x_local (+overlap) then  y += B lvec   after SFBcast
   SpMV^T   lvec = B^T x ; y = A^T x ; SFReduce(lvec -> y, SUM)
 
-The port of ``repro.sparse.parmat``'s ``ParCSR`` construction, SpMV,
-multi-RHS SpMV and transposed SpMV.  All ranks' blocks live on one device
+The port of ``repro.sparse.parmat``'s ``ParCSR`` construction (from COO
+and from a DMDA stencil), ``diagonal``, SpMV, multi-RHS SpMV and transposed
+SpMV.  All ranks' blocks live on one device
 (the card unless ``device="cpu"``); the ELL values and column lists are
 uploaded once, at construction.
 """
@@ -20,7 +21,7 @@ uploaded once, at construction.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -134,9 +135,67 @@ class ParCSR:
         return ParCSR(nranks, row_offsets, col_offsets, diag, offd, garray,
                       dtype=dtype, backend=backend, device=device)
 
+    @staticmethod
+    def from_dmda_stencil(da, coeffs: Optional[Sequence[float]] = None,
+                          dtype=np.float32, backend=None,
+                          device=None) -> "ParCSR":
+        """Stencil operator on a :class:`repro_torch.meshdist.DMDA` grid.
+
+        One matrix row per grid cell (DMDA *global* ordering, so the row/col
+        distribution is exactly the DMDA's owned decomposition and the SpMV
+        ghost SF reproduces the DMDA halo).  ``coeffs`` aligns with
+        ``da.stencil_offsets()`` (center first); default is the
+        row-sum-zero Laplacian: +deg at the center, -1 per neighbor.
+        Off-domain neighbors of non-periodic boundaries are dropped
+        (homogeneous Dirichlet).  Built with numpy, as the reference does.
+        """
+        offs = da.stencil_offsets()
+        if coeffs is None:
+            coeffs = np.concatenate([[float(offs.shape[0] - 1)],
+                                     -np.ones(offs.shape[0] - 1)])
+        coeffs = np.asarray(coeffs, dtype=np.float64)
+        if coeffs.shape[0] != offs.shape[0]:
+            raise ValueError(f"{coeffs.shape[0]} coeffs for "
+                             f"{offs.shape[0]} stencil offsets")
+        rows_l, cols_l, vals_l = [], [], []
+        for r in range(da.nranks):
+            nat = da.box_coords(da.owned_box(r))
+            row = da.owned_offsets[r] + np.arange(nat.shape[0])
+            for o, c in zip(offs, coeffs):
+                nb, valid = da.wrap_coords(nat + o)
+                if not valid.any():
+                    continue
+                rows_l.append(row[valid])
+                cols_l.append(da.natural_to_global(nb[valid]))
+                vals_l.append(np.full(int(valid.sum()), float(c)))
+        n = da.nglobal
+        return ParCSR.from_global_coo(
+            da.nranks, n, n,
+            np.concatenate(rows_l), np.concatenate(cols_l),
+            np.concatenate(vals_l),
+            row_offsets=da.owned_offsets, col_offsets=da.owned_offsets,
+            dtype=dtype, backend=backend, device=device)
+
     @property
     def shape(self) -> Tuple[int, int]:
         return int(self.row_offsets[-1]), int(self.col_offsets[-1])
+
+    def diagonal(self) -> np.ndarray:
+        """Main-diagonal entries (MatGetDiagonal) in float64 — purely local:
+        entry (i, i) always lives in the owner's diagonal block when row and
+        column distributions agree (square MPIAIJ layout)."""
+        m, _ = self.shape
+        out = np.zeros(m, dtype=np.float64)
+        for r in range(self.nranks):
+            r0 = int(self.row_offsets[r])
+            c0 = int(self.col_offsets[r])
+            A = self.diag[r]
+            rows = np.repeat(np.arange(A.shape[0]), np.diff(A.indptr))
+            hit = A.indices == rows + (r0 - c0)
+            out[r0: r0 + A.shape[0]] += np.bincount(
+                rows[hit], weights=A.data[hit].astype(np.float64),
+                minlength=A.shape[0])
+        return out
 
     def toarray(self) -> np.ndarray:
         m, n = self.shape

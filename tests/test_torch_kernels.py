@@ -352,8 +352,9 @@ def test_sf_unpack_matches_ref(op, rng):
 
 def test_segment_reduce_refuses_bad_input():
     buf = torch.zeros(5, dtype=torch.int64)
-    with pytest.raises(TypeError, match="int32"):
-        sf_unpack.segment_reduce_sorted(buf, [0], [5])
+    for dt in (torch.uint16, torch.uint32, torch.bool):
+        with pytest.raises(TypeError, match="int64, float16, not"):
+            sf_unpack.segment_reduce_sorted(buf.to(dt), [0], [5])
     with pytest.raises(IndexError):
         sf_unpack.segment_reduce_sorted(buf.int(), [3], [4])
     with pytest.raises(ValueError, match="op must be"):

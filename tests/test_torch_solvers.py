@@ -22,6 +22,7 @@ from repro.solvers.cg import cg as ref_cg, cg_async as ref_cg_async  # noqa: E40
 from repro.sparse.parmat import ParCSR as RefParCSR  # noqa: E402
 
 from repro_torch.solvers import as_matvec, cg, cg_async  # noqa: E402
+from repro_torch.solvers.cg import GRAPH_ITERS  # noqa: E402
 from repro_torch.sparse import ParCSR  # noqa: E402
 
 
@@ -178,3 +179,99 @@ def test_as_matvec_accepts_operator_and_callable(spd_pair):
     assert as_matvec(f) is f
     with pytest.raises(TypeError):
         as_matvec(3)
+
+
+# --------------------------------------------- cg_async's guarded loop
+def _same_iters(got, want):
+    assert got.iters == want.iters, (got.iters, want.iters)
+    assert got.converged == want.converged
+    np.testing.assert_allclose(n(got.x), n(want.x), atol=1e-3)
+
+
+@pytest.mark.parametrize("check_every", [0, 1, 3])
+def test_guarded_cg_async_matches_reference_iterations(spd_pair,
+                                                       check_every):
+    """The guarded chunks (``GRAPH_ITERS`` iterations each, the ones past
+    the end idle) stop on the reference's iteration, whatever the chunk
+    boundary."""
+    ref, port = spd_pair
+    b = _b(4, 64)
+    maxiter = 50 if check_every == 0 else 300
+    want = ref_cg_async(ref.spmv, jnp.asarray(b), tol=1e-6, maxiter=maxiter,
+                        check_every=check_every)
+    got = cg_async(port, torch.as_tensor(b), tol=1e-6, maxiter=maxiter,
+                   check_every=check_every)
+    _same_iters(got, want)
+    assert got.graph_replays == 0            # no graph on the CPU
+    if check_every == 3:
+        assert got.iters % 3 == 0 and got.iters % GRAPH_ITERS != 0
+
+
+@pytest.mark.parametrize("maxiter", [1, 7, GRAPH_ITERS, GRAPH_ITERS + 1])
+def test_guarded_cg_async_maxiter_cut(spd_pair, maxiter):
+    ref, port = spd_pair
+    b = _b(5, 64)
+    want = ref_cg_async(ref.spmv, jnp.asarray(b), tol=1e-12,
+                        maxiter=maxiter)
+    got = cg_async(port, torch.as_tensor(b), tol=1e-12, maxiter=maxiter)
+    _same_iters(got, want)
+    assert got.iters == maxiter and not got.converged
+
+
+def test_guarded_cg_async_already_converged(spd_pair):
+    """A converged start runs no iteration; a zero right-hand side too."""
+    ref, port = spd_pair
+    b = _b(6, 64)
+    x0 = np.linalg.solve(port.toarray(), b.astype(np.float64)).astype(
+        np.float32)
+    want = ref_cg_async(ref.spmv, jnp.asarray(b), jnp.asarray(x0), tol=1e-4)
+    got = cg_async(port, torch.as_tensor(b), torch.as_tensor(x0), tol=1e-4)
+    assert want.iters == 0
+    _same_iters(got, want)
+    zero = cg_async(port, torch.zeros(64), tol=1e-6)
+    assert zero.iters == 0 and zero.converged
+    assert torch.equal(zero.x, torch.zeros(64))
+
+
+def test_guarded_cg_async_idle_steps_keep_the_state():
+    """On the identity CG converges in one step to r = 0 exactly; the idle
+    steps after it divide 0 by 0, and the guard keeps their NaN out."""
+    b = _b(7, 40)
+    want = ref_cg_async(lambda v: v, jnp.asarray(b), tol=1e-6)
+    got = cg_async(lambda v: v, torch.as_tensor(b), tol=1e-6)
+    assert got.iters == want.iters == 1
+    assert torch.equal(got.x, torch.as_tensor(b))
+    assert got.converged and np.isfinite(got.rnorm)
+
+
+@pytest.mark.parametrize("check_every", [1, 3])
+def test_guarded_cg_async_on_dmda_stencil_matches_reference(check_every):
+    """The slice's CG configuration at a small size: the 7-point Laplacian
+    of a 3D DMDA (star, width 1, Dirichlet) over 8 ranks, through the ELL
+    kernel's plain version."""
+    from repro.meshdist.dmda import DMDA as RefDMDA
+    from repro_torch.meshdist import DMDA
+    kw = dict(stencil="star", width=1, periodic=False)
+    ref = RefParCSR.from_dmda_stencil(RefDMDA((8, 8, 8), 8, **kw))
+    port = ParCSR.from_dmda_stencil(DMDA((8, 8, 8), 8, **kw), device="cpu",
+                                    backend="cuda")
+    b = _b(8, 512)
+    want = ref_cg_async(lambda v: ref.spmv(v, use_kernel=True),
+                        jnp.asarray(b), tol=1e-5, maxiter=500,
+                        check_every=check_every)
+    got = cg_async(lambda v: port.spmv(v, use_kernel=True),
+                   torch.as_tensor(b), tol=1e-5, maxiter=500,
+                   check_every=check_every)
+    _same_iters(got, want)
+    assert got.converged
+    blocking = cg(port, torch.as_tensor(b), tol=1e-5, maxiter=500)
+    assert abs(blocking.iters - got.iters) <= check_every
+
+
+def test_add_launches_counts_graph_replays():
+    from repro_torch.kernels import ops as kops
+    kops.reset_launch_counts()
+    kops.add_launches({"spmv_ell": 16, "pack_blocked": 1}, 3)
+    counts = kops.launch_counts()
+    assert counts["spmv_ell"] == 48 and counts["pack_blocked"] == 3
+    kops.reset_launch_counts()
