@@ -74,6 +74,34 @@ Phases, each printing one JSON line and asserting as it goes:
            stencil's ``ParCSR.from_dmda_stencil`` (``ksp/tutorials/ex45.c``:
            2,097,152 unknowns) against scipy, ``diagonal()``, and
            ``cg_loops`` on it.
+  mg       geometric-multigrid-preconditioned CG (``ksp/tutorials/ex45.c``
+           with ``-pc_type mg`` and Galerkin coarse operators): a 129^3
+           star-stencil DMDA over 2x2x2 ranks (2,146,689 unknowns),
+           ``Multigrid(nlevels=5)`` (129 -> 65 -> 33 -> 17 -> 9; the 729-point
+           coarsest level through a dense pinv), V(1,1) Jacobi at 2/3.  Each
+           Galerkin operator against scipy's P^T A P (float64, 1e-4; P built
+           apart from ``Transfer``), prolong / restrict against P x / P^T x
+           and inject exactly, one V-cycle on the card against its CPU twin
+           (1e-4 max|v|) and against itself (bitwise); then host ``cg(M=)``
+           and graph ``cg_async(M=)`` in turns (same count, true relative
+           residual <= 1e-4 at tol 1e-5, at most half of plain CG's
+           iterations), the graph against its eager chunks (bitwise), each
+           setup stage's host seconds, capture ms, the V-cycle's device ms
+           (a graph replay) and its kernels, its SF events, and a profiled
+           10-iteration window of each loop.
+  assembly stash assembly (``MatSetValues`` with off-process rows, paper
+           §6.4): every rank of the 129^3 DMDA adds the 7-point operator as
+           edge elements (6,390,144 edges); the matrix bitwise equal to
+           ``from_dmda_stencil`` and to an ``np.add.at`` oracle, exactly one
+           SFReduce per ``assemble()`` (sflog), a second ``assemble()``
+           reusing the flush SF; ``assemble_coo`` stash and fetch (whose
+           counting SF has roots of ~3 M leaves) give the same matrix.
+  plex     ``DMPlexDistribute`` / ``DMPlexDistributeOverlap`` (paper §6.3):
+           a periodic 64^3 hex mesh over 8 ranks from the ``seq`` and
+           ``rand`` layouts, balanced, cones and labels carried bitwise;
+           the vertex SF's ghost assembly (8 cells a vertex); one- and
+           two-level overlaps against a breadth-first oracle, and the
+           overlap ``DMGlobalToLocal`` of the cell ids.
   serve    qwen3-4b at its published size in bf16 (random weights from a
            seeded generator): the flash kernel held against the plain decode
            attention through the whole model (prefill(p) vs prefill(p[:-1])
@@ -85,9 +113,11 @@ Phases, each printing one JSON line and asserting as it goes:
            launch on the wgmma route), and profiled windows of prefills and
            decode steps.
 
-Three paths carry the kernels: ``sf_ops`` + ``spmv_cg`` (the SF kernels),
-``dmda`` (``pack_blocked``, ``segment_reduce_blocked``, ``spmv_ell``) and
-the serve phase's drive (``flash_attention``).  Every launch counter is set
+Six paths carry the kernels: ``sf_ops`` + ``spmv_cg`` (the SF kernels),
+``dmda`` (``pack_blocked``, ``segment_reduce_blocked``, ``spmv_ell``),
+``mg`` (``pack_blocked``, a segment reduce, ``spmv_ell``), ``assembly``
+(``pack_blocked``, a segment reduce), ``plex`` (``pack_blocked``) and the
+serve phase's drive (``flash_attention``).  Every launch counter is set
 to 0 just before each and read just after, and each kernel must have
 launched on its path; a kernel's ``launches_by_path`` are those counts and
 its ``launches`` their sum.
@@ -159,6 +189,10 @@ SF_PATH = ("pack", "pack_blocked", "pack_strided", "bcast_fused",
            "segment_reduce_sorted", "segment_reduce_blocked", "spmv_ell")
 DMDA_PATH = ("pack_blocked", "segment_reduce_blocked", "spmv_ell")
 SERVE_PATH = ("flash_attention",)
+MG_PATH = ("pack_blocked", "spmv_ell")          # and a segment reduce
+ASSEMBLY_PATH = ("pack_blocked",)               # and a segment reduce
+PLEX_PATH = ("pack_blocked",)
+SEGMENT_REDUCES = ("segment_reduce_sorted", "segment_reduce_blocked")
 
 
 @dataclasses.dataclass
@@ -174,6 +208,10 @@ class Sizes:
     wide_roots: int = 1 << 14     # wide-row SF (unit (WIDE,))
     wide_edges: int = 1 << 16
     dmda_grid: int = 128          # DMDA edge (the halo and CG configs)
+    mg_grid: int = 129            # mg and assembly DMDA edge (odd: coarsens)
+    mg_levels: int = 5            # 129 -> 65 -> 33 -> 17 -> 9
+    mg_maxiter: int = 100
+    plex_mesh: int = 64           # periodic hex mesh edge (cells = edge^3)
     cg_maxiter: int = 2000
     timing_iters: int = 20
     # serve: qwen3-4b at its published size, bf16 (smoke=True: its smoke
@@ -1612,12 +1650,15 @@ def cg_solve(run, S, bh, dev) -> dict:
                                   if v != before[k]}, "x": res.x}
 
 
-def cg_window(run, dev, iters: int, A) -> dict:
+def cg_window(run, dev, iters: int, A=None, strict: bool = True) -> dict:
     """A profiled window of ``iters`` CG iterations made by ``run()``: wall
-    and device ms, idle share, the top kernels, and ``spmv_ell`` on the main
-    path against the byte bound of the SpMV blocks it streams.  The window
+    and device ms, idle share, the top kernels, and (given the operator
+    ``A`` whose blocks are every ELL launch) ``spmv_ell`` on the main path
+    against the byte bound of the SpMV blocks it streams.  The window
     is taken again until the profiler saw every spmv_ell launch the launch
-    counter counted in it (a graph replay counts its captured launches)."""
+    counter counted in it (a graph replay counts its captured launches);
+    if no try is whole, the run fails, or with ``strict=False`` the last
+    try is reported with ``whole`` false (its times are lower bounds)."""
     from repro_torch.kernels import ops as kops
     for wait in (0.0,) + RETAKE_WAITS_S:
         ell0 = kops.spmv_ell.launches
@@ -1628,27 +1669,36 @@ def cg_window(run, dev, iters: int, A) -> dict:
         time.sleep(wait)
         by_name, counts, wall = _profile(run, dev)
         ell_launches = kops.spmv_ell.launches - ell0
-        if ell_launches and sum(c for k, c in counts.items()
-                                if "spmv_ell_kernel" in k) == ell_launches:
+        seen = sum(c for k, c in counts.items() if "spmv_ell_kernel" in k)
+        if ell_launches and seen == ell_launches:
             break
         PROFILER_WINDOWS["retaken"] += 1
     else:
-        raise AssertionError("torch.profiler missed spmv_ell launches of "
-                             "a profiled CG window in every try")
+        check(not strict, "torch.profiler missed spmv_ell launches of a "
+              "profiled CG window in every try")
     busy = sum(by_name.values())
-    blocks = A._diag_ell + A._offd_ell
     ell_ms = sum(v for k, v in by_name.items() if "spmv_ell_kernel" in k)
-    spmv_bytes = sum(blk.data.numel() * 8 + (blk.n + 1) * 4
-                     + blk.data.shape[0] * 4 for blk in blocks)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return {"iters": iters, "wall_ms": wall, "device_ms": busy,
-            "wall_ms_per_iter": wall / iters,
-            "device_ms_per_iter": busy / iters,
-            "device_idle_share": 1.0 - busy / wall if wall else None,
-            "spmv_ell_launches": ell_launches, "spmv_ell_ms": ell_ms,
-            "spmv_ell_bound_ms": bound(spmv_bytes)[0] * ell_launches
-            / len(blocks),
-            "top_kernels_ms": {k[:60]: v for k, v in top}}
+    short = {}                 # kernels summed by the first 60 characters
+    for k, v in by_name.items():
+        short[k[:60]] = short.get(k[:60], 0.0) + v
+    top = sorted(short.items(), key=lambda kv: -kv[1])[:8]
+    out = {"iters": iters, "wall_ms": wall, "device_ms": busy,
+           "wall_ms_per_iter": wall / iters,
+           "device_ms_per_iter": busy / iters,
+           "device_idle_share": 1.0 - busy / wall if wall else None,
+           "spmv_ell_launches": ell_launches, "spmv_ell_ms": ell_ms,
+           "top_kernels_ms": dict(top)}
+    if dev.type == "cuda":
+        # a window short of its counted launches (strict=False only): its
+        # device times are lower bounds
+        out["spmv_ell_launches_profiled"] = seen
+    if A is not None:          # every ELL launch one of A's blocks
+        blocks = A._diag_ell + A._offd_ell
+        spmv_bytes = sum(blk.data.numel() * 8 + (blk.n + 1) * 4
+                         + blk.data.shape[0] * 4 for blk in blocks)
+        out["spmv_ell_bound_ms"] = bound(spmv_bytes)[0] * ell_launches \
+            / len(blocks)
+    return out
 
 
 def cg_loops(A, S, bh, sz: Sizes, dev, tol: float = 1e-5) -> dict:
@@ -1984,6 +2034,625 @@ def phase_dmda(sz: Sizes, dev) -> dict:
     return out
 
 
+# -------------------------------------------------- mg, assembly, plex
+def edge_element_triplets(da):
+    """The star-stencil Laplacian of a non-periodic ``da`` as edge elements
+    (the ``assembly`` phase's insertion pattern), per rank: for every grid
+    edge (p, p + e_d) whose lower end p the rank owns, ``[[1, -1], [-1,
+    1]]`` at (p, p), (p, q), (q, p), (q, q); and ``2 ndim - deg(p)`` at (p,
+    p) of every owned boundary point, so every diagonal sums to the
+    stencil's centre.  Rows of q owned by another rank are the stash.
+    Small integers only: every sum is exact in float32."""
+    out = []
+    nd = da.ndim
+    for r in range(da.nranks):
+        nat = da.box_coords(da.owned_box(r))
+        p = da.owned_offsets[r] + np.arange(nat.shape[0], dtype=np.int64)
+        deg = np.zeros(p.size, dtype=np.int64)
+        rows, cols, vals = [], [], []
+        for d in range(nd):
+            deg += (nat[:, d] > 0).astype(np.int64) \
+                + (nat[:, d] < da.shape[d] - 1)
+            up = nat[:, d] < da.shape[d] - 1
+            q = nat[up].copy()
+            q[:, d] += 1
+            pe, qe = p[up], da.natural_to_global(q)
+            rows += [pe, pe, qe, qe]
+            cols += [pe, qe, pe, qe]
+            vals += [np.ones(pe.size), -np.ones(pe.size), -np.ones(pe.size),
+                     np.ones(pe.size)]
+        bd = deg < 2 * nd
+        rows.append(p[bd])
+        cols.append(p[bd])
+        vals.append((2 * nd - deg[bd]).astype(np.float64))
+        out.append((np.concatenate(rows), np.concatenate(cols),
+                    np.concatenate(vals).astype(np.float32)))
+    return out
+
+
+@contextlib.contextmanager
+def stage_times(patches):
+    """Time every call of the functions ``getattr(owner, attr)`` for each
+    ``(owner, attr, name)`` while the block runs; yields the list of
+    ``(name, host seconds)`` in the order the calls return (a nested call
+    before its caller)."""
+    log, saved = [], []
+    for owner, attr, name in patches:
+        real = getattr(owner, attr)
+
+        def timed(*a, _real=real, _name=name, **k):
+            t0 = time.perf_counter()
+            try:
+                return _real(*a, **k)
+            finally:
+                log.append((_name, time.perf_counter() - t0))
+        saved.append((owner, attr, real))
+        setattr(owner, attr, timed)
+    try:
+        yield log
+    finally:
+        for owner, attr, real in saved:
+            setattr(owner, attr, real)
+
+
+def parcsr_scipy(A):
+    """A ParCSR's host blocks as one scipy CSR matrix in float64."""
+    import scipy.sparse as sp
+    rows, cols, vals = [], [], []
+    for r in range(A.nranks):
+        for blk, colmap in ((A.diag[r], None), (A.offd[r], A.garray[r])):
+            rr = np.repeat(np.arange(blk.shape[0]), np.diff(blk.indptr))
+            rows.append(rr + int(A.row_offsets[r]))
+            cols.append(blk.indices + int(A.col_offsets[r]) if colmap is None
+                        else colmap[blk.indices])
+            vals.append(blk.data.astype(np.float64))
+    return sp.csr_matrix((np.concatenate(vals), (np.concatenate(rows),
+                                                 np.concatenate(cols))),
+                         shape=A.shape)
+
+
+def natural_perm(da) -> np.ndarray:
+    """Global id of every point of ``da`` in natural (row-major) order."""
+    return da.natural_to_global(da.box_coords([(0, e) for e in da.shape]))
+
+
+def interpolation_matrix(fine, coarse):
+    """P (fine x coarse, both in their DMDA's global ordering) of
+    vertex-centred linear interpolation, built apart from ``Transfer``: the
+    Kronecker product of the 1-D matrices (even fine index: its coarse
+    point, weight 1; odd: both neighbours, 1/2 each) in natural order,
+    then permuted."""
+    import scipy.sparse as sp
+    P = None
+    for nf, nc in zip(fine.shape, coarse.shape):
+        f = np.arange(nf)
+        odd = f[f % 2 == 1]
+        m = sp.csr_matrix((np.concatenate([np.where(f % 2, 0.5, 1.0),
+                                           np.full(odd.size, 0.5)]),
+                           (np.concatenate([f, odd]),
+                            np.concatenate([f // 2, odd // 2 + 1]))),
+                          shape=(nf, nc))
+        P = m if P is None else sp.kron(P, m, format="csr")
+    P = P.tocoo()
+    return sp.csr_matrix((P.data, (natural_perm(fine)[P.row],
+                                   natural_perm(coarse)[P.col])),
+                         shape=P.shape)
+
+
+def close_sparse(got, want, rtol: float, atol: float) -> float:
+    """Largest |got - want| over the union of both patterns; fails where
+    an entry differs by more than ``atol + rtol |want|``."""
+    d = (got - want).tocoo()
+    w = want.tocsr()
+    w.sum_duplicates()
+    wrow = np.repeat(np.arange(w.shape[0]), np.diff(w.indptr))
+    wkey = wrow * w.shape[1] + w.indices       # sorted: canonical CSR
+    dkey = d.row.astype(np.int64) * w.shape[1] + d.col
+    at = np.minimum(np.searchsorted(wkey, dkey), max(wkey.size - 1, 0))
+    w = np.where(wkey[at] == dkey, np.abs(w.data[at]), 0.0) if wkey.size \
+        else np.zeros(d.nnz)
+    bad = np.abs(d.data) > atol + rtol * w
+    check(not bad.any(), f"{int(bad.sum())} entries off by more than "
+          f"{atol} + {rtol}|want|")
+    return float(np.abs(d.data).max()) if d.nnz else 0.0
+
+
+def multigrid_twin(mg, device):
+    """``mg``'s hierarchy on another device, from the same level operators
+    (their host blocks) and grids, without computing the Galerkin products
+    again: the CPU twin the card's V-cycle is held against."""
+    import torch
+    from repro_torch.solvers import Multigrid, Transfer
+    from repro_torch.sparse import ParCSR
+    tw = Multigrid.__new__(Multigrid)
+    tw.device = torch.device(device)
+    tw.das, tw.nu_pre, tw.nu_post = mg.das, mg.nu_pre, mg.nu_post
+    tw.omega = mg.omega
+    tw.ops = [ParCSR(A.nranks, A.row_offsets, A.col_offsets, A.diag, A.offd,
+                     A.garray, dtype=A.dtype, device=device) for A in mg.ops]
+    tw.transfers = [Transfer(t.fine, t.coarse, device=device)
+                    for t in mg.transfers]
+    tw.diags = [d.to(device) for d in mg.diags]
+    tw._coarse_inv = mg._coarse_inv.to(device)
+    return tw
+
+
+def mg_setup(da, sz: Sizes, dev):
+    """``Multigrid(da, nlevels)`` with the host seconds of each stage:
+    ``from_dmda_stencil``, the hierarchy, per level the ``Transfer`` and
+    the ``ptap`` (its ``spmm``, which holds ``fetch_rows`` and part of the
+    ``spgemm`` time, and its ``assemble_coo``), and the pinv."""
+    from repro_torch.solvers import multigrid as mgmod
+    from repro_torch.sparse import ParCSR, parmat
+    t0 = time.perf_counter()
+    A = ParCSR.from_dmda_stencil(da, device=dev)
+    t_a = time.perf_counter() - t0
+    patches = [(mgmod, "build_hierarchy", "hierarchy"),
+               (mgmod, "Transfer", "transfer"), (ParCSR, "ptap", "ptap"),
+               (ParCSR, "spmm", "spmm"), (ParCSR, "fetch_rows", "fetch_rows"),
+               (parmat, "spgemm", "spgemm"),
+               (parmat, "assemble_coo", "assemble_coo"),
+               (np.linalg, "pinv", "pinv")]
+    t0 = time.perf_counter()
+    with stage_times(patches) as log:
+        mg = mgmod.Multigrid(da, A=A, nlevels=sz.mg_levels, device=dev)
+    total = time.perf_counter() - t0
+    levels, cur, rest = [], {}, {}
+    for name, sec in log:
+        if name in ("hierarchy", "pinv"):
+            rest[f"{name}_s"] = sec
+            continue
+        cur[f"{name}_s"] = cur.get(f"{name}_s", 0.0) + sec
+        if name == "ptap":
+            levels.append(cur)
+            cur = {}
+    return A, mg, {"from_dmda_stencil_s": t_a, "multigrid_s": total, **rest,
+                   "per_level": levels}
+
+
+def pcg_loops(A, mg, S, bh, sz: Sizes, dev, tol: float = 1e-5) -> dict:
+    """The V(1,1)-preconditioned CG loops on ``A``: host ``cg(M=)`` and
+    graph ``cg_async(M=)`` in turns (host, graph, graph, host), plain CG,
+    the graph against its guarded chunks run eagerly, the graph's stages,
+    and a profiled 10-iteration window of each loop."""
+    import torch
+    from repro_torch.solvers import cg, cg_async
+    from repro_torch.solvers.cg import (GRAPH_ITERS, _capture, _cg_async,
+                                        _prepare, _replay)
+    b = torch.as_tensor(bh, device=dev)
+    mv = lambda v: A.spmv(v, use_kernel=True)
+    M = mg.vcycle
+    host = lambda: cg(mv, b, tol=tol, maxiter=sz.mg_maxiter, M=M)
+    graph = lambda: cg_async(mv, b, tol=tol, maxiter=sz.mg_maxiter, M=M)
+    runs = [cg_solve(f, S, bh, dev) for f in (host, graph, graph, host)]
+    for r in runs:
+        check(r["converged"], f"MG-PCG did not converge in {r['iters']}")
+        check(r["true_rel_residual"] <= 1e-4,
+              f"MG-PCG true relative residual {r['true_rel_residual']}")
+    check(len({r["iters"] for r in runs}) == 1, "host and graph MG-PCG "
+          f"iterations differ: {[r['iters'] for r in runs]}")
+    check(same_bits(runs[1]["x"], runs[2]["x"]), "graph MG-PCG x differs "
+          "from run to run")
+    check(dev.type != "cuda" or runs[1]["graph_replays"] > 0,
+          "cg_async(M=) did not replay a CUDA graph")
+    plain = cg_solve(lambda: cg(mv, b, tol=tol, maxiter=sz.cg_maxiter),
+                     S, bh, dev)
+    check(plain["converged"], "plain CG did not converge")
+    check(2 * runs[0]["iters"] <= plain["iters"], f"MG-PCG took "
+          f"{runs[0]['iters']} iterations, plain CG {plain['iters']}")
+    eager = cg_solve(lambda: _cg_async(mv, b, None, tol, sz.mg_maxiter, 1,
+                                       graph=False, M=M), S, bh, dev)
+    check(eager["iters"] == runs[1]["iters"], f"graph MG-PCG ran "
+          f"{runs[1]['iters']} iterations, its eager chunks "
+          f"{eager['iters']}")
+    check(same_bits(eager["x"], runs[1]["x"]), "graph MG-PCG x differs "
+          "from its eager chunks")
+    sync(dev)
+    t0 = time.perf_counter()
+    loop = _prepare(mv, b, None, tol, sz.mg_maxiter, 1, M)
+    sync(dev)
+    t1 = time.perf_counter()
+    stages = {"prepare_ms": (t1 - t0) * 1e3}
+    # a PCG iteration is ~13 SpMVs and ~1,000 kernels: 2-iteration windows
+    # (torch.profiler drops events of longer ones; a window that stays
+    # short of its counted ELL launches reports no time)
+    windows = {"cg": cg_window(lambda: cg(mv, b, tol=0.0, maxiter=2, M=M),
+                               dev, 2, strict=False)}
+    if dev.type == "cuda":
+        g, captured = _capture(loop)
+        sync(dev)
+        t2 = time.perf_counter()
+        replays = _replay(loop, g, captured)
+        sync(dev)
+        t3 = time.perf_counter()
+        stages.update({"capture_ms": (t2 - t1) * 1e3,
+                       "replay_ms": (t3 - t2) * 1e3, "replays": replays,
+                       "iters": int(loop.it),
+                       "captured_launches_per_chunk": captured,
+                       "iters_per_graph": GRAPH_ITERS})
+        check(int(loop.it) == runs[1]["iters"], "staged graph MG-PCG "
+              "iterations differ")
+        del g
+        win = _prepare(mv, b, None, 0.0, GRAPH_ITERS, 0, M)
+        sync(dev)
+        t4 = time.perf_counter()
+        g, captured = _capture(win)
+        sync(dev)
+        stages["capture_again_ms"] = (time.perf_counter() - t4) * 1e3
+
+        def replay():
+            win.it.zero_()
+            win.go.fill_(True)
+            _replay(win, g, captured)
+        windows["cg_async_graph"] = cg_window(replay, dev, GRAPH_ITERS,
+                                              strict=False)
+    for r in runs + [eager, plain]:
+        del r["x"]
+    return {"pcg": runs[0], "pcg_async_graph": runs[1],
+            "in_turns_ms_per_iter": {
+                "pcg": [runs[0]["ms_per_iter"], runs[3]["ms_per_iter"]],
+                "pcg_async_graph": [runs[1]["ms_per_iter"],
+                                    runs[2]["ms_per_iter"]]},
+            "pcg_async_eager_chunks": eager, "plain_cg": plain,
+            "graph_stages": stages, "profiled_windows": windows}
+
+
+def phase_mg(sz: Sizes, dev) -> dict:
+    """Geometric-multigrid-preconditioned CG (PETSc's
+    ``ksp/tutorials/ex45.c`` with ``-pc_type mg`` and Galerkin coarse
+    operators): a 129^3 star-stencil DMDA over 2x2x2 ranks, five levels
+    (129 -> 65 -> 33 -> 17 -> 9, the coarsest through a dense pinv),
+    V(1,1) weighted Jacobi.  Holds every Galerkin operator against scipy's
+    P^T A P (P built apart from Transfer), the transfers against P x, P^T x
+    and the injection, one V-cycle on the card against the CPU twin of the
+    hierarchy and against itself, then both PCG loops (``pcg_loops``)."""
+    import torch
+    from repro_torch.core import sflog
+    from repro_torch.meshdist import DMDA
+    shape = (sz.mg_grid,) * 3
+    t0 = time.perf_counter()
+    da = DMDA(shape, sz.nranks, stencil="star", width=1, periodic=False)
+    t_da = time.perf_counter() - t0
+    out = {"phase": "mg", "shape": list(shape), "nranks": sz.nranks,
+           "unknowns": da.nglobal}
+    A, mg, setup = mg_setup(da, sz, dev)
+    out["setup"] = {"dmda_s": t_da, **setup}
+    out["levels"] = [{"shape": list(d.shape), "unknowns": d.nglobal,
+                      "nnz": sum(c.nnz for c in Al.diag + Al.offd),
+                      "ell_width": max(b.data.shape[1] for b in
+                                       Al._diag_ell + Al._offd_ell),
+                      "ghost_edges": int(Al.sf.nedges_total)}
+                     for d, Al in zip(mg.das, mg.ops)]
+    # the Galerkin operators and the transfers against scipy (float64)
+    rng = np.random.default_rng(11)
+    galerkin, transfers = [], []
+    for l, t in enumerate(mg.transfers):
+        P = interpolation_matrix(t.fine, t.coarse)
+        Al, Ac = parcsr_scipy(mg.ops[l]), parcsr_scipy(mg.ops[l + 1])
+        galerkin.append(close_sparse(Ac, (P.T @ Al @ P).tocsr(), 1e-4, 1e-4))
+        xc = rng.standard_normal(t.ncoarse).astype(np.float32)
+        xf = rng.standard_normal(t.nfine).astype(np.float32)
+        errs = {}
+        for name, got, want in [
+                ("prolong", t.prolong(torch.as_tensor(xc, device=dev)),
+                 P @ xc.astype(np.float64)),
+                ("restrict", t.restrict(torch.as_tensor(xf, device=dev)),
+                 P.T @ xf.astype(np.float64))]:
+            err = float(np.abs(got.double().cpu().numpy() - want).max())
+            check(err <= 1e-5 * np.abs(want).max(), f"level {l} {name}: "
+                  f"max|d| {err}")
+            errs[name] = err
+        inj = t.inject(torch.as_tensor(xc, device=dev)).cpu().numpy()
+        want = (P.multiply(P == 1.0)) @ xc
+        check(np.array_equal(inj, want.astype(np.float32)),
+              f"level {l} inject differs from P[P == 1] x")
+        transfers.append({"slots": int(t.sf.nedges_total),
+                          "injection_edges": int(t.injection_sf.nedges_total),
+                          **errs})
+    out["galerkin_max_abs_err"] = galerkin
+    out["transfers"] = transfers
+    # one V-cycle: on the card against the CPU twin, and against itself
+    n, rows, cols, vals = poisson_coo(sz.mg_grid)
+    perm = natural_perm(da)
+    import scipy.sparse as sp
+    S = sp.csr_matrix((vals, (perm[rows], perm[cols])), shape=(n, n))
+    check(close_sparse(parcsr_scipy(A), S, 0.0, 0.0) == 0.0,
+          "from_dmda_stencil differs from the natural-order Laplacian")
+    bnat = np.random.default_rng(0).standard_normal(n).astype(np.float32)
+    bh = np.empty(n, np.float32)
+    bh[perm] = bnat                    # the RHS drawn in natural order
+    b = torch.as_tensor(bh, device=dev)
+    v = mg.vcycle(b)
+    check(same_bits(mg.vcycle(b), v), "two V-cycles differ on the card")
+    t0 = time.perf_counter()
+    twin = multigrid_twin(mg, "cpu")
+    t_twin = time.perf_counter() - t0
+    want = twin.vcycle(b.cpu())
+    err = max_abs(v.cpu(), want)
+    check(err <= 1e-4 * float(want.abs().max()), f"V-cycle on the card "
+          f"against the CPU: max|d| {err}")
+    del twin
+    it = sz.timing_iters
+    old = sflog.set_mode("on")
+    sflog.reset()
+    mg.vcycle(b)
+    sync(dev)
+    events = sflog.events_snapshot()
+    sflog.set_mode(old)
+    sflog.reset()
+    out["vcycle"] = {
+        "card_vs_cpu_max_abs_err": err, "tolerance": "1e-4 max|v|",
+        "cpu_twin_setup_s": t_twin,
+        "graph_device_ms": graph_ms(lambda: mg.vcycle(b), dev, it),
+        "call_ms": call_ms(lambda: mg.vcycle(b), dev, it),
+        "profiled": cg_window(lambda: mg.vcycle(b), dev, 1, strict=False),
+        "sf_events": events}
+    out.update(pcg_loops(A, mg, S, bh, sz, dev))
+    return out
+
+
+def phase_assembly(sz: Sizes, dev) -> dict:
+    """Stash assembly (PETSc ``MatSetValues`` with off-process rows, then
+    ``MatAssemblyBegin/End``; paper §6.4 step 3): every rank of the 129^3
+    DMDA adds the 7-point operator as edge elements
+    (``edge_element_triplets``), rows owned elsewhere going to its stash.
+    The assembled matrix must equal ``from_dmda_stencil`` and an
+    ``np.add.at`` oracle bit for bit, each ``assemble()`` must be exactly
+    one SFReduce (the port's sflog), a second one must reuse the flush SF;
+    then ``assemble_coo``'s stash and fetch paths on the same triplets."""
+    import torch
+    from repro_torch.core import sflog
+    from repro_torch.meshdist import DMDA
+    from repro_torch.sparse import MatAssembler, ParCSR, Sparsity, parmat
+    from repro_torch.sparse.parmat import assemble_coo
+    shape = (sz.mg_grid,) * 3
+    da = DMDA(shape, sz.nranks, stencil="star", width=1, periodic=False)
+    n = da.nglobal
+    t0 = time.perf_counter()
+    trips = edge_element_triplets(da)
+    t_trips = time.perf_counter() - t0
+    rows = np.concatenate([t[0] for t in trips])
+    cols = np.concatenate([t[1] for t in trips])
+    vals = np.concatenate([t[2] for t in trips])
+    edges = sum((e - 1) * int(np.prod(shape)) // e for e in shape)
+    check(int((vals == -1).sum()) == 2 * edges, "edge count")
+    t0 = time.perf_counter()
+    sp_ = Sparsity(sz.nranks, n, n, rows, cols, row_offsets=da.owned_offsets,
+                   col_offsets=da.owned_offsets)
+    t_sp = time.perf_counter() - t0
+    asm = MatAssembler(sp_, device=dev)
+    want = ParCSR.from_dmda_stencil(da, device=dev)
+    # the np.add.at oracle, in (row, col) order
+    keys, inv = np.unique(rows * n + cols, return_inverse=True)
+    oracle = np.zeros(keys.size)
+    np.add.at(oracle, inv, vals.astype(np.float64))
+
+    def same_as_want(got, what):
+        for a, b in zip(got.diag + got.offd, want.diag + want.offd):
+            check(np.array_equal(a.indptr, b.indptr)
+                  and np.array_equal(a.indices, b.indices)
+                  and np.array_equal(a.data, b.data),
+                  f"{what}: a block differs from from_dmda_stencil")
+        for a, b in zip(got.garray, want.garray):
+            check(np.array_equal(a, b), f"{what}: garray differs")
+        for a, b in zip(got._diag_ell + got._offd_ell,
+                        want._diag_ell + want._offd_ell):
+            check(same_bits(a.data, b.data) and torch.equal(a.cols, b.cols),
+                  f"{what}: ELL differs from from_dmda_stencil")
+
+    runs = []
+    old = sflog.set_mode("on")
+    sflog.reset()
+    try:
+        with stage_times([(parmat, "compose_inverse", "compose_inverse")]) \
+                as built:
+            for i in range(2):
+                t0 = time.perf_counter()
+                for q, (r, c, v) in enumerate(trips):
+                    asm.add_values(q, r, c, v)
+                t1 = time.perf_counter()
+                before = sflog.events_snapshot()
+                got = asm.assemble()
+                sync(dev)
+                t2 = time.perf_counter()
+                delta = sflog.events_delta(before)
+                check(delta.get("SFReduce", {}).get("count") == 1 and not [
+                    k for k in delta if k.startswith("SFReduce")
+                    and k != "SFReduce"], f"assemble() {i} recorded "
+                    f"{delta}, not one SFReduce")
+                check(i == 0 or set(delta) == {"SFReduce"}, "a repeated "
+                      f"assemble() exchanged more than its flush: {delta}")
+                same_as_want(got, f"assemble() {i}")
+                C = parcsr_scipy(got)
+                C.sum_duplicates()             # canonical: sorted rows
+                C = C.tocoo()
+                check(np.array_equal(C.row.astype(np.int64) * n + C.col,
+                                     keys)
+                      and np.array_equal(C.data, oracle),
+                      f"assemble() {i} differs from np.add.at")
+                runs.append({"add_values_s": t1 - t0, "assemble_s": t2 - t1,
+                             "sf_events": delta})
+        check(len(built) == 1, f"compose_inverse ran {len(built)} times for "
+              "one stash pattern")
+    finally:
+        sflog.set_mode(old)
+        sflog.reset()
+    sig, flush_sf, comms = asm._flush_cache
+    flush = comms[None]
+    leaf = torch.zeros(flush_sf.nleafspace_total, device=dev)
+    root = torch.zeros(sp_.nnz_total, device=dev)
+    it = sz.timing_iters
+    out = {"phase": "assembly", "shape": list(shape), "nranks": sz.nranks,
+           "edges": edges, "contributions": int(rows.size),
+           "stashed_per_assemble": asm.stats["stashed_inserts"] // 2,
+           "flush_edges": int(flush_sf.nedges_total),
+           "flush_max_segment": int(flush.backend.plan.red.max_valid_seg_len),
+           "flush_backend": flush.backend_name,
+           "edge_elements_s": t_trips, "sparsity_s": t_sp,
+           "compose_inverse_s": built[0][1], "assemble": runs,
+           "flush_device_ms": graph_ms(lambda: flush.reduce(leaf, root),
+                                       dev, it)}
+    # the two assemble_coo paths on the same triplets
+    for method in ("stash", "fetch"):
+        run = lambda: assemble_coo(sz.nranks, n, n, trips,
+                                   row_offsets=da.owned_offsets,
+                                   col_offsets=da.owned_offsets,
+                                   method=method, device=dev)
+        sync(dev)
+        t0 = time.perf_counter()
+        made = []
+        if method == "fetch" and dev.type == "cuda":
+            by_name, _ = profiled(lambda: made.append(run()), dev)
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+            out["fetch_top_kernels_ms"] = {k[:60]: v for k, v in top}
+        else:
+            made.append(run())
+        got = made.pop()
+        sync(dev)
+        out[f"assemble_coo_{method}_s"] = time.perf_counter() - t0
+        same_as_want(got, f"assemble_coo({method})")
+        del got
+    return out
+
+
+def overlap_oracle(mesh, cells_per_rank, levels: int) -> list:
+    """Per rank, the halo cells at each level of a breadth-first search
+    over "cells sharing a vertex", from the whole mesh's cones."""
+    cones = mesh.cell_cone(np.arange(mesh.ncells, dtype=np.int64))
+    flat = cones.reshape(-1)
+    order = np.argsort(flat, kind="stable")
+    cell_of = order // cones.shape[1]
+    ptr = np.searchsorted(flat[order], np.arange(mesh.nvertices + 1))
+    out = []
+    for own in cells_per_rank:
+        known = np.zeros(mesh.ncells, dtype=bool)
+        known[own] = True
+        frontier, per_level = own, []
+        for _ in range(levels):
+            verts = np.unique(cones[frontier])
+            lens = ptr[verts + 1] - ptr[verts]
+            at = np.repeat(ptr[verts] - np.cumsum(lens) + lens, lens) \
+                + np.arange(int(lens.sum()))
+            near = np.unique(cell_of[at])
+            fresh = near[~known[near]]
+            known[fresh] = True
+            per_level.append(fresh)
+            frontier = fresh
+        out.append(per_level)
+    return out
+
+
+def phase_plex(sz: Sizes, dev) -> dict:
+    """Mesh distribution and overlap growth (PETSc ``DMPlexDistribute`` /
+    ``DMPlexDistributeOverlap``, paper §6.3): a periodic 64^3 hex mesh
+    over 8 ranks from the paper's ``seq`` and ``rand`` layouts, migrated to
+    balanced blocks by SF bcasts; the vertex SF and the ghost assembly
+    (every vertex of the periodic mesh belongs to 8 cells); one- and
+    two-level overlaps against a breadth-first oracle; the overlap
+    ``DMGlobalToLocal`` of the cells' ids."""
+    import torch
+    from repro_torch.core import SFComm
+    from repro_torch.meshdist import plex
+    R, it = sz.nranks, sz.timing_iters
+    mesh = plex.HexMesh(*(sz.plex_mesh,) * 3)
+    out = {"phase": "plex", "mesh": [mesh.nx, mesh.ny, mesh.nz],
+           "cells": mesh.ncells, "vertices": mesh.nvertices, "nranks": R,
+           "distribute": {}}
+    dms = {}
+    for kind, seed in (("seq", 0), ("rand", 7)):
+        t0 = time.perf_counter()
+        dm0 = plex.initial_distribution(mesh, R, kind, seed=seed)
+        t_init = time.perf_counter() - t0
+        dm, times = plex.distribute(dm0, time_phases=True, device=dev)
+        sizes = [c.size for c in dm.cells]
+        check(max(sizes) - min(sizes) <= 1, f"{kind}: unbalanced {sizes}")
+        check(np.array_equal(np.sort(np.concatenate(dm.cells)),
+                             np.arange(mesh.ncells)),
+              f"{kind}: a cell is not on exactly one rank")
+        for r in range(R):
+            check(np.array_equal(dm.cones[r], mesh.cell_cone(dm.cells[r]))
+                  and np.array_equal(dm.labels[r], dm.cells[r] % 7),
+                  f"{kind}: rank {r}'s cones or labels differ")
+        # the migration's bcasts alone, on the card
+        sf = plex.migration_sf(dm0, plex._partition_balanced(mesh, R))
+        comm = SFComm(sf, device=dev)
+        cones = torch.as_tensor(np.concatenate(dm0.cones).astype(np.int32),
+                                device=dev)
+        labels = torch.as_tensor(np.concatenate(dm0.labels).astype(np.int32)
+                                 .reshape(-1, 1), device=dev)
+        z8 = cones.new_zeros((sf.nleafspace_total, 8))
+        z1 = labels.new_zeros((sf.nleafspace_total, 1))
+        out["distribute"][kind] = {
+            "initial_s": t_init, **{f"{k}_s": v for k, v in times.items()},
+            "backend": comm.backend_name,
+            "cones_bcast_device_ms": graph_ms(
+                lambda: comm.bcast(cones, z8), dev, it),
+            "labels_bcast_device_ms": graph_ms(
+                lambda: comm.bcast(labels, z1), dev, it)}
+        dms[kind] = dm
+    for f in ("cells", "cones", "labels", "local_verts", "vertex_owner"):
+        check(all(np.array_equal(a, b) for a, b in
+                  zip(getattr(dms["seq"], f), getattr(dms["rand"], f))),
+              f"seq and rand distribute to different {f}")
+    dm = dms["rand"]
+    t0 = time.perf_counter()
+    vsf = plex.make_vertex_sf(dm)
+    t_vsf = time.perf_counter() - t0
+    nl = [v.size for v in dm.local_verts]
+    local = torch.as_tensor(np.concatenate(
+        [np.bincount(dm.cone_local[r].reshape(-1), minlength=nl[r])
+         for r in range(R)]).astype(np.float32), device=dev)
+    t0 = time.perf_counter()
+    summed = plex.local_to_global(vsf, 1, local, device=dev).cpu().numpy()
+    t_l2g = time.perf_counter() - t0
+    lo = vsf.leaf_offsets()
+    for r in range(R):
+        own = dm.vertex_owner[r] == r
+        check((summed[lo[r]: lo[r] + nl[r]][own] == 8).all(),
+              f"rank {r}: an owned vertex does not assemble to 8 cells")
+    t0 = time.perf_counter()
+    filled = plex.global_to_local(vsf, 1, torch.as_tensor(summed, device=dev),
+                                  device=dev).cpu().numpy()
+    t_g2l = time.perf_counter() - t0
+    check((filled == 8).all(), "global_to_local did not fill every vertex")
+    out["vertex_sf"] = {"make_vertex_sf_s": t_vsf,
+                        "ghost_edges": int(vsf.nedges_total),
+                        "local_to_global_s": t_l2g,
+                        "global_to_local_s": t_g2l}
+    out["overlap"] = {}
+    for levels in (1, 2):
+        t0 = time.perf_counter()
+        ov = plex.grow_overlap(dm, vsf, levels=levels, device=dev)
+        t_ov = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = overlap_oracle(mesh, dm.cells, levels)
+        t_or = time.perf_counter() - t0
+        for q in range(R):
+            own = dm.cells[q]
+            check(np.array_equal(ov.cells[q][: own.size], own)
+                  and (ov.level[q][: own.size] == 0).all(),
+                  f"rank {q}: owned cells are not first")
+            for k in range(levels):
+                check(np.array_equal(np.sort(ov.cells[q][ov.level[q]
+                                                          == k + 1]),
+                                     want[q][k]),
+                      f"rank {q} level {k + 1} differs from the BFS oracle")
+        root = torch.as_tensor(np.concatenate(dm.cells).astype(np.int32),
+                               device=dev)
+        got = ov.global_to_local(root, device=dev).cpu().numpy()
+        olo = ov.cell_offsets()
+        for q in range(R):
+            check(np.array_equal(got[olo[q]: olo[q] + ov.cells[q].size],
+                                 ov.cells[q]),
+                  f"rank {q}: the overlap bcast delivered other cell ids")
+        out["overlap"][f"levels_{levels}"] = {
+            "grow_overlap_s": t_ov, "oracle_s": t_or,
+            "halo_cells": [int((lv > 0).sum()) for lv in ov.level],
+            "composed_edges": [int(s.nedges_total)
+                               for s in ov.adjacency_sfs]}
+    return out
+
+
 # ------------------------------------------------------------------ serve
 def serve_config(sz: Sizes):
     from repro_torch.configs import get_config
@@ -2279,6 +2948,24 @@ def run(dev, sz: Sizes) -> list:
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
+
+    # the composed-SF paths (multigrid, assembly, mesh distribution): the
+    # counters from 0 before each
+    for name, phase, needed in (("mg", phase_mg, MG_PATH),
+                                ("assembly", phase_assembly, ASSEMBLY_PATH),
+                                ("plex", phase_plex, PLEX_PATH)):
+        kops.reset_launch_counts()
+        emit(phase(sz, dev))
+        by_path[name] = kops.launch_counts()
+        missing = [k for k in needed if by_path[name][k] == 0]
+        if name != "plex" and not any(by_path[name][k]
+                                      for k in SEGMENT_REDUCES):
+            missing.append("a segment reduce")
+        check(not missing or not on_card,
+              f"the {name} path never launched {missing}")
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
 
     # the serving path: phase_serve zeroes the counters before its drive
     serve = phase_serve(sz, dev)

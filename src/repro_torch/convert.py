@@ -2,8 +2,9 @@
 
 The port never imports the JAX package; a caller that has reference
 objects reads their arrays out (``repro.core.graph.RankGraph`` fields,
-``repro.sparse.parmat.ParCSR`` blocks, a model's param pytree) and hands
-them over here as plain dicts and tuples.
+``repro.sparse.parmat.ParCSR`` blocks, a distributed mesh's per-rank
+arrays, a model's param pytree) and hands them over here as plain dicts,
+lists and tuples.
 """
 
 from __future__ import annotations
@@ -15,13 +16,14 @@ import torch
 
 from .core.device import resolve_device
 from .core.graph import RankGraph, StarForest
+from .meshdist.plex import DistributedMesh, HexMesh
 from .models.config import ModelConfig
 from .models.transformer import init_params, require_dense
 from .sparse.csr import LocalCSR
 from .sparse.parmat import ParCSR
 
 __all__ = ["star_forest_from_arrays", "parcsr_from_arrays",
-           "params_from_arrays"]
+           "distributed_mesh_from_arrays", "params_from_arrays"]
 
 
 def star_forest_from_arrays(nranks: int,
@@ -59,6 +61,21 @@ def parcsr_from_arrays(nranks: int, row_offsets, col_offsets,
                   [block(b) for b in diag], [block(b) for b in offd],
                   [np.asarray(g, dtype=np.int64) for g in garray],
                   dtype=dtype, device=device)
+
+
+def distributed_mesh_from_arrays(shape: Sequence[int], cells: Sequence,
+                                 cones: Sequence, labels: Sequence
+                                 ) -> DistributedMesh:
+    """A DistributedMesh of ``HexMesh(*shape)`` from per-rank global cell
+    ids, ``(n, 8)`` cones and labels, with its local setup (vertex
+    numbering, coordinates, owners) done."""
+    if not len(cells) == len(cones) == len(labels):
+        raise ValueError(f"{len(cells)} cell, {len(cones)} cone and "
+                         f"{len(labels)} label arrays")
+    as64 = lambda arrays: [np.asarray(a, dtype=np.int64) for a in arrays]
+    return DistributedMesh(HexMesh(*(int(e) for e in shape)), len(cells),
+                           as64(cells), as64(cones),
+                           as64(labels)).setup_local()
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:

@@ -15,9 +15,15 @@ Public API:
   PlanCache                  signature-keyed cache of plans / programs
   sflog                      -log_view analogue: event/counter registry,
                              SFView introspection
+  compose, compose_inverse, embed_roots, embed_leaves, identity_sf,
+  make_multi_sf              §2 derived SFs (host-side graph algebra)
+  simulate                   numpy edge-semantics oracle of every op
 """
 
-from .graph import PairInfo, RankGraph, StarForest, ragged_offsets
+from .graph import (PairInfo, RankGraph, StarForest, ragged_arange,
+                    ragged_offsets)
+from .compose import (compose, compose_inverse, embed_leaves, embed_roots,
+                      identity_sf, make_multi_sf)
 from .mpiops import Op, get_op
 from .unit import UnitSpec, resolve_unit
 from .ops import PendingComm, SFOps
@@ -29,10 +35,12 @@ from .backend import (CudaBackend, GlobalBackend, SFBackend, SFComm,
                       select_backend)
 from .device import resolve_device
 from .dynplan import PlanCache
-from . import patterns, redplan, sflog
+from . import patterns, redplan, sflog, simulate
 
 __all__ = [
-    "PairInfo", "RankGraph", "StarForest", "ragged_offsets",
+    "PairInfo", "RankGraph", "StarForest", "ragged_arange", "ragged_offsets",
+    "compose", "compose_inverse", "embed_leaves", "embed_roots",
+    "identity_sf", "make_multi_sf",
     "Op", "get_op",
     "UnitSpec", "resolve_unit",
     "PendingComm", "SFOps",
@@ -42,5 +50,5 @@ __all__ = [
     "SFBackend", "SFComm", "GlobalBackend", "CudaBackend",
     "available_backends", "make_backend", "register_backend",
     "select_backend", "resolve_device", "PlanCache",
-    "patterns", "redplan", "sflog",
+    "patterns", "redplan", "sflog", "simulate",
 ]

@@ -31,7 +31,9 @@ reduction is the same bits on either, from run to run.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Protocol, Tuple, \
+import math
+import time
+from typing import Any, Callable, Dict, Optional, Protocol, Tuple, \
     runtime_checkable
 
 import torch
@@ -45,6 +47,7 @@ from .ops import (PendingComm, SFOps, SortedUnpack, _apply_unique,
 from .plan import GlobalPlan, build_global_plan
 from .unit import check_plan_unit
 from . import patterns as pat
+from . import sflog
 from ..kernels import ops as kops
 
 __all__ = [
@@ -338,6 +341,12 @@ class SFComm:
     override.  Payload rows are ``(*unit)`` dof blocks; pass ``unit=`` to
     pin and validate the unit shape/dtype.  Operations return new tensors
     and leave their arguments untouched.
+
+    Every operation reports into :mod:`repro_torch.core.sflog` (counts,
+    wall time, bytes = plan edges x unit row, split-phase overlap windows),
+    as the reference's facade does.  Off (the default), a hook costs one
+    integer test; during a CUDA-graph capture it bumps the event's
+    ``traced`` counter only, and reads, fences and allocates nothing.
     """
 
     def __init__(self, sf: StarForest, backend: Optional[str] = None, *,
@@ -350,6 +359,7 @@ class SFComm:
         self.backend = make_backend(name, sf, device=self.device, unit=unit,
                                     **backend_kwargs)
         self._bundles: Dict[tuple, "FieldBundle"] = {}
+        self._lmeta: Optional[Dict[str, Any]] = None   # sflog tag cache
 
     @property
     def backend_name(self) -> str:
@@ -364,32 +374,104 @@ class SFComm:
     def nmulti(self) -> int:
         return self.backend.nmulti
 
+    # sflog plumbing ------------------------------------------------------
+    def _logtags(self, op=None) -> Dict[str, Any]:
+        """Static tags every event from this comm carries: backend name,
+        pattern kind, plan signature (computed once per comm)."""
+        m = self._lmeta
+        if m is None:
+            plan = self.backend.plan
+            m = self._lmeta = {
+                "backend": self.backend_name,
+                "pattern": getattr(plan.pattern, "kind", None),
+                "sig": repr(plan.comm_signature())}
+        if op is None:
+            return m
+        return dict(m, op=get_op(op).name)
+
+    def _payload_bytes(self, data) -> float:
+        """Comm volume of one exchange: plan edges x unit row bytes of the
+        actual payload (trailing dims x itemsize); host arithmetic on the
+        shape only, so it reads nothing from the device."""
+        return float(self.sf.nedges_total) * math.prod(data.shape[1:]) \
+            * data.element_size()
+
+    def _split_begin(self, name: str, begin, data, op):
+        if not sflog.enabled():
+            return begin(data, op)
+        t0 = sflog.op_begin()
+        pend = begin(data, op)
+        nb = self._payload_bytes(data)
+        tags = self._logtags(op)
+        sflog.op_end(name + "Begin", t0, pend.payload, nbytes=nb, tags=tags)
+        sflog.stash_pending(pend, name + "End", nb, tags, tracing=t0 < 0)
+        return pend
+
+    def _split_end(self, end, pending, data):
+        info = sflog.claim_pending(pending)
+        if info is None:
+            return end(pending, data)
+        t0 = time.perf_counter()
+        out = end(pending, data)
+        sflog.pending_end(info, t0, out)
+        return out
+
+    def _logged(self, name: str, payload, run, *args, tags=None,
+                scale: float = 1.0):
+        """``run(*args)`` recorded as one ``name`` event moving ``scale`` x
+        ``payload``'s comm volume."""
+        t0 = sflog.op_begin()
+        out = run(*args)
+        sflog.op_end(name, t0, out,
+                     nbytes=scale * self._payload_bytes(payload), tags=tags)
+        return out
+
+    # delegation ----------------------------------------------------------
     def bcast_begin(self, rootdata, op="replace"):
-        return self.backend.bcast_begin(rootdata, op)
+        return self._split_begin("SFBcast", self.backend.bcast_begin,
+                                 rootdata, op)
 
     def bcast_end(self, pending, leafdata):
-        return self.backend.bcast_end(pending, leafdata)
+        return self._split_end(self.backend.bcast_end, pending, leafdata)
 
     def bcast(self, rootdata, leafdata, op="replace"):
-        return self.backend.bcast(rootdata, leafdata, op)
+        if not sflog.enabled():
+            return self.backend.bcast(rootdata, leafdata, op)
+        return self._logged("SFBcast", rootdata, self.backend.bcast,
+                            rootdata, leafdata, op, tags=self._logtags(op))
 
     def reduce_begin(self, leafdata, op="sum"):
-        return self.backend.reduce_begin(leafdata, op)
+        return self._split_begin("SFReduce", self.backend.reduce_begin,
+                                 leafdata, op)
 
     def reduce_end(self, pending, rootdata):
-        return self.backend.reduce_end(pending, rootdata)
+        return self._split_end(self.backend.reduce_end, pending, rootdata)
 
     def reduce(self, leafdata, rootdata, op="sum"):
-        return self.backend.reduce(leafdata, rootdata, op)
+        if not sflog.enabled():
+            return self.backend.reduce(leafdata, rootdata, op)
+        return self._logged("SFReduce", leafdata, self.backend.reduce,
+                            leafdata, rootdata, op, tags=self._logtags(op))
 
     def fetch_and_op(self, rootdata, leafdata, op="sum"):
-        return self.backend.fetch_and_op(rootdata, leafdata, op)
+        if not sflog.enabled():
+            return self.backend.fetch_and_op(rootdata, leafdata, op)
+        # fetch-and-op moves payload both ways (fetch + update)
+        return self._logged("SFFetchAndOp", leafdata,
+                            self.backend.fetch_and_op, rootdata, leafdata,
+                            op, tags=self._logtags(op), scale=2.0)
 
     def gather(self, leafdata):
-        return self.backend.gather(leafdata)
+        if not sflog.enabled():
+            return self.backend.gather(leafdata)
+        return self._logged("SFGather", leafdata, self.backend.gather,
+                            leafdata, tags=self._logtags())
 
     def scatter(self, multirootdata, leafdata=None):
-        return self.backend.scatter(multirootdata, leafdata)
+        if not sflog.enabled():
+            return self.backend.scatter(multirootdata, leafdata)
+        return self._logged("SFScatter", multirootdata, self.backend.scatter,
+                            multirootdata, leafdata, tags=self._logtags())
 
     # fused multi-field exchange (VecScatter analogue) -------------------
     def _bundle(self, fields) -> "FieldBundle":

@@ -29,14 +29,17 @@ The per-call fused transform is a trailing-axis concat of ``(n, u_i)``
 views; the SF sees a single ``(n, U)`` payload, so every backend's pack
 kernel and unpack runs exactly once per group.  ``SFComm.bcast_multi`` /
 ``reduce_multi`` construct and cache bundles automatically.  The
-``fields.*`` counters are always live; event logging at the facade is not
-ported yet.
+``fields.*`` counters are always live; with event logging on, each fused
+exchange records one ``SF{Bcast,Reduce}Multi`` event (bytes: plan edges x
+fused row bytes) and the split forms one ``...MultiBegin`` / ``...MultiEnd``
+pair, as in the reference.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import time
 from typing import Any, List, Sequence, Tuple
 
 import numpy as np
@@ -238,13 +241,30 @@ class FieldBundle:
         _C_EXCH.add(len(groups))
         _C_FIELDS.add(len(self.specs))
 
-    def _run(self, srcs, dsts, op, exchange, nsrc: int, ndst: int):
-        groups = self._groups(get_op(op).name)
+    def _group_bytes(self, g: _Group) -> float:
+        """Comm volume of one fused exchange: plan edges x fused row bytes
+        (the carrier width for multi-member groups)."""
+        ne = float(self.comm.sf.nedges_total)
+        if len(g.members) == 1:
+            sp = self.specs[g.members[0]]
+            return ne * sp.size * sp.dtype.itemsize
+        return ne * g.width * g.carrier.itemsize
+
+    def _run(self, srcs, dsts, op, exchange, nsrc: int, ndst: int,
+             kind: str):
+        opname = get_op(op).name
+        groups = self._groups(opname)
         self._count(groups)
+        logging = sflog.enabled()
         out: List[Any] = [None] * len(self.specs)
         for g in groups:
-            fused = exchange(self._fused(g, srcs, nsrc),
-                             self._fused(g, dsts, ndst), op)
+            src, dst = self._fused(g, srcs, nsrc), self._fused(g, dsts, ndst)
+            t0 = sflog.op_begin() if logging else 0.0
+            fused = exchange(src, dst, op)
+            if logging:
+                sflog.op_end(f"SF{kind}Multi", t0, fused,
+                             nbytes=self._group_bytes(g),
+                             tags={"op": opname, "fields": len(g.members)})
             self._split(g, fused, ndst, out)
         return out
 
@@ -256,7 +276,7 @@ class FieldBundle:
         self._check(rootfields, "rootdata", nroot)
         self._check(leaffields, "leafdata", nleaf)
         return self._run(rootfields, leaffields, op, self._exec.bcast,
-                         nroot, nleaf)
+                         nroot, nleaf, "Bcast")
 
     def reduce_multi(self, leaffields, rootfields, op="sum"):
         """k leaf→root reductions as one fused exchange per group; returns
@@ -266,18 +286,37 @@ class FieldBundle:
         self._check(leaffields, "leafdata", nleaf)
         self._check(rootfields, "rootdata", nroot)
         return self._run(leaffields, rootfields, op, self._exec.reduce,
-                         nleaf, nroot)
+                         nleaf, nroot, "Reduce")
 
     # ------------------------------------------------- split-phase (begin/end)
     def _multi_begin(self, kind: str, srcs, op, nsrc: int) -> PendingMulti:
         opn = get_op(op)
         begin = getattr(self._exec, f"{kind}_begin")
         groups = self._groups(opn.name)
+        logging = sflog.enabled()
+        t0 = sflog.op_begin() if logging else 0.0
         self._count(groups)
         items = [(g, begin(self._fused(g, srcs, nsrc), opn)) for g in groups]
-        return PendingMulti(kind, self, opn, items)
+        pend = PendingMulti(kind, self, opn, items)
+        if logging:
+            nb = sum(self._group_bytes(g) for g in groups)
+            tags = {"op": opn.name, "groups": len(groups),
+                    "fields": len(self.specs)}
+            ev = f"SF{kind.capitalize()}Multi"
+            sflog.op_end(ev + "Begin", t0, None, nbytes=nb, tags=tags)
+            sflog.stash_pending(pend, ev + "End", nb, tags, tracing=t0 < 0)
+        return pend
 
     def _multi_end(self, pending: PendingMulti, dsts):
+        info = sflog.claim_pending(pending)
+        if info is None:
+            return self._multi_end_impl(pending, dsts)
+        t0 = time.perf_counter()
+        out = self._multi_end_impl(pending, dsts)
+        sflog.pending_end(info, t0, out)
+        return out
+
+    def _multi_end_impl(self, pending: PendingMulti, dsts):
         kind = pending.kind
         what = "leafdata" if kind == "bcast" else "rootdata"
         ndst = self.comm.sf.nleafspace_total if kind == "bcast" \

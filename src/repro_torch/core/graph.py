@@ -33,6 +33,7 @@ __all__ = [
     "PairInfo",
     "StarForest",
     "ragged_offsets",
+    "ragged_arange",
 ]
 
 
@@ -41,6 +42,15 @@ def ragged_offsets(sizes: Sequence[int]) -> np.ndarray:
     out = np.zeros(len(sizes) + 1, dtype=np.int64)
     np.cumsum(np.asarray(sizes, dtype=np.int64), out=out[1:])
     return out
+
+
+def ragged_arange(sizes: Sequence[int]) -> Tuple[np.ndarray, np.ndarray]:
+    """``(run, k)`` over the concatenation of runs of ``sizes[j]`` items:
+    item i is the ``k[i]``-th item of run ``run[i]`` — the loop ``for j:
+    for k in range(sizes[j])`` as two arrays."""
+    sizes = np.asarray(sizes, dtype=np.int64)
+    run = np.repeat(np.arange(sizes.size), sizes)
+    return run, np.arange(run.size) - ragged_offsets(sizes)[:-1][run]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -28,6 +28,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import time
 from typing import Optional, Tuple
 
 import torch
@@ -38,6 +39,7 @@ from .mpiops import SUM, Op, get_op
 from .plan import GlobalPlan, build_global_plan
 from .redplan import ReductionPlan
 from .unit import check_plan_unit
+from . import sflog
 from ..kernels import ops as kops
 from ..kernels._index import segment_meta
 
@@ -57,10 +59,17 @@ class PendingComm:
     dtype: Optional[torch.dtype] = None   # the payload's own dtype
 
     def end(self, data: torch.Tensor) -> torch.Tensor:
-        """Complete the operation against the destination array."""
+        """Complete the operation against the destination array (and
+        record the End event its begin stashed, once)."""
+        info = sflog.claim_pending(self)
+        t0 = time.perf_counter() if info is not None else 0.0
         if self.kind == "bcast":
-            return self.owner.bcast_end(self, data)
-        return self.owner.reduce_end(self, data)
+            out = self.owner.bcast_end(self, data)
+        else:
+            out = self.owner.reduce_end(self, data)
+        if info is not None:
+            sflog.pending_end(info, t0, out)
+        return out
 
 
 def _apply_unique(target: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,

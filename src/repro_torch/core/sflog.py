@@ -20,8 +20,9 @@ into:
   signatures for any ``StarForest`` / ``SFComm`` (``DynPlan`` comes with
   the MoE slice).
 
-In this port the serving engine reports into the registry; ``SFComm`` and
-``ParCSR`` are not hooked yet.
+Call sites in this port: every operation of ``SFComm`` (so ``ParCSR``'s
+SpMV, the DMDA halo, the multigrid transfers and the stash flush), the
+fused multi-field exchange of ``FieldBundle`` and the serving engine.
 
 Rendering: :func:`log_view` (the PETSc-style text table) and
 :func:`dump_json` (a JSON-ready dict benchmarks stamp into artifacts).
@@ -55,7 +56,7 @@ __all__ = [
     "enabled", "mode", "set_mode", "reset",
     "Counter", "counter", "counters",
     "EventRecord", "event", "events",
-    "op_begin", "op_end",
+    "op_begin", "op_end", "stash_pending", "claim_pending", "pending_end",
     "timed", "context",
     "log_view", "dump_json", "events_snapshot", "events_delta",
     "overlap_efficiency", "exchange_totals",
@@ -256,7 +257,7 @@ def context(**kv) -> Iterator[None]:
 
 
 # --------------------------------------------------------------------------
-# hooks (call site in this port: the serving engine)
+# hooks (call sites: SFComm, FieldBundle, the serving engine)
 # --------------------------------------------------------------------------
 def op_begin() -> float:
     """Start one event window.  Returns the start timestamp, or ``-1.0``
@@ -284,6 +285,55 @@ def op_end(name: str, t0: float, out=None, *, nbytes: float = 0.0,
         _fence(out)
     ev.count += 1
     ev.time += time.perf_counter() - t0
+    ev.bytes += float(nbytes)
+    if tags:
+        for k, v in tags.items():
+            ev.tag(k, v)
+    for k, v in _CONTEXT.items():
+        ev.tag(k, v)
+
+
+def stash_pending(tok, end_name: str, nbytes: float,
+                  tags: Optional[Dict[str, Any]] = None, *,
+                  tracing: bool = False) -> None:
+    """Attach end-event bookkeeping to an in-flight token (``PendingComm``
+    and ``PendingMulti`` are mutable).  Whoever completes the token first —
+    ``SFComm.*_end`` or ``pending.end`` — claims it exactly once, so both
+    completion styles record one End event and never two."""
+    info = (end_name, -1.0 if tracing else time.perf_counter(),
+            float(nbytes), tags)
+    try:
+        setattr(tok, "_sflog", info)
+    except (AttributeError, TypeError):   # frozen/slotted token: no window
+        pass
+
+
+def claim_pending(tok):
+    """Pop the stashed end-event info off a token (None if absent or
+    already claimed)."""
+    info = getattr(tok, "_sflog", None)
+    if info is not None:
+        setattr(tok, "_sflog", None)
+    return info
+
+
+def pending_end(info, t0: float, out=None) -> None:
+    """Record the End half of a split-phase pair: ``overlap`` is the window
+    the exchange stayed in flight (begin return -> end call), ``time`` is
+    the end call itself (wait + unpack)."""
+    if _MODE == _OFF:
+        return
+    end_name, t_begin, nbytes, tags = info
+    ev = event(end_name)
+    if t_begin < 0.0 or t0 < 0.0 or _tracing():
+        ev.traced += 1
+        return
+    if _MODE == _FENCE and out is not None:
+        _fence(out)
+    now = time.perf_counter()
+    ev.count += 1
+    ev.overlap += max(t0 - t_begin, 0.0)
+    ev.time += now - t0
     ev.bytes += float(nbytes)
     if tags:
         for k, v in tags.items():

@@ -22,6 +22,14 @@ iterations are captured once into a CUDA graph over static state buffers
 and the graph is replayed until the device flag says the loop is done: the
 host reads one flag per replay and issues no kernel.  On the CPU the same
 chunks run eagerly.
+
+Both take an optional preconditioner ``M`` (``z = M(r)``, e.g. the V-cycle
+of :class:`repro_torch.solvers.multigrid.Multigrid`) with the reference's
+numerics: ``<r, z>`` drives beta and ``<r, r>`` the convergence check; with
+``M=None`` the step is the unpreconditioned loop, op for op.  In
+``cg_async`` the preconditioner runs inside the captured graph, so it must
+read nothing back to the host (its index caches are warmed by the eager
+first application before the capture).
 """
 
 from __future__ import annotations
@@ -64,32 +72,44 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.vdot(a.reshape(-1), b.reshape(-1))
 
 
-def _step(matvec, x, r, p, rr):
-    """One CG iteration of the paper's unpreconditioned loop.  Returns the
-    new <r, r>, which serves both beta and the convergence check."""
+def _step(matvec, x, r, p, rz, M=None):
+    """One (preconditioned) CG iteration.  With ``M=None`` this is the
+    paper's unpreconditioned loop (z = r, and <r, r> serves both beta and
+    the convergence check); with a preconditioner it returns both
+    rz = <r, z> (for beta) and rr = <r, r> (for the check)."""
     Ap = matvec(p)
-    alpha = rr / _dot(p, Ap)
+    alpha = rz / _dot(p, Ap)
     x = x + alpha * p
     r = r - alpha * Ap
-    rr_new = _dot(r, r)
-    p = r + (rr_new / rr) * p
-    return x, r, p, rr_new
+    if M is None:
+        rr = _dot(r, r)
+        return x, r, r + (rr / rz) * p, rr, rr
+    z = M(r)
+    rz_new = _dot(r, z)
+    return x, r, z + (rz_new / rz) * p, rz_new, _dot(r, r)
 
 
-def _init(matvec, b, x0):
+def _init(matvec, b, x0, M=None):
     x = torch.zeros_like(b) if x0 is None else x0
     r = b - matvec(x)
-    return x, r, r, _dot(r, r)
+    if M is None:
+        rr = _dot(r, r)
+        return x, r, r, rr, rr
+    z = M(r)
+    return x, r, z, _dot(r, z), _dot(r, r)
 
 
 def cg(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
-       *, tol: float = 1e-8, maxiter: int = 500) -> CGResult:
+       *, tol: float = 1e-8, maxiter: int = 500,
+       M: Optional[Callable] = None) -> CGResult:
     """Host-stepped CG with a host-side convergence check every iteration
     (the paper's blocking baseline).  ``matvec`` may be a callable or an
-    SF-backed operator accepted by :func:`as_matvec`.  Convergence is
-    judged on the recursive residual norm ||r||."""
+    SF-backed operator accepted by :func:`as_matvec`.  ``M`` is an optional
+    (left, SPD) preconditioner applied as ``z = M(r)`` — e.g.
+    ``cg(A, b, M=mg.vcycle)``.  Convergence is judged on the recursive
+    residual norm ||r||."""
     matvec = as_matvec(matvec)
-    x, r, p, rr = _init(matvec, b, x0)
+    x, r, p, rz, rr = _init(matvec, b, x0, M)
     bnorm = float(torch.sqrt(_dot(b, b)))
     it = 0
     rnorm = float(torch.sqrt(rr))
@@ -97,7 +117,7 @@ def cg(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
         # host reads the residual -> device/host sync every iteration
         if rnorm <= tol * max(bnorm, 1e-30):
             return CGResult(x, it, rnorm, True)
-        x, r, p, rr = _step(matvec, x, r, p, rr)
+        x, r, p, rz, rr = _step(matvec, x, r, p, rz, M)
         rnorm = float(torch.sqrt(rr))   # blocking host readback
         it += 1
     return CGResult(x, it, rnorm, rnorm <= tol * max(bnorm, 1e-30))
@@ -108,14 +128,20 @@ class _GuardedLoop:
     ``GRAPH_ITERS`` guarded iterations that updates them in place and sets
     ``go``, the loop condition after the chunk."""
 
-    def __init__(self, matvec, x, r, rr, tol2, maxiter: int,
-                 check_every: int):
-        self.matvec, self.tol2 = matvec, tol2
+    def __init__(self, matvec, x, r, p, rz, rr, tol2, maxiter: int,
+                 check_every: int, M=None):
+        self.matvec, self.M, self.tol2 = matvec, M, tol2
         self.maxiter, self.check_every = maxiter, check_every
-        self.x, self.r, self.p = x.clone(), r.clone(), r.clone()
-        self.rr = rr.clone()
+        self.x, self.r, self.p = x.clone(), r.clone(), p.clone()
+        self.rz, self.rr = rz.clone(), rr.clone()
         self.it = torch.zeros((), dtype=torch.int32, device=x.device)
         self.go = self.cond(self.rr, self.it)
+
+    def copy(self) -> "_GuardedLoop":
+        """A loop on copies of this one's state."""
+        return _GuardedLoop(self.matvec, self.x, self.r, self.p, self.rz,
+                            self.rr, self.tol2, self.maxiter,
+                            self.check_every, self.M)
 
     def cond(self, rr, it):
         """The reference's while-loop condition, on the device."""
@@ -125,16 +151,18 @@ class _GuardedLoop:
         return go
 
     def chunk(self) -> None:
-        x, r, p, rr, it = self.x, self.r, self.p, self.rr, self.it
+        x, r, p, rz, rr, it = (self.x, self.r, self.p, self.rz, self.rr,
+                               self.it)
         for _ in range(GRAPH_ITERS):
             go = self.cond(rr, it)
-            nx, nr, np_, nrr = _step(self.matvec, x, r, p, rr)
+            nx, nr, np_, nrz, nrr = _step(self.matvec, x, r, p, rz, self.M)
             # where, not a multiply by the flag: an idle step may hold NaN
             x, r = torch.where(go, nx, x), torch.where(go, nr, r)
-            p, rr = torch.where(go, np_, p), torch.where(go, nrr, rr)
+            p, rz = torch.where(go, np_, p), torch.where(go, nrz, rz)
+            rr = torch.where(go, nrr, rr)
             it = it + go.to(it.dtype)
         for buf, new in ((self.x, x), (self.r, r), (self.p, p),
-                         (self.rr, rr), (self.it, it),
+                         (self.rz, rz), (self.rr, rr), (self.it, it),
                          (self.go, self.cond(rr, it))):
             buf.copy_(new)
 
@@ -150,8 +178,7 @@ def _capture(loop: _GuardedLoop):
     with torch.cuda.stream(side):
         # warm-up on a side stream, as CUDA-graph capture asks, on copies
         # of the state: lazy library setup happens outside the capture
-        _GuardedLoop(loop.matvec, loop.x, loop.r, loop.rr, loop.tol2,
-                     loop.maxiter, loop.check_every).chunk()
+        loop.copy().chunk()
     torch.cuda.current_stream(dev).wait_stream(side)
     before = kops.launch_counts()
     graph = torch.cuda.CUDAGraph()
@@ -178,30 +205,35 @@ def _replay(loop: _GuardedLoop, graph, captured: dict) -> int:
 
 def cg_async(matvec: Callable, b: torch.Tensor,
              x0: Optional[torch.Tensor] = None, *, tol: float = 1e-8,
-             maxiter: int = 500, check_every: int = 1) -> CGResult:
+             maxiter: int = 500, check_every: int = 1,
+             M: Optional[Callable] = None) -> CGResult:
     """CG whose scalars stay on the device, the reference's fused loop: the
     convergence flag ``rr > tol² · max(b², 1e-30)`` is observed only at
     iterations that are multiples of ``check_every``, and never when
     ``check_every == 0`` (the paper's CGAsync, which runs to ``maxiter``).
-    On a CUDA device the loop runs as a replayed CUDA graph; a capture that
-    fails raises."""
+    ``M`` is the optional preconditioner of :func:`cg`, run inside the
+    loop.  On a CUDA device the loop runs as a replayed CUDA graph; a
+    capture that fails raises."""
     return _cg_async(matvec, b, x0, tol, maxiter, check_every,
-                     graph=b.device.type == "cuda")
+                     graph=b.device.type == "cuda", M=M)
 
 
-def _prepare(matvec, b, x0, tol, maxiter, check_every) -> _GuardedLoop:
-    """The loop's start: the warm-up SpMV, the first residual and the
-    tolerance, all on the device."""
+def _prepare(matvec, b, x0, tol, maxiter, check_every,
+             M=None) -> _GuardedLoop:
+    """The loop's start: the warm-up SpMV, the first residual (and its
+    preconditioned twin) and the tolerance, all on the device."""
     matvec = as_matvec(matvec)
     x = torch.zeros_like(b) if x0 is None else x0
     # one eager application before the loop, as the reference does before
-    # tracing: the first SpMV prepares its index caches, which reads the
-    # device on the host, and such a read would break a capture
+    # tracing: the first SpMV (and the first M) prepares its index caches,
+    # which reads the device on the host, and such a read would break a
+    # capture
     matvec(x)
-    x, r, _, rr = _init(matvec, b, x)
+    x, r, p, rz, rr = _init(matvec, b, x, M)
     tol2 = torch.as_tensor(tol, dtype=rr.dtype, device=rr.device) ** 2 \
         * torch.clamp(_dot(b, b), min=1e-30)
-    return _GuardedLoop(matvec, x, r, rr, tol2, maxiter, check_every)
+    return _GuardedLoop(matvec, x, r, p, rz, rr, tol2, maxiter, check_every,
+                        M)
 
 
 def _result(loop: _GuardedLoop, b, tol, replays: int) -> CGResult:
@@ -212,10 +244,10 @@ def _result(loop: _GuardedLoop, b, tol, replays: int) -> CGResult:
 
 
 def _cg_async(matvec, b, x0, tol, maxiter, check_every, *,
-              graph: bool) -> CGResult:
+              graph: bool, M=None) -> CGResult:
     """:func:`cg_async`, its guarded chunks replayed as a CUDA graph or run
     eagerly (the CPU's way, and the graph's check on the card)."""
-    loop = _prepare(matvec, b, x0, tol, maxiter, check_every)
+    loop = _prepare(matvec, b, x0, tol, maxiter, check_every, M)
     replays = 0
     if bool(loop.go):
         if graph:

@@ -1,8 +1,11 @@
-"""Card twins of the structured-grid slice's CPU parity tests: the new
-segment-reduce dtypes against their plain version, both backends' reduce
-bit for bit (and from run to run), the fused multi-field exchange, the
-DMDA halo against the CPU, and the CUDA-graph ``cg_async`` against the same
-guarded chunks run eagerly.
+"""Card twins of the CPU parity tests: the new segment-reduce dtypes
+against their plain version, both backends' reduce bit for bit (and from
+run to run), the fused multi-field exchange, the DMDA halo against the CPU,
+the CUDA-graph ``cg_async`` against the same guarded chunks run eagerly;
+and for the composed-SF slice the V-cycle against the CPU, the graph PCG
+against its eager chunks, the prolong slot sums repeatable bit for bit,
+the edge-element stash assembly, and the ``sflog`` facade hooks during a
+capture (``traced`` only, nothing per replay).
 
 Every test is ``cuda``-marked and skips without a card; the file imports
 no JAX, so the card's machine runs it:
@@ -159,3 +162,129 @@ def test_cuda_graph_cg_async_equals_eager_chunks(dev, check_every):
     blocks = len(A._diag_ell) + len(A._offd_ell)
     # warm-up, init, the side-stream warm-up chunk, then every replay
     assert ell == blocks * (2 + GRAPH_ITERS * (1 + got.graph_replays))
+
+
+def _mg(dev, shape=(17, 17, 9)):
+    from repro_torch.meshdist import DMDA
+    from repro_torch.solvers import Multigrid
+    da = DMDA(shape, 8, stencil="star", periodic=False)
+    return da, Multigrid(da, nlevels=3, device=dev)
+
+
+def test_cuda_vcycle_matches_cpu_and_repeats(dev):
+    """rtol 1e-4, atol 1e-5 x max|v| against the CPU (float32 sums in
+    another order); bitwise from run to run on the card."""
+    da, mg = _mg(dev)
+    _, mg_cpu = _mg("cpu")
+    b = torch.randn(da.nglobal, generator=torch.Generator().manual_seed(5))
+    kops.reset_launch_counts()
+    got = mg.vcycle(b.to(dev))
+    counts = kops.launch_counts()
+    assert counts["spmv_ell"] and counts["pack_blocked"] \
+        and counts["segment_reduce_blocked"], counts
+    want = mg_cpu.vcycle(b)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4,
+                               atol=1e-5 * float(want.abs().max()))
+    assert torch.equal(mg.vcycle(b.to(dev)), got)
+
+
+def test_cuda_prolong_slot_sums_repeat_bitwise(dev):
+    """The weighted slot sums run through the segment-reduce kernel (no
+    float atomics): the same bits on every call, and the CPU's."""
+    from repro_torch.meshdist import DMDA
+    from repro_torch.solvers import Transfer
+    fine = DMDA((33, 17, 17), 8, stencil="star", periodic=False)
+    t = Transfer(fine, fine.coarsen(), device=dev)
+    t_cpu = Transfer(fine, fine.coarsen(), device="cpu")
+    xc = torch.randn(t.ncoarse, 3, generator=torch.Generator().manual_seed(1))
+    before = kops.segment_reduce_blocked.launches
+    a = t.prolong(xc.to(dev))
+    assert kops.segment_reduce_blocked.launches == before + 1
+    for _ in range(3):
+        assert torch.equal(t.prolong(xc.to(dev)), a)
+    assert torch.equal(a.cpu(), t_cpu.prolong(xc))
+    assert torch.equal(t.inject(xc.to(dev)).cpu(), t_cpu.inject(xc))
+
+
+def test_cuda_graph_pcg_equals_eager_chunks(dev):
+    """The V-cycle captured inside the graph's chunk: the replayed graph
+    and the same guarded chunks run eagerly take the same iterations to the
+    same x, bit for bit, at half the iterations of plain CG or fewer."""
+    from repro_torch.solvers.cg import _cg_async, cg, cg_async
+    da, mg = _mg(dev)
+    A = mg.ops[0]
+    b = torch.randn(da.nglobal, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(3))
+    mv = lambda v: A.spmv(v, use_kernel=True)   # noqa: E731
+    got = cg_async(mv, b, tol=1e-5, maxiter=200, M=mg.vcycle)
+    want = _cg_async(mv, b, None, 1e-5, 200, 1, graph=False, M=mg.vcycle)
+    host = cg(mv, b, tol=1e-5, maxiter=200, M=mg.vcycle)
+    plain = cg(mv, b, tol=1e-5, maxiter=500)
+    assert got.graph_replays >= 1 and got.converged
+    assert got.iters == want.iters == host.iters
+    assert torch.equal(got.x, want.x)
+    assert 2 * got.iters <= plain.iters
+
+
+def test_cuda_edge_element_assembly_bitwise(dev):
+    import chip_smoke
+    from repro_torch.meshdist import DMDA
+    from repro_torch.sparse import MatAssembler, ParCSR, Sparsity
+    da = DMDA((17, 13, 11), 8, stencil="star", periodic=False)
+    trips = chip_smoke.edge_element_triplets(da)
+    sp = Sparsity(8, da.nglobal, da.nglobal,
+                  np.concatenate([t[0] for t in trips]),
+                  np.concatenate([t[1] for t in trips]),
+                  row_offsets=da.owned_offsets, col_offsets=da.owned_offsets)
+    want = ParCSR.from_dmda_stencil(da, device=dev)
+    asm = MatAssembler(sp, device=dev)
+    for _ in range(2):                   # the second reuses the flush SF
+        for q, (r, c, v) in enumerate(trips):
+            asm.add_values(q, r, c, v)
+        got = asm.assemble()
+        for a, b in zip(got.diag + got.offd, want.diag + want.offd):
+            assert np.array_equal(a.indptr, b.indptr)
+            assert np.array_equal(a.indices, b.indices)
+            assert np.array_equal(a.data, b.data)
+        for a, b in zip(got._diag_ell + got._offd_ell,
+                        want._diag_ell + want._offd_ell):
+            assert torch.equal(a.data, b.data)
+
+
+def test_cuda_facade_hooks_under_capture_count_traced_only(dev):
+    """While a CUDA graph is captured the hooks bump ``traced`` only (and
+    read, fence and allocate nothing on the host); replays record
+    nothing."""
+    from repro_torch.core import sflog
+    sf = _general_sf()
+    comm = SFComm(sf, backend="cuda", device=dev)
+    roots = torch.randn(sf.nroots_total, device=dev)
+    leaves = torch.zeros(sf.nleafspace_total, device=dev)
+    old = sflog.set_mode("fence")
+    try:
+        def body():
+            pend = comm.bcast_begin(roots)
+            out = pend.end(leaves)
+            return comm.reduce(out, roots)
+        body()                                         # warm the caches
+        sflog.reset()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            with torch.cuda.graph(graph):
+                out = body()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        snap = sflog.events_snapshot()
+        assert snap == {
+            "SFBcastBegin": {"count": 0, "traced": 1, "bytes": 0.0},
+            "SFBcastEnd": {"count": 0, "traced": 1, "bytes": 0.0},
+            "SFReduce": {"count": 0, "traced": 1, "bytes": 0.0}}, snap
+        for _ in range(3):
+            graph.replay()
+        torch.cuda.synchronize(dev)
+        assert sflog.events_snapshot() == snap
+        assert torch.equal(out, body())
+    finally:
+        sflog.set_mode(old)
+        sflog.reset()

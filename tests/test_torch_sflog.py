@@ -190,3 +190,201 @@ def test_engine_events_and_tallies_match_reference(both_on):
         assert getattr(peng, attr).value == getattr(reng, attr).value, attr
     assert peng.programs.stats() == {**reng.programs.stats(),
                                      "name": "serve-programs"}
+
+
+# --------------------------------------------------------------------------
+# the facade hooks: exact per-event counts and bytes on the consumer paths
+# (the reference's tests/test_sflog.py), the same streams on both backends
+# --------------------------------------------------------------------------
+F32 = 4
+
+
+def _tridiag(cls, **kw):
+    """The 4-rank tridiagonal SPD matrix of the reference's sflog tests."""
+    i = np.arange(64)
+    rows = np.concatenate([i, i[1:], i[:-1]])
+    cols = np.concatenate([i, i[1:] - 1, i[:-1] + 1])
+    vals = np.concatenate([np.full(64, 2.5), -np.ones(126)])
+    return cls.from_global_coo(4, 64, 64, rows, cols, vals, **kw)
+
+
+def test_cg_spmv_exact_counts_and_bytes(both_on):
+    """Eager SpMV is one split-phase pair: count, bytes (halo edges x 4B
+    f32 row) and a positive overlap window, exactly per call — the
+    reference's counts, event for event."""
+    import jax.numpy as jnp
+    from repro.sparse.parmat import ParCSR as RParCSR
+    from repro_torch.sparse import ParCSR
+    A = _tridiag(ParCSR, device="cpu")
+    rA = _tridiag(RParCSR)
+    b = np.random.default_rng(0).standard_normal(64).astype(np.float32)
+    A.spmv(torch.as_tensor(b))
+    jax.block_until_ready(rA.spmv(jnp.asarray(b)))
+    PS.reset()
+    RS.reset()
+    for _ in range(4):
+        A.spmv(torch.as_tensor(b))
+        jax.block_until_ready(rA.spmv(jnp.asarray(b)))
+    nb = float(A.sf.nedges_total * F32)
+    d = PS.events_snapshot()
+    assert d["SFBcastBegin"] == {"count": 4, "traced": 0, "bytes": 4 * nb}
+    assert d["SFBcastEnd"] == {"count": 4, "traced": 0, "bytes": 4 * nb}
+    assert d == RS.events_snapshot()
+    assert PS.event("SFBcastEnd").overlap > 0.0
+    assert PS.event("SFBcastEnd").tags["op"] == {"replace": 4}
+    assert "Split-phase overlap windows" in PS.log_view()
+
+
+@pytest.mark.parametrize("M", [None, "jacobi"])
+def test_cg_blocking_exact_counts(both_on, M):
+    """Host ``cg``: the port runs every SpMV eagerly, so each records one
+    count (the initial residual's and one per iteration; the reference
+    counts 1 eager and 1 traced, its step being jitted).  A preconditioner
+    adds no SF event of its own here."""
+    from repro_torch.solvers import cg
+    from repro_torch.sparse import ParCSR
+    A = _tridiag(ParCSR, device="cpu")
+    b = torch.as_tensor(np.random.default_rng(1).standard_normal(64)
+                        .astype(np.float32))
+    A.spmv(b)
+    PS.reset()
+    pre = None if M is None else (lambda r: r / 2.5)
+    res = cg(A, b, tol=1e-6, maxiter=300, M=pre)
+    assert res.converged and res.iters > 5
+    nb = float(A.sf.nedges_total * F32)
+    k = 1 + res.iters
+    d = PS.events_snapshot()
+    assert d["SFBcastBegin"] == {"count": k, "traced": 0, "bytes": k * nb}
+    assert d["SFBcastEnd"] == {"count": k, "traced": 0, "bytes": k * nb}
+
+
+def test_dmda_halo_exact_counts_and_bytes(both_on):
+    """DMGlobalToLocal is one SFBcast, DMLocalToGlobal one SFReduce (halo
+    edges x row bytes) — the reference's stream, bytes and all."""
+    import jax.numpy as jnp
+    from repro.meshdist.dmda import DMDA as RDMDA
+    from repro_torch.meshdist import DMDA
+    da, rda = (cls((9, 7), 4, stencil="star", width=1)
+               for cls in (DMDA, RDMDA))
+    g = np.random.default_rng(0).standard_normal(da.nglobal) \
+        .astype(np.float32)
+    lv = da.global_to_local(torch.as_tensor(g), backend="global",
+                            device="cpu")
+    rlv = rda.global_to_local(jnp.asarray(g), backend="global")
+    PS.reset()
+    RS.reset()
+    for _ in range(3):
+        lv = da.global_to_local(torch.as_tensor(g), backend="global",
+                                device="cpu")
+        rlv = rda.global_to_local(jnp.asarray(g), backend="global")
+    da.local_to_global(lv, backend="global", device="cpu")
+    rda.local_to_global(rlv, backend="global")
+    nb = float(da.sf.nedges_total * F32)
+    d = PS.events_snapshot()
+    assert d["SFBcast"] == {"count": 3, "traced": 0, "bytes": 3 * nb}
+    assert d["SFReduce"] == {"count": 1, "traced": 0, "bytes": nb}
+    assert d == RS.events_snapshot()
+
+
+@pytest.mark.parametrize("backend", ["global", "cuda"])
+def test_field_bundle_multi_events_match_reference(both_on, backend):
+    """``bcast_multi`` / ``reduce_multi`` record one Multi event per fused
+    group (bytes: edges x fused row bytes) and the split forms one
+    Begin/End pair per call, whichever way the token is completed — the
+    reference's events, counts, bytes and tags."""
+    import jax.numpy as jnp
+    ref_sf = FIXTURES["general0"]()
+    comm = SFComm(port_sf(ref_sf), backend=backend, device="cpu")
+    rcomm = RSFComm(ref_sf, backend="global")
+    nr, nl = ref_sf.nroots_total, ref_sf.nleafspace_total
+    rng = np.random.default_rng(3)
+    roots = [rng.standard_normal((nr, 3)).astype(np.float32),
+             rng.integers(0, 9, nr).astype(np.int32),
+             rng.standard_normal(nr).astype(np.float32)]
+    leaves = [np.zeros((nl,) + a.shape[1:], a.dtype) for a in roots]
+
+    def drive(c, conv, done):
+        rf, lf = [conv(a) for a in roots], [conv(a) for a in leaves]
+        done(c.bcast_multi(rf, lf))
+        done(c.reduce_multi(lf, rf, "sum"))
+        p = c.bcast_multi_begin(rf)
+        done(c.bcast_multi_end(p, lf))
+        p = c.reduce_multi_begin(lf, "sum")
+        done(p.end(rf))
+    drive(comm, torch.as_tensor, lambda out: None)
+    drive(rcomm, jnp.asarray,
+          lambda out: out and jax.block_until_ready(out))
+    ne = float(ref_sf.nedges_total)
+    d = PS.events_snapshot()
+    # replace fuses all three (a 5-column uint32 carrier); sum fuses the
+    # two f32 fields (4 columns) and moves the int32 field alone
+    assert d["SFBcastMulti"] == {"count": 1, "traced": 0,
+                                 "bytes": ne * 5 * F32}
+    assert d["SFReduceMulti"] == {"count": 2, "traced": 0,
+                                  "bytes": ne * 4 * F32 + ne * F32}
+    assert d["SFBcastMultiEnd"]["count"] == 1
+    assert d["SFReduceMultiEnd"]["bytes"] == ne * 5 * F32
+    assert d == RS.events_snapshot()
+    assert {n: e.tags for n, e in PS.events().items()} == \
+        {n: e.tags for n, e in RS.events().items()}
+
+
+def _event_stream(S, comm, zeros, roots, done):
+    """counts+bytes the facade records for a fixed op sequence (time and
+    overlap are machine-dependent and excluded)."""
+    S.reset()
+    leaves = zeros
+    done(comm.bcast(roots, leaves, "replace"))
+    done(comm.reduce(leaves + 1, roots * 0, "sum"))
+    pend = comm.bcast_begin(roots, "replace")
+    done(pend.end(leaves))
+    pend = comm.reduce_begin(leaves + 1, "max")
+    done(comm.reduce_end(pend, roots * 0))
+    done(comm.fetch_and_op(roots * 0, leaves + 1, "sum"))
+    done(comm.gather(leaves + 1))
+    return S.events_snapshot()
+
+
+@pytest.mark.parametrize("name", sorted(FIXTURES))
+def test_backend_event_stream_conformance(name, both_on):
+    """Both port backends emit the identical event stream (names, counts,
+    traced, bytes: edges x 8B for 2-wide f32 rows) for the same SF and op
+    sequence, and it is the reference ``global`` backend's."""
+    import jax.numpy as jnp
+    ref_sf = FIXTURES[name]()
+    sf = port_sf(ref_sf)
+    roots = np.arange(2.0 * ref_sf.nroots_total, dtype=np.float32).reshape(
+        ref_sf.nroots_total, 2)
+    zeros = np.zeros((ref_sf.nleafspace_total, 2), np.float32)
+    streams = {b: _event_stream(PS, SFComm(sf, backend=b, device="cpu"),
+                                torch.as_tensor(zeros),
+                                torch.as_tensor(roots), lambda out: None)
+               for b in ("global", "cuda")}
+    ref = _event_stream(RS, RSFComm(ref_sf, backend="global"),
+                        jnp.asarray(zeros), jnp.asarray(roots),
+                        jax.block_until_ready)
+    nb = float(ref_sf.nedges_total * 2 * F32)
+    assert ref["SFBcast"] == {"count": 1, "traced": 0, "bytes": nb}
+    assert ref["SFReduceEnd"] == {"count": 1, "traced": 0, "bytes": nb}
+    assert ref["SFFetchAndOp"]["bytes"] == 2 * nb
+    for b, got in streams.items():
+        assert got == ref, f"backend {b} diverged on fixture {name}"
+
+
+def test_hooks_off_record_nothing_and_stash_claims_once(both_on):
+    """Off: no event at all.  On: a token completed through the facade and
+    then again through ``pending.end`` records one End event."""
+    sf = port_sf(FIXTURES["general1"]())
+    comm = SFComm(sf, backend="cuda", device="cpu")
+    roots = torch.ones(sf.nroots_total)
+    leaves = torch.zeros(sf.nleafspace_total)
+    PS.set_mode("off")
+    comm.bcast(roots, leaves)
+    comm.bcast_begin(roots).end(leaves)
+    assert PS.events() == {}
+    PS.set_mode("on")
+    pend = comm.bcast_begin(roots)
+    comm.bcast_end(pend, leaves)
+    pend.end(leaves)
+    assert PS.event("SFBcastEnd").count == 1
+    assert PS.claim_pending(pend) is None
