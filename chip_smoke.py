@@ -112,12 +112,40 @@ Phases, each printing one JSON line and asserting as it goes:
            16-64 new tokens each): service metrics, launches (every flash
            launch on the wgmma route), and profiled windows of prefills and
            decode steps.
+  moe      runtime-routed star forests and MoE serving, after qwen3-4b is
+           freed: (a) ``DynPlan`` at 2^16 roots and 2^18 leaves (duplicate
+           writers, unrouted roots, 10% drops), unit (4096,) bf16 and ()
+           f32: fresh and keep-prior bcast, the unique reduce with and
+           without rootdata, leaf_rep 2 and 8, the general sum and max,
+           each bitwise against the same call on the plain versions
+           (``plain_kernels``), the general reduce bitwise against
+           ``SFComm`` on the routing's SF, and a leaf_root of nroots + 1
+           failing each route in a child process
+           (``--out-of-range ROUTE DEVICE``); (b) phi3.5-moe's MoE layer at
+           full width in float32: SF against dense (rtol 1e-5, atol 1e-6)
+           at decode (8, 1), prefill (1, 1024) and a starved prefill (cf
+           0.3, which must drop picks), SF with kernels against SF with
+           plain gathers bitwise, both SF lowerings under
+           ``torch.cuda.set_sync_debug_mode("error")``; (c) kimi-k2's
+           384-expert layer with its shared expert at full width in bf16,
+           kernels against plain gathers bitwise; (d) phi3.5-moe at full
+           width, 16 of its 32 layers in bf16: one engine stream at batch 1
+           against direct greedy decoding (float32, 2 layers), then the
+           serve phase's trace through ``ServeEngine(batch=8,
+           s_max=2048)`` + ``loadgen.drive``: metrics, the plan cache's hit
+           rate, launches, profiled windows of a prefill and of five
+           decode steps with device ms by kernel group.  Every gather of
+           (b)-(d) is timed on its own inputs beside ``index_select`` and
+           its bound (``moe_shapes`` of the ``pack`` / ``pack_blocked``
+           rows), and both dispatch lowerings at both serving shapes
+           (``fuse_switch``).
 
-Six paths carry the kernels: ``sf_ops`` + ``spmv_cg`` (the SF kernels),
+Seven paths carry the kernels: ``sf_ops`` + ``spmv_cg`` (the SF kernels),
 ``dmda`` (``pack_blocked``, ``segment_reduce_blocked``, ``spmv_ell``),
 ``mg`` (``pack_blocked``, a segment reduce, ``spmv_ell``), ``assembly``
-(``pack_blocked``, a segment reduce), ``plex`` (``pack_blocked``) and the
-serve phase's drive (``flash_attention``).  Every launch counter is set
+(``pack_blocked``, a segment reduce), ``plex`` (``pack_blocked``), the
+serve phase's drive (``flash_attention``) and the moe phase's drive
+(``pack``, ``pack_blocked``, ``flash_attention``).  Every launch counter is set
 to 0 just before each and read just after, and each kernel must have
 launched on its path; a kernel's ``launches_by_path`` are those counts and
 its ``launches`` their sum.
@@ -193,6 +221,21 @@ MG_PATH = ("pack_blocked", "spmv_ell")          # and a segment reduce
 ASSEMBLY_PATH = ("pack_blocked",)               # and a segment reduce
 PLEX_PATH = ("pack_blocked",)
 SEGMENT_REDUCES = ("segment_reduce_sorted", "segment_reduce_blocked")
+MOE_PATH = ("pack", "pack_blocked", "flash_attention")
+# MoE layer, dispatch="sf" against dispatch="dense", float32: the
+# reference's tests/test_models.py:127-159
+MOE_RTOL, MOE_ATOL, MOE_AUX_RTOL = 1e-5, 1e-6, 1e-6
+# profiled serving windows: a kernel's group is the first whose name holds
+# one of its words; the rest are "other"
+KERNEL_GROUPS = (
+    ("flash_attention", ("flash_fwd",)),
+    ("sf_gathers", ("gather_rows_kernel", "rows_copy_kernel",
+                    "lanes_copy_kernel")),
+    ("segment_reduce", ("segment_reduce",)),
+    ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "cublas")),
+    ("routing", ("sort", "topk", "radix", "search", "scatter", "index",
+                 "gather", "arange")),
+)
 
 
 @dataclasses.dataclass
@@ -224,6 +267,19 @@ class Sizes:
     serve_prompt: tuple = (64, 1024)
     serve_new: tuple = (16, 64)
     check_prompt: int = 200       # prefill-vs-decode check prompt length
+    # moe: phi3.5-moe at full width in bf16, 16 of its 32 layers (41.6 GB
+    # of blocks; 32 layers, 84 GB, do not fit in 80 GB), kimi-k2's 384-expert
+    # layer alone, and DynPlan at dispatch scale (moe_smoke=True: the
+    # smoke configs, for rehearsals on the CPU)
+    moe_arch: str = "phi3.5-moe-42b-a6.6b"
+    moe_wide_arch: str = "kimi-k2-1t-a32b"
+    moe_smoke: bool = False
+    moe_layers: int = 16
+    moe_prefill: int = 1024       # the layer checks' prefill tokens
+    moe_decode_batch: int = 8
+    dyn_roots: int = 1 << 16      # DynPlan checks: expert slots
+    dyn_leaves: int = 1 << 18     # picks
+    dyn_width: int = 4096         # bf16 hidden rows (phi's d_model)
 
 
 def emit(obj) -> None:
@@ -1094,6 +1150,27 @@ def kernel_sweep(dev) -> int:
                             sf_pack.bcast_fused_plain(data, leaf, src)),
                   f"bcast_fused {unit} {dt}")
             cases += 1
+    # the MoE path's rows on the runtime-index route: 8,192-byte hidden
+    # rows, the decode's fused 8,194-byte rows (hidden state + gate weight:
+    # not a multiple of 4 bytes, so the generic loop's 2-byte words) and
+    # kimi's 14,338; int64 and int32 indices, and a source off the 16-byte
+    # alignment
+    for width in (4096, 4097, 7169):
+        data = rand((41, width), torch.bfloat16)
+        for idx in (torch.as_tensor(rng.integers(0, 41, 33), device=dev),
+                    torch.as_tensor(rng.integers(0, 40, 16), device=dev,
+                                    dtype=torch.int32)):
+            sub, sidx = data[1:], idx[idx < 40]
+            for got, ref in (
+                    (sf_pack.pack(data, idx, dynamic=True),
+                     sf_pack.pack_plain(data, idx)),
+                    (sf_pack.pack_blocked(data, idx, block_rows=64,
+                                          dynamic=True),
+                     sf_pack.pack_plain(data, idx)),
+                    (sf_pack.pack(sub, sidx, dynamic=True),
+                     sf_pack.pack_plain(sub, sidx))):
+                check(same_bits(got, ref), f"pack dynamic ({width},) bf16")
+                cases += 1
     cases += strided_sweep(dev, rng)
     fl = [torch.float32, torch.float64, torch.bfloat16]
     for rdt in fl:
@@ -2881,6 +2958,539 @@ def phase_serve(sz: Sizes, dev) -> dict:
     return out
 
 
+# -------------------------------------------------------------------- moe
+def moe_config(sz: Sizes, arch: str = None):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch or sz.moe_arch)
+    return cfg.smoke_config() if sz.moe_smoke else cfg
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Within the block, the SF entry points that ``DynPlan`` (and so the
+    MoE layer) calls, ``kops.pack_rows`` and ``kops.segment_reduce_rows``,
+    are their plain PyTorch versions: the yardstick a run with the
+    kernels is held against, bit for bit."""
+    from repro_torch.kernels import ops as kops, sf_pack, sf_unpack
+    real = kops.pack_rows, kops.segment_reduce_rows
+
+    def pack_rows(data, idx, *, dynamic=False):
+        return sf_pack.pack_plain(data, idx)
+
+    def segment_reduce_rows(sv, first, length, *, op="sum"):
+        return sf_unpack.segment_reduce_plain(sv, first, length, op)
+    kops.pack_rows, kops.segment_reduce_rows = pack_rows, segment_reduce_rows
+    try:
+        yield
+    finally:
+        kops.pack_rows, kops.segment_reduce_rows = real
+
+
+@contextlib.contextmanager
+def recorded_gathers(log: list):
+    """Within the block, every ``kops.pack_rows`` call appends its
+    ``(data, idx)`` to ``log`` and runs as it does."""
+    from repro_torch.kernels import ops as kops
+    real = kops.pack_rows
+
+    def pack_rows(data, idx, *, dynamic=False):
+        log.append((data, idx))
+        return real(data, idx, dynamic=dynamic)
+    kops.pack_rows = pack_rows
+    try:
+        yield
+    finally:
+        kops.pack_rows = real
+
+
+@contextlib.contextmanager
+def no_host_sync(dev):
+    """Within the block any synchronising CUDA call raises (on the card)."""
+    import torch
+    if dev.type != "cuda":
+        yield
+        return
+    torch.cuda.synchronize(dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+GATHER_CALLS = 20      # gathers a timing graph holds, back to back
+
+
+def burst_ms(fn, dev, it: int) -> float:
+    """Device ms per ``fn()`` from CUDA events around replays of a CUDA
+    graph of ``GATHER_CALLS`` back-to-back calls (no profiler: in the long
+    run torch.profiler returned windows of such calls without any kernel);
+    the gaps between the kernels are in the time (the host's time per call
+    on the CPU)."""
+    return graph_ms(lambda: [fn() for _ in range(GATHER_CALLS)], dev,
+                    it) / GATHER_CALLS
+
+
+def gather_record(what: str, data, idx, dev, it: int) -> dict:
+    """One gather of the MoE path on its own inputs: the kernel (through
+    ``pack_rows``' runtime-index route, on the int32 index it launches
+    with) bitwise against the plain version, and device ms of the kernel,
+    the plain version and ``index_select`` (:func:`burst_ms`) beside its
+    bound."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    i32 = idx.to(torch.int32)
+    got = kops.pack_rows(data, i32, dynamic=True)
+    want = data[idx.long()]
+    check(same_bits(got, want), f"{what}: gather differs from plain")
+    rb = math.prod(data.shape[1:]) * data.element_size()
+    M = int(idx.numel())
+    # each source row this index reads, once; each output row and index
+    # entry, once
+    b, by = bound((int(torch.unique(idx).numel()) + M) * rb + 4.0 * M)
+    wide = math.prod(data.shape[1:]) >= kops.WIDE_ROW
+    i64 = idx.long()
+    return {"what": what, "kernel": "pack" if wide else "pack_blocked",
+            "rows": M, "source_rows": int(data.shape[0]), "row_bytes": rb,
+            "dtype": str(data.dtype).split(".")[-1],
+            "ms": burst_ms(
+                lambda: kops.pack_rows(data, i32, dynamic=True), dev, it),
+            "plain_ms": burst_ms(lambda: data[i64], dev, it),
+            "library_ms": burst_ms(
+                lambda: torch.index_select(data, 0, i64), dev, it),
+            "bound_ms": b, "bound_by": by}
+
+
+def moe_gathers(label: str, x, p, cfg, dev, it: int) -> list:
+    """The gathers one ``moe_layer(x, dispatch="sf")`` call makes, each
+    timed on its own inputs (:func:`gather_record`)."""
+    from repro_torch.models import moe as M
+    log = []
+    with recorded_gathers(log):
+        M.moe_layer(x, p, cfg, dispatch="sf")
+    shape = "x".join(str(d) for d in x.shape[:2])
+    names = (["dispatch", "combine"] if len(log) == 2
+             else ["dispatch", "weights", "combine"])
+    return [gather_record(f"{label} {shape} {n}", d, i, dev, it)
+            for n, (d, i) in zip(names, log)]
+
+
+def fuse_switch(x, p, cfg, dev, it: int) -> dict:
+    """``moe_layer(x)`` with each dispatch lowering forced (the fused
+    two-field reduce, and the leaf_rep gather), in turns: ms per call
+    (CUDA events, host included) against the reference's switch
+    ``_FUSE_MAX_LEAVES``, which picks one of them by the number of picks."""
+    from repro_torch.models import moe as M
+    switch = M._FUSE_MAX_LEAVES
+    picks = x.shape[0] * x.shape[1] * cfg.moe_topk
+    runs = {"fused": 1 << 62, "leaf_rep": 0}
+    ms = {k: [] for k in runs}
+    try:
+        for name in ("fused", "leaf_rep", "leaf_rep", "fused"):
+            M._FUSE_MAX_LEAVES = runs[name]
+            ms[name].append(call_ms(lambda: M.moe_layer(x, p, cfg), dev, it))
+    finally:
+        M._FUSE_MAX_LEAVES = switch
+    return {"shape": list(x.shape[:2]), "picks": picks,
+            "switch_takes": "fused" if picks <= switch else "leaf_rep",
+            "call_ms": ms}
+
+
+def routing_stats(x, p, cfg) -> dict:
+    """Groups, capacity and kept picks of ``moe_layer``'s routing of x."""
+    import torch
+    from repro_torch.models import moe as M
+    B, S, D = x.shape
+    E, k = cfg.moe_experts, cfg.moe_topk
+    G = B if S > 1 else 1
+    T = B * S // G
+    logits = torch.einsum("gtd,de->gte", x.reshape(G, T, D).float(),
+                          p["router"])
+    _, eidx = torch.topk(torch.softmax(logits, -1), k, dim=-1)
+    C = max(int(np.ceil(T * k * cfg.moe_capacity / E)), 1)
+    _, keep = M._capacity_slots(eidx, C, E)
+    return {"groups": G, "tokens_per_group": T, "capacity": C,
+            "roots": G * E * C, "picks": G * T * k,
+            "kept": int(keep.sum())}
+
+
+def dyn_routing(nroots: int, nleaves: int, gen, dev, unique=False):
+    """A random routing on the device: duplicate writers, unrouted roots
+    and 10% drops; ``unique``: each root written at most once (the rest
+    dropped)."""
+    import torch
+    if unique:
+        perm = torch.randperm(nleaves, generator=gen, device=dev)
+        return torch.where(perm < nroots, perm, nroots)
+    lr = torch.randint(0, nroots, (nleaves,), generator=gen, device=dev)
+    drop = torch.rand(nleaves, generator=gen, device=dev) < 0.1
+    return torch.where(drop, nroots, lr)
+
+
+# bcast: rows of 4 f32 (the narrow gather), bcast_wide: rows of 300 f32
+# (the generic loop), unique: scatter_, general: _assert_async
+OUT_OF_RANGE_ROUTES = ("bcast", "bcast_wide", "unique", "general")
+
+
+def out_of_range_child(route: str, device: str) -> int:
+    """``chip_smoke.py --out-of-range ROUTE DEVICE``: one DynPlan operation
+    whose leaf_root holds nroots + 1.  It must fail (on the card: the
+    gather kernel's trap, ``scatter_``'s or ``_assert_async``'s device
+    assert); returning 0 means the bad index went through."""
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    import torch
+    from repro_torch.core import DynPlan
+    dev = torch.device(device)
+    plan = DynPlan(8, 16)
+    lr = torch.arange(16, device=dev) % 9
+    lr[5] = 9
+    data = torch.ones(16, 4, device=dev)
+    if route.startswith("bcast"):
+        width = 300 if route == "bcast_wide" else 4
+        plan.bcast(torch.ones(8, width, device=dev), lr)
+    elif route == "unique":
+        plan.reduce(data, lr, unique=True)
+    else:
+        plan.reduce(data, lr, op="sum")
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    print("an out-of-range leaf_root went through", flush=True)
+    return 0
+
+
+def out_of_range_checks(dev) -> dict:
+    """Each DynPlan route in a child process of its own (a device-side
+    failure ends the CUDA context): each must exit non-zero."""
+    procs = {r: subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--out-of-range", r,
+         dev.type], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in OUT_OF_RANGE_ROUTES}
+    out = {}
+    for r, proc in procs.items():
+        log, _ = proc.communicate(timeout=600)
+        lines = [ln for ln in log.strip().splitlines() if ln.strip()]
+        out[r] = {"exit": proc.returncode,
+                  "message": [ln[:160] for ln in lines
+                              if "outside" in ln or "Error" in ln
+                              or "assert" in ln][:3]}
+        check(proc.returncode != 0 and "went through" not in log,
+              f"an out-of-range leaf_root went through DynPlan's {r} "
+              f"route: {log[-2000:]}")
+        check(out[r]["message"], f"the {r} route failed without a "
+              f"message: {log[-2000:]}")
+    return out
+
+
+def moe_dynplan(sz: Sizes, dev) -> dict:
+    """(a) DynPlan at dispatch scale: every operation bitwise against its
+    plain version on the card, the general reduce against SFComm on the
+    routing's SF, an out-of-range leaf_root failing."""
+    import torch
+    from repro_torch.core import DynPlan, SFComm, star_forest_from_assignment
+    R, L = sz.dyn_roots, sz.dyn_leaves
+    g = torch.Generator(device=dev).manual_seed(11)
+    plan = DynPlan(R, L)
+    lr = dyn_routing(R, L, g, dev)
+    lru = dyn_routing(R, L, g, dev, unique=True)
+    comm = SFComm(star_forest_from_assignment(lr.cpu(), R), backend="cuda",
+                  device=dev)
+    out = {"roots": R, "leaves": L, "dropped": int((lr == R).sum()),
+           "unique_dropped": int((lru == R).sum()), "units": {}}
+    for unit, dtype in (((sz.dyn_width,), torch.bfloat16),
+                        ((), torch.float32)):
+        root = torch.randn((R,) + unit, generator=g, device=dev).to(dtype)
+        leaf = torch.randn((L,) + unit, generator=g, device=dev).to(dtype)
+        cases = {
+            "bcast_fresh": lambda: plan.bcast(root, lr),
+            "bcast_keep_prior": lambda: plan.bcast(root, lr, leaf),
+            "reduce_unique": lambda: plan.reduce(leaf, lru, unique=True),
+            "reduce_unique_rootdata": lambda: plan.reduce(
+                leaf, lru, root, unique=True),
+            "leaf_rep_2": lambda: plan.reduce(leaf[:L // 2], lru,
+                                              unique=True, leaf_rep=2),
+            "leaf_rep_8": lambda: plan.reduce(leaf[:L // 8], lru,
+                                              unique=True, leaf_rep=8),
+            "reduce_sum": lambda: plan.reduce(leaf, lr, root, op="sum"),
+            "reduce_max": lambda: plan.reduce(leaf, lr, root, op="max"),
+        }
+        rec = {}
+        for name, fn in cases.items():
+            got = fn()
+            with plain_kernels():
+                want = fn()
+            check(same_bits(got, want), f"DynPlan {name} {unit} {dtype}: "
+                  f"kernels differ from the plain version")
+            rec[name] = {"bitwise": True}
+            if name in ("bcast_fresh", "reduce_unique", "reduce_sum"):
+                # whole calls (CUDA events): torch.profiler drops the
+                # events of windows this long
+                rec[name]["call_ms"] = call_ms(fn, dev, 5)
+                with plain_kernels():
+                    rec[name]["plain_call_ms"] = call_ms(fn, dev, 5)
+        for op in ("sum", "max"):
+            check(same_bits(plan.reduce(leaf, lr, root, op=op),
+                            comm.reduce(leaf, root, op=op)),
+                  f"DynPlan general {op} != SFComm on the routing's SF")
+        rec["general_equals_sfcomm"] = ["sum", "max"]
+        out["units"][f"{unit} {str(dtype).split('.')[-1]}"] = rec
+        del root, leaf
+    out["out_of_range"] = out_of_range_checks(dev)
+    return out
+
+
+def moe_layer_checks(sz: Sizes, dev) -> dict:
+    """(b) phi3.5-moe, one MoE layer at full width in float32: SF against
+    dense at the reference's tolerance at decode, prefill and a starved
+    prefill; SF with kernels against SF with plain gathers, bitwise; both
+    SF lowerings with no host synchronisation; each gather timed."""
+    import torch
+    from repro_torch.models import moe as M
+    cfg = moe_config(sz).scaled(dtype="float32")
+    g = torch.Generator(device=dev).manual_seed(21)
+    p = {k: v[0] for k, v in M.init_moe(cfg, 1, generator=g,
+                                        device=dev).items()}
+    D = cfg.d_model
+    out = {"arch": cfg.name, "dtype": "float32", "d_model": D,
+           "experts": cfg.moe_experts, "topk": cfg.moe_topk,
+           "d_ff": cfg.moe_dff, "cases": {}, "gathers": []}
+    for name, shape, c in (
+            ("decode", (sz.moe_decode_batch, 1), cfg),
+            ("prefill", (1, sz.moe_prefill), cfg),
+            ("prefill_starved", (1, sz.moe_prefill),
+             cfg.scaled(moe_capacity=0.3))):
+        x = torch.randn(shape + (D,), generator=g, device=dev)
+        y_sf, a_sf = M.moe_layer(x, p, c, dispatch="sf")
+        y_d, a_d = M.moe_layer(x, p, c, dispatch="dense")
+        err = max_abs(y_sf, y_d)
+        check(bool(torch.allclose(y_sf, y_d, rtol=MOE_RTOL, atol=MOE_ATOL)),
+              f"moe {name}: sf vs dense max|d| {err}")
+        check(abs(float(a_sf) - float(a_d)) <= MOE_AUX_RTOL * abs(float(a_d)),
+              f"moe {name}: aux {float(a_sf)} vs {float(a_d)}")
+        with plain_kernels():
+            y_p, _ = M.moe_layer(x, p, c, dispatch="sf")
+        check(same_bits(y_sf, y_p), f"moe {name}: kernels != plain gathers")
+        with no_host_sync(dev):
+            y_s, _ = M.moe_layer(x, p, c, dispatch="sf")
+        check(same_bits(y_s, y_sf), f"moe {name}: not repeatable")
+        r = routing_stats(x, p, c)
+        if name == "prefill_starved":
+            check(r["kept"] < r["picks"], "the starved prefill dropped "
+                  "no pick")
+        lowering = "fused" if r["picks"] <= M._FUSE_MAX_LEAVES else \
+            "leaf_rep"
+        out["cases"][name] = {"shape": list(shape), "lowering": lowering,
+                              "routing": r, "sf_vs_dense_max_abs": err,
+                              "aux": float(a_sf),
+                              "kernels_equal_plain_gathers": True,
+                              "no_host_sync": dev.type == "cuda"}
+        if name != "prefill_starved":
+            out["gathers"] += moe_gathers("phi f32", x, p, c, dev, 10)
+    out["tolerance"] = {"rtol": MOE_RTOL, "atol": MOE_ATOL,
+                        "aux_rtol": MOE_AUX_RTOL}
+    del p
+    return out
+
+
+def moe_wide(sz: Sizes, dev) -> dict:
+    """(c) kimi-k2, one MoE layer with its shared expert at full width in
+    bf16 (the 384-way fan): kernels against plain gathers bitwise at
+    decode and prefill, each gather timed."""
+    import torch
+    from repro_torch.models import moe as M
+    cfg = moe_config(sz, sz.moe_wide_arch)
+    g = torch.Generator(device=dev).manual_seed(31)
+    t0 = time.perf_counter()
+    p = {k: v[0] for k, v in M.init_moe(cfg, 1, generator=g,
+                                        device=dev).items()}
+    sync(dev)
+    out = {"arch": cfg.name, "dtype": cfg.dtype, "d_model": cfg.d_model,
+           "experts": cfg.moe_experts, "topk": cfg.moe_topk,
+           "d_ff": cfg.moe_dff, "shared_ff": cfg.moe_shared_ff,
+           "param_bytes": sum(v.numel() * v.element_size()
+                              for v in p.values()),
+           "init_s": time.perf_counter() - t0, "cases": {}, "gathers": []}
+    for name, shape in (("decode", (sz.moe_decode_batch, 1)),
+                        ("prefill", (1, sz.moe_prefill))):
+        x = torch.randn(shape + (cfg.d_model,), generator=g,
+                        device=dev).to(torch.bfloat16)
+        y, _ = M.moe_layer(x, p, cfg, dispatch="sf")
+        with plain_kernels():
+            y_p, _ = M.moe_layer(x, p, cfg, dispatch="sf")
+        check(same_bits(y, y_p), f"kimi {name}: kernels != plain gathers")
+        check(bool(torch.isfinite(y).all()), f"kimi {name}: not finite")
+        out["cases"][name] = {"shape": list(shape),
+                              "routing": routing_stats(x, p, cfg),
+                              "kernels_equal_plain_gathers": True}
+        out["gathers"] += moe_gathers("kimi bf16", x, p, cfg, dev, 10)
+    del p
+    return out
+
+
+def grouped_kernels(by_name: dict) -> dict:
+    """Device ms of a profiled window by ``KERNEL_GROUPS``."""
+    out = {}
+    for name, ms in by_name.items():
+        group = next((gname for gname, words in KERNEL_GROUPS
+                      if any(w in name for w in words)), "other")
+        out[group] = out.get(group, 0.0) + ms
+    return out
+
+
+def moe_engine_check(cfg, sz: Sizes, dev, rng) -> dict:
+    """One request through ``ServeEngine(batch=1, bucket_prompts=False)``
+    equals direct greedy prefill + decode_step: at batch 1 both route each
+    token alone.  In float32 at two layers of the full width, as the serve
+    phase: the engine's decode keeps the reference engine's unrounded
+    attention probabilities where ``decode_step`` rounds them to the cache
+    dtype, so only float32 makes the two decodes round alike."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import Request, ServeEngine
+    cfg32 = cfg.scaled(dtype="float32", n_layers=2)
+    g = torch.Generator(device=dev).manual_seed(1)
+    p32 = T.init_params(cfg32, generator=g, device=dev)
+    toks = rng.integers(0, cfg.vocab, 64).tolist()
+    req = Request(0, toks, max_new=8)
+    ServeEngine(cfg32, p32, batch=1, s_max=256, bucket_prompts=False,
+                device=dev).run([req])
+    lg, cache = T.prefill(p32, cfg32, tokens=[toks], s_max=256)
+    tok = torch.argmax(lg, -1)
+    want = [int(tok[0])]
+    for _ in range(7):
+        lg, cache = T.decode_step(p32, cfg32, tok, cache)
+        tok = torch.argmax(lg, -1)
+        want.append(int(tok[0]))
+    check(req.out == want, f"moe engine stream {req.out} != direct "
+          f"greedy {want}")
+    del p32, cache
+    return {"layers": 2, "dtype": "float32", "batch": 1, "tokens": len(want)}
+
+
+def moe_serve(sz: Sizes, dev) -> dict:
+    """(d) phi3.5-moe served in bf16 at full width, ``moe_layers`` layers,
+    random weights from a seeded generator: the batch-1 engine check, the
+    gathers timed at the serving shapes (layer 0), then the serve phase's
+    trace through ``ServeEngine(batch=8, s_max=2048)`` + ``loadgen.drive``
+    with the launch counters from 0, and profiled windows of one prefill
+    and of five decode steps."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa, ops as kops
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import Request, ServeEngine, drive, \
+        trace_fingerprint
+    rng = np.random.default_rng(6)
+    base = moe_config(sz)
+    cfg = base.scaled(n_layers=min(sz.moe_layers, base.n_layers))
+    out = {"arch": cfg.name, "dtype": cfg.dtype, "layers": cfg.n_layers,
+           "of_layers": base.n_layers, "d_model": cfg.d_model}
+    out["engine_equals_direct_greedy"] = moe_engine_check(cfg, sz, dev, rng)
+    gc.collect()
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = T.init_params(cfg, generator=g, device=dev)
+    sync(dev)
+    leaves = [params["embed"], params["final_norm"],
+              *params["blocks"].values()] + \
+        ([] if cfg.tie_embeddings else [params["lm_head"]])
+    out.update({"params": sum(t.numel() for t in leaves),
+                "param_bytes": sum(t.numel() * t.element_size()
+                                   for t in leaves),
+                "init_s": time.perf_counter() - t0})
+    # the gathers at the serving shapes, on layer 0's leaves
+    bp = T.layer(params["blocks"], 0)
+    gathers = []
+    for shape in ((sz.serve_batch, 1), (1, sz.moe_prefill)):
+        x = torch.randn(shape + (cfg.d_model,), generator=g,
+                        device=dev).to(torch.bfloat16)
+        gathers += moe_gathers("phi bf16", x, bp, cfg, dev,
+                               sz.timing_iters)
+        out.setdefault("fuse_switch", []).append(
+            fuse_switch(x, bp, cfg, dev, sz.timing_iters))
+    out["gathers"] = gathers
+
+    trace = serve_trace(sz, cfg)
+    eng = ServeEngine(cfg, params, batch=sz.serve_batch, s_max=sz.serve_s_max,
+                      device=dev)
+    M.plan_cache().clear()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    gc.collect()
+    sync(dev)
+    kops.reset_launch_counts()
+    t1 = time.perf_counter()
+    metrics = drive(eng, trace)
+    sync(dev)
+    wall = time.perf_counter() - t1
+    counts = kops.launch_counts()
+    sm90 = fa.flash_attention.launches_sm90
+    reqs = [r for _, r in trace]
+    check(all(r.done and len(r.out) == r.max_new for r in reqs),
+          "a MoE request did not finish with its budget of tokens")
+    check(counts["flash_attention"] == cfg.n_layers * len(reqs) or
+          dev.type != "cuda", f"moe flash launches "
+          f"{counts['flash_attention']} != {cfg.n_layers} x {len(reqs)}")
+    check(sm90 == counts["flash_attention"], f"only {sm90} of "
+          f"{counts['flash_attention']} moe flash launches took the wgmma "
+          f"route")
+    out.update({"trace_fingerprint": trace_fingerprint(trace),
+                "requests": len(reqs),
+                "prompt_tokens": sum(r.prompt_len for r in reqs),
+                "drive_wall_s": wall, "metrics": metrics,
+                "plan_cache": M.plan_cache().stats(),
+                "launches": counts, "flash_launches_sm90": sm90,
+                "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9
+                if dev.type == "cuda" else None})
+
+    # where the time goes: a prefill of the largest bucket alone, and five
+    # decode steps of all slots after 8 requests were admitted
+    for i in range(sz.serve_batch):
+        eng.submit(Request(300 + i, rng.integers(
+            0, cfg.vocab, sum(sz.serve_prompt) // 2).tolist(), max_new=64))
+    eng.step()
+    big = rng.integers(0, cfg.vocab, (1, max(serve_buckets(trace, sz))))
+    windows = {f"prefill_{big.shape[1]}": lambda: T.prefill(
+                   params, cfg, tokens=big, s_max=sz.serve_s_max),
+               "5_decode_steps": lambda: [eng.step() for _ in range(5)]}
+    for name, fn in windows.items():
+        # taken again while the profiler returns no device event
+        for wait in (0.0,) + RETAKE_WAITS_S:
+            time.sleep(wait)
+            by_name, wall_ms = profiled(fn, dev)
+            if by_name or dev.type != "cuda":
+                break
+            PROFILER_WINDOWS["retaken"] += 1
+        busy = sum(by_name.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+        out[f"profiled_{name}"] = {
+            "wall_ms": wall_ms, "device_ms": busy,
+            "device_idle_share": 1.0 - busy / wall_ms if busy else None,
+            "by_group_ms": grouped_kernels(by_name),
+            "top_kernels_ms": {k[:60]: v for k, v in top}}
+    del eng, params, bp
+    gc.collect()
+    return out
+
+
+def phase_moe(sz: Sizes, dev) -> dict:
+    """The MoE slice: (a) DynPlan, (b) phi's layer in float32, (c) kimi's
+    layer, (d) phi served; only (d)'s drive is the counted path."""
+    import torch
+    t0 = time.perf_counter()
+    out = {"phase": "moe"}
+    for key, part in (("dynplan", moe_dynplan), ("layer", moe_layer_checks),
+                      ("wide_layer", moe_wide), ("serve", moe_serve)):
+        t1 = time.perf_counter()
+        out[key] = part(sz, dev)
+        out[key]["seconds"] = time.perf_counter() - t1
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    out["launches"] = out["serve"].pop("launches")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 # ------------------------------------------------------------------- main
 def run(dev, sz: Sizes) -> list:
     """All phases on ``dev``; returns the kernel records."""
@@ -2973,6 +3583,22 @@ def run(dev, sz: Sizes) -> list:
     by_path["serve"] = serve["launches"]
     missing = [k for k in SERVE_PATH if by_path["serve"][k] == 0]
     check(not missing or not on_card, f"serving never launched {missing}")
+    del serve
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # the MoE path: qwen3-4b is freed; moe_serve zeroes the counters
+    # before its drive
+    moe = phase_moe(sz, dev)
+    emit(moe)
+    by_path["moe"] = moe["launches"]
+    missing = [k for k in MOE_PATH if by_path["moe"][k] == 0]
+    check(not missing or not on_card, f"MoE serving never launched "
+          f"{missing}")
+    for part in ("layer", "wide_layer", "serve"):
+        for gr in moe[part]["gathers"]:
+            recs[gr["kernel"]].setdefault("moe_shapes", []).append(gr)
     for name, rec in recs.items():
         rec["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())
@@ -2980,6 +3606,8 @@ def run(dev, sz: Sizes) -> list:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--out-of-range"]:
+        return out_of_range_child(sys.argv[2], sys.argv[3])
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "

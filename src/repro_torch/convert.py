@@ -18,7 +18,7 @@ from .core.device import resolve_device
 from .core.graph import RankGraph, StarForest
 from .meshdist.plex import DistributedMesh, HexMesh
 from .models.config import ModelConfig
-from .models.transformer import init_params, require_dense
+from .models.transformer import init_params, require_supported
 from .sparse.csr import LocalCSR
 from .sparse.parmat import ParCSR
 
@@ -94,8 +94,10 @@ def params_from_arrays(cfg: ModelConfig, tree: Dict, *,
     dicts of numpy arrays (``{"embed", "final_norm", "lm_head"?,
     "blocks": {...}}``), name for name and in the same dtype.  The names,
     shapes and dtypes must be the ones ``models.transformer.init_params``
-    makes for ``cfg``."""
-    require_dense(cfg)
+    makes for ``cfg``: for a MoE config the blocks carry ``router`` (L, D,
+    E) in float32, ``w_in`` / ``w_gate`` (L, E, D, F) and ``w_out`` (L, E,
+    F, D), and ``shared_*`` only when ``moe_shared_ff`` is set."""
+    require_supported(cfg)
     dev = resolve_device(device)
 
     def convert(where: str, spec: Dict, arrays: Dict) -> Dict:

@@ -12,6 +12,9 @@ Public API:
   FieldBundle, FieldSpec     fused multi-field exchange (SFComm.*_multi)
   patterns.analyze           §5.2 pattern discovery
   redplan                    shared sort-segment reduction machinery (§3.3)
+  DynPlan, star_forest_from_assignment
+                             runtime-routed SFs (MoE dispatch): the edge
+                             list is a device tensor given to each op
   PlanCache                  signature-keyed cache of plans / programs
   sflog                      -log_view analogue: event/counter registry,
                              SFView introspection
@@ -34,7 +37,8 @@ from .backend import (CudaBackend, GlobalBackend, SFBackend, SFComm,
                       available_backends, make_backend, register_backend,
                       select_backend)
 from .device import resolve_device
-from .dynplan import PlanCache
+from .dynplan import (BoundDynSF, DynPlan, PlanCache,
+                      star_forest_from_assignment)
 from . import patterns, redplan, sflog, simulate
 
 __all__ = [
@@ -50,5 +54,6 @@ __all__ = [
     "SFBackend", "SFComm", "GlobalBackend", "CudaBackend",
     "available_backends", "make_backend", "register_backend",
     "select_backend", "resolve_device", "PlanCache",
+    "DynPlan", "BoundDynSF", "star_forest_from_assignment",
     "patterns", "redplan", "sflog", "simulate",
 ]

@@ -17,12 +17,14 @@ into:
   them.
 * **SFView** (:func:`sf_view` / :func:`format_sf_view`): nroots/nleaves,
   local-vs-remote edge split, root-degree histogram, backend and cached-plan
-  signatures for any ``StarForest`` / ``SFComm`` (``DynPlan`` comes with
-  the MoE slice).
+  signatures for any ``StarForest`` / ``SFComm``; sizes, unit and label
+  for a ``DynPlan``.
 
 Call sites in this port: every operation of ``SFComm`` (so ``ParCSR``'s
 SpMV, the DMDA halo, the multigrid transfers and the stash flush), the
-fused multi-field exchange of ``FieldBundle`` and the serving engine.
+fused multi-field exchange of ``FieldBundle``, ``DynPlan``'s runtime-routed
+``SFDynReduce`` / ``SFDynBcast`` (bytes: leaves x row bytes; MoE dispatch
+and combine) and the serving engine.
 
 Rendering: :func:`log_view` (the PETSc-style text table) and
 :func:`dump_json` (a JSON-ready dict benchmarks stamp into artifacts).
@@ -465,13 +467,18 @@ def overlap_efficiency(sync_event: str, split_event: str) -> Optional[float]:
 # SFView
 # --------------------------------------------------------------------------
 def sf_view(obj) -> Dict[str, Any]:
-    """Structured ``PetscSFView`` analogue for a ``StarForest`` or
-    ``SFComm``: sizes, local/remote edge split, root-degree histogram,
+    """Structured ``PetscSFView`` analogue for a ``StarForest``, ``SFComm``
+    or ``DynPlan``: sizes, local/remote edge split, root-degree histogram,
     pattern kind, and (for a comm) backend + cached-plan signature."""
     from .graph import StarForest
+    from .dynplan import DynPlan
     from . import patterns as pat
 
     backend_name = plan = None
+    if isinstance(obj, DynPlan):
+        return {"type": "DynPlan", "nroots": obj.nroots,
+                "nleaves": obj.nleaves, "unit": repr(obj.unit),
+                "label": repr(obj.label), "tune_key": repr(obj.tune_key)}
     sf = obj
     if not isinstance(obj, StarForest):          # SFComm-shaped
         sf = obj.sf
@@ -511,6 +518,9 @@ def sf_view(obj) -> Dict[str, Any]:
 def format_sf_view(obj) -> str:
     """The human-readable SFView block (``PetscSFView`` to stdout)."""
     v = sf_view(obj)
+    if v["type"] == "DynPlan":
+        return (f"SFView: DynPlan {v['label']}: {v['nroots']} roots, "
+                f"{v['nleaves']} leaves, unit {v['unit']}")
     e = v["edges"]
     hist = " ".join(f"{d}x{c}" for d, c in
                     sorted(v["root_degree_histogram"].items()))

@@ -43,14 +43,14 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 # C entry point -> (library, argtypes); every one returns int.
 _SIGNATURES = {
-    "sf_gather_rows": ("sf_pack", [_P, _P, _P, _L, _L, _I, _P]),
+    "sf_gather_rows": ("sf_pack", [_P, _P, _P, _L, _L, _I, _L, _P]),
     "sf_gather_strided": ("sf_pack", [_P, _P, _L, _L, _I, _L, _L, _L, _L,
                                       _L, _P]),
     "sf_bcast_fused_copy": ("sf_pack", [_P, _P, _P, _P, _L, _L, _I, _P]),
     "sf_bcast_fused_cast": ("sf_pack", [_P, _P, _P, _P, _L, _L, _I, _I, _I,
                                         _P]),
     "sf_gather_narrow": ("sf_pack", [_P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                     _P]),
+                                     _I, _P]),
     "sf_bcast_narrow_copy": ("sf_pack", [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                          _I, _P]),
     "sf_bcast_narrow_cast": ("sf_pack", [_P, _P, _P, _P, _I, _I, _I, _I, _I,

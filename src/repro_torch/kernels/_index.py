@@ -68,7 +68,7 @@ def _as_int32(idx, device: torch.device, what: str) -> torch.Tensor:
         if a.size and not np.issubdtype(a.dtype, np.integer):
             raise TypeError(f"{what} must hold integers, got {a.dtype}")
         t = torch.as_tensor(a.astype(np.int64, copy=False), device=device)
-    if t.numel():
+    if t.numel() and t.dtype != torch.int32:
         lo, hi = (int(v) for v in torch.aminmax(t.reshape(-1)))
         if lo < -_INT32_MAX or hi > _INT32_MAX:
             raise ValueError(f"{what} does not fit in int32")
@@ -91,7 +91,8 @@ def device_index(idx, device: torch.device, what: str = "index"
 def segment_meta(seg_start, seg_len, device: torch.device
                  ) -> Tuple[torch.Tensor, torch.Tensor, int, int]:
     """``(start, length, max end, max length)`` of per-segment metadata as
-    int32 tensors on ``device``; raises on a negative start or length."""
+    int32 tensors on ``device``; raises on a negative start or length.
+    For int32 tensors the four bounds come back in one host read."""
     def build():
         st = _as_int32(seg_start, device, "seg_start").reshape(-1)
         ln = _as_int32(seg_len, device, "seg_len").reshape(-1)
@@ -100,10 +101,12 @@ def segment_meta(seg_start, seg_len, device: torch.device
                              f"{ln.numel()}")
         if st.numel() == 0:
             return st, ln, 0, 0
-        if int(st.min()) < 0 or int(ln.min()) < 0:
+        st_min, ln_min, end, lmax = torch.stack([
+            st.min().long(), ln.min().long(),
+            (st.to(torch.int64) + ln).max(), ln.max().long()]).tolist()
+        if st_min < 0 or ln_min < 0:
             raise ValueError("negative segment start or length")
-        end = int((st.to(torch.int64) + ln).max())
-        return st, ln, end, int(ln.max())
+        return st, ln, end, lmax
     return _cached((seg_start, seg_len), device, "segments", build)
 
 

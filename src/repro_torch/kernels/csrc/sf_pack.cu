@@ -92,12 +92,23 @@
 // race-free pass writes every output row exactly once, from the root row or
 // from the old leaf row.
 //
+// The checked gathers (CHECK, asked for by nsrc >= 0 in sf_gather_rows and
+// by flag 16 in sf_gather_narrow) test each index against the nsrc rows of
+// their source on the device: one out of range prints the row and stops
+// the kernel with a trap, which fails the CUDA context loudly.  They take an
+// index written on the device this step (DynPlan's routing,
+// kernels/ops.py pack_rows(dynamic=True)) with no host read of its range.
+// A plan's index lists are checked once on the host at setup, so their
+// gathers take the unchecked instances: with the check compiled in, the
+// SpMV's narrow pack read 0.00192 ms against 0.00170 (PERF.md).
+//
 // Every entry point returns cudaGetLastError() after its launch (-1 for an
 // unsupported dtype pair, row width or launch plan).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <stdio.h>
 
 
 namespace {
@@ -106,11 +117,22 @@ struct Box {
   long long start, dx, dy, sy, sz;
 };
 
-template <typename W, bool STRIDED>
+// A gather met an index outside the nsrc rows of its source: report it and
+// stop the kernel (the CUDA context fails, and the next synchronisation
+// raises).  Out of line, so that the copy loops keep their registers.
+__device__ __noinline__ void bad_index(long long row, long long s,
+                                       long long nsrc) {
+  printf("sf_pack gather: idx[%lld] = %lld outside [0, %lld)\n", row, s,
+         nsrc);
+  __trap();
+}
+
+template <typename W, bool STRIDED, bool CHECK>
 __global__ void gather_rows_kernel(const W* __restrict__ src,
                                    W* __restrict__ dst,
                                    const int* __restrict__ idx, long long M,
-                                   long long wpr, int rows_per_cta, Box box) {
+                                   long long wpr, int rows_per_cta, Box box,
+                                   long long nsrc) {
   const long long r0 = (long long)blockIdx.x * rows_per_cta;
   const long long nrows = min((long long)rows_per_cta, M - r0);
   const long long total = nrows * wpr;
@@ -125,6 +147,8 @@ __global__ void gather_rows_kernel(const W* __restrict__ src,
       s = box.start + i + (jk % box.dy) * box.sy + (jk / box.dy) * box.sz;
     } else {
       s = idx[r];
+      if (CHECK && (unsigned long long)s >= (unsigned long long)nsrc)
+        bad_index(r, s, nsrc);
     }
     dst[r * wpr + w] = src[s * wpr + w];
   }
@@ -215,39 +239,49 @@ int threads_for(long long items_per_cta) {
   return (int)(warps >= 8 ? 256 : (warps < 1 ? 32 : warps * 32));
 }
 
+// Rows of W words; the checked instance where nsrc >= 0 (index gathers).
+template <typename W, bool STRIDED>
+void gather_words(const void* src, void* dst, const int* idx, long long M,
+                  long long wpr, int rows_per_cta, Box box, long long nsrc,
+                  unsigned grid, int threads, cudaStream_t stream) {
+  if (!STRIDED && nsrc >= 0)
+    gather_rows_kernel<W, STRIDED, !STRIDED><<<grid, threads, 0, stream>>>(
+        (const W*)src, (W*)dst, idx, M, wpr, rows_per_cta, box, nsrc);
+  else
+    gather_rows_kernel<W, STRIDED, false><<<grid, threads, 0, stream>>>(
+        (const W*)src, (W*)dst, idx, M, wpr, rows_per_cta, box, nsrc);
+}
+
 template <bool STRIDED>
 int launch_gather(const void* src, void* dst, const int* idx, long long M,
                   long long row_bytes, int rows_per_cta, Box box,
-                  cudaStream_t stream) {
+                  long long nsrc, cudaStream_t stream) {
   const int wb = word_bytes((uintptr_t)src, (uintptr_t)dst, 0, row_bytes);
   const long long wpr = row_bytes / wb;
   const int threads = threads_for((long long)rows_per_cta * wpr);
   const unsigned grid = (unsigned)((M + rows_per_cta - 1) / rows_per_cta);
   switch (wb) {
     case 16:
-      gather_rows_kernel<uint4, STRIDED><<<grid, threads, 0, stream>>>(
-          (const uint4*)src, (uint4*)dst, idx, M, wpr, rows_per_cta, box);
+      gather_words<uint4, STRIDED>(src, dst, idx, M, wpr, rows_per_cta, box,
+                                   nsrc, grid, threads, stream);
       break;
     case 8:
-      gather_rows_kernel<uint2, STRIDED><<<grid, threads, 0, stream>>>(
-          (const uint2*)src, (uint2*)dst, idx, M, wpr, rows_per_cta, box);
+      gather_words<uint2, STRIDED>(src, dst, idx, M, wpr, rows_per_cta, box,
+                                   nsrc, grid, threads, stream);
       break;
     case 4:
-      gather_rows_kernel<unsigned, STRIDED><<<grid, threads, 0, stream>>>(
-          (const unsigned*)src, (unsigned*)dst, idx, M, wpr, rows_per_cta,
-          box);
+      gather_words<unsigned, STRIDED>(src, dst, idx, M, wpr, rows_per_cta,
+                                      box, nsrc, grid, threads, stream);
       break;
     case 2:
-      gather_rows_kernel<unsigned short, STRIDED>
-          <<<grid, threads, 0, stream>>>((const unsigned short*)src,
-                                         (unsigned short*)dst, idx, M, wpr,
-                                         rows_per_cta, box);
+      gather_words<unsigned short, STRIDED>(src, dst, idx, M, wpr,
+                                            rows_per_cta, box, nsrc, grid,
+                                            threads, stream);
       break;
     default:
-      gather_rows_kernel<unsigned char, STRIDED>
-          <<<grid, threads, 0, stream>>>((const unsigned char*)src,
-                                         (unsigned char*)dst, idx, M, wpr,
-                                         rows_per_cta, box);
+      gather_words<unsigned char, STRIDED>(src, dst, idx, M, wpr,
+                                           rows_per_cta, box, nsrc, grid,
+                                           threads, stream);
   }
   return (int)cudaGetLastError();
 }
@@ -270,6 +304,7 @@ constexpr int kIdxVec = 1;        // flag: indices by one 16-byte load
 constexpr int kStreaming = 2;     // flag: evict-first (.cs) output stores
 constexpr int kLanes = 4;         // flag: the warp-cooperative layout
 constexpr int kStreamLoads = 8;   // flag: evict-first index and leaf loads
+constexpr int kCheckIdx = 16;     // flag: the checked gather (CHECK)
 
 // A load through the read-only path, or an evict-first (.cs) load.
 template <typename T>
@@ -358,12 +393,12 @@ __device__ __forceinline__ void store_words(unsigned* __restrict__ dst,
 // loads, then the kRows x WPR words as 16-byte stores.  Gather (BCAST
 // false): dst[r] = src[idx[r]].  Fused bcast (BCAST true): dst[r] =
 // src[idx[r]] (root row) where idx[r] >= 0, else leaf[r].
-template <int WPR, bool BCAST>
+template <int WPR, bool BCAST, bool CHECK>
 __global__ void __launch_bounds__(kMaxThreads)
     rows_copy_kernel(const unsigned* __restrict__ src,
                      const unsigned* __restrict__ leaf,
                      unsigned* __restrict__ dst, const int* __restrict__ idx,
-                     int M, int tile_rows, int tiles, int flags) {
+                     int M, int tile_rows, int tiles, int flags, int nsrc) {
   const bool idx_vec = flags & kIdxVec, streaming = flags & kStreaming;
   const bool stream = flags & kStreamLoads;
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
@@ -371,6 +406,12 @@ __global__ void __launch_bounds__(kMaxThreads)
     if (row0 + kRows <= M) {
       int s[kRows];
       load_indices(idx, row0, idx_vec, stream, s);
+      if (CHECK) {
+#pragma unroll
+        for (int j = 0; j < kRows; ++j)
+          if ((unsigned)s[j] >= (unsigned)nsrc)
+            bad_index(row0 + j, s[j], nsrc);
+      }
       unsigned w[kRows * WPR];
 #pragma unroll
       for (int j = 0; j < kRows; ++j) {
@@ -383,6 +424,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     } else {
       for (int r = row0; r < M; ++r) {  // the ragged end: at most 3 rows
         const int s = __ldg(idx + r);
+        if (CHECK && (unsigned)s >= (unsigned)nsrc) bad_index(r, s, nsrc);
         const bool own = BCAST && s < 0;
         unsigned w[WPR];
         Row<WPR>::load(own ? leaf + (long long)r * WPR
@@ -398,11 +440,16 @@ __global__ void __launch_bounds__(kMaxThreads)
 // Where the lanes kernel finds row r.  key(r) is read for all of a lane's
 // rows before any row load; word(key) is the first source word of the row.
 // An index list: key = idx[r] (in the fused bcast, < 0 means the leaf row).
+// A gather's key must name one of the nsrc source rows.
 template <int WPR>
 struct IndexRows {
   const int* __restrict__ idx;
+  int nsrc;
   __device__ __forceinline__ int key(int r, bool stream) const {
     return ld(idx + r, stream);
+  }
+  __device__ __forceinline__ void check(int r, int key) const {
+    if ((unsigned)key >= (unsigned)nsrc) bad_index(r, key, nsrc);
   }
   __device__ __forceinline__ long long word(int key) const {
     return (long long)key * WPR;
@@ -416,6 +463,7 @@ struct BoxRows {
   long long start, sy, sz;
   unsigned dy;
   __device__ __forceinline__ int key(int r, bool) const { return r; }
+  __device__ __forceinline__ void check(int, int) const {}
   __device__ __forceinline__ long long word(int r) const {
     const unsigned j = (unsigned)r % dy, k = (unsigned)r / dy;
     return start + j * sy + k * sz;
@@ -431,7 +479,8 @@ struct BoxRows {
 // index loads, then all row loads, are in flight before the first store.
 // The gathers take ROWS = kRows; the box panels ROWS = 1 (four times the
 // warps: their rows cost no index load to amortise).
-template <int WPR, bool BCAST, typename Rows, int ROWS = kRows>
+template <int WPR, bool BCAST, typename Rows, int ROWS = kRows,
+          bool CHECK = false>
 __global__ void __launch_bounds__(kMaxThreads)
     lanes_copy_kernel(const unsigned* __restrict__ src,
                       const unsigned* __restrict__ leaf,
@@ -449,6 +498,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     for (int k = 0; k < K; ++k) {
       const int r = row0 + (lane + 32 * k) / WPR;
       s[k] = r < M ? rows.key(r, stream) : 0;
+      if (CHECK && r < M) rows.check(r, s[k]);
     }
     unsigned w[K];
 #pragma unroll
@@ -546,25 +596,23 @@ bool bad_plan(int tile_rows, int grid) {
          tile_rows / kRows > kMaxThreads || grid < 1;
 }
 
-template <bool BCAST>
-int launch_narrow_copy(const void* src, const void* leaf, void* dst,
-                       const int* idx, int M, int wpr, int tile_rows,
-                       int tiles, int grid, int flags, cudaStream_t s) {
-  if (bad_plan(tile_rows, grid)) return -1;
+template <bool BCAST, bool CHECK>
+int narrow_copy(const unsigned* a, const unsigned* b, unsigned* d,
+                const int* idx, int M, int wpr, int tile_rows, int tiles,
+                int grid, int flags, int nsrc, cudaStream_t s) {
   const int threads = tile_rows / kRows;
-  const unsigned* a = (const unsigned*)src;
-  const unsigned* b = (const unsigned*)leaf;
-  unsigned* d = (unsigned*)dst;
   switch ((flags & kLanes) ? -wpr : wpr) {
 #define ROWS_COPY(W)                                                    \
   case W:                                                               \
-    rows_copy_kernel<W, BCAST>                                          \
-        <<<grid, threads, 0, s>>>(a, b, d, idx, M, tile_rows, tiles, flags); \
+    rows_copy_kernel<W, BCAST, CHECK>                                   \
+        <<<grid, threads, 0, s>>>(a, b, d, idx, M, tile_rows, tiles, flags, \
+                                  nsrc);                                \
     break;
 #define LANES_COPY(W)                                                   \
   case -W:                                                              \
-    lanes_copy_kernel<W, BCAST, IndexRows<W>><<<grid, threads, 0, s>>>( \
-        a, b, d, IndexRows<W>{idx}, M, tile_rows, tiles, flags);        \
+    lanes_copy_kernel<W, BCAST, IndexRows<W>, kRows, CHECK>             \
+        <<<grid, threads, 0, s>>>(a, b, d, IndexRows<W>{idx, nsrc}, M,  \
+                                  tile_rows, tiles, flags);             \
     break;
     ROWS_COPY(1)
     ROWS_COPY(2)
@@ -578,6 +626,22 @@ int launch_narrow_copy(const void* src, const void* leaf, void* dst,
       return -1;
   }
   return (int)cudaGetLastError();
+}
+
+template <bool BCAST>
+int launch_narrow_copy(const void* src, const void* leaf, void* dst,
+                       const int* idx, int M, int wpr, int tile_rows,
+                       int tiles, int grid, int flags, int nsrc,
+                       cudaStream_t s) {
+  if (bad_plan(tile_rows, grid)) return -1;
+  const unsigned* a = (const unsigned*)src;
+  const unsigned* b = (const unsigned*)leaf;
+  unsigned* d = (unsigned*)dst;
+  if (!BCAST && (flags & kCheckIdx))
+    return narrow_copy<BCAST, !BCAST>(a, b, d, idx, M, wpr, tile_rows, tiles,
+                                      grid, flags, nsrc, s);
+  return narrow_copy<BCAST, false>(a, b, d, idx, M, wpr, tile_rows, tiles,
+                                   grid, flags, nsrc, s);
 }
 
 template <typename TR, typename TL>
@@ -724,12 +788,14 @@ int launch_panels(const uint4* src, uint4* dst, const Panels& b, int K,
 
 extern "C" {
 
-// out[i] = src[idx[i]] for i < M, rows of row_bytes bytes.
+// out[i] = src[idx[i]] for i < M, rows of row_bytes bytes; with
+// nsrc >= 0 the checked gather (an index outside the nsrc rows traps).
 int sf_gather_rows(const void* src, void* dst, const int* idx, long long M,
-                   long long row_bytes, int rows_per_cta, void* stream) {
+                   long long row_bytes, int rows_per_cta, long long nsrc,
+                   void* stream) {
   Box box = {0, 1, 1, 0, 0};
   return launch_gather<false>(src, dst, idx, M, row_bytes, rows_per_cta, box,
-                              (cudaStream_t)stream);
+                              nsrc, (cudaStream_t)stream);
 }
 
 // out[i + dx*(j + dy*k)] = src[start + i + j*sy + k*sz], M = dx*dy*dz.
@@ -739,7 +805,7 @@ int sf_gather_strided(const void* src, void* dst, long long M,
                       void* stream) {
   Box box = {start, dx, dy, sy, sz};
   return launch_gather<true>(src, dst, nullptr, M, row_bytes, rows_per_cta,
-                             box, (cudaStream_t)stream);
+                             box, 0, (cudaStream_t)stream);
 }
 
 // out[l] = src_of_leaf[l] >= 0 ? root[src_of_leaf[l]] : leaf[l], same dtype.
@@ -826,12 +892,14 @@ int sf_bcast_fused_cast(const void* root, const void* leaf, void* out,
 // ceil(M / tile_rows), grid CTAs striding over them.  flags: 1 indices by
 // 16-byte loads (idx 16-byte aligned), 2 evict-first stores, 4 the lanes
 // layout (else the rows layout: wpr 1, 2 or 4 with src aligned to a row),
-// 8 evict-first index and leaf loads.
+// 8 evict-first index and leaf loads, 16 the checked gather (an index
+// outside the nsrc rows of src traps).
 int sf_gather_narrow(const void* src, void* dst, const int* idx, int M,
                      int wpr, int tile_rows, int tiles, int grid, int flags,
-                     void* stream) {
+                     int nsrc, void* stream) {
   return launch_narrow_copy<false>(src, nullptr, dst, idx, M, wpr, tile_rows,
-                                   tiles, grid, flags, (cudaStream_t)stream);
+                                   tiles, grid, flags, nsrc,
+                                   (cudaStream_t)stream);
 }
 
 // Narrow fused bcast, same dtype: out[l] = src_of_leaf[l] >= 0 ?
@@ -842,7 +910,7 @@ int sf_bcast_narrow_copy(const void* root, const void* leaf, void* out,
                          int tile_rows, int tiles, int grid, int flags,
                          void* stream) {
   return launch_narrow_copy<true>(root, leaf, out, src_of_leaf, Nl, wpr,
-                                  tile_rows, tiles, grid, flags,
+                                  tile_rows, tiles, grid, flags, 0,
                                   (cudaStream_t)stream);
 }
 

@@ -24,8 +24,11 @@ the path, as the reference autotuner's separate ``"row"`` candidate does.
 
 Index lists are prepared once per source array and device (int32 upload
 and bounds check, :mod:`repro_torch.kernels._index`), so repeat exchanges
-on one plan cost no conversion.  The direct entry points ``sf_pack``,
-``sf_pack_strided``, ``sf_unpack`` and ``spmv_ell`` call one kernel each.
+on one plan cost no conversion.  A routing index that is new every step
+takes ``pack_rows(..., dynamic=True)`` instead: no host read, no cache
+entry, and the bounds checked by the gather kernels on the device.  The
+direct entry points ``sf_pack``, ``sf_pack_strided``, ``sf_unpack`` and
+``spmv_ell`` call one kernel each.
 
 ``flash_attention`` is the serving path's prefill attention core (the
 reference's ``_chunked_attn`` function, computed by the hand-written
@@ -64,13 +67,21 @@ def _row_elems(t: torch.Tensor) -> int:
     return math.prod(t.shape[1:])     # per launch: cheaper than np.prod
 
 
-def pack_rows(data: torch.Tensor, idx) -> torch.Tensor:
+def pack_rows(data: torch.Tensor, idx, *, dynamic: bool = False
+              ) -> torch.Tensor:
     """``data[idx]`` row gather through the pack kernels, for rows of any
     unit shape and dtype; ``idx`` is a numpy array or an integer tensor on
-    ``data``'s device."""
+    ``data``'s device.
+
+    ``dynamic=True`` is the route for an index written on the device this
+    step (``DynPlan``'s routing, new every call): it is used as it is, with
+    no host read and no cache entry, and the kernel checks every index
+    against ``data``'s rows on the device and traps on one outside them.
+    On the CPU the plain version checks the range first and raises."""
     if _row_elems(data) >= WIDE_ROW:
-        return pack(data, idx)
-    return pack_blocked(data, idx, block_rows=PACK_BLOCK_ROWS)
+        return pack(data, idx, dynamic=dynamic)
+    return pack_blocked(data, idx, block_rows=PACK_BLOCK_ROWS,
+                        dynamic=dynamic)
 
 
 def pack_strided_rows(data: torch.Tensor, strided) -> torch.Tensor:

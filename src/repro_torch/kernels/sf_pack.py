@@ -59,6 +59,7 @@ H100_SMS = 132
 BCAST_BLOCK_ROWS = 64   # bcast_fused's block_rows (its generic loop's rows
                         # per CTA, as first built)
 _FLAG_IDX_VEC, _FLAG_STREAMING, _FLAG_LANES, _FLAG_STREAM_LOADS = 1, 2, 4, 8
+_FLAG_CHECK_IDX = 16    # the checked gather: traps on an index out of range
 
 
 def _row_bytes(t: torch.Tensor) -> int:
@@ -533,14 +534,43 @@ def bcast_fused_plain(rootdata: torch.Tensor, leafdata: torch.Tensor,
 
 
 # ---------------------------------------------------------------- kernels
-def _gather_args(data: torch.Tensor, idx):
-    """idx as an int32 tensor on data's device, after the bounds and device
-    checks."""
-    idx, lo, hi = device_index(idx, data.device, "idx")
+def _runtime_index(data: torch.Tensor, idx) -> torch.Tensor:
+    """A row index written on the device this step, used as it is: no host
+    read, no cache entry.  The checked kernels test every index against
+    data's rows on the device; an int64 index is narrowed with its
+    out-of-range values pinned to -1 or N, which that test rejects, so none
+    can wrap into range.  On the CPU the range is checked here and
+    raises."""
+    if not isinstance(idx, torch.Tensor) or idx.device != data.device:
+        raise ValueError(f"a dynamic index must be a tensor on "
+                         f"{data.device}, got "
+                         f"{getattr(idx, 'device', type(idx).__name__)}")
+    if idx.dtype.is_floating_point or idx.dtype == torch.bool:
+        raise TypeError(f"idx must be an integer tensor, got {idx.dtype}")
     N = int(data.shape[0])
-    if idx.numel() and (lo < 0 or hi >= N):
-        raise IndexError(f"pack index range [{lo}, {hi}] outside the "
-                         f"{N} rows of data")
+    if _on_cpu(data):
+        if idx.numel():
+            lo, hi = (int(v) for v in torch.aminmax(idx.reshape(-1)))
+            if lo < 0 or hi >= N:
+                raise IndexError(f"pack index range [{lo}, {hi}] outside "
+                                 f"the {N} rows of data")
+        return idx.long()
+    if idx.dtype != torch.int32:
+        idx = idx.clamp(-1, N).to(torch.int32)
+    return idx.contiguous()
+
+
+def _gather_args(data: torch.Tensor, idx, dynamic: bool = False):
+    """idx as an int32 tensor on data's device, after the bounds and device
+    checks (``dynamic``: see :func:`_runtime_index`)."""
+    N = int(data.shape[0])
+    if dynamic:
+        idx = _runtime_index(data, idx)
+    else:
+        idx, lo, hi = device_index(idx, data.device, "idx")
+        if idx.numel() and (lo < 0 or hi >= N):
+            raise IndexError(f"pack index range [{lo}, {hi}] outside the "
+                             f"{N} rows of data")
     if idx.numel() >= 2 ** 31:
         raise ValueError(f"{idx.numel()} rows exceed the kernels' int32 "
                          f"row count")
@@ -554,29 +584,38 @@ def _empty_rows(data: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                        dtype=data.dtype, device=data.device)
 
 
-def _launch_generic_gather(data, idx, out, rows_per_cta: int) -> None:
+def _launch_generic_gather(data, idx, out, rows_per_cta: int,
+                           checked: bool = False) -> None:
+    """The generic loop; ``checked``: its instance that tests every index
+    against data's rows on the device (traps on one outside them)."""
     _build.launch("sf_gather_rows", data.data_ptr(), out.data_ptr(),
                   idx.data_ptr(), idx.numel(), _row_bytes(data),
-                  int(rows_per_cta), _build.stream_of(data))
+                  int(rows_per_cta), int(data.shape[0]) if checked else -1,
+                  _build.stream_of(data))
 
 
-def _generic_gather(data: torch.Tensor, idx, rows_per_cta: int):
+def _generic_gather(data: torch.Tensor, idx, rows_per_cta: int,
+                    dynamic: bool = False):
     """(out, launched): the generic gather loop at ``rows_per_cta`` rows
     per CTA (the plain version on the CPU)."""
-    idx = _gather_args(data, idx)
+    idx = _gather_args(data, idx, dynamic)
     if _on_cpu(data):
         return pack_plain(data, idx), False
     out = _empty_rows(data, idx)
     if idx.numel() == 0 or _row_bytes(data) == 0:
         return out, False
-    _launch_generic_gather(data, idx, out, rows_per_cta)
+    _launch_generic_gather(data, idx, out, rows_per_cta, dynamic)
     return out, True
 
 
-def pack(data: torch.Tensor, idx) -> torch.Tensor:
+def pack(data: torch.Tensor, idx, *, dynamic: bool = False
+         ) -> torch.Tensor:
     """out[i] = data[idx[i]], one row per CTA.  data: (N, *unit) of any
-    dtype; idx: (M,) integers (tensor on data's device, or numpy)."""
-    out, launched = _generic_gather(data, idx, 1)
+    dtype; idx: (M,) integers (tensor on data's device, or numpy).
+    ``dynamic``: idx is a tensor written on the device this step, checked
+    on the device instead of prepared and cached (:func:`_runtime_index`).
+    """
+    out, launched = _generic_gather(data, idx, 1, dynamic)
     pack.launches += launched
     return out
 
@@ -589,16 +628,17 @@ def gather_plan(data: torch.Tensor, idx: torch.Tensor, out: torch.Tensor,
                     idx_ptr=idx.data_ptr(), sms=_device_sms(data))
 
 
-def pack_blocked(data: torch.Tensor, idx, *, block_rows: int
-                 ) -> torch.Tensor:
+def pack_blocked(data: torch.Tensor, idx, *, block_rows: int,
+                 dynamic: bool = False) -> torch.Tensor:
     """out[i] = data[idx[i]].  Rows of 1–4 32-bit words take the narrow
     kernel, whose CTA tile ``block_rows`` sets (``ceil(block_rows / 4)``
     threads rounded up to a warp, held to 128–256, 4 rows each); other
     rows the generic loop at ``block_rows`` rows per CTA.  The output is
-    the same for every ``block_rows >= 1``."""
+    the same for every ``block_rows >= 1``.  ``dynamic`` as for
+    :func:`pack`."""
     if int(block_rows) < 1:
         raise ValueError("block_rows must be >= 1")
-    idx = _gather_args(data, idx)
+    idx = _gather_args(data, idx, dynamic)
     if _on_cpu(data):
         return pack_plain(data, idx)
     out = _empty_rows(data, idx)
@@ -606,12 +646,14 @@ def pack_blocked(data: torch.Tensor, idx, *, block_rows: int
         return out
     plan = gather_plan(data, idx, out, block_rows)
     if plan.narrow:
+        flags = plan.flags | (_FLAG_CHECK_IDX if dynamic else 0)
         _build.launch("sf_gather_narrow", data.data_ptr(), out.data_ptr(),
                       idx.data_ptr(), plan.M, plan.words, plan.tile_rows,
-                      plan.tiles, plan.grid, plan.flags,
+                      plan.tiles, plan.grid, flags,
+                      min(int(data.shape[0]), 2 ** 31 - 1),
                       _build.stream_of(data))
     else:
-        _launch_generic_gather(data, idx, out, plan.rows_per_cta)
+        _launch_generic_gather(data, idx, out, plan.rows_per_cta, dynamic)
     pack_blocked.launches += 1
     return out
 

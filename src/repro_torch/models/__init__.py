@@ -1,8 +1,9 @@
-"""repro_torch.models — model configuration and the dense decoder-only
-transformer of the serving path (``config``, ``layers``, ``transformer``).
-MoE, hybrid, recurrent and encoder-decoder blocks come in later slices."""
+"""repro_torch.models — model configuration and the decoder-only
+transformer of the serving path, dense or MoE (``config``, ``layers``,
+``moe``, ``transformer``).  Hybrid, recurrent and encoder-decoder blocks
+come in later slices."""
 
 from .config import ModelConfig, torch_dtype
-from . import layers, transformer
+from . import layers, moe, transformer
 
-__all__ = ["ModelConfig", "torch_dtype", "layers", "transformer"]
+__all__ = ["ModelConfig", "torch_dtype", "layers", "moe", "transformer"]

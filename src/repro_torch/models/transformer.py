@@ -1,4 +1,4 @@
-"""Dense decoder-only transformer for serving (the port of the
+"""Decoder-only transformer for serving, dense or MoE (the port of the
 ``block_kind == "transformer"`` path of ``repro/models/transformer.py``).
 
   init_params     parameters with layer-stacked (L, ...) leaves, under the
@@ -8,9 +8,11 @@
                   every layer's attention goes through the flash kernel
   decode_step     single-token step on the cache (plain torch attention)
 
-The reference's ``lax.scan`` over layers is a Python loop over the stacked
-leaves.  MoE, hymba, xlstm and encoder-decoder configs raise
-``NotImplementedError`` naming the ROADMAP step that brings them; the
+A MoE config's feed-forward is ``models.moe.moe_layer`` (star-forest
+dispatch through ``DynPlan``), where the reference calls it.  The
+reference's ``lax.scan`` over layers is a Python loop over the stacked
+leaves.  hymba, xlstm and encoder-decoder configs raise
+``NotImplementedError`` naming the ROADMAP item that brings them; the
 training ``forward`` comes with the training slice and its backward kernel.
 Entry points run on the current CUDA device unless ``device="cpu"`` is
 passed (``init_params``, ``init_cache``); the others run where the params
@@ -28,29 +30,35 @@ from ..core.device import check_payload, resolve_device
 from .config import ModelConfig, torch_dtype
 from .layers import attention, attention_decode, init_attn, init_mlp, mlp, \
     rmsnorm
+from .moe import init_moe, moe_layer
 
 __all__ = ["init_params", "init_cache", "prefill", "decode_step",
-           "require_dense", "layer", "as_tokens"]
+           "require_supported", "feed_forward", "layer", "as_tokens"]
 
 
-def require_dense(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` is a dense decoder-only
-    transformer, the one block family this slice ports."""
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE blocks come with ROADMAP Queue 1 step 9 "
-            "(models/moe.py on core/dynplan.DynPlan)")
+def require_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` unless ``cfg`` is a decoder-only
+    transformer, dense or MoE: the block families the port has."""
     if cfg.block_kind in ("hymba", "xlstm"):
         raise NotImplementedError(
             f"{cfg.name}: {cfg.block_kind} blocks come with ROADMAP Queue 1 "
-            "step 10 (models/ssm.py, models/xlstm.py)")
+            "item 3 (models/ssm.py, models/xlstm.py)")
     if cfg.block_kind != "transformer":
         raise NotImplementedError(f"{cfg.name}: unknown block kind "
                                   f"{cfg.block_kind!r}")
     if cfg.enc_layers or cfg.cross_attention:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder models and cross_attention come "
-            "with ROADMAP Queue 1 step 10 (the audio family)")
+            "with ROADMAP Queue 1 item 3 (the audio family)")
+
+
+def feed_forward(x: torch.Tensor, bp: Dict[str, torch.Tensor],
+                 cfg: ModelConfig) -> torch.Tensor:
+    """The block's feed-forward on the pre-normed residual ``h2``: the MoE
+    layer (its aux loss dropped, as serving drops it) or the dense MLP."""
+    if cfg.is_moe:
+        return moe_layer(x, bp, cfg)[0]
+    return mlp(x, bp, cfg)
 
 
 def layer(blocks: Dict[str, torch.Tensor], i: int) -> Dict[str, torch.Tensor]:
@@ -79,7 +87,7 @@ def init_params(cfg: ModelConfig, *,
     compare the packages carry the reference's params across with
     ``convert.params_from_arrays``.  ``device="meta"`` gives the names,
     shapes and dtypes without memory."""
-    require_dense(cfg)
+    require_supported(cfg)
     dev = resolve_device(device)
     gen = generator
     if gen is None and dev.type != "meta":
@@ -98,7 +106,9 @@ def init_params(cfg: ModelConfig, *,
         params["lm_head"] = normal((D, V), 0.02)
     blocks = {"ln1": ones(L, D), "ln2": ones(L, D),
               **init_attn(normal, cfg, L)}
-    if cfg.d_ff:
+    if cfg.is_moe:
+        blocks.update(init_moe(cfg, L, generator=gen, device=dev))
+    elif cfg.d_ff:
         blocks.update(init_mlp(normal, cfg, L))
     params["blocks"] = blocks
     return params
@@ -108,7 +118,7 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, dtype=None, *,
                device=None) -> Dict:
     """Zeroed (L, batch, s_max, Hkv, hd) K and V caches; ``pos`` is a host
     int."""
-    require_dense(cfg)
+    require_supported(cfg)
     dev = resolve_device(device)
     dt = dtype or torch_dtype(cfg.dtype)
     shape = (cfg.n_layers, batch, s_max, cfg.n_kv_heads, cfg.hd)
@@ -145,7 +155,7 @@ def prefill(params, cfg: ModelConfig, *, tokens, s_max: Optional[int] = None,
     the pad tail; KV rows past ``last_pos`` hold pad junk that decode
     overwrites before its mask ever exposes them).  The cache is
     left-aligned in (L, B, s_max, Hkv, hd) tensors."""
-    require_dense(cfg)
+    require_supported(cfg)
     dev = params["embed"].device
     x = params["embed"][as_tokens(tokens, dev)]
     B, S, _ = x.shape
@@ -160,8 +170,9 @@ def prefill(params, cfg: ModelConfig, *, tokens, s_max: Optional[int] = None,
         h = rmsnorm(x, bp["ln1"], cfg.norm_eps)
         attn_out, (k, v) = attention(h, bp, cfg, window=window)
         x = x + attn_out
-        if cfg.d_ff:
-            x = x + mlp(rmsnorm(x, bp["ln2"], cfg.norm_eps), bp, cfg)
+        if cfg.is_moe or cfg.d_ff:
+            x = x + feed_forward(rmsnorm(x, bp["ln2"], cfg.norm_eps), bp,
+                                 cfg)
         cache["k"][i, :, :S] = k
         cache["v"][i, :, :S] = v
     cache["pos"] = S
@@ -173,7 +184,7 @@ def decode_step(params, cfg: ModelConfig, tokens, cache: Dict
     """One decode step.  tokens: (B,) -> (logits (B, V), cache').  The
     cache's K/V tensors are updated in place (the returned cache shares
     them); ``pos`` advances by one."""
-    require_dense(cfg)
+    require_supported(cfg)
     dev = params["embed"].device
     x = params["embed"][as_tokens(tokens, dev)[:, None]]
     pos = int(cache["pos"])
@@ -188,7 +199,8 @@ def decode_step(params, cfg: ModelConfig, tokens, cache: Dict
         attn_out, _, _ = attention_decode(h, bp, cfg, cache["k"][i],
                                           cache["v"][i], pos, window=window)
         x = x + attn_out
-        if cfg.d_ff:
-            x = x + mlp(rmsnorm(x, bp["ln2"], cfg.norm_eps), bp, cfg)
+        if cfg.is_moe or cfg.d_ff:
+            x = x + feed_forward(rmsnorm(x, bp["ln2"], cfg.norm_eps), bp,
+                                 cfg)
     logits = _head(params, cfg, x)[:, 0]
     return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}

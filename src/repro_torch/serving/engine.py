@@ -9,10 +9,14 @@ step together through one decode program per token.
 
 Prefill runs every layer's attention through the hand-written flash
 kernel; the per-slot-position decode stays in plain torch, as the reference
-leaves it outside any kernel.  Prompt lengths are bucketed to the next power
-of two (right-padded; causal masking keeps real positions numerically
-unaffected, and decode overwrites each pad KV row before its mask exposes
-it).  The prepared programs are cached in a :class:`repro_torch.core.PlanCache`
+leaves it outside any kernel.  A MoE config's feed-forward dispatches
+through ``DynPlan`` on the hand-written gathers, in prefill and decode
+alike; its capacity ties a token's output to the other tokens of its
+routing group (at decode: every slot, idle ones feeding token 0 at their
+stale positions, as in the reference).  Prompt lengths are bucketed to
+the next power of two (right-padded; causal masking keeps real positions
+numerically unaffected, and decode overwrites each pad KV row before its
+mask exposes it).  The prepared programs are cached in a :class:`repro_torch.core.PlanCache`
 keyed ``("prefill", bucket)`` / ``("decode", batch)``; with no jit the cached
 program is the prepared closure, and the cache's hit/miss counters keep the
 reference's meaning.
@@ -39,7 +43,7 @@ from ..core.device import resolve_device
 from ..core.dynplan import PlanCache
 from ..models import transformer as T
 from ..models.config import ModelConfig
-from ..models.layers import mlp, rmsnorm, rope
+from ..models.layers import rmsnorm, rope
 
 __all__ = ["Request", "ServeEngine", "next_pow2"]
 
@@ -94,7 +98,7 @@ class ServeEngine:
                  ttft_slo: Optional[float] = None,
                  tpot_slo: Optional[float] = None,
                  clock=time.perf_counter, device=None):
-        T.require_dense(cfg)
+        T.require_supported(cfg)
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params are on {params['embed'].device} but "
@@ -204,8 +208,10 @@ class ServeEngine:
             attn = torch.einsum("bkrs,bskd->bkrd", pr, cv.float())
             x = x + attn.to(x.dtype).reshape(B, 1, H * hd) @ bp["wo"]
             h2 = rmsnorm(x, bp["ln2"], cfg.norm_eps)
-            if cfg.d_ff:
-                x = x + mlp(h2, bp, cfg)
+            if cfg.is_moe or cfg.d_ff:
+                # MoE: one routing group of all B slots, idle ones included
+                # (token 0 at their stale positions), as in the reference
+                x = x + T.feed_forward(h2, bp, cfg)
         x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
         return (x @ head)[:, 0], cache

@@ -5,7 +5,10 @@ the CUDA-graph ``cg_async`` against the same guarded chunks run eagerly;
 and for the composed-SF slice the V-cycle against the CPU, the graph PCG
 against its eager chunks, the prolong slot sums repeatable bit for bit,
 the edge-element stash assembly, and the ``sflog`` facade hooks during a
-capture (``traced`` only, nothing per replay).
+capture (``traced`` only, nothing per replay); for the MoE slice every
+``DynPlan`` operation against the CPU, the runtime-index gathers on odd
+wide rows, an out-of-range ``leaf_root`` failing in a child process, and
+the MoE layer's SF dispatch against its plain gathers with no host sync.
 
 Every test is ``cuda``-marked and skips without a card; the file imports
 no JAX, so the card's machine runs it:
@@ -288,3 +291,109 @@ def test_cuda_facade_hooks_under_capture_count_traced_only(dev):
     finally:
         sflog.set_mode(old)
         sflog.reset()
+
+
+# ------------------------------------------------------ runtime-routed SFs
+def _dyn_case(dev, nroots=300, nleaves=1000, unit=(8,), seed=3):
+    rng = np.random.default_rng(seed)
+    lr = rng.integers(0, nroots, nleaves)
+    lr[rng.random(nleaves) < 0.1] = nroots
+    lru = np.minimum(rng.permutation(nleaves), nroots)
+    leaf = rng.standard_normal((nleaves,) + unit).astype(np.float32)
+    root = rng.standard_normal((nroots,) + unit).astype(np.float32)
+    return lr, lru, leaf, root
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dynplan_card_equals_cpu(dev, dtype):
+    """Every DynPlan operation on the card (the gather and segment-reduce
+    kernels, runtime-index route) equals the same on the CPU (the plain
+    versions) bit for bit, and the general reduce equals the card's
+    SFComm on the routing's SF."""
+    from repro_torch.core import DynPlan, star_forest_from_assignment
+    lr, lru, leaf, root = _dyn_case(dev)
+    nroots, nleaves = root.shape[0], leaf.shape[0]
+    plan = DynPlan(nroots, nleaves)
+    on = {d: (torch.as_tensor(lr, device=d), torch.as_tensor(lru, device=d),
+              torch.as_tensor(leaf, device=d).to(dtype),
+              torch.as_tensor(root, device=d).to(dtype))
+          for d in (torch.device("cpu"), dev)}
+
+    def ops(a, au, lf, rt):
+        return [plan.bcast(rt, a), plan.bcast(rt, a, lf),
+                plan.reduce(lf, au, unique=True),
+                plan.reduce(lf, au, rt, unique=True),
+                plan.reduce(lf[:nleaves // 4], au, unique=True, leaf_rep=4),
+                plan.reduce(lf, a, rt, op="sum"),
+                plan.reduce(lf, a, rt, op="max")]
+    for got, want in zip(ops(*on[dev]), ops(*on[torch.device("cpu")])):
+        assert torch.equal(got.cpu(), want)
+    comm = SFComm(star_forest_from_assignment(lr, nroots), backend="cuda",
+                  device=dev)
+    a, _, lf, rt = on[dev]
+    assert torch.equal(plan.reduce(lf, a, rt), comm.reduce(lf, rt))
+
+
+def test_dynamic_gathers_take_odd_wide_rows(dev):
+    """The MoE rows on the runtime-index route: 8,192- and 8,194-byte bf16
+    rows (the decode's fused hidden state + gate weight), int64 and int32
+    indices, a source off the 16-byte alignment."""
+    from repro_torch.kernels import sf_pack
+    g = torch.Generator(device=dev).manual_seed(0)
+    for width in (4096, 4097):
+        data = torch.randn(41, width, generator=g, device=dev).bfloat16()
+        for idx in (torch.randint(0, 41, (33,), generator=g, device=dev),
+                    torch.randint(0, 40, (16,), generator=g, device=dev,
+                                  dtype=torch.int32)):
+            for src in (data, data[1:]):
+                i = idx.clamp(max=src.shape[0] - 1)
+                before = sf_pack.pack.launches
+                got = kops.pack_rows(src, i, dynamic=True)
+                assert sf_pack.pack.launches == before + 1
+                assert torch.equal(got, src[i.long()])
+
+
+@pytest.mark.parametrize("route", ["bcast", "bcast_wide", "unique",
+                                   "general"])
+def test_out_of_range_leaf_root_fails_on_card(dev, route):
+    """An index outside the source fails loudly on the card: the gather
+    kernel traps, ``scatter_`` / ``_assert_async`` assert.  Each ends the
+    CUDA context, so each runs in a child process."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    proc = subprocess.run(
+        [sys.executable, str(root / "chip_smoke.py"), "--out-of-range",
+         route, "cuda"], capture_output=True, text=True, timeout=600)
+    assert proc.returncode != 0
+    assert "went through" not in proc.stdout
+
+
+@pytest.mark.parametrize("shape", [(8, 1), (1, 300)])
+def test_moe_layer_kernels_equal_plain_without_host_sync(dev, shape):
+    """phi3.5-moe's layer at a narrow width: the SF dispatch on the
+    kernels bitwise against its plain gathers and within the reference's
+    tolerance of the dense dispatch, run under
+    ``set_sync_debug_mode("error")`` (no host read on either lowering)."""
+    import chip_smoke
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as M
+    cfg = get_config("phi3.5-moe-42b-a6.6b").scaled(
+        dtype="float32", d_model=256, moe_dff=128)
+    g = torch.Generator(device=dev).manual_seed(4)
+    p = {k: v[0] for k, v in M.init_moe(cfg, 1, generator=g,
+                                        device=dev).items()}
+    x = torch.randn(shape + (cfg.d_model,), generator=g, device=dev)
+    torch.cuda.synchronize(dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, aux = M.moe_layer(x, p, cfg, dispatch="sf")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    with chip_smoke.plain_kernels():
+        y_plain, _ = M.moe_layer(x, p, cfg, dispatch="sf")
+    assert torch.equal(y, y_plain)
+    y_d, aux_d = M.moe_layer(x, p, cfg, dispatch="dense")
+    torch.testing.assert_close(y, y_d, rtol=1e-5, atol=1e-6)
+    assert float(aux) == float(aux_d)
