@@ -7,8 +7,8 @@ Phases, each printing one JSON line and asserting as it goes:
 
   env      torch / CUDA versions, the card, ``nvidia-smi`` name and power
            limit, the time to build the CUDA kernels from ``src``, and the
-           flash, narrow and strided kernels' registers, spills and shared
-           memory (ptxas -v).
+           flash, narrow, strided and wide-gather kernels' registers, spills
+           and shared memory (ptxas -v).
   setup    the main path's objects: a 7-point Poisson matrix on a 128^3 grid
            (2,097,152 unknowns) as ``ParCSR`` over 8 logical ranks in
            z-slabs, a random general star forest (8 ranks, 2^20 roots,
@@ -18,16 +18,21 @@ Phases, each printing one JSON line and asserting as it goes:
            and ops (bitwise, except ``spmv_ell``: max|d| <= 1e-5 max|y|);
            device times of kernel (warm and with L2 scrubbed), plain version
            and one library call; both gather and both segment-reduce variants
-           on wide rows.  ``pack_blocked`` and ``bcast_fused`` also against
-           their first kernels (the generic loop) on the same inputs
-           (``prev_ms``, in turns), ``pack_blocked`` at the general SF's
+           on wide rows.  ``pack``, ``pack_blocked`` and ``bcast_fused``
+           also against their first kernels (the generic loop) on the same
+           inputs (``prev_ms``, in turns), ``pack`` with each chunk size
+           forced and with plain stores (``variants_ms``), ``pack_blocked``
+           at the general SF's
            4,194,304-row bcast pack (unit () and (3,), with the index sorted as
            a control) and at three CTA tiles, ``bcast_fused`` beside the
            two-call ``index_select`` + ``index_copy`` composition and in a
            warm-against-cold study (fresh or preallocated output, plain or
            evict-first stores and loads, the write-back each leaves behind);
            the sweep adds ragged row counts and bases off the 16-byte alignment
-           for both.  ``pack_strided`` at five shapes (``strided_shapes``):
+           for both, and ``pack`` at rows of 256-16,388 bytes (multiples of
+           16 and 2-6 bytes past one), sources 0-8 bytes off the 16-byte
+           alignment, an output off it, int8 / bool / bf16 / f32 / f64,
+           1-4,097 rows, unchecked and checked instances.  ``pack_strided`` at five shapes (``strided_shapes``):
            the box halo SF's box (rows of 3 f32 and of 1), the 256^3
            interior of a 258^3 ghosted local array (rows of 3 f32 and of 1;
            its source is four times L2) and that array's x-face, each
@@ -95,7 +100,10 @@ Phases, each printing one JSON line and asserting as it goes:
            ``from_dmda_stencil`` and to an ``np.add.at`` oracle, exactly one
            SFReduce per ``assemble()`` (sflog), a second ``assemble()``
            reusing the flush SF; ``assemble_coo`` stash and fetch (whose
-           counting SF has roots of ~3 M leaves) give the same matrix.
+           counting SF has roots of ~3 M leaves) give the same matrix; the
+           fetch path's counting fold (``fetch_fold``: 8 segments of ~3.2 M
+           int32 rows through ``segment_reduce_blocked``) beside its bound,
+           ``index_add_`` and ``segment_reduce``.
   plex     ``DMPlexDistribute`` / ``DMPlexDistributeOverlap`` (paper §6.3):
            a periodic 64^3 hex mesh over 8 ranks from the ``seq`` and
            ``rand`` layouts, balanced, cones and labels carried bitwise;
@@ -121,7 +129,8 @@ Phases, each printing one JSON line and asserting as it goes:
            (``plain_kernels``), the general reduce bitwise against
            ``SFComm`` on the routing's SF, and a leaf_root of nroots + 1
            failing each route in a child process
-           (``--out-of-range ROUTE DEVICE``); (b) phi3.5-moe's MoE layer at
+           (``--out-of-range ROUTE DEVICE``; also ``pack(dynamic=True)``
+           itself on 8,194-byte rows); (b) phi3.5-moe's MoE layer at
            full width in float32: SF against dense (rtol 1e-5, atol 1e-6)
            at decode (8, 1), prefill (1, 1024) and a starved prefill (cf
            0.3, which must drop picks), SF with kernels against SF with
@@ -136,9 +145,10 @@ Phases, each printing one JSON line and asserting as it goes:
            rate, launches, profiled windows of a prefill and of five
            decode steps with device ms by kernel group.  Every gather of
            (b)-(d) is timed on its own inputs beside ``index_select`` and
-           its bound (``moe_shapes`` of the ``pack`` / ``pack_blocked``
-           rows), and both dispatch lowerings at both serving shapes
-           (``fuse_switch``).
+           its bound, ``pack``'s also beside its first kernel (``prev_ms``)
+           and each chunk size (``moe_shapes`` of the ``pack`` /
+           ``pack_blocked`` rows), and both dispatch lowerings at both
+           serving shapes (``fuse_switch``).
 
 Seven paths carry the kernels: ``sf_ops`` + ``spmv_cg`` (the SF kernels),
 ``dmda`` (``pack_blocked``, ``segment_reduce_blocked``, ``spmv_ell``),
@@ -230,7 +240,7 @@ MOE_RTOL, MOE_ATOL, MOE_AUX_RTOL = 1e-5, 1e-6, 1e-6
 KERNEL_GROUPS = (
     ("flash_attention", ("flash_fwd",)),
     ("sf_gathers", ("gather_rows_kernel", "rows_copy_kernel",
-                    "lanes_copy_kernel")),
+                    "lanes_copy_kernel", "wide_gather_kernel")),
     ("segment_reduce", ("segment_reduce",)),
     ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "cublas")),
     ("routing", ("sort", "topk", "radix", "search", "scatter", "index",
@@ -695,6 +705,9 @@ def kernel_records(objs, sz: Sizes, dev) -> dict:
            lambda: sf_pack.pack_plain(root, widx),
            lambda: torch.index_select(root, 0, widx64),
            int(torch.unique(widx).numel()) * rb + widx.numel() * (rb + 4))
+    recs["pack"].update(gather_against_prev(root, widx, dev, it,
+                                            kernel="pack"))
+    recs["pack"]["variants_ms"] = wide_variants(root, widx, dev, it)
     sv = sf_pack.pack_plain(leaf, wide._k_gl_sorted)
     st, ln = wide._unpack.seg_first, wide._unpack.seg_len
     S = st.numel()
@@ -824,23 +837,55 @@ def in_turns(run, prev, dev, it: int):
     return (min(ms), ms), (min(prev_ms), prev_ms)
 
 
-def gather_against_prev(data, idx, dev, it: int) -> dict:
-    """pack_blocked against the first blocked gather (the generic loop at
-    64 rows per CTA) on the same inputs: both warm in turns and with L2
+def gather_against_prev(data, idx, dev, it: int,
+                        kernel: str = "pack_blocked") -> dict:
+    """``kernel`` (``pack_blocked`` or ``pack``) against its first kernel,
+    the generic loop (at 64 rows per CTA for ``pack_blocked``, one row per
+    CTA for ``pack``), on the same inputs: both warm in turns and with L2
     scrubbed, and the launch plan the kernel took."""
     from repro_torch.kernels import ops as kops, sf_pack
-    run = lambda: sf_pack.pack_blocked(data, idx,
-                                       block_rows=kops.PACK_BLOCK_ROWS)
-    prev = lambda: sf_pack.gather_generic(data, idx, rows_per_cta=64)
-    check(same_bits(prev(), run()), "generic gather != pack_blocked")
+    if kernel == "pack":
+        run = lambda: sf_pack.pack(data, idx)
+        rows_per_cta = 1
+        plan_of = lambda out: sf_pack.pack_plan(data, idx, out)
+    else:
+        run = lambda: sf_pack.pack_blocked(data, idx,
+                                           block_rows=kops.PACK_BLOCK_ROWS)
+        rows_per_cta = 64
+        plan_of = lambda out: sf_pack.gather_plan(data, idx, out,
+                                                  kops.PACK_BLOCK_ROWS)
+    prev = lambda: sf_pack.gather_generic(data, idx,
+                                          rows_per_cta=rows_per_cta)
+    check(same_bits(prev(), run()), f"generic gather != {kernel}")
     (ms, ms_runs), (prev_ms, prev_runs) = in_turns(run, prev, dev, it)
-    out = run()
-    plan = sf_pack.gather_plan(data, idx, out, kops.PACK_BLOCK_ROWS)
     return {"ms_in_turns": ms, "ms_runs": ms_runs, "prev_ms": prev_ms,
             "prev_ms_runs": prev_runs,
             "prev_ms_cold_l2": cold_device_ms(prev, dev, it),
-            "prev_source": "sf_gather_rows, 64 rows per CTA (generic loop)",
-            "plan": dataclasses.asdict(plan)}
+            "prev_source": "sf_gather_rows, " + (
+                "one row" if rows_per_cta == 1 else f"{rows_per_cta} rows")
+            + " per CTA (generic loop)",
+            "plan": dataclasses.asdict(plan_of(run()))}
+
+
+def wide_variants(data, idx, dev, it: int, dynamic: bool = False,
+                  timer=None) -> dict:
+    """Device ms of ``pack``'s wide gather with each chunk size K = 1-4
+    forced and with plain (not evict-first) stores
+    (``sf_pack.wide_variant``; each bitwise against ``pack`` first), and
+    the K its plan picks: the readings behind ``wide_plan``'s choices."""
+    from repro_torch.kernels import sf_pack
+    timer = timer or device_ms
+    want = sf_pack.pack(data, idx, dynamic=dynamic)
+    out = {"plan_K": sf_pack.pack_plan(data, idx, want).K}
+    runs = {str(K): lambda K=K: sf_pack.wide_variant(
+        data, idx, K=K, dynamic=dynamic)
+        for K in range(1, sf_pack.WIDE_MAX_K + 1)}
+    runs["plain_stores"] = lambda: sf_pack.wide_variant(
+        data, idx, dynamic=dynamic, plain_stores=True)
+    for name, run in runs.items():
+        check(same_bits(run(), want), f"pack variant {name} != pack")
+        out[name] = timer(run, dev, it)
+    return out
 
 
 def strided_view(data, start: int, dims, strides):
@@ -1152,9 +1197,8 @@ def kernel_sweep(dev) -> int:
             cases += 1
     # the MoE path's rows on the runtime-index route: 8,192-byte hidden
     # rows, the decode's fused 8,194-byte rows (hidden state + gate weight:
-    # not a multiple of 4 bytes, so the generic loop's 2-byte words) and
-    # kimi's 14,338; int64 and int32 indices, and a source off the 16-byte
-    # alignment
+    # 2 bytes past a 16-byte multiple) and kimi's 14,338; int64 and int32
+    # indices, and a source off the 16-byte alignment
     for width in (4096, 4097, 7169):
         data = rand((41, width), torch.bfloat16)
         for idx in (torch.as_tensor(rng.integers(0, 41, 33), device=dev),
@@ -1172,6 +1216,7 @@ def kernel_sweep(dev) -> int:
                 check(same_bits(got, ref), f"pack dynamic ({width},) bf16")
                 cases += 1
     cases += strided_sweep(dev, rng)
+    cases += pack_sweep(dev, rng)
     fl = [torch.float32, torch.float64, torch.bfloat16]
     for rdt in fl:
         for ldt in fl:
@@ -1275,6 +1320,69 @@ def kernel_sweep(dev) -> int:
                   f"spmv_ell {N} {K} {dt}")
             cases += 1
     return cases
+
+
+# pack's sweep: row widths (multiples of 16, 2 / 4 / 6 bytes past one,
+# the MoE path's 8,194 / 14,338 / 16,388-byte fused rows), source views at
+# these byte offsets past a 16-byte boundary (those the dtype allows),
+# dtypes, and row counts (one row, a decode step's 31 / 32 rows, 4,097)
+PACK_SWEEP_ROW_BYTES = (256, 258, 1020, 1024, 1030, 8192, 8194, 14338,
+                        16388)
+PACK_SWEEP_OFFSETS = (0, 1, 2, 4, 8)
+PACK_SWEEP_DTYPES = ("int8", "bool", "bfloat16", "float32", "float64")
+PACK_SWEEP_ROWS = (1, 31, 32, 4097)
+PACK_SWEEP_SOURCE_ROWS = 64
+
+
+def pack_sweep_width(rb: int, dev, rng) -> int:
+    """``pack`` on rows of ``rb`` bytes bitwise (as bytes) against
+    ``pack_plain``: every dtype of PACK_SWEEP_DTYPES whose element divides
+    ``rb``, sources at each offset of PACK_SWEEP_OFFSETS that the element
+    allows, each row count of PACK_SWEEP_ROWS, the unchecked and the
+    checked (``dynamic=True``) instance; and into an output one element
+    off the 16-byte alignment (``wide_variant(out=...)``).  Returns the
+    number of cases."""
+    import torch
+    from repro_torch.kernels import sf_pack
+    N, cases = PACK_SWEEP_SOURCE_ROWS, 0
+    raw = torch.as_tensor(rng.integers(0, 256, N * rb + 16), device=dev
+                          ).to(torch.uint8)
+    for name in PACK_SWEEP_DTYPES:
+        dt = getattr(torch, name)
+        es = torch.empty(0, dtype=dt).element_size()
+        if rb % es:
+            continue
+        buf = raw & 1 if dt == torch.bool else raw
+        for off in PACK_SWEEP_OFFSETS:
+            if off % es:
+                continue
+            data = buf[off: off + N * rb].view(dt).view(N, rb // es)
+            check(data.data_ptr() % 16 == off, "sweep source offset")
+            for M in PACK_SWEEP_ROWS:
+                idx = torch.as_tensor(rng.integers(0, N, M), device=dev,
+                                      dtype=torch.int32)
+                want = sf_pack.pack_plain(data, idx).view(torch.uint8)
+                for dynamic in (False, True):
+                    got = sf_pack.pack(data, idx, dynamic=dynamic)
+                    check(torch.equal(got.view(torch.uint8), want),
+                          f"pack {rb} B {name} +{off} M={M} "
+                          f"dynamic={dynamic}")
+                    cases += 1
+                if off == 0:
+                    obuf = torch.zeros(M * rb + 16, dtype=torch.uint8,
+                                       device=dev)
+                    out = obuf[es: es + M * rb].view(dt).view(M, rb // es)
+                    sf_pack.wide_variant(data, idx, out=out)
+                    check(torch.equal(out.view(torch.uint8), want)
+                          and not obuf[:es].any()
+                          and not obuf[es + M * rb:].any(),
+                          f"pack {rb} B {name} into an output +{es} M={M}")
+                    cases += 1
+    return cases
+
+
+def pack_sweep(dev, rng) -> int:
+    return sum(pack_sweep_width(rb, dev, rng) for rb in PACK_SWEEP_ROW_BYTES)
 
 
 # the strided sweep's boxes: (dims, strides, start) in an array of
@@ -2480,6 +2588,7 @@ def phase_assembly(sz: Sizes, dev) -> dict:
     import torch
     from repro_torch.core import sflog
     from repro_torch.meshdist import DMDA
+    from repro_torch.kernels import ops as kops
     from repro_torch.sparse import MatAssembler, ParCSR, Sparsity, parmat
     from repro_torch.sparse.parmat import assemble_coo
     shape = (sz.mg_grid,) * 3
@@ -2589,7 +2698,57 @@ def phase_assembly(sz: Sizes, dev) -> dict:
         out[f"assemble_coo_{method}_s"] = time.perf_counter() - t0
         same_as_want(got, f"assemble_coo({method})")
         del got
+    # the fetch path's counting fold alone, its launches taken back (the
+    # path's own count is that of the drive above)
+    before = kops.launch_counts()
+    out["fetch_fold"] = fetch_fold_record(rows, da.owned_offsets, dev)
+    kops.add_launches({k: v - before[k]
+                       for k, v in kops.launch_counts().items()}, -1)
     return out
+
+
+def fetch_fold_record(rows, row_offsets, dev, iters: int = 2) -> dict:
+    """``segment_reduce_blocked`` at the shape of ``assemble_coo(method=
+    "fetch")``'s counting fold: one int32 1 per triplet summed into its
+    owner rank's counter, a segment of ~3.2 M rows a rank on the 129^3
+    DMDA.  The sums against the segment lengths (the plain version folds in
+    a Python loop of 3.2 M steps: not timed), the bound, and ms per call
+    from CUDA events around ``iters`` calls (torch.profiler drops the
+    events of a window this long, and returned none for the library calls
+    after it; the 102 MB input is twice L2, so no scrubbed reading) of the
+    kernel and of two library calls for the same sums: ``index_add_`` over
+    the segment ids (int32) and ``segment_reduce`` (on a float32 copy,
+    exact below 2^24)."""
+    import torch
+    from repro_torch.kernels import ops as kops, sf_unpack
+    owner = np.searchsorted(row_offsets, rows, side="right") - 1
+    lens = np.bincount(owner, minlength=len(row_offsets) - 1)
+    starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    M, S = int(lens.sum()), int(lens.size)
+    sv = torch.ones(M, dtype=torch.int32, device=dev)
+    st = torch.as_tensor(starts, dtype=torch.int32, device=dev)
+    ln = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+    run = lambda: sf_unpack.segment_reduce_blocked(
+        sv, st, ln, segs_per_block=kops.SEG_BLOCK, op="sum")
+    check(np.array_equal(run().cpu().numpy(), lens),
+          "segment_reduce_blocked: the fetch fold's sums != its lengths")
+    seg_ids = torch.repeat_interleave(torch.arange(S, device=dev),
+                                      ln.long())
+    index_add = lambda: torch.zeros(S, dtype=torch.int32,
+                                    device=dev).index_add_(0, seg_ids, sv)
+    svf, ln64 = sv.float(), ln.long()
+    seg_reduce = lambda: torch.segment_reduce(svf, "sum", lengths=ln64)
+    check(np.array_equal(index_add().cpu().numpy(), lens)
+          and np.array_equal(seg_reduce().cpu().numpy(), lens),
+          "a library call's fetch-fold sums != the lengths")
+    bms, by = bound(M * 4 + S * 12)
+    return {"rows": M, "segments": S, "segment_rows": lens.tolist(),
+            "dtype": "int32", "segs_per_block": kops.SEG_BLOCK,
+            "ms": call_ms(run, dev, iters), "ms_by": "CUDA events",
+            "plain_ms": None, "bound_ms": bms, "bound_by": by,
+            "library": "torch.zeros().index_add_ (int32)",
+            "library_ms": call_ms(index_add, dev, 10),
+            "segment_reduce_f32_ms": call_ms(seg_reduce, dev, 10)}
 
 
 def overlap_oracle(mesh, cells_per_rank, levels: int) -> list:
@@ -3036,9 +3195,11 @@ def gather_record(what: str, data, idx, dev, it: int) -> dict:
     ``pack_rows``' runtime-index route, on the int32 index it launches
     with) bitwise against the plain version, and device ms of the kernel,
     the plain version and ``index_select`` (:func:`burst_ms`) beside its
-    bound."""
+    bound; for ``pack`` rows also its first kernel (``prev_ms``: the
+    checked generic loop, one row per CTA) and its variants
+    (``variants_ms``: each chunk size forced, plain stores)."""
     import torch
-    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ops as kops, sf_pack
     i32 = idx.to(torch.int32)
     got = kops.pack_rows(data, i32, dynamic=True)
     want = data[idx.long()]
@@ -3050,15 +3211,24 @@ def gather_record(what: str, data, idx, dev, it: int) -> dict:
     b, by = bound((int(torch.unique(idx).numel()) + M) * rb + 4.0 * M)
     wide = math.prod(data.shape[1:]) >= kops.WIDE_ROW
     i64 = idx.long()
-    return {"what": what, "kernel": "pack" if wide else "pack_blocked",
-            "rows": M, "source_rows": int(data.shape[0]), "row_bytes": rb,
-            "dtype": str(data.dtype).split(".")[-1],
-            "ms": burst_ms(
-                lambda: kops.pack_rows(data, i32, dynamic=True), dev, it),
-            "plain_ms": burst_ms(lambda: data[i64], dev, it),
-            "library_ms": burst_ms(
-                lambda: torch.index_select(data, 0, i64), dev, it),
-            "bound_ms": b, "bound_by": by}
+    rec = {"what": what, "kernel": "pack" if wide else "pack_blocked",
+           "rows": M, "source_rows": int(data.shape[0]), "row_bytes": rb,
+           "dtype": str(data.dtype).split(".")[-1],
+           "ms": burst_ms(
+               lambda: kops.pack_rows(data, i32, dynamic=True), dev, it),
+           "plain_ms": burst_ms(lambda: data[i64], dev, it),
+           "library_ms": burst_ms(
+               lambda: torch.index_select(data, 0, i64), dev, it),
+           "bound_ms": b, "bound_by": by}
+    if wide:
+        prev = lambda: sf_pack.gather_generic(data, i32, rows_per_cta=1,
+                                              dynamic=True)
+        check(same_bits(prev(), got), f"{what}: generic gather differs")
+        rec["prev_ms"] = burst_ms(prev, dev, it)
+        rec["variants_ms"] = wide_variants(data, i32, dev, it, dynamic=True,
+                                           timer=burst_ms)
+        rec["plan"] = dataclasses.asdict(sf_pack.pack_plan(data, i32, got))
+    return rec
 
 
 def moe_gathers(label: str, x, p, cfg, dev, it: int) -> list:
@@ -3128,8 +3298,11 @@ def dyn_routing(nroots: int, nleaves: int, gen, dev, unique=False):
 
 
 # bcast: rows of 4 f32 (the narrow gather), bcast_wide: rows of 300 f32
-# (the generic loop), unique: scatter_, general: _assert_async
-OUT_OF_RANGE_ROUTES = ("bcast", "bcast_wide", "unique", "general")
+# (the wide gather), unique: scatter_, general: _assert_async; pack_odd:
+# ``pack(dynamic=True)`` itself on 8,194-byte bf16 rows from data[1:] (the
+# wide gather's checked instance with a source skew)
+OUT_OF_RANGE_ROUTES = ("bcast", "bcast_wide", "unique", "general",
+                       "pack_odd")
 
 
 def out_of_range_child(route: str, device: str) -> int:
@@ -3140,6 +3313,7 @@ def out_of_range_child(route: str, device: str) -> int:
     sys.path.insert(0, os.path.join(HERE, "src"))
     import torch
     from repro_torch.core import DynPlan
+    from repro_torch.kernels import sf_pack
     dev = torch.device(device)
     plan = DynPlan(8, 16)
     lr = torch.arange(16, device=dev) % 9
@@ -3148,6 +3322,9 @@ def out_of_range_child(route: str, device: str) -> int:
     if route.startswith("bcast"):
         width = 300 if route == "bcast_wide" else 4
         plan.bcast(torch.ones(8, width, device=dev), lr)
+    elif route == "pack_odd":
+        rows = torch.ones(9, 4097, dtype=torch.bfloat16, device=dev)[1:]
+        sf_pack.pack(rows, lr, dynamic=True)
     elif route == "unique":
         plan.reduce(data, lr, unique=True)
     else:
@@ -3179,6 +3356,30 @@ def out_of_range_checks(dev) -> dict:
         check(out[r]["message"], f"the {r} route failed without a "
               f"message: {log[-2000:]}")
     return out
+
+
+def fresh_bcast_gather(root, lr, dev, iters: int = 5) -> dict:
+    """The gather of ``DynPlan.bcast(root, lr)`` alone: ``pack`` on the
+    padded roots (the call's ``cat`` of a zero drop row, made once here)
+    through the runtime-index route, bitwise against ``index_select``;
+    ms per call of both from CUDA events around ``iters`` calls (each
+    writes a fresh 2 GB output; torch.profiler returned no events for such
+    windows in this phase) beside the gather's bound (each root row read
+    once, each leaf row and index entry written once)."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    rootpad = torch.cat([root, root.new_zeros((1,) + tuple(root.shape[1:]))])
+    i32, i64 = lr.to(torch.int32), lr.long()
+    run = lambda: kops.pack_rows(rootpad, i32, dynamic=True)
+    check(same_bits(run(), torch.index_select(rootpad, 0, i64)),
+          "DynPlan's fresh bcast gather != index_select")
+    rb = math.prod(root.shape[1:]) * root.element_size()
+    L = int(lr.numel())
+    bms, by = bound((int(torch.unique(lr).numel()) + L) * rb + 4.0 * L)
+    return {"rows": L, "row_bytes": rb, "ms": call_ms(run, dev, iters),
+            "library_ms": call_ms(
+                lambda: torch.index_select(rootpad, 0, i64), dev, iters),
+            "ms_by": "CUDA events", "bound_ms": bms, "bound_by": by}
 
 
 def moe_dynplan(sz: Sizes, dev) -> dict:
@@ -3227,6 +3428,8 @@ def moe_dynplan(sz: Sizes, dev) -> dict:
                 rec[name]["call_ms"] = call_ms(fn, dev, 5)
                 with plain_kernels():
                     rec[name]["plain_call_ms"] = call_ms(fn, dev, 5)
+        if unit:
+            rec["bcast_fresh_gather"] = fresh_bcast_gather(root, lr, dev)
         for op in ("sum", "max"):
             check(same_bits(plan.reduce(leaf, lr, root, op=op),
                             comm.reduce(leaf, root, op=op)),
@@ -3565,8 +3768,12 @@ def run(dev, sz: Sizes) -> list:
                                 ("assembly", phase_assembly, ASSEMBLY_PATH),
                                 ("plex", phase_plex, PLEX_PATH)):
         kops.reset_launch_counts()
-        emit(phase(sz, dev))
+        res = phase(sz, dev)
+        emit(res)
         by_path[name] = kops.launch_counts()
+        if name == "assembly":
+            recs["segment_reduce_blocked"]["fetch_fold_shape"] = \
+                res["fetch_fold"]
         missing = [k for k in needed if by_path[name][k] == 0]
         if name != "plex" and not any(by_path[name][k]
                                       for k in SEGMENT_REDUCES):
@@ -3629,7 +3836,10 @@ def main() -> int:
           "sf_pack_strided_ptxas": [
               r for r in _build.ptxas_report("sf_pack")
               if any(k in r["function"] for k in ("panel_c", "BoxRows",
-                                                  "gather_rows_kernel"))]})
+                                                  "gather_rows_kernel"))],
+          "sf_pack_wide_ptxas": [
+              r for r in _build.ptxas_report("sf_pack")
+              if "wide_gather" in r["function"]]})
     kernels = run(dev, Sizes())
     emit({"phase": "profiler", "windows": PROFILER_WINDOWS["taken"],
           "retaken": PROFILER_WINDOWS["retaken"]})

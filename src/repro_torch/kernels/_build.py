@@ -49,6 +49,8 @@ _SIGNATURES = {
     "sf_bcast_fused_copy": ("sf_pack", [_P, _P, _P, _P, _L, _L, _I, _P]),
     "sf_bcast_fused_cast": ("sf_pack", [_P, _P, _P, _P, _L, _L, _I, _I, _I,
                                         _P]),
+    "sf_gather_wide": ("sf_pack", [_P, _P, _P, _I, _L, _I, _I, _I, _I, _I,
+                                   _L, _P]),
     "sf_gather_narrow": ("sf_pack", [_P, _P, _P, _I, _I, _I, _I, _I, _I,
                                      _I, _P]),
     "sf_bcast_narrow_copy": ("sf_pack", [_P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -1,7 +1,8 @@
 // SF pack kernels for Hopper (sm_90a): row gathers and the fused local bcast.
 //
 // Replaces the Pallas functions of repro/kernels/sf_pack.py:
-//   pack          (sf_pack.py:60)   -> sf_gather_rows, one row per CTA
+//   pack          (sf_pack.py:60)   -> sf_gather_wide (output-aligned 16-byte
+//                                      vectors, a warp per chunk of a row)
 //   pack_blocked  (sf_pack.py:96)   -> sf_gather_narrow for rows of 1-4
 //                                      32-bit words; sf_gather_rows (generic
 //                                      loop) for wider or odd rows
@@ -59,13 +60,59 @@
 // Hopper's TMA has no row-gather mode, so the gather stays on per-thread
 // loads.
 //
-// Generic rows (the first design, kept for wide rows, rows that are not
-// whole 32-bit words, and pointers off 4-byte alignment): rows are copied
-// as raw bytes in the widest word (16/8/4/2/1 bytes) that the row size and
-// base pointers allow; neighbouring threads take neighbouring words of a
-// row, then the next row of a block of rows_per_cta rows.  pack uses it,
-// and pack_strided for such rows (its strided form divides every word's
-// index into (i, j, k) with 64-bit divisions).
+// Generic rows (the first design, kept for pack_blocked's rows that are not
+// narrow and pack_strided's rows that are not whole 32-bit words or sit on
+// pointers off 4-byte alignment): rows are copied as raw bytes in the
+// widest word (16/8/4/2/1 bytes) that the row size and base pointers allow;
+// neighbouring threads take neighbouring words of a row, then the next row
+// of a block of rows_per_cta rows (the strided form divides every word's
+// index into (i, j, k) with 64-bit divisions).  pack ran on it, one row per
+// CTA, until the wide design below; at rows_per_cta = 1 it stays the
+// yardstick chip_smoke.py times pack against.
+//
+// Wide rows (pack, the redesign): rows of any byte size at any base
+// offsets, the MoE path's rows (8,192-16,388 bytes, the fused rows 2 or 4
+// bytes past a 16-byte multiple) and the wide-row SF's 1 KB rows.  Bound:
+// bytes (each gathered source row read once, each output row and index
+// written once).  The generic loop moved such rows in the widest word that
+// divides the row size and both bases (2 bytes for an 8,194-byte row), with
+// a 64-bit division per word, one word in flight per thread and one CTA a
+// row (32 CTAs for a decode step's dispatch on 132 SMs; 65,536 CTA
+// launches for the wide-row SF).  Here output row r, at byte D = r * rb
+// from the output, is a head (the bytes up to its first 16-byte boundary),
+// an interior of whole aligned 16-byte vectors, and a tail (the bytes after
+// the last boundary).  A warp owns a chunk: up to 32 x K interior vectors
+// of one row (chunk 0 also the head, the row's last chunk the tail); the
+// chunk's row comes from the chunk number with one 32-bit division by the
+// plan's chunks per row, the row's index is loaded once by lane 0 and
+// broadcast, row offsets are 64-bit and lane offsets 32-bit.  The source row, at S = idx[r] * rb,
+// meets its output vectors with a skew a = (S + head) mod 16 that is known
+// only after the index load (a DynPlan index is written on the device this
+// step): lane l loads the aligned source granules l, l + 32, ... that cover
+// the chunk (all of them before its first store, through the read-only
+// path) and builds its output vector from its granule and the next lane's,
+// fetched by __shfl_sync, shifted by a bytes (__funnelshift_r over the
+// eight words); a = 0 needs no shuffle.  Only granules that hold at least
+// one byte of the source row are read, so no load leaves the row's 16-byte
+// granules (and so its allocation).  Head and tail (at most 15 bytes each)
+// come from the one or two granules that hold them and leave in the widest
+// naturally aligned stores that fit (8/4/2/1 bytes); rows whose size is
+// not a multiple of 16 share granules with their neighbours, and a byte is
+// stored only by the chunk of the row that owns it, so no store rewrites a
+// neighbour's bytes.  Interior stores are evict-first (.cs): a gather that
+// writes more than L2 holds then keeps its source rows there (the kimi-k2
+// prefill dispatch, 148 MB out of 14.7 MB of rows, read 1.12x faster on
+// the card than with plain stores).  A CTA of 1-4 warps takes 1-4 chunks,
+// one a warp, and the grid covers every chunk: warps that walked chunks
+// grid-stride from a grid sized to the resident warps, the next chunk's
+// index in flight, read slower at the kimi-k2 prefill shapes (PERF.md).
+// Two chunks in flight a warp, K = 8 and registers held to 32 for full
+// occupancy were tried on the card and were no faster.  When rows are few
+// the plan splits them into smaller chunks (smaller K) so that the chunks
+// spread over the SMs.  Rows of whole granules on 16-byte bases take an
+// instance with no skew, head or tail, and 40-48 registers instead of 72.
+// The plan (K, chunks per row, threads, grid) is computed in Python
+// (kernels/sf_pack.py, wide_plan), where a CPU test walks it in numpy.
 //
 // The strided pack (the redesign): every (j, k) panel of a box is dx rows,
 // contiguous in the source and in the output, so the pack is dy x dz
@@ -93,8 +140,9 @@
 // from the old leaf row.
 //
 // The checked gathers (CHECK, asked for by nsrc >= 0 in sf_gather_rows and
-// by flag 16 in sf_gather_narrow) test each index against the nsrc rows of
-// their source on the device: one out of range prints the row and stops
+// sf_gather_wide and by flag 16 in sf_gather_narrow) test each index
+// against the nsrc rows of their source on the device: one out of range
+// prints the row and stops
 // the kernel with a trap, which fails the CUDA context loudly.  They take an
 // index written on the device this step (DynPlan's routing,
 // kernels/ops.py pack_rows(dynamic=True)) with no host read of its range.
@@ -784,6 +832,157 @@ int launch_panels(const uint4* src, uint4* dst, const Panels& b, int K,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------ wide rows
+// pack: out[r] = src[idx[r]], rows of rb bytes at any base offsets (the
+// design is in the note at the top).
+constexpr int kWideMaxThreads = 128;  // 1-4 warps a CTA; a warp per chunk
+constexpr int kWidePlainStores = 1;   // flag: interior stores not evict-first
+constexpr int kWideAligned = 2;       // flag: rows of whole granules on
+                                      // 16-byte bases (no skew, head, tail)
+
+struct Wide {
+  long long rb;      // row bytes
+  long long s0, d0;  // source / output base, bytes past its 16-byte granule
+  long long nsrc;    // source rows (the checked instance)
+  unsigned chunks;   // chunks per row
+  unsigned items;    // M x chunks
+  bool plain_stores;  // kWidePlainStores
+};
+
+// Bytes a .. a + 15 (0 <= a < 16) of the 32 bytes lo, hi, little-endian.
+__device__ __forceinline__ uint4 shift_bytes(const uint4& lo, const uint4& hi,
+                                             int a) {
+  const unsigned sh = 8u * (unsigned)(a & 3);
+  unsigned w0, w1, w2, w3, w4;
+  switch (a >> 2) {
+    case 0: w0 = lo.x; w1 = lo.y; w2 = lo.z; w3 = lo.w; w4 = hi.x; break;
+    case 1: w0 = lo.y; w1 = lo.z; w2 = lo.w; w3 = hi.x; w4 = hi.y; break;
+    case 2: w0 = lo.z; w1 = lo.w; w2 = hi.x; w3 = hi.y; w4 = hi.z; break;
+    default: w0 = lo.w; w1 = hi.x; w2 = hi.y; w3 = hi.z; w4 = hi.w;
+  }
+  return make_uint4(__funnelshift_r(w0, w1, sh), __funnelshift_r(w1, w2, sh),
+                    __funnelshift_r(w2, w3, sh), __funnelshift_r(w3, w4, sh));
+}
+
+// The first len (< 16) bytes of u to out + p, lowest address first, each
+// store the widest of 8/4/2/1 bytes that is naturally aligned and fits.
+__device__ __forceinline__ void store_bytes(unsigned char* out, long long p,
+                                            int len, uint4 u) {
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  while (len > 0) {
+    int w;
+    if (!(p & 7) && len >= 8) {
+      *reinterpret_cast<uint2*>(out + p) = make_uint2(u.x, u.y);
+      w = 8;
+    } else if (!(p & 3) && len >= 4) {
+      *reinterpret_cast<unsigned*>(out + p) = u.x;
+      w = 4;
+    } else if (!(p & 1) && len >= 2) {
+      *reinterpret_cast<unsigned short*>(out + p) = (unsigned short)u.x;
+      w = 2;
+    } else {
+      out[p] = (unsigned char)u.x;
+      w = 1;
+    }
+    u = shift_bytes(u, zero, w);
+    p += w;
+    len -= w;
+  }
+}
+
+// A warp per chunk, one chunk a warp: chunk c of output row r holds the
+// interior vectors c N .. c N + N - 1 (N = 32 K) of the row, chunk 0 also
+// the head (lane 0) and the last chunk the tail (lane 1).  src and dst are the 16-byte
+// granules that hold the bases; all byte offsets are from them.  ALIGNED:
+// rows of whole granules on 16-byte bases, so no skew, head or tail, and
+// none of their registers.
+template <int K, bool CHECK, bool ALIGNED>
+__global__ void __launch_bounds__(kWideMaxThreads)
+    wide_gather_kernel(const uint4* __restrict__ src, uint4* __restrict__ dst,
+                       const int* __restrict__ idx, const Wide w) {
+  constexpr int N = 32 * K;
+  constexpr unsigned kAll = 0xffffffffu;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  const int lane = (int)threadIdx.x & 31;
+  const unsigned it = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (it >= w.items) return;  // warp-uniform
+  const unsigned r = it / w.chunks;
+  const int c = (int)(it - r * w.chunks);
+  const long long s = __shfl_sync(kAll, lane == 0 ? __ldg(idx + r) : 0, 0);
+  if (CHECK && (unsigned long long)s >= (unsigned long long)w.nsrc)
+    bad_index(r, s, w.nsrc);
+  const long long D = w.d0 + (long long)r * w.rb;  // output row
+  const long long S = w.s0 + s * w.rb;             // source row
+  const int h = ALIGNED ? 0 : (int)min((-D) & 15, w.rb);  // head bytes
+  const long long nv = (w.rb - h) >> 4;            // interior vectors
+  const int t = (int)(w.rb - h - 16 * nv);         // tail bytes
+  const int a = ALIGNED ? 0 : (int)((S + h) & 15);  // skew (warp-uniform)
+  const long long v0 = (long long)c * N;
+  const int n = (int)min(max(nv - v0, 0LL), (long long)N);
+  const int nl = n ? n + (a != 0) : 0;  // source granules the chunk reads
+  const uint4* g = src + ((S + h) >> 4) + v0;
+  uint4* o = dst + ((D + h) >> 4) + v0;
+  uint4 x[K];
+#pragma unroll
+  for (int q = 0; q < K; ++q) {
+    const int pos = lane + 32 * q;
+    x[q] = pos < nl ? __ldg(g + pos) : zero;
+  }
+  const uint4 ex = !ALIGNED && lane == 0 && N < nl ? __ldg(g + N) : zero;
+  // the head's or the tail's one or two granules
+  const bool head = !ALIGNED && c == 0 && lane == 0 && h > 0;
+  const bool tail = !ALIGNED && c == (int)w.chunks - 1 && lane == 1 && t > 0;
+  const long long off = head ? 0 : h + 16 * nv;  // its first row byte
+  const int len = head ? h : t;
+  uint4 e0 = zero, e1 = zero;
+  if (head || tail) {
+    const long long p = (S + off) >> 4;
+    e0 = __ldg(src + p);
+    if (((S + off + len - 1) >> 4) != p) e1 = __ldg(src + p + 1);
+  }
+#pragma unroll
+  for (int q = 0; q < K; ++q) {
+    uint4 v = x[q];
+    if (!ALIGNED && a != 0) {
+      const uint4 give = lane == 0 ? (q + 1 < K ? x[q + 1] : ex) : x[q];
+      const int from = (lane + 1) & 31;
+      uint4 hi;
+      hi.x = __shfl_sync(kAll, give.x, from);
+      hi.y = __shfl_sync(kAll, give.y, from);
+      hi.z = __shfl_sync(kAll, give.z, from);
+      hi.w = __shfl_sync(kAll, give.w, from);
+      v = shift_bytes(x[q], hi, a);
+    }
+    const int pos = lane + 32 * q;
+    if (pos < n) {
+      if (w.plain_stores) o[pos] = v; else __stcs(o + pos, v);
+    }
+  }
+  if (head || tail)
+    store_bytes(reinterpret_cast<unsigned char*>(dst), D + off, len,
+                shift_bytes(e0, e1, (int)((S + off) & 15)));
+}
+
+template <bool CHECK, bool ALIGNED>
+int launch_wide(const uint4* src, uint4* dst, const int* idx, const Wide& w,
+                int K, int grid, int threads, cudaStream_t s) {
+  switch (K) {
+#define WIDE(N)                                                    \
+  case N:                                                          \
+    wide_gather_kernel<N, CHECK, ALIGNED>                          \
+        <<<grid, threads, 0, s>>>(src, dst, idx, w);               \
+    break;
+    WIDE(1)
+    WIDE(2)
+    WIDE(3)
+    WIDE(4)
+#undef WIDE
+    default:
+      return -1;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -998,6 +1197,41 @@ int sf_strided_lanes(const void* src, void* dst, int M, int wpr,
       return -1;
   }
   return (int)cudaGetLastError();
+}
+
+// Wide rows (pack; plan from kernels/sf_pack.py::wide_plan): out[i] =
+// src[idx[i]] for i < M, rows of row_bytes bytes at any base offsets;
+// chunks per row, K aligned 16-byte vectors a lane per chunk (1-4),
+// threads a CTA (1-4 warps, a chunk each), grid CTAs covering the M x
+// chunks chunks; flags: 1 plain (not evict-first) interior stores, 2 rows of
+// whole 16-byte granules on 16-byte bases (-1 if they are not); with
+// nsrc >= 0 the checked gather (an index outside the nsrc rows of src
+// traps).
+int sf_gather_wide(const void* src, void* dst, const int* idx, int M,
+                   long long row_bytes, int chunks, int K, int threads,
+                   int grid, int flags, long long nsrc, void* stream) {
+  const uintptr_t sa = (uintptr_t)src, da = (uintptr_t)dst;
+  const long long items = (long long)M * chunks;
+  if (M < 0 || row_bytes < 1 || chunks < 1 || grid < 1 || threads < 32 ||
+      threads > kWideMaxThreads || threads % 32 ||
+      (long long)grid * (threads / 32) < items ||
+      (long long)grid * (threads / 32) >= (1LL << 31))
+    return -1;
+  const bool aligned = flags & kWideAligned;
+  if (aligned && (row_bytes % 16 || sa % 16 || da % 16)) return -1;
+  const Wide w{row_bytes, (long long)(sa % 16), (long long)(da % 16), nsrc,
+               (unsigned)chunks, (unsigned)items,
+               (flags & kWidePlainStores) != 0};
+  const uint4* s4 = (const uint4*)(sa - sa % 16);
+  uint4* d4 = (uint4*)(da - da % 16);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (aligned)
+    return nsrc >= 0
+               ? launch_wide<true, true>(s4, d4, idx, w, K, grid, threads, s)
+               : launch_wide<false, true>(s4, d4, idx, w, K, grid, threads, s);
+  return nsrc >= 0
+             ? launch_wide<true, false>(s4, d4, idx, w, K, grid, threads, s)
+             : launch_wide<false, false>(s4, d4, idx, w, K, grid, threads, s);
 }
 
 const char* sf_cuda_error_string(int err) {

@@ -10,17 +10,20 @@ runs the kernels and a kernel that fails to build raises:
     gather's rows of 1–4 32-bit words take its narrow kernel (4 rows per
     thread, 128-thread CTAs at this ``block_rows``, grid from
     ``sf_pack.row_plan``); other rows its generic loop, 64 rows per CTA;
-  * rows of ``WIDE_ROW`` elements or more: one row (one segment) per CTA
-    (``pack`` / ``segment_reduce_sorted``);
+  * rows of ``WIDE_ROW`` elements or more: the wide gather ``pack``
+    (aligned 16-byte output vectors whatever the row's width and base
+    offsets, a warp per chunk of up to 2 KB of a row, rows split across
+    warps when they are few, grid from ``sf_pack.wide_plan``) and one
+    segment per CTA (``segment_reduce_sorted``);
   * a strided box (``pack_strided_rows``): the route and grid that
     ``sf_pack.strided_plan`` computes from the box and the pointers.
 
 ``chip_smoke.py`` times both variants on f32 rows of 64, 256 and 1024
 elements (see ``PERF.md``).  For the segment reduce the one-segment-per-CTA
 kernel is the faster there, about 2x at 256 and more; for the gather the
-blocked kernel is no slower at any of those widths, so the gather's wide-row
-route exists only so that the one-row-per-CTA entry point ``pack`` runs on
-the path, as the reference autotuner's separate ``"row"`` candidate does.
+wide kernel is the faster at 256 and 1024 and the blocked one at 64.  The
+MoE path's rows (8-16 KB, some 2 or 4 bytes past a 16-byte multiple) and
+the wide-row SF's 1 KB rows take ``pack``.
 
 Index lists are prepared once per source array and device (int32 upload
 and bounds check, :mod:`repro_torch.kernels._index`), so repeat exchanges

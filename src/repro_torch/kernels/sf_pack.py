@@ -8,7 +8,10 @@ the source row comes from an int32 index list or is computed from a 3D box.
 The source's note gives the bound (bytes) and the design.
 
 Entry points (each counts its launches in ``<function>.launches``):
-  * ``pack``          — one row per CTA (Pallas ``pack``, one row per step);
+  * ``pack``          — the wide gather (Pallas ``pack``, one row per
+                        step): rows of any width as aligned 16-byte output
+                        vectors, a warp per chunk of a row, walked as
+                        :func:`wide_plan` says;
   * ``pack_blocked``  — the blocked gather (Pallas ``pack_blocked``): rows
                         of 1–4 32-bit words take the narrow kernel, 4 rows
                         per thread, walked as :func:`row_plan` says; other
@@ -45,7 +48,8 @@ __all__ = ["pack", "pack_blocked", "pack_strided", "bcast_fused",
            "inverse_map", "pack_plain", "pack_strided_plain",
            "bcast_fused_plain", "RowPlan", "row_plan",
            "gather_generic", "bcast_variant", "StridedPlan", "strided_plan",
-           "box_plan", "strided_variant"]
+           "box_plan", "strided_variant", "WidePlan", "wide_plan",
+           "pack_plan", "wide_variant"]
 
 # dtype codes of the cast kernels (csrc/sf_pack.cu)
 _CAST_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 3}
@@ -276,6 +280,139 @@ def _device_sms(t: torch.Tensor) -> int:
     """The SMs of ``t``'s card (an H100's 132 for a CPU tensor, whose plan
     is only read, never launched)."""
     return H100_SMS if _on_cpu(t) else _sm_count(t.device.index)
+
+
+# ------------------------------------------------------- wide gather plan
+WIDE_MAX_K = 4          # csrc/sf_pack.cu wide_gather_kernel: K = 1-4
+WIDE_MAX_WARPS = 4      # kWideMaxThreads: 1-4 warps a CTA
+WIDE_WARPS_PER_SM = 4   # rows are split into smaller chunks until the
+                        # chunks give every SM this many warps (or K = 1)
+_WIDE_PLAIN_STORES, _WIDE_ALIGNED = 1, 2    # csrc/sf_pack.cu kWide* flags
+
+
+@dataclasses.dataclass(frozen=True)
+class WidePlan:
+    """How one ``pack`` launch walks its ``M`` output rows of ``row_bytes``
+    bytes, read from a source ``src_mod`` bytes and written to an output
+    ``out_mod`` bytes past a 16-byte boundary.  Output row ``r`` is a head
+    (up to its first 16-byte boundary), an interior of aligned 16-byte
+    vectors and a tail; a warp owns a chunk: up to ``32 * K`` interior
+    vectors of one row (``chunks`` a row; chunk 0 also the head, the last
+    also the tail).  ``grid`` CTAs of ``threads`` take the ``M * chunks``
+    chunks, one a warp, in order.  ``aligned``: rows of
+    whole 16-byte granules on 16-byte bases (no skew, head or tail: the
+    kernel's instance without their registers)."""
+    M: int
+    row_bytes: int
+    src_mod: int
+    out_mod: int
+    K: int
+    chunks: int
+    threads: int
+    grid: int
+    aligned: bool
+
+    @property
+    def items(self) -> int:
+        return self.M * self.chunks
+
+    def walk(self, src_rows) -> dict:
+        """The launch's global memory accesses as the kernel computes them,
+        in numpy, for source row ``src_rows[r]`` of output row ``r``: byte
+        offsets from the output and source pointers of every ``stores``
+        (offset, width), every ``loads`` (offset, width, output row whose
+        chunk loads it) and ``moves`` (output offset, source offset, bytes:
+        where each store's bytes come from)."""
+        rb, N, ch = self.row_bytes, 32 * self.K, self.chunks
+        it = np.arange(self.items, dtype=np.int64)
+        r, c = it // ch, it % ch
+        S = self.src_mod + np.asarray(src_rows, np.int64)[r] * rb
+        D = self.out_mod + r * rb
+        h = np.minimum(-D % 16, rb)
+        nv = (rb - h) // 16
+        t = rb - h - 16 * nv
+        a = (S + h) % 16
+        n = np.clip(nv - c * N, 0, N)
+        nl = np.where(n > 0, n + (a != 0), 0)
+        g = (S + h) // 16 + c * N       # source granule of the chunk's
+        o = (D + h) // 16 + c * N       # first vector; its output vector
+        pos = np.arange(N + 1)          # position N: lane 0's extra load
+        live = pos < nl[:, None]
+        loads = [(g[:, None] + pos)[live] * 16 - self.src_mod]
+        load_rows = [np.broadcast_to(r[:, None], live.shape)[live]]
+        live = pos[:N] < n[:, None]
+        stores = [(o[:, None] + pos[:N])[live] * 16 - self.out_mod]
+        widths = [np.full(stores[0].size, 16)]
+        srcs = [((g[:, None] + pos[:N]) * 16 + a[:, None])[live]
+                - self.src_mod]
+        # the head (chunk 0) and the tail (the last chunk): one or two
+        # granules, then the widest naturally aligned stores that fit
+        for sel, off, size in ((c == 0) & (h > 0), 0 * h, h),  \
+                ((c == ch - 1) & (t > 0), h + 16 * nv, t):
+            ps, q, left = S[sel] + off[sel], D[sel] + off[sel], size[sel]
+            g0, g1 = ps // 16, (ps + left - 1) // 16
+            loads += [g0 * 16 - self.src_mod,
+                      g1[g1 != g0] * 16 - self.src_mod]
+            load_rows += [r[sel], r[sel][g1 != g0]]
+            while left.size and left.max() > 0:
+                m = left > 0
+                w = np.select([(q % 8 == 0) & (left >= 8),
+                               (q % 4 == 0) & (left >= 4),
+                               (q % 2 == 0) & (left >= 2)], [8, 4, 2], 1)
+                stores.append(q[m] - self.out_mod)
+                widths.append(w[m])
+                srcs.append(ps[m] - self.src_mod)
+                step = np.where(m, w, 0)
+                q, ps, left = q + step, ps + step, left - step
+        cat = lambda xs: np.concatenate(xs).astype(np.int64)
+        loads, stores, widths = cat(loads), cat(stores), cat(widths)
+        return {"stores": (stores, widths),
+                "loads": (loads, np.full(loads.size, 16), cat(load_rows)),
+                "moves": (stores, cat(srcs), widths)}
+
+
+def wide_plan(M: int, row_bytes: int, *, src_ptr: int, out_ptr: int,
+              sms: int = H100_SMS, K=None) -> WidePlan:
+    """The launch plan of ``pack`` for ``M`` rows of ``row_bytes`` bytes
+    read from ``src_ptr`` into ``out_ptr``.  A chunk is ``32 * K`` vectors
+    (``K`` = 4, 2 KB of a row a warp); while the chunks would give fewer
+    than ``WIDE_WARPS_PER_SM`` warps to each of the ``sms`` SMs, rows are
+    split into smaller chunks (K = 3, 2, 1), and then ``K`` is the least
+    that spreads a row's vectors over its chunks.  A warp takes one chunk
+    and a CTA 4 warps (1-3 when the chunks are fewer than 4 a SM, so that
+    the grid still covers the SMs).  ``K`` forces the chunk size (for
+    comparisons on the card).  Only the pointers' offsets from 16-byte
+    alignment matter, and plans are memoized on them: the path asks for
+    one on every launch."""
+    return _wide_plan(int(M), int(row_bytes), int(src_ptr) % 16,
+                      int(out_ptr) % 16, int(sms), K)
+
+
+@functools.lru_cache(maxsize=1024)
+def _wide_plan(M: int, rb: int, src_mod: int, out_mod: int, sms: int,
+               K_forced) -> WidePlan:
+    if M < 0 or rb < 1:
+        raise ValueError("wide_plan needs M >= 0 and row_bytes >= 1")
+    if K_forced is not None and not 1 <= int(K_forced) <= WIDE_MAX_K:
+        raise ValueError(f"K must be 1-{WIDE_MAX_K}")
+    nvmax = rb // 16            # a row's interior vectors, at most
+    for K in ((int(K_forced),) if K_forced is not None
+              else range(WIDE_MAX_K, 0, -1)):
+        chunks = max(1, -(-nvmax // (32 * K)))
+        if M * chunks >= WIDE_WARPS_PER_SM * sms:
+            break
+    if K_forced is None:
+        K = max(1, -(-nvmax // (32 * chunks)))
+    items = M * chunks
+    warps = WIDE_MAX_WARPS if items >= WIDE_MAX_WARPS * sms \
+        else max(1, items // sms)
+    grid = max(1, -(-items // warps))
+    if grid * warps >= 2 ** 31:
+        raise ValueError(f"{M} rows of {rb} bytes exceed the wide gather's "
+                         f"32-bit chunk count")
+    return WidePlan(M=M, row_bytes=rb, src_mod=src_mod, out_mod=out_mod, K=K,
+                    chunks=chunks, threads=32 * warps, grid=grid,
+                    aligned=rb % 16 == 0 and src_mod == 0 and out_mod == 0)
 
 
 # ---------------------------------------------------- strided pack plan
@@ -594,30 +731,65 @@ def _launch_generic_gather(data, idx, out, rows_per_cta: int,
                   _build.stream_of(data))
 
 
-def _generic_gather(data: torch.Tensor, idx, rows_per_cta: int,
-                    dynamic: bool = False):
-    """(out, launched): the generic gather loop at ``rows_per_cta`` rows
-    per CTA (the plain version on the CPU)."""
+def pack_plan(data: torch.Tensor, idx: torch.Tensor, out: torch.Tensor,
+              K=None) -> WidePlan:
+    """The :func:`wide_plan` of ``pack`` on these tensors."""
+    return _wide_plan(idx.numel(), _row_bytes(data), data.data_ptr() % 16,
+                      out.data_ptr() % 16, _device_sms(data), K)
+
+
+def _wide_gather(data: torch.Tensor, idx, dynamic: bool, K=None, out=None,
+                 plain_stores: bool = False):
+    """(out, launched): the wide gather into ``out`` (a new tensor when
+    None), the plan's chunk size or ``K``, evict-first stores unless
+    ``plain_stores`` (the plain version on the CPU)."""
     idx = _gather_args(data, idx, dynamic)
+    shape = tuple(idx.shape) + tuple(data.shape[1:])
+    if out is not None and (tuple(out.shape) != shape or out.dtype !=
+                            data.dtype or out.device != data.device):
+        raise ValueError("out must have the gathered rows' shape, dtype "
+                         "and device")
     if _on_cpu(data):
-        return pack_plain(data, idx), False
-    out = _empty_rows(data, idx)
+        rows = pack_plain(data, idx)
+        return (rows if out is None else out.copy_(rows)), False
+    if out is None:
+        out = _empty_rows(data, idx)
+    require_cuda_tensor(out, "out")
     if idx.numel() == 0 or _row_bytes(data) == 0:
         return out, False
-    _launch_generic_gather(data, idx, out, rows_per_cta, dynamic)
+    plan = pack_plan(data, idx, out, K)
+    flags = (_WIDE_ALIGNED if plan.aligned else 0) | \
+        (_WIDE_PLAIN_STORES if plain_stores else 0)
+    _build.launch("sf_gather_wide", data.data_ptr(), out.data_ptr(),
+                  idx.data_ptr(), plan.M, plan.row_bytes, plan.chunks,
+                  plan.K, plan.threads, plan.grid, flags,
+                  int(data.shape[0]) if dynamic else -1,
+                  _build.stream_of(data))
     return out, True
 
 
 def pack(data: torch.Tensor, idx, *, dynamic: bool = False
          ) -> torch.Tensor:
-    """out[i] = data[idx[i]], one row per CTA.  data: (N, *unit) of any
-    dtype; idx: (M,) integers (tensor on data's device, or numpy).
-    ``dynamic``: idx is a tensor written on the device this step, checked
-    on the device instead of prepared and cached (:func:`_runtime_index`).
-    """
-    out, launched = _generic_gather(data, idx, 1, dynamic)
+    """out[i] = data[idx[i]] through the wide gather: aligned 16-byte
+    output vectors, a warp per chunk of a row, as :func:`wide_plan` says.
+    data: (N, *unit) of any dtype, at any byte offset; idx: (M,) integers
+    (tensor on data's device, or numpy).  ``dynamic``: idx is a tensor
+    written on the device this step, checked on the device instead of
+    prepared and cached (:func:`_runtime_index`)."""
+    out, launched = _wide_gather(data, idx, dynamic)
     pack.launches += launched
     return out
+
+
+def wide_variant(data: torch.Tensor, idx, *, K=None, out=None,
+                 dynamic: bool = False, plain_stores: bool = False
+                 ) -> torch.Tensor:
+    """``pack`` on a CUDA tensor with the chunk size ``K`` forced (None:
+    the plan's), into ``out`` when given (any byte offset; else a new
+    tensor), and with plain (not evict-first) stores when
+    ``plain_stores``, for comparisons in ``chip_smoke.py`` (the plain
+    version on the CPU).  Counts no launch (it is on no path)."""
+    return _wide_gather(data, idx, dynamic, K, out, plain_stores)[0]
 
 
 def gather_plan(data: torch.Tensor, idx: torch.Tensor, out: torch.Tensor,
@@ -658,14 +830,21 @@ def pack_blocked(data: torch.Tensor, idx, *, block_rows: int,
     return out
 
 
-def gather_generic(data: torch.Tensor, idx, *, rows_per_cta: int
-                   ) -> torch.Tensor:
-    """The generic gather loop (the first blocked kernel) at
-    ``rows_per_cta`` rows per CTA on a CUDA tensor, whatever the row
-    width: the yardstick ``chip_smoke.py`` times the narrow kernel
-    against (the plain version on the CPU).  Counts no launch (it is on no
-    path)."""
-    return _generic_gather(data, idx, rows_per_cta)[0]
+def gather_generic(data: torch.Tensor, idx, *, rows_per_cta: int,
+                   dynamic: bool = False) -> torch.Tensor:
+    """The generic gather loop (the first kernel of ``pack_blocked`` and,
+    at one row per CTA, of ``pack``) at ``rows_per_cta`` rows per CTA on a
+    CUDA tensor, whatever the row width; ``dynamic`` as for :func:`pack`
+    (its checked instance): the yardstick ``chip_smoke.py`` times the
+    narrow and the wide kernels against (the plain version on the CPU).
+    Counts no launch (it is on no path)."""
+    idx = _gather_args(data, idx, dynamic)
+    if _on_cpu(data):
+        return pack_plain(data, idx)
+    out = _empty_rows(data, idx)
+    if idx.numel() and _row_bytes(data):
+        _launch_generic_gather(data, idx, out, rows_per_cta, dynamic)
+    return out
 
 
 def _strided_args(data: torch.Tensor, start: int, dims, strides):

@@ -76,6 +76,28 @@ def test_pack_matches_pallas(N, unit, M, dt, rng):
     np.testing.assert_array_equal(PR.pack_ref(td, idx).numpy(), want)
 
 
+# odd row widths (the MoE decode's fused 8,194-byte rows: (4097,) bf16)
+# and a source one row in (data[1:] of 257-byte rows: off every alignment)
+@needs_reference
+@pytest.mark.parametrize("unit,dt,first", [
+    ((4097,), "bfloat16", 0), ((4097,), "bfloat16", 1), ((257,), "int8", 1),
+    ((257,), "int8", 0), ((3, 43), "bfloat16", 1), ((257,), "float32", 1)])
+def test_pack_odd_rows_match_pallas(unit, dt, first, rng):
+    N, M = 9, 6
+    vals = rng.integers(-120, 120, (N,) + unit) if dt == "int8" else \
+        rng.standard_normal((N,) + unit)
+    vals = vals.astype(np.float32)
+    idx = rng.integers(0, N - first, M).astype(np.int32)
+    jd = jnp.asarray(vals).astype(dt)[first:]
+    want = np.asarray(ref_pack(jd, jnp.asarray(idx), interpret=True)
+                      .astype(jnp.float32))
+    td = torch.as_tensor(vals).to(getattr(torch, dt))[first:]
+    for got in (sf_pack.pack(td, idx), sf_pack.pack(td, torch.as_tensor(idx)),
+                kops.pack_rows(td, idx)):
+        assert got.dtype == td.dtype and got.shape == (M,) + unit
+        np.testing.assert_array_equal(got.float().numpy(), want)
+
+
 @needs_reference
 @pytest.mark.parametrize("B", [1, 4, 64])
 @pytest.mark.parametrize("dt", [np.float32, np.int32])
@@ -261,6 +283,104 @@ def test_plan_takes_narrow_path_on_main_shapes():
     assert not plan(65536, 1024).narrow         # the wide-row SF: generic
     with pytest.raises(ValueError):
         sf_pack.row_plan(4, 4, 0, src_ptrs=(0,), out_ptr=0, idx_ptr=0)
+
+
+# ------------------------------------------------------- wide gather plan
+_WIDE_OFFSETS = (0, 1, 2, 4, 8)
+
+
+def _wide_offsets(M):
+    """(source, output) base offsets mod 16: every pair at small M; at
+    4,097 rows five pairs, each offset once on each side."""
+    if M < 4097:
+        return [(a, b) for a in _WIDE_OFFSETS for b in _WIDE_OFFSETS]
+    return list(zip(_WIDE_OFFSETS, _WIDE_OFFSETS[1:] + _WIDE_OFFSETS[:1]))
+
+
+def _check_wide_walk(plan, rows, src, out, sms=132):
+    """pack's plan, walked in numpy as the wide kernel walks it: the stores
+    tile the output (every byte once), are naturally aligned, and narrower
+    than 16 bytes only outside the row's aligned interior; each store's
+    bytes come from its row's source row; every load is an aligned
+    granule holding a byte of its row, and a row's loads cover it."""
+    M, rb = plan.M, plan.row_bytes
+    w = plan.walk(rows)
+    st, wd = w["stores"]
+    order = np.argsort(st, kind="stable")
+    st, wd = st[order], wd[order]
+    assert st[0] == 0 and st[-1] + wd[-1] == M * rb
+    assert (st[1:] == st[:-1] + wd[:-1]).all()
+    assert np.isin(wd, (1, 2, 4, 8, 16)).all()
+    assert ((out + st) % wd == 0).all()
+    r = st // rb
+    assert ((st + wd - 1) // rb == r).all()
+    begin, end = out + r * rb, out + (r + 1) * rb
+    inner0, inner1 = -(-begin // 16) * 16, end // 16 * 16
+    narrow = wd < 16
+    assert ((out + st + wd <= inner0) | (out + st >= inner1))[narrow].all()
+    mo, ms, mb = w["moves"]
+    assert np.array_equal(np.sort(mo), st)
+    assert (ms == rows[mo // rb] * rb + mo % rb).all()
+    lo, lw, lr = w["loads"]
+    first = rows[lr] * rb
+    assert (lw == 16).all() and ((src + lo) % 16 == 0).all()
+    assert ((lo + 16 > first) & (lo < first + rb)).all()
+    g0 = (src + rows * rb) // 16
+    spans = (src + rows * rb + rb - 1) // 16 - g0 + 1
+    assert np.unique(lr * (1 << 40) + (src + lo) // 16).size == spans.sum()
+    warps = plan.threads // 32
+    assert 1 <= warps <= 4 and plan.threads % 32 == 0
+    assert plan.items <= plan.grid * warps < plan.items + warps
+    if M * max(1, -(-(rb // 16) // 32)) >= sms:
+        assert plan.grid >= sms
+
+
+@pytest.mark.parametrize("M", [1, 32, 4097])
+@pytest.mark.parametrize("row_bytes", [256, 257, 258, 1024, 1030, 8194,
+                                       14338, 16388])
+def test_wide_plan_writes_every_byte_once(row_bytes, M, rng):
+    """pack's launch plan over odd and misaligned widths, source and
+    output bases off the 16-byte alignment, one row, a decode step's 32
+    rows and 4,097 rows (chunks walked grid-stride)."""
+    for so, oo in _wide_offsets(M):
+        src, out = (1 << 30) + so, (1 << 31) + oo
+        plan = sf_pack.wide_plan(M, row_bytes, src_ptr=src, out_ptr=out)
+        assert (plan.src_mod, plan.out_mod) == (so, oo)
+        _check_wide_walk(plan, rng.integers(0, 9, M), src, out)
+
+
+@pytest.mark.parametrize("row_bytes", [1, 3, 15, 17, 31, 100])
+@pytest.mark.parametrize("K", [None, 1, 4])
+def test_wide_plan_takes_narrow_rows(row_bytes, K, rng):
+    """Rows of fewer than 32 bytes (a head and a tail, or a row inside one
+    granule) and forced chunk sizes, with one SM or 132."""
+    for so, oo in ((0, 0), (1, 8), (15, 3)):
+        for M in (1, 7, 300):
+            for sms in (1, 132):
+                src, out = (1 << 30) + so, (1 << 31) + oo
+                plan = sf_pack.wide_plan(M, row_bytes, src_ptr=src,
+                                         out_ptr=out, sms=sms, K=K)
+                assert K is None or plan.K == K
+                _check_wide_walk(plan, rng.integers(0, 5, M), src, out, sms)
+
+
+def test_wide_plan_on_main_shapes():
+    """A decode step's 32 fused rows spread over the SMs in 512-byte
+    chunks; the wide-row SF's 1 KB rows are a warp's chunk each; kimi's
+    prefill rows are 7 chunks of 2 KB."""
+    def plan(M, rb):
+        return sf_pack.wide_plan(M, rb, src_ptr=0, out_ptr=0)
+    for rb in (8194, 16388):
+        p = plan(32, rb)
+        assert p.K == 1 and p.grid >= 132
+    p = plan(65536, 1024)
+    assert (p.K, p.chunks, p.threads, p.grid) == (2, 1, 128, 16384)
+    p = plan(10368, 14336)
+    assert (p.K, p.chunks) == (4, 7)
+    with pytest.raises(ValueError):
+        sf_pack.wide_plan(4, 16, src_ptr=0, out_ptr=0, K=5)
+    with pytest.raises(ValueError):
+        sf_pack.wide_plan(2 ** 30, 16388, src_ptr=0, out_ptr=0)
 
 
 # ---------------------------------------------------------- segment reduce

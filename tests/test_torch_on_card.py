@@ -8,7 +8,10 @@ the edge-element stash assembly, and the ``sflog`` facade hooks during a
 capture (``traced`` only, nothing per replay); for the MoE slice every
 ``DynPlan`` operation against the CPU, the runtime-index gathers on odd
 wide rows, an out-of-range ``leaf_root`` failing in a child process, and
-the MoE layer's SF dispatch against its plain gathers with no host sync.
+the MoE layer's SF dispatch against its plain gathers with no host sync;
+for the wide gather (``pack``) the odd-width and misaligned rows of
+``chip_smoke.py``'s sweep, ``pack(dynamic=True)`` trapping on an index out
+of range, and a decode step's fused dispatch rows against dense.
 
 Every test is ``cuda``-marked and skips without a card; the file imports
 no JAX, so the card's machine runs it:
@@ -353,8 +356,23 @@ def test_dynamic_gathers_take_odd_wide_rows(dev):
                 assert torch.equal(got, src[i.long()])
 
 
+@pytest.mark.parametrize("row_bytes", [256, 258, 1020, 1024, 1030, 8192,
+                                       8194, 14338, 16388])
+def test_wide_pack_odd_and_misaligned_rows_bitwise(dev, row_bytes):
+    """``pack``'s wide gather over ``chip_smoke.py``'s sweep at one row
+    width: int8 / bool / bf16 / f32 / f64 where the element divides it,
+    sources 0-8 bytes off the 16-byte alignment, an output off it, 1-4,097
+    rows, checked and unchecked, each bitwise against ``pack_plain``."""
+    import chip_smoke
+    before = kops.pack.launches
+    cases = chip_smoke.pack_sweep_width(row_bytes, dev,
+                                        np.random.default_rng(row_bytes))
+    assert cases >= 3 * len(chip_smoke.PACK_SWEEP_ROWS)
+    assert kops.pack.launches - before >= cases // 2
+
+
 @pytest.mark.parametrize("route", ["bcast", "bcast_wide", "unique",
-                                   "general"])
+                                   "general", "pack_odd"])
 def test_out_of_range_leaf_root_fails_on_card(dev, route):
     """An index outside the source fails loudly on the card: the gather
     kernel traps, ``scatter_`` / ``_assert_async`` assert.  Each ends the
@@ -397,3 +415,24 @@ def test_moe_layer_kernels_equal_plain_without_host_sync(dev, shape):
     y_d, aux_d = M.moe_layer(x, p, cfg, dispatch="dense")
     torch.testing.assert_close(y, y_d, rtol=1e-5, atol=1e-6)
     assert float(aux) == float(aux_d)
+
+
+@pytest.mark.parametrize("d_model", [256, 1024])
+def test_moe_decode_fused_rows_take_wide_gather(dev, d_model):
+    """A decode step's fused dispatch rows (d_model + 1 float32: 4 bytes
+    past a 16-byte multiple) go through ``pack``'s wide gather, and the SF
+    dispatch stays within the reference's rtol 1e-5 / atol 1e-6 of the
+    dense one."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as M
+    cfg = get_config("phi3.5-moe-42b-a6.6b").scaled(
+        dtype="float32", d_model=d_model, moe_dff=128)
+    g = torch.Generator(device=dev).manual_seed(5)
+    p = {k: v[0] for k, v in M.init_moe(cfg, 1, generator=g,
+                                        device=dev).items()}
+    x = torch.randn((8, 1, cfg.d_model), generator=g, device=dev)
+    before = kops.pack.launches
+    y, _ = M.moe_layer(x, p, cfg, dispatch="sf")
+    assert kops.pack.launches > before
+    y_d, _ = M.moe_layer(x, p, cfg, dispatch="dense")
+    torch.testing.assert_close(y, y_d, rtol=1e-5, atol=1e-6)
