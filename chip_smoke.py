@@ -58,7 +58,11 @@ Phases, each printing one JSON line and asserting as it goes:
            ``segment_reduce_blocked`` also sums the general SF's reduce in
            float16 and int64 (``dtype_shapes``), and the sweep holds every
            segment-reduce dtype (int8, uint8, int16, int64, float16 beside
-           the first four) bitwise with ragged and empty segments.
+           the first four) bitwise with ragged and empty segments.  Both
+           segment-reduce rows give their main path's longest segment and
+           route (the short one), and ``long_cut_sweep`` times a segment of
+           64-4,096 rows alone and beside 262,144 short ones on the short
+           and the long route (the table ``LONG_SEG`` comes from).
   sf_ops   ``SFComm(backend="cuda")`` against ``SFComm(backend="global")``.
   spmv_cg  SpMV / SpMV^T against scipy in float64, then both CG loops on the
            Poisson matrix through the ELL kernel (``cg_loops``): the
@@ -102,8 +106,10 @@ Phases, each printing one JSON line and asserting as it goes:
            reusing the flush SF; ``assemble_coo`` stash and fetch (whose
            counting SF has roots of ~3 M leaves) give the same matrix; the
            fetch path's counting fold (``fetch_fold``: 8 segments of ~3.2 M
-           int32 rows through ``segment_reduce_blocked``) beside its bound,
-           ``index_add_`` and ``segment_reduce``.
+           int32 rows through ``segment_reduce_blocked``'s long route,
+           again in float32, and one 2^22-row segment under max / min /
+           sum) beside its bounds, the short route alone on the same input
+           (``prev_ms``), ``index_add_`` and ``segment_reduce``.
   plex     ``DMPlexDistribute`` / ``DMPlexDistributeOverlap`` (paper §6.3):
            a periodic 64^3 hex mesh over 8 ranks from the ``seq`` and
            ``rand`` layouts, balanced, cones and labels carried bitwise;
@@ -150,10 +156,20 @@ Phases, each printing one JSON line and asserting as it goes:
            ``pack_blocked`` rows), and both dispatch lowerings at both
            serving shapes (``fuse_switch``).
 
+  long_sweep  the long segment reduce (segments over ``LONG_SEG`` rows)
+           of both wrappers bitwise, NaN payloads included, against the
+           plain version: every dtype and op at units (), (3,) and (2, 2),
+           256- and 300-element rows, segments at the cut and the chunk
+           edges beside short, empty, overlapping and unsorted ones
+           (``long_case``).  Last, because its plain folds' ~4 M small
+           launches leave torch.profiler on the card returning windows
+           without all their device events.
+
 Seven paths carry the kernels: ``sf_ops`` + ``spmv_cg`` (the SF kernels),
 ``dmda`` (``pack_blocked``, ``segment_reduce_blocked``, ``spmv_ell``),
-``mg`` (``pack_blocked``, a segment reduce, ``spmv_ell``), ``assembly``
-(``pack_blocked``, a segment reduce), ``plex`` (``pack_blocked``), the
+``mg`` (``pack_blocked``, ``segment_reduce_blocked``, ``spmv_ell``),
+``assembly`` (``pack_blocked``, ``segment_reduce_blocked``), ``plex``
+(``pack_blocked``), the
 serve phase's drive (``flash_attention``) and the moe phase's drive
 (``pack``, ``pack_blocked``, ``flash_attention``).  Every launch counter is set
 to 0 just before each and read just after, and each kernel must have
@@ -227,10 +243,9 @@ SF_PATH = ("pack", "pack_blocked", "pack_strided", "bcast_fused",
            "segment_reduce_sorted", "segment_reduce_blocked", "spmv_ell")
 DMDA_PATH = ("pack_blocked", "segment_reduce_blocked", "spmv_ell")
 SERVE_PATH = ("flash_attention",)
-MG_PATH = ("pack_blocked", "spmv_ell")          # and a segment reduce
-ASSEMBLY_PATH = ("pack_blocked",)               # and a segment reduce
+MG_PATH = ("pack_blocked", "segment_reduce_blocked", "spmv_ell")
+ASSEMBLY_PATH = ("pack_blocked", "segment_reduce_blocked")
 PLEX_PATH = ("pack_blocked",)
-SEGMENT_REDUCES = ("segment_reduce_sorted", "segment_reduce_blocked")
 MOE_PATH = ("pack", "pack_blocked", "flash_attention")
 # MoE layer, dispatch="sf" against dispatch="dense", float32: the
 # reference's tests/test_models.py:127-159
@@ -290,6 +305,7 @@ class Sizes:
     dyn_roots: int = 1 << 16      # DynPlan checks: expert slots
     dyn_leaves: int = 1 << 18     # picks
     dyn_width: int = 4096         # bf16 hidden rows (phi's d_model)
+    hub_rows: int = 1 << 22       # fetch_fold's one-segment max / min / sum
 
 
 def emit(obj) -> None:
@@ -312,6 +328,18 @@ def same_bits(a, b) -> bool:
     view = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
     eq = a.contiguous().view(view) == b.contiguous().view(view)
     return bool((eq | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def same_raw_bits(a, b) -> bool:
+    """Bitwise equality, NaN payloads included."""
+    import torch
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if not a.dtype.is_floating_point:
+        return bool(torch.equal(a, b))
+    view = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    return bool(torch.equal(a.contiguous().view(view),
+                            b.contiguous().view(view)))
 
 
 def max_abs(a, b) -> float:
@@ -717,6 +745,7 @@ def kernel_records(objs, sz: Sizes, dev) -> dict:
            lambda: sf_unpack.segment_reduce_plain(sv, st, ln, "sum"),
            lambda: torch.segment_reduce(sv, "sum", lengths=ln64),
            sv.numel() * 4 + S * (8 + rb))
+    recs["segment_reduce_sorted"].update(short_route(sv, st, ln))
 
     wide_ms = wide_row_variants(objs["wide"], wide, g, dev, it)
 
@@ -733,8 +762,11 @@ def kernel_records(objs, sz: Sizes, dev) -> dict:
            gsv.numel() * 4 + gst.numel() * 12)
     check(same_bits(run_seg(), run_seg()), "segment reduce not bitwise "
           "identical run to run")
+    recs["segment_reduce_blocked"].update(short_route(gsv, gst, gln))
     recs["segment_reduce_blocked"]["dtype_shapes"] = segment_dtype_shapes(
         gsv, gst, gln, dev, it)
+    recs["segment_reduce_blocked"]["long_cut_sweep"] = long_cut_sweep(dev,
+                                                                      it)
 
     # pack_strided: the box halo SF's bcast pack
     box_be = CudaBackend(objs["box"], device=dev)
@@ -784,6 +816,18 @@ def kernel_records(objs, sz: Sizes, dev) -> dict:
            lambda: torch.mv(csr, xz),
            N * K * 8 + (blk.n + 1) * 4 + N * 4, 2.0 * nnz, tol=1e-5)
     return recs, wide_ms
+
+
+def short_route(sv, st, ln) -> dict:
+    """The longest segment and route of a main-path segment reduce, which
+    must be the short one (the one-thread-a-segment kernel, unchanged)."""
+    from repro_torch.kernels import sf_unpack
+    from repro_torch.kernels._index import segment_meta
+    lmax = segment_meta(st, ln, sv.device)[3]
+    route = sf_unpack.reduce_route(lmax, sv.dtype, "sum")
+    check(route == "short", f"a main-path segment reduce (Lmax {lmax}) "
+          f"took the {route} route")
+    return {"lmax": lmax, "route": route, "long_seg": sf_unpack.LONG_SEG}
 
 
 def segment_dtype_shapes(sv, st, ln, dev, it: int) -> list:
@@ -1318,6 +1362,128 @@ def kernel_sweep(dev) -> int:
                 data, cols, x)
             check(max_abs(got, want) <= 1e-5 * float(want.abs().max()),
                   f"spmv_ell {N} {K} {dt}")
+            cases += 1
+    return cases
+
+
+SEG_DTYPES = ("float32", "float64", "bfloat16", "float16", "int8", "uint8",
+              "int16", "int32", "int64")
+SEG_OPS = ("sum", "prod", "max", "min")
+# NaN bit patterns with distinct payloads (the last with the sign bit set)
+NAN_BITS = {"float32": (0x7FC00001, 0x7FC00A02, 0xFFC00003),
+            "float64": (0x7FF8000000000001, 0x7FF80000000A0002,
+                        0xFFF8000000000003),
+            "bfloat16": (0x7FC1, 0x7FD2, 0xFFC3),
+            "float16": (0x7E01, 0x7E52, 0xFE03)}
+
+
+def _signed(bits: int, nbytes: int) -> int:
+    return bits - (1 << 8 * nbytes) if bits >> (8 * nbytes - 1) else bits
+
+
+def long_case(dtype: str, op: str, rng, dev, width: int = 4):
+    """A ``(rows, width)`` buffer of ``dtype`` and unsorted (start, len)
+    pairs for the long route: segments of the cut's length and one more,
+    of C - 1, C and C + 1 rows (C the chunk rows), one of the cut's length
+    plus one inside another, a long one of identities, 200 short and empty
+    ones; in float max / min runs NaNs with distinct payloads (one on a
+    chunk's first row), a run of -0 / +0 among values that never reach 0,
+    and +-inf; integers over their whole range (odd for prod: products
+    that wrap and stay non-zero).  The plain version's Lmax is C + 1."""
+    import torch
+    from repro_torch.kernels import sf_unpack
+    cut, C = sf_unpack.LONG_SEG, sf_unpack.LONG_CHUNK_ROWS
+    longs = [(0, C + 1), (C + 4, C), (2 * C + 9, C - 1), (5, cut + 1),
+             (3 * C + 20, cut), (3 * C + 40 + cut, cut + 1)]
+    M = 3 * C + 60 + 2 * cut
+    tdt = getattr(torch, dtype)
+    if tdt.is_floating_point:
+        vals = rng.standard_normal((M, width))
+        if op == "prod":
+            vals = 1 + 0.01 * vals
+        buf = torch.as_tensor(vals, device=dev).to(tdt)
+        if op in ("max", "min"):
+            iv = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+                buf.element_size()]
+            for row, bits in zip((700, 5000, C), NAN_BITS[dtype]):
+                buf.view(iv)[row, row % width] = _signed(
+                    bits, buf.element_size())
+            # the extremum is 0, reached first by a -0 or a +0
+            a, b = C + 4, 2 * C + 4
+            run = -torch.as_tensor(np.abs(vals[a:b]) + 1, device=dev)
+            buf[a:b] = (run if op == "max" else -run).to(tdt)
+            zeros = rng.choice(np.arange(a + 50, b), 40, replace=False)
+            signs = rng.choice([-1.0, 1.0], (40, width))
+            buf[torch.as_tensor(zeros, device=dev)] = torch.as_tensor(
+                signs * 0.0, device=dev).to(tdt)
+        inf = rng.choice(np.arange(2 * C + 9, 3 * C + 8), 30, replace=False)
+        buf[torch.as_tensor(inf, device=dev)] = torch.as_tensor(
+            rng.choice([-np.inf, np.inf], (30, width)), device=dev).to(tdt)
+    else:
+        info = torch.iinfo(tdt)
+        vals = rng.integers(info.min, info.max, (M, width), endpoint=True)
+        if op == "prod":
+            vals |= 1
+        buf = torch.as_tensor(vals, device=dev).to(tdt)
+    ident = {"sum": 0, "prod": 1}.get(op)
+    if ident is None:
+        ident = (-math.inf if op == "max" else math.inf) \
+            if tdt.is_floating_point else \
+            (torch.iinfo(tdt).min if op == "max" else torch.iinfo(tdt).max)
+    a = 3 * C + 40 + cut
+    buf[a:a + cut + 1] = ident
+    short = [(int(rng.integers(0, M - 8)), int(rng.integers(0, 9)))
+             for _ in range(200)]
+    pairs = longs + short
+    order = rng.permutation(len(pairs))
+    st = torch.as_tensor([pairs[i][0] for i in order], dtype=torch.int32,
+                         device=dev)
+    ln = torch.as_tensor([pairs[i][1] for i in order], dtype=torch.int32,
+                         device=dev)
+    return buf, st, ln
+
+
+def long_sweep(dev, rng) -> int:
+    """The long route of both segment-reduce wrappers bitwise, NaN payloads
+    included, against the plain version on ``long_case`` buffers: every
+    dtype and op at units (), (3,) and (2, 2) (one plain fold of the 4-wide
+    buffer holds all three), int32 max on 256-element rows and float32 sum
+    on 300-element ones.
+    Returns the number of cases (none on the CPU, where every wrapper is
+    the plain version)."""
+    from repro_torch.kernels import sf_unpack
+    cases = 0
+    if dev.type != "cuda":
+        return cases
+    runs = (lambda b, st, ln, op: sf_unpack.segment_reduce_sorted(
+                b, st, ln, op=op),
+            lambda b, st, ln, op: sf_unpack.segment_reduce_blocked(
+                b, st, ln, segs_per_block=64, op=op),
+            lambda b, st, ln, op: sf_unpack.segment_reduce_blocked(
+                b, st, ln, segs_per_block=7, op=op))
+    for dtype in SEG_DTYPES:
+        for op in SEG_OPS:
+            buf, st, ln = long_case(dtype, op, rng, dev)
+            route = sf_unpack.reduce_route(int(ln.max()), buf.dtype, op)
+            check(route == ("split" if sf_unpack.order_free(buf.dtype, op)
+                            else "ordered"), f"{dtype} {op}: {route} route")
+            want = sf_unpack.segment_reduce_plain(buf, st, ln, op)
+            for unit, b, w in (
+                    ((), buf[:, 0].contiguous(), want[:, 0]),
+                    ((3,), buf[:, :3].contiguous(), want[:, :3]),
+                    ((2, 2), buf.reshape(-1, 2, 2), want.reshape(-1, 2, 2))):
+                for run in runs:
+                    check(same_raw_bits(run(b, st, ln, op), w),
+                          f"long segment reduce {op} {unit} {dtype}")
+                    cases += 1
+    # 256 int32: the vector-rows pass; 300 float32: the ordered route's
+    # unit tiles (rows wider than a CTA)
+    for dtype, op, width in (("int32", "max", 256), ("float32", "sum", 300)):
+        buf, st, ln = long_case(dtype, op, rng, dev, width=width)
+        want = sf_unpack.segment_reduce_plain(buf, st, ln, op)
+        for run in runs:
+            check(same_raw_bits(run(buf, st, ln, op), want),
+                  f"long segment reduce {op} ({width},) {dtype}")
             cases += 1
     return cases
 
@@ -2701,36 +2867,71 @@ def phase_assembly(sz: Sizes, dev) -> dict:
     # the fetch path's counting fold alone, its launches taken back (the
     # path's own count is that of the drive above)
     before = kops.launch_counts()
-    out["fetch_fold"] = fetch_fold_record(rows, da.owned_offsets, dev)
+    out["fetch_fold"] = fetch_fold_record(rows, da.owned_offsets, dev,
+                                          hub_rows=sz.hub_rows)
     kops.add_launches({k: v - before[k]
                        for k, v in kops.launch_counts().items()}, -1)
     return out
 
 
-def fetch_fold_record(rows, row_offsets, dev, iters: int = 2) -> dict:
+def fetch_fold_record(rows, row_offsets, dev, iters: int = 2,
+                      hub_rows: int = 1 << 22) -> dict:
     """``segment_reduce_blocked`` at the shape of ``assemble_coo(method=
     "fetch")``'s counting fold: one int32 1 per triplet summed into its
     owner rank's counter, a segment of ~3.2 M rows a rank on the 129^3
-    DMDA.  The sums against the segment lengths (the plain version folds in
-    a Python loop of 3.2 M steps: not timed), the bound, and ms per call
-    from CUDA events around ``iters`` calls (torch.profiler drops the
-    events of a window this long, and returned none for the library calls
-    after it; the 102 MB input is twice L2, so no scrubbed reading) of the
-    kernel and of two library calls for the same sums: ``index_add_`` over
-    the segment ids (int32) and ``segment_reduce`` (on a float32 copy,
-    exact below 2^24)."""
+    DMDA (the long route's order-free split); the same ones in float32 (its
+    order-dependent route); and one segment of ``hub_rows`` (2^22) float32
+    rows under max / min (against numpy) and sum.  Each sum against the
+    segment lengths (the plain version folds in a Python loop of 3.2 M
+    steps: not timed).  ``ms``: CUDA events around replays of a CUDA graph
+    of calls (``graph_ms``); ``prev_ms``: the short route alone on the same
+    input (the one-thread-a-segment kernel, ``short_route_alone``), CUDA
+    events around ``iters`` calls, as for the two library calls for the
+    same sums:
+    ``index_add_`` over the segment ids (int32) and ``segment_reduce`` (on
+    a float32 copy, exact below 2^24).  The 102 MB input is twice L2, so no
+    scrubbed reading.  ``bound_ms``: bytes (rows, metadata and output,
+    the split's partials written and read once); the float sums' also the
+    chain of dependent adds of the longest segment (``chain_ms``: 4
+    cycles an add at the card's top SM clock)."""
     import torch
     from repro_torch.kernels import ops as kops, sf_unpack
     owner = np.searchsorted(row_offsets, rows, side="right") - 1
     lens = np.bincount(owner, minlength=len(row_offsets) - 1)
     starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
     M, S = int(lens.sum()), int(lens.size)
-    sv = torch.ones(M, dtype=torch.int32, device=dev)
     st = torch.as_tensor(starts, dtype=torch.int32, device=dev)
     ln = torch.as_tensor(lens, dtype=torch.int32, device=dev)
-    run = lambda: sf_unpack.segment_reduce_blocked(
-        sv, st, ln, segs_per_block=kops.SEG_BLOCK, op="sum")
-    check(np.array_equal(run().cpu().numpy(), lens),
+    clock_hz = sm_clock_hz() if dev.type == "cuda" else None
+
+    def fold(buf, op, st, ln, seg_rows, it, prev_it=iters):
+        run = lambda: sf_unpack.segment_reduce_blocked(
+            buf, st, ln, segs_per_block=kops.SEG_BLOCK, op=op)
+        prev = lambda: short_route_alone(buf, st, ln, op)
+        got = run()
+        check(same_raw_bits(got, prev()), f"fetch fold {buf.dtype} {op}: "
+              f"the long route != the short route")
+        rb = buf.element_size()
+        split = sf_unpack.order_free(buf.dtype, op)
+        nbytes = buf.numel() * rb + st.numel() * (8 + rb) + \
+            (2 * chunks_of(seg_rows) * rb if split else 0)
+        bms, by = bound(nbytes)
+        rec = {"dtype": str(buf.dtype)[6:], "op": op,
+               "route": sf_unpack.reduce_route(int(max(seg_rows)),
+                                               buf.dtype, op),
+               "ms": graph_ms(run, dev, it), "ms_by": "CUDA events (graph)",
+               "prev_ms": call_ms(prev, dev, prev_it),
+               "prev_ms_by": "CUDA events", "bound_ms": bms, "bound_by": by}
+        if not split and clock_hz:
+            chain = max(seg_rows) * 4 / clock_hz * 1e3
+            rec["chain_ms"] = chain
+            if chain > bms:
+                rec["bound_ms"], rec["bound_by"] = chain, "dependent adds"
+        return got, rec
+
+    sv = torch.ones(M, dtype=torch.int32, device=dev)
+    got, rec = fold(sv, "sum", st, ln, lens, 20)
+    check(np.array_equal(got.cpu().numpy(), lens),
           "segment_reduce_blocked: the fetch fold's sums != its lengths")
     seg_ids = torch.repeat_interleave(torch.arange(S, device=dev),
                                       ln.long())
@@ -2741,14 +2942,116 @@ def fetch_fold_record(rows, row_offsets, dev, iters: int = 2) -> dict:
     check(np.array_equal(index_add().cpu().numpy(), lens)
           and np.array_equal(seg_reduce().cpu().numpy(), lens),
           "a library call's fetch-fold sums != the lengths")
-    bms, by = bound(M * 4 + S * 12)
-    return {"rows": M, "segments": S, "segment_rows": lens.tolist(),
-            "dtype": "int32", "segs_per_block": kops.SEG_BLOCK,
-            "ms": call_ms(run, dev, iters), "ms_by": "CUDA events",
-            "plain_ms": None, "bound_ms": bms, "bound_by": by,
-            "library": "torch.zeros().index_add_ (int32)",
-            "library_ms": call_ms(index_add, dev, 10),
-            "segment_reduce_f32_ms": call_ms(seg_reduce, dev, 10)}
+    out = {"rows": M, "segments": S, "segment_rows": lens.tolist(),
+           "long_seg": sf_unpack.LONG_SEG,
+           "chunk_rows": sf_unpack.LONG_CHUNK_ROWS,
+           "chunks": chunks_of(lens),
+           "segs_per_block": kops.SEG_BLOCK, **rec, "plain_ms": None,
+           "library": "torch.zeros().index_add_ (int32)",
+           "library_ms": call_ms(index_add, dev, 10),
+           "segment_reduce_f32_ms": call_ms(seg_reduce, dev, 10),
+           "sm_clock_hz": clock_hz}
+    got, out["float32"] = fold(svf, "sum", st, ln, lens, 3)
+    check(np.array_equal(got.cpu().numpy(), lens),
+          "segment_reduce_blocked: the float32 fetch fold's sums != lengths")
+    out["float32"]["library"] = "torch.segment_reduce"
+    out["float32"]["library_ms"] = out["segment_reduce_f32_ms"]
+    del sv, svf, seg_ids
+    # one segment of 2^22 float32 rows (a hub root): max / min against
+    # numpy, sums of ones against the length
+    n = hub_rows
+    x = np.random.default_rng(11).standard_normal(n).astype(np.float32)
+    xs = torch.as_tensor(x, device=dev)
+    st1 = torch.zeros(1, dtype=torch.int32, device=dev)
+    ln1 = torch.full((1,), n, dtype=torch.int32, device=dev)
+    hub = []
+    for op, want in (("max", x.max()), ("min", x.min())):
+        got, r = fold(xs, op, st1, ln1, [n], 20)
+        check(got.cpu().numpy()[0] == want, f"2^22-row {op}: "
+              f"{got.cpu().numpy()[0]} != numpy's {want}")
+        hub.append(r)
+    for dt, it in ((torch.int32, 20), (torch.float32, 3)):
+        got, r = fold(torch.ones(n, dtype=dt, device=dev), "sum", st1, ln1,
+                      [n], it)
+        check(int(got.cpu().numpy()[0]) == n, f"2^22-row {dt} sum != {n}")
+        hub.append(r)
+    out["hub"] = hub
+    return out
+
+
+def short_route_alone(buf, st, ln, op: str):
+    """The one-thread-a-segment kernel on every segment, however long (the
+    cut disabled; ``SEG_BLOCK`` segments a CTA), through the internal
+    launcher: the long route's yardstick (the plain version on the CPU).
+    ``st`` / ``ln``: int32 metadata on ``buf``'s device."""
+    import torch
+    from repro_torch.kernels import ops as kops, sf_unpack
+    if buf.device.type != "cuda":
+        return sf_unpack.segment_reduce_plain(buf, st, ln, op)
+    out = torch.empty((st.numel(),) + tuple(buf.shape[1:]), dtype=buf.dtype,
+                      device=buf.device)
+    sf_unpack._launch_short(buf, out, st, ln, op, kops.SEG_BLOCK,
+                            2 ** 31 - 1)
+    return out
+
+
+def chunks_of(seg_rows) -> int:
+    """The long route's chunks over segments of these row counts."""
+    from repro_torch.kernels import sf_unpack
+    C = sf_unpack.LONG_CHUNK_ROWS
+    return int(sum(-(-int(n) // C) for n in seg_rows
+                   if n > sf_unpack.LONG_SEG))
+
+
+def sm_clock_hz() -> float:
+    """The card's top SM clock (``nvidia-smi clocks.max.sm``), in Hz."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr}")
+    return float(out.stdout.splitlines()[0]) * 1e6
+
+
+LONG_CUT_SWEEP = (64, 128, 256, 512, 1024, 2048, 4096)
+
+
+def long_cut_sweep(dev, it: int) -> list:
+    """Where the long route starts to pay: a segment of L rows alone and
+    beside 262,144 segments of 4 rows, int32 and float32 sums, in the short
+    route alone and with that segment on the long route (the plan's cut
+    forced to L - 1), device ms from graph replays.  ``LONG_SEG`` is picked
+    from this table."""
+    import torch
+    from repro_torch.kernels import sf_unpack
+    out = []
+    if dev.type != "cuda":      # the routes exist only on the card
+        return out
+    for L in LONG_CUT_SWEEP:
+        for crowd in (0, 1 << 18):
+            lens = np.concatenate([np.full(crowd, 4), [L]]).astype(np.int32)
+            starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
+            st = torch.as_tensor(starts, dtype=torch.int32, device=dev)
+            ln = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+            plan = sf_unpack.build_long_plan(st, ln, cut=L - 1)
+            for dt in (torch.int32, torch.float32):
+                buf = torch.ones(int(lens.sum()), dtype=dt, device=dev)
+                out_t = torch.empty(lens.size, dtype=dt, device=dev)
+
+                def routed():
+                    if crowd:
+                        sf_unpack._launch_short(buf, out_t, st, ln, "sum",
+                                                64, L - 1)
+                    sf_unpack._launch_long(buf, out_t, plan, "sum")
+
+                short = lambda: short_route_alone(buf, st, ln, "sum")
+                routed()
+                check(same_raw_bits(out_t, short()),
+                      f"long_cut_sweep L={L}: routes differ")
+                out.append({"rows": L, "beside": crowd,
+                            "dtype": str(dt)[6:],
+                            "short_ms": graph_ms(short, dev, it),
+                            "long_ms": graph_ms(routed, dev, it)})
+    return out
 
 
 def overlap_oracle(mesh, cells_per_rank, levels: int) -> list:
@@ -3775,9 +4078,6 @@ def run(dev, sz: Sizes) -> list:
             recs["segment_reduce_blocked"]["fetch_fold_shape"] = \
                 res["fetch_fold"]
         missing = [k for k in needed if by_path[name][k] == 0]
-        if name != "plex" and not any(by_path[name][k]
-                                      for k in SEGMENT_REDUCES):
-            missing.append("a segment reduce")
         check(not missing or not on_card,
               f"the {name} path never launched {missing}")
         gc.collect()
@@ -3806,6 +4106,18 @@ def run(dev, sz: Sizes) -> list:
     for part in ("layer", "wide_layer", "serve"):
         for gr in moe[part]["gathers"]:
             recs[gr["kernel"]].setdefault("moe_shapes", []).append(gr)
+    del moe
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # the long segment reduce's sweep comes after the last profiled window:
+    # its plain folds launch ~4 M small kernels, and after them torch.profiler
+    # on the card returns windows without all their device events
+    t0 = time.perf_counter()
+    emit({"phase": "long_sweep",
+          "cases": long_sweep(dev, np.random.default_rng(7)),
+          "seconds": time.perf_counter() - t0})
     for name, rec in recs.items():
         rec["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())
@@ -3839,7 +4151,10 @@ def main() -> int:
                                                   "gather_rows_kernel"))],
           "sf_pack_wide_ptxas": [
               r for r in _build.ptxas_report("sf_pack")
-              if "wide_gather" in r["function"]]})
+              if "wide_gather" in r["function"]],
+          "sf_unpack_long_ptxas": [
+              r for r in _build.ptxas_report("sf_unpack")
+              if "long_" in r["function"]]})
     kernels = run(dev, Sizes())
     emit({"phase": "profiler", "windows": PROFILER_WINDOWS["taken"],
           "retaken": PROFILER_WINDOWS["retaken"]})

@@ -41,7 +41,7 @@ from .redplan import ReductionPlan
 from .unit import check_plan_unit
 from . import sflog
 from ..kernels import ops as kops
-from ..kernels._index import segment_meta
+from ..kernels import sf_unpack
 
 __all__ = ["SFOps", "PendingComm", "SortedUnpack", "unsigned_payloads"]
 
@@ -107,7 +107,7 @@ class SortedUnpack:
         self.seg_of_slot = index_tensor(red.seg_of_slot, device)
         self.seg_first = kernel_index(red.seg_first, device)
         self.seg_len = kernel_index(red.seg_len, device)
-        segment_meta(self.seg_first, self.seg_len, device)
+        sf_unpack.prepare(self.seg_first, self.seg_len, device)
 
     def __call__(self, rootdata: torch.Tensor, sv: torch.Tensor,
                  op: Op) -> torch.Tensor:

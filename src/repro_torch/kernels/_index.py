@@ -20,7 +20,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
-__all__ = ["device_index", "segment_meta", "require_cuda_tensor"]
+__all__ = ["device_index", "segment_meta", "require_cuda_tensor",
+           "cached"]
 
 _CACHE: dict = {}
 _INT32_MAX = 2 ** 31 - 1
@@ -30,7 +31,7 @@ def _key_source(obj):
     return obj if isinstance(obj, (torch.Tensor, np.ndarray)) else None
 
 
-def _cached(sources: tuple, device: torch.device, tag: str, build):
+def cached(sources: tuple, device: torch.device, tag: str, build):
     """``build()`` memoized on the identity and version of ``sources``."""
     objs = [_key_source(s) for s in sources]
     if any(o is None for o in objs):
@@ -85,7 +86,7 @@ def device_index(idx, device: torch.device, what: str = "index"
             return t, 0, -1
         lo, hi = (int(v) for v in torch.aminmax(t.reshape(-1)))
         return t, lo, hi
-    return _cached((idx,), device, "index", build)
+    return cached((idx,), device, "index", build)
 
 
 def segment_meta(seg_start, seg_len, device: torch.device
@@ -107,7 +108,7 @@ def segment_meta(seg_start, seg_len, device: torch.device
         if st_min < 0 or ln_min < 0:
             raise ValueError("negative segment start or length")
         return st, ln, end, lmax
-    return _cached((seg_start, seg_len), device, "segments", build)
+    return cached((seg_start, seg_len), device, "segments", build)
 
 
 def require_cuda_tensor(t: torch.Tensor, what: str) -> None:

@@ -16,7 +16,12 @@ runs the kernels and a kernel that fails to build raises:
     warps when they are few, grid from ``sf_pack.wide_plan``) and one
     segment per CTA (``segment_reduce_sorted``);
   * a strided box (``pack_strided_rows``): the route and grid that
-    ``sf_pack.strided_plan`` computes from the box and the pointers.
+    ``sf_pack.strided_plan`` computes from the box and the pointers;
+  * a segment reduce whose longest segment has more than
+    ``sf_unpack.LONG_SEG`` rows: those segments take the long route
+    (``sf_unpack.reduce_route``; chunks folded across CTAs where the fold is
+    order-free, a CTA a segment in buffer order for float sum / prod), the
+    rest the kernel above in the same call.
 
 ``chip_smoke.py`` times both variants on f32 rows of 64, 256 and 1024
 elements (see ``PERF.md``).  For the segment reduce the one-segment-per-CTA

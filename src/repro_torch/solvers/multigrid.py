@@ -41,7 +41,7 @@ from ..core import (SFComm, StarForest, UnitSpec, embed_leaves,
                     ragged_arange, ragged_offsets)
 from ..core.device import kernel_index, resolve_device
 from ..kernels import ops as kops
-from ..kernels._index import segment_meta
+from ..kernels import sf_unpack
 from ..meshdist.dmda import DMDA
 from ..sparse.parmat import ParCSR
 
@@ -117,7 +117,7 @@ class Transfer:
         counts = np.bincount(self.seg_ids, minlength=self.nfine)
         self._seg_first = kernel_index(ragged_offsets(counts)[:-1], d)
         self._seg_len = kernel_index(counts, d)
-        segment_meta(self._seg_first, self._seg_len, d)
+        sf_unpack.prepare(self._seg_first, self._seg_len, d)
         # injection = the weight-1 subgraph (fine/coarse coincident points),
         # extracted WITHOUT remapping: the embedded SF shares slot buffers.
         sel = [np.flatnonzero(w_l[r] == 1.0) for r in range(R)]

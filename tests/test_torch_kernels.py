@@ -481,6 +481,308 @@ def test_segment_reduce_refuses_bad_input():
         sf_unpack.segment_reduce_sorted(buf.int(), [0], [5], op="mean")
 
 
+# ------------------------------------------------------- long segments
+# The long route (segments over LONG_SEG rows): its plan, an emulation of
+# its combine order against the plain fold, its routes, and long segments
+# against the reference.  The card twins are in test_torch_on_card.py.
+LONG_SEG, C = sf_unpack.LONG_SEG, sf_unpack.LONG_CHUNK_ROWS
+EDGE_LENGTHS = (0, 1, LONG_SEG - 1, LONG_SEG, LONG_SEG + 1, C - 1, C, C + 1,
+                2 * C - 1, 2 * C, 2 * C + 1, 3 * C + 5)
+INT_DTYPES = (torch.int8, torch.uint8, torch.int16, torch.int32, torch.int64)
+FLOAT_DTYPES = (torch.float32, torch.float64, torch.bfloat16, torch.float16)
+ORDER_FREE = [(dt, op) for dt in INT_DTYPES for op in OPS] + \
+    [(dt, op) for dt in FLOAT_DTYPES for op in ("max", "min")]
+
+
+def _plan_oracle(start, length, cut, chunk_rows):
+    """(segment, first row, rows) of every chunk, walked in numpy."""
+    out = []
+    for s, (a, n) in enumerate(zip(start, length)):
+        if n > cut:
+            out += [(s, a + k, min(chunk_rows, n - k))
+                    for k in range(0, n, chunk_rows)]
+    return np.array(out, np.int64).reshape(-1, 3)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_long_plan_covers_each_long_row_once(seed):
+    """Every row of a long segment lies in exactly one chunk of that
+    segment, chunks run in row order from the segment's first row in steps
+    of C, short segments are left out, and the plan is a function of the
+    (start, len) values alone: int32 / int64 tensors and numpy arrays of
+    the same values give the same chunks."""
+    rng = np.random.default_rng(seed)
+    lens = np.concatenate([EDGE_LENGTHS, rng.integers(0, 3 * C, 6),
+                           rng.integers(0, 2 * LONG_SEG, 6)])
+    rng.shuffle(lens)
+    starts = rng.integers(0, 4 * C, lens.size)   # unsorted, overlapping
+    chunks = None
+    for st_, ln_ in ((starts, lens),
+                     (torch.as_tensor(starts), torch.as_tensor(lens)),
+                     (torch.as_tensor(starts, dtype=torch.int32),
+                      torch.as_tensor(lens, dtype=torch.int32))):
+        plan = sf_unpack.long_plan(st_, ln_, torch.device("cpu"))
+        got = plan.chunks()
+        if chunks is None:
+            chunks = got
+        np.testing.assert_array_equal(got, chunks)
+    np.testing.assert_array_equal(chunks,
+                                  _plan_oracle(starts, lens, LONG_SEG, C))
+    long = np.flatnonzero(lens > LONG_SEG)
+    assert plan.n_long == long.size and plan.n_chunks == len(chunks)
+    np.testing.assert_array_equal(plan.seg.numpy(), long)
+    for s in long:
+        mine = chunks[chunks[:, 0] == s]
+        rows = np.concatenate([np.arange(a, a + n) for _, a, n in mine])
+        np.testing.assert_array_equal(rows, starts[s] + np.arange(lens[s]))
+        assert (mine[:, 2] >= 1).all() and (mine[:, 2] <= C).all()
+        assert ((mine[:, 1] - starts[s]) % C == 0).all()
+    assert not np.isin(chunks[:, 0], np.flatnonzero(lens <= LONG_SEG)).any()
+
+
+def test_long_plan_without_long_segments():
+    plan = sf_unpack.long_plan(np.array([0, 5]), np.array([5, LONG_SEG]),
+                               torch.device("cpu"))
+    assert plan.n_long == plan.n_chunks == 0 and plan.chunks().shape == (0, 3)
+
+
+def test_chunk_rows_match_the_source():
+    """LONG_CHUNK_ROWS is the C that csrc/sf_unpack.cu compiles in."""
+    import re
+    from repro_torch.kernels import _build
+    src = (_build.CSRC / "sf_unpack.cu").read_text()
+    m = re.search(r"constexpr int kLongChunkRows = (\d+);", src)
+    assert m and int(m.group(1)) == C
+
+
+@pytest.mark.parametrize("dt", INT_DTYPES + FLOAT_DTYPES)
+def test_long_route_predicate(dt):
+    """Short segments keep the one-thread kernel; over the cut, float sum
+    and prod keep the buffer order (never split), everything else splits."""
+    for op in OPS:
+        for lmax in (0, 1, LONG_SEG):
+            assert sf_unpack.reduce_route(lmax, dt, op) == "short"
+        for lmax in (LONG_SEG + 1, C + 1, 1 << 22):
+            route = sf_unpack.reduce_route(lmax, dt, op)
+            if dt.is_floating_point and op in ("sum", "prod"):
+                assert route == "ordered"
+                assert not sf_unpack.order_free(dt, op)
+            else:
+                assert route == "split" and sf_unpack.order_free(dt, op)
+
+
+def _kernel_combine(op, acc, v):
+    """combine(acc, v) of csrc/sf_unpack.cu, acc first."""
+    if op == "sum":
+        return acc + v
+    if op == "prod":
+        return acc * v
+    keep = torch.isnan(acc) | ~(torch.isnan(v) | (v > acc if op == "max"
+                                                   else v < acc))
+    return torch.where(keep, acc, v)
+
+
+def _merge_at(op, a, ra, b, rb):
+    """merge_at of csrc/sf_unpack.cu: of two elements the one the
+    sequential max / min keeps (NaN first, then the extremum, then the
+    earlier row)."""
+    an, bn = torch.isnan(a), torch.isnan(b)
+    gb, ga = (b > a, a > b) if op == "max" else (b < a, a < b)
+    take = torch.where(an | bn, torch.where(an & bn, rb < ra, bn),
+                       torch.where(gb, True, torch.where(ga, False,
+                                                         rb < ra)))
+    return torch.where(take, b, a), torch.where(take, rb, ra)
+
+
+def _emulate_long_route(buf, start, length, op, cut, chunk_rows, threads,
+                        vec, lanes):
+    """The split route's combine order in torch: pass 1 deals each chunk's
+    rows to ``threads`` threads ``vec`` rows at a time; a thread folds its
+    rows in order (floats: merge_at with rows), then an ascending tree over
+    the threads; pass 2 gives lane l of ``lanes`` a contiguous run of the
+    segment's chunk partials and folds the lanes by an ascending tree, the
+    lower lane left."""
+    track = buf.dtype.is_floating_point
+    unit = buf.shape[1:]
+    ident = sf_unpack._identity(op, buf.dtype)
+    out = sf_unpack.segment_reduce_plain(buf, torch.as_tensor(start),
+                                         torch.as_tensor(length), op)
+    big = torch.full(unit, 2 ** 40, dtype=torch.int64)
+    parts = {}
+    for s, first, n in _plan_oracle(start, length, cut, chunk_rows):
+        acc = [torch.full(unit, ident, dtype=buf.dtype) for _ in
+               range(threads)]
+        row = [big.clone() for _ in range(threads)]
+        for i in range(n):
+            t = (i // vec) % threads
+            x = buf[first + i]
+            if track:
+                acc[t], row[t] = _merge_at(op, acc[t], row[t], x,
+                                           torch.full(unit, i))
+            else:
+                acc[t] = _kernel_combine(op, acc[t], x)
+        d = 1
+        while d < threads:
+            for t in range(0, threads, 2 * d):
+                if track:
+                    acc[t], row[t] = _merge_at(op, acc[t], row[t],
+                                               acc[t + d], row[t + d])
+                else:
+                    acc[t] = _kernel_combine(op, acc[t], acc[t + d])
+            d *= 2
+        parts.setdefault(int(s), []).append(acc[0])
+    for s, p in parts.items():
+        q = -(-len(p) // lanes)
+        lane = []
+        for l in range(lanes):
+            a = torch.full(unit, ident, dtype=buf.dtype)
+            for x in p[l * q:(l + 1) * q]:
+                a = _kernel_combine(op, a, x)
+            lane.append(a)
+        d = 1
+        while d < lanes:
+            for l in range(0, lanes, 2 * d):
+                lane[l] = _kernel_combine(op, lane[l], lane[l + d])
+            d *= 2
+        out[s] = lane[0]
+    return out
+
+
+def _adversarial(dt, op, M, unit, rng):
+    """Rows that a wrong combine order would betray: in the first third,
+    NaNs with distinct payloads (some with the sign bit) in a fifth of the
+    elements; in the second, values of one sign with -0 and +0 where the
+    extremum is 0; +-inf; an all-identity run; integers over their whole
+    range (odd for prod: products that wrap and stay non-zero)."""
+    shape = (M,) + unit
+    if dt.is_floating_point:
+        x = torch.as_tensor(rng.standard_normal(shape)).to(dt)
+        iv = {2: torch.int16, 4: torch.int32, 8: torch.int64}[x.element_size()]
+        nbits = 8 * x.element_size()
+        quiet = {torch.float32: 0x7FC00000, torch.float64: 0x7FF8 << 48,
+                 torch.bfloat16: 0x7FC0, torch.float16: 0x7E00}[dt]
+        third = M // 3
+        block = x[:third].view(iv).reshape(-1)
+        hit = np.flatnonzero(rng.random(block.numel()) < 0.2)
+        for k, i in enumerate(hit):
+            bits = quiet | (k % 63 + 1) | ((1 << (nbits - 1)) if k % 3 == 0
+                                           else 0)
+            block[i] = bits - (1 << nbits) if bits >> (nbits - 1) else bits
+        sign = -1.0 if op == "max" else 1.0
+        mag = sign * (1 + rng.random((third,) + unit))
+        zeros = rng.random((third,) + unit) < 0.4
+        signed0 = rng.choice([-0.0, 0.0], (third,) + unit)
+        x[third:2 * third] = torch.as_tensor(
+            np.where(zeros, signed0, mag)).to(dt)
+        infs = rng.choice(M, 3, replace=False)
+        x[torch.as_tensor(infs)] = torch.as_tensor(
+            rng.choice([-np.inf, np.inf], (3,) + unit)).to(dt)
+    else:
+        info = torch.iinfo(dt)
+        v = rng.integers(info.min, info.max, shape, endpoint=True)
+        if op == "prod":
+            v |= 1
+        x = torch.as_tensor(v).to(dt)
+    a = int(rng.integers(0, M - M // 8))
+    x[a:a + M // 8] = sf_unpack._identity(op, dt)
+    return x
+
+
+def _bits(t):
+    if not t.dtype.is_floating_point:
+        return t
+    return t.view({2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+from hypothesis import given, settings, strategies as hst  # noqa: E402
+
+
+@pytest.mark.parametrize("dt,op", ORDER_FREE,
+                         ids=[f"{str(d)[6:]}-{o}" for d, o in ORDER_FREE])
+@settings(max_examples=8)
+@given(seed=hst.integers(0, 2 ** 31 - 1),
+       chunk_rows=hst.sampled_from([1, 3, 5, 8, 16]),
+       threads=hst.sampled_from([1, 2, 4]), vec=hst.sampled_from([1, 2, 4]),
+       lanes=hst.sampled_from([1, 2, 4, 32]),
+       unit=hst.sampled_from([(), (3,)]))
+def test_long_route_order_equals_plain_fold_bitwise(dt, op, seed, chunk_rows,
+                                                    threads, vec, lanes,
+                                                    unit):
+    """The split route's combine order (per-chunk folds with interleaved
+    threads, then a left-first tree over the chunks) gives the plain
+    sequential fold's bits for every order-free (dtype, op): NaN payloads,
+    signs of zero, wrapped integers.  Small chunks and cuts stand in for C
+    and LONG_SEG so that segments cross many chunk edges."""
+    rng = np.random.default_rng(seed)
+    M, cut = 96, 6
+    x = _adversarial(dt, op, M, unit, rng)
+    lens = rng.integers(0, 40, 9)
+    lens[:3] = (cut, cut + 1, 0)
+    starts = rng.integers(0, M - lens + 1)
+    want = sf_unpack.segment_reduce_plain(x, torch.as_tensor(starts),
+                                          torch.as_tensor(lens), op)
+    got = _emulate_long_route(x, starts, lens, op, cut, chunk_rows, threads,
+                              vec, lanes)
+    assert torch.equal(_bits(got), _bits(want))
+
+
+def test_plain_fold_keeps_first_nan_payload_and_zero_sign():
+    """segment_reduce_plain is the kernels' fold: the first NaN with its
+    payload, else the first extremum (-0 before +0 keeps -0)."""
+    nan1 = torch.tensor([0x7FC00001], dtype=torch.int32).view(torch.float32)
+    nan2 = torch.tensor([0x7FC00002], dtype=torch.int32).view(torch.float32)
+    buf = torch.cat([torch.tensor([-1.0]), nan1, nan2, torch.tensor(
+        [-0.0, 0.0, -2.0, 0.0, -0.0])])
+    st, ln = torch.tensor([0, 3, 6]), torch.tensor([3, 3, 2])
+    mx = sf_unpack.segment_reduce_plain(buf, st, ln, "max")
+    assert mx[:1].view(torch.int32).item() == 0x7FC00001
+    assert str(mx[1].item()) == "-0.0" and str(mx[2].item()) == "0.0"
+    mn = sf_unpack.segment_reduce_plain(buf, st, ln, "min")
+    assert mn[:1].view(torch.int32).item() == 0x7FC00001
+    assert mn[1].item() == -2.0 and str(mn[2].item()) == "0.0"
+
+
+@needs_reference
+@pytest.mark.parametrize("op", OPS)
+@pytest.mark.parametrize("dt", [np.float32, np.int32])
+@pytest.mark.parametrize("SB", [1, 8])
+def test_long_segments_match_pallas(op, dt, SB, rng):
+    """Segments over LONG_SEG rows (with short and empty ones beside them)
+    through the port's segment_reduce_blocked against the Pallas kernel in
+    interpret mode.  Integers and max / min bitwise; float sums and
+    products of small integers and powers of two, which are exact in any
+    order, within the reference test's tolerance."""
+    U = 3
+    lens = np.array([LONG_SEG + 1, 3, 0, 2 * LONG_SEG + 7, LONG_SEG, 5])
+    M = int(lens.sum())
+    start = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    if dt == np.int32:
+        buf = rng.integers(-2 ** 31, 2 ** 31 - 1, (M, U), endpoint=True,
+                           dtype=np.int64).astype(np.int32)
+    elif op == "sum":
+        buf = rng.integers(-1000, 1000, (M, U)).astype(np.float32)
+    elif op == "prod":
+        buf = rng.choice(np.float32([1, 2, 0.5, -1]), (M, U))
+    else:
+        buf = rng.standard_normal((M, U)).astype(np.float32)
+        buf[700, 1] = np.nan
+    assert sf_unpack.reduce_route(int(lens.max()), torch.float32 if dt ==
+                                  np.float32 else torch.int32, op) != "short"
+    Lmax = int(lens.max())
+    padded = np.concatenate([buf, np.zeros((Lmax, U), buf.dtype)])
+    want = np.asarray(ref_seg_blocked(
+        jnp.asarray(padded), jnp.asarray(start), jnp.asarray(lens),
+        num_segments=start.size, Lmax=Lmax, segs_per_block=SB, op=op,
+        interpret=True))
+    got = sf_unpack.segment_reduce_blocked(torch.as_tensor(buf), start,
+                                           lens, segs_per_block=SB, op=op)
+    if dt == np.float32 and op in ("sum", "prod"):
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    else:
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
 # ------------------------------------------------------------------- spmv
 @needs_reference
 @pytest.mark.parametrize("N,K,Nx", [(50, 7, 40), (256, 16, 300), (8, 1, 8)])

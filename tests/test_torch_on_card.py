@@ -11,12 +11,20 @@ wide rows, an out-of-range ``leaf_root`` failing in a child process, and
 the MoE layer's SF dispatch against its plain gathers with no host sync;
 for the wide gather (``pack``) the odd-width and misaligned rows of
 ``chip_smoke.py``'s sweep, ``pack(dynamic=True)`` trapping on an index out
-of range, and a decode step's fused dispatch rows against dense.
+of range, and a decode step's fused dispatch rows against dense; for the
+long segment reduce (segments over ``LONG_SEG`` rows) every dtype and op
+at the cut and the chunk edges (``chip_smoke.long_case``: short, empty,
+overlapping and unsorted segments beside the long ones) and on wide rows,
+bitwise with NaN payloads, a segment of 41 chunks, the plan on the card
+against the CPU's, and a long-route reduce captured into a CUDA graph.
 
 Every test is ``cuda``-marked and skips without a card; the file imports
 no JAX, so the card's machine runs it:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_on_card.py``.
 """
+
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -24,6 +32,9 @@ import torch
 
 from repro_torch.core import SFComm, StarForest
 from repro_torch.kernels import ops as kops, sf_unpack
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+import chip_smoke  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -233,7 +244,6 @@ def test_cuda_graph_pcg_equals_eager_chunks(dev):
 
 
 def test_cuda_edge_element_assembly_bitwise(dev):
-    import chip_smoke
     from repro_torch.meshdist import DMDA
     from repro_torch.sparse import MatAssembler, ParCSR, Sparsity
     da = DMDA((17, 13, 11), 8, stencil="star", periodic=False)
@@ -363,7 +373,6 @@ def test_wide_pack_odd_and_misaligned_rows_bitwise(dev, row_bytes):
     width: int8 / bool / bf16 / f32 / f64 where the element divides it,
     sources 0-8 bytes off the 16-byte alignment, an output off it, 1-4,097
     rows, checked and unchecked, each bitwise against ``pack_plain``."""
-    import chip_smoke
     before = kops.pack.launches
     cases = chip_smoke.pack_sweep_width(row_bytes, dev,
                                         np.random.default_rng(row_bytes))
@@ -394,7 +403,6 @@ def test_moe_layer_kernels_equal_plain_without_host_sync(dev, shape):
     kernels bitwise against its plain gathers and within the reference's
     tolerance of the dense dispatch, run under
     ``set_sync_debug_mode("error")`` (no host read on either lowering)."""
-    import chip_smoke
     from repro_torch.configs import get_config
     from repro_torch.models import moe as M
     cfg = get_config("phi3.5-moe-42b-a6.6b").scaled(
@@ -436,3 +444,112 @@ def test_moe_decode_fused_rows_take_wide_gather(dev, d_model):
     assert kops.pack.launches > before
     y_d, _ = M.moe_layer(x, p, cfg, dispatch="dense")
     torch.testing.assert_close(y, y_d, rtol=1e-5, atol=1e-6)
+
+
+# ------------------------------------------------------------ long segments
+SEG_OPS = ["sum", "prod", "max", "min"]
+SEG_DTYPES = [torch.float32, torch.float64, torch.bfloat16, torch.float16,
+              torch.int8, torch.uint8, torch.int16, torch.int32, torch.int64]
+
+
+def _raw(t):
+    if not t.dtype.is_floating_point:
+        return t
+    return t.view({2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+@pytest.mark.parametrize("op", SEG_OPS)
+@pytest.mark.parametrize("dtype", SEG_DTYPES, ids=lambda d: str(d)[6:])
+def test_long_segments_every_dtype_op_bitwise(dev, dtype, op):
+    """Segments at the cut, one over it, C - 1, C and C + 1 rows beside
+    short, empty, overlapping and unsorted ones, units (), (3,), (2, 2) and
+    256-element rows (300 for the ordered route's unit tiles) through both
+    wrappers: bitwise equal to the plain fold, NaN payloads included."""
+    rng = np.random.default_rng(20)
+    name = str(dtype)[6:]
+    buf, st, ln = chip_smoke.long_case(name, op, rng, dev)
+    assert sf_unpack.reduce_route(int(ln.max()), dtype, op) != "short"
+    want = sf_unpack.segment_reduce_plain(buf, st, ln, op)
+    for unit, b, w in (((), buf[:, 0].contiguous(), want[:, 0]),
+                       ((3,), buf[:, :3].contiguous(), want[:, :3]),
+                       ((2, 2), buf.reshape(-1, 2, 2),
+                        want.reshape(-1, 2, 2))):
+        for got in (sf_unpack.segment_reduce_sorted(b, st, ln, op=op),
+                    sf_unpack.segment_reduce_blocked(b, st, ln,
+                                                     segs_per_block=64,
+                                                     op=op)):
+            assert torch.equal(_raw(got), _raw(w)), unit
+    widths = (256,) if sf_unpack.order_free(dtype, op) else (256, 300)
+    for width in widths:
+        buf, st, ln = chip_smoke.long_case(name, op, rng, dev, width=width)
+        got = sf_unpack.segment_reduce_sorted(buf, st, ln, op=op)
+        want = sf_unpack.segment_reduce_plain(buf, st, ln, op)
+        assert torch.equal(_raw(got), _raw(want)), width
+
+
+def test_long_segment_of_many_chunks(dev):
+    """One segment of 41 chunks (more than a warp's lanes, so a lane folds
+    a run of several partials) from a misaligned start: sums against its
+    length, max / min against numpy, an int64 product of +-1 against the
+    count of -1s."""
+    n = 40 * sf_unpack.LONG_CHUNK_ROWS + 3
+    st = torch.tensor([0, 1], dtype=torch.int32, device=dev)
+    ln = torch.tensor([0, n], dtype=torch.int32, device=dev)
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal(n + 1).astype(np.float32)
+    xs = torch.as_tensor(x, device=dev)
+    for op, want in (("max", x[1:].max()), ("min", x[1:].min())):
+        got = sf_unpack.segment_reduce_blocked(xs, st, ln, segs_per_block=64,
+                                               op=op)
+        assert got[1].item() == want
+    for dt in (torch.int32, torch.float32):
+        got = sf_unpack.segment_reduce_blocked(
+            torch.ones(n + 1, dtype=dt, device=dev), st, ln,
+            segs_per_block=64, op="sum")
+        assert int(got[1].item()) == n and got[0].item() == 0
+    signs = rng.choice([-1, 1], n + 1)
+    got = sf_unpack.segment_reduce_blocked(
+        torch.as_tensor(signs, device=dev), st, ln, segs_per_block=64,
+        op="prod")
+    assert got[1].item() == (-1) ** int((signs[1:] < 0).sum())
+
+
+def test_long_plan_on_card_equals_cpu(dev):
+    """The chunks depend on the (start, len) values alone, not the device."""
+    rng = np.random.default_rng(4)
+    lens = rng.integers(0, 3 * sf_unpack.LONG_CHUNK_ROWS, 200)
+    starts = rng.integers(0, 1 << 20, 200)
+    cpu = sf_unpack.long_plan(starts, lens, torch.device("cpu"))
+    st, ln = (torch.as_tensor(a, device=dev) for a in (starts, lens))
+    card = sf_unpack.long_plan(st, ln, st.device)
+    assert card.seg.device.type == "cuda"
+    np.testing.assert_array_equal(card.chunks(), cpu.chunks())
+
+
+@pytest.mark.parametrize("dtype,op", [(torch.int32, "sum"),
+                                      (torch.float32, "max"),
+                                      (torch.float32, "sum")])
+def test_long_route_replays_in_a_cuda_graph(dev, dtype, op):
+    """After ``prepare`` a long-route reduce reads nothing back, so it can
+    be captured; its replays equal the eager call."""
+    buf, st, ln = chip_smoke.long_case(str(dtype)[6:], op,
+                                       np.random.default_rng(6), dev)
+    buf = buf[:, 0].contiguous()
+    sf_unpack.prepare(st, ln, st.device)
+    want = sf_unpack.segment_reduce_blocked(buf, st, ln, segs_per_block=64,
+                                            op=op)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        sf_unpack.segment_reduce_blocked(buf, st, ln, segs_per_block=64,
+                                         op=op)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = sf_unpack.segment_reduce_blocked(buf, st, ln,
+                                               segs_per_block=64, op=op)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(_raw(got), _raw(want))
