@@ -116,6 +116,22 @@ Phases, each printing one JSON line and asserting as it goes:
            the vertex SF's ghost assembly (8 cells a vertex); one- and
            two-level overlaps against a breadth-first oracle, and the
            overlap ``DMGlobalToLocal`` of the cell ids.
+  dist     (run first, in a child process: ``chip_smoke.py --dist DEVICE
+           GRID ITERS``, whose launch counts are the path's; run late in
+           this process its torch.profiler windows lost device events)
+           the distributed backend on an NCCL process group of one rank
+           (a ``file://`` store in a temporary directory, destroyed after):
+           the 128^3 Poisson matrix's column-gather SF (2,097,152 roots,
+           14,581,760 leaves, one a nonzero, Lmax 7; MatMultTranspose's
+           SFReduce), bcast replace / sum, reduce sum / max / min / replace
+           at units () and (3,) and fetch-and-add on int32, through
+           ``SFComm(backend="dist")`` and ``DistSF``, under the SF's own
+           ``local_only`` lowering (no collective) and ``"general"`` (an
+           all-to-all), each bitwise against ``"cuda"`` on the same SF and
+           against ``DistSF(use_kernels=False)``; device and call ms of each
+           op on both backends (``reduce_sum_device_ratio_to_cuda``), the
+           world-1 collectives alone, and bcast_begin / ``spmv_ell`` /
+           bcast_end against ``sync_mode=True``.
   serve    qwen3-4b at its published size in bf16 (random weights from a
            seeded generator): the flash kernel held against the plain decode
            attention through the whole model (prefill(p) vs prefill(p[:-1])
@@ -165,11 +181,12 @@ Phases, each printing one JSON line and asserting as it goes:
            launches leave torch.profiler on the card returning windows
            without all their device events.
 
-Seven paths carry the kernels: ``sf_ops`` + ``spmv_cg`` (the SF kernels),
+Eight paths carry the kernels: ``sf_ops`` + ``spmv_cg`` (the SF kernels),
 ``dmda`` (``pack_blocked``, ``segment_reduce_blocked``, ``spmv_ell``),
 ``mg`` (``pack_blocked``, ``segment_reduce_blocked``, ``spmv_ell``),
 ``assembly`` (``pack_blocked``, ``segment_reduce_blocked``), ``plex``
-(``pack_blocked``), the
+(``pack_blocked``), ``dist`` (``pack_blocked``,
+``segment_reduce_blocked``), the
 serve phase's drive (``flash_attention``) and the moe phase's drive
 (``pack``, ``pack_blocked``, ``flash_attention``).  Every launch counter is set
 to 0 just before each and read just after, and each kernel must have
@@ -247,6 +264,7 @@ MG_PATH = ("pack_blocked", "segment_reduce_blocked", "spmv_ell")
 ASSEMBLY_PATH = ("pack_blocked", "segment_reduce_blocked")
 PLEX_PATH = ("pack_blocked",)
 MOE_PATH = ("pack", "pack_blocked", "flash_attention")
+DIST_PATH = ("pack_blocked", "segment_reduce_blocked")
 # MoE layer, dispatch="sf" against dispatch="dense", float32: the
 # reference's tests/test_models.py:127-159
 MOE_RTOL, MOE_ATOL, MOE_AUX_RTOL = 1e-5, 1e-6, 1e-6
@@ -280,6 +298,7 @@ class Sizes:
     mg_levels: int = 5            # 129 -> 65 -> 33 -> 17 -> 9
     mg_maxiter: int = 100
     plex_mesh: int = 64           # periodic hex mesh edge (cells = edge^3)
+    dist_grid: int = 128          # the dist phase's Poisson grid edge
     cg_maxiter: int = 2000
     timing_iters: int = 20
     # serve: qwen3-4b at its published size, bf16 (smoke=True: its smoke
@@ -3193,6 +3212,293 @@ def phase_plex(sz: Sizes, dev) -> dict:
 
 
 # ------------------------------------------------------------------ serve
+# ------------------------------------------------------------------- dist
+DIST_OPS = (("bcast", "replace"), ("bcast", "sum"), ("reduce", "sum"),
+            ("reduce", "max"), ("reduce", "min"), ("reduce", "replace"))
+
+
+def column_gather_sf(g: int):
+    """The g^3 Poisson matrix's column-gather SF on one rank, the SF of
+    MatMult's gather and of MatMultTranspose's SFReduce: one leaf per
+    nonzero in CSR order, its root the nonzero's column.  ``(sf, csr)``."""
+    from repro_torch.core import StarForest
+    from repro_torch.sparse.csr import csr_from_coo
+    n, rows, cols, vals = poisson_coo(g)
+    csr = csr_from_coo(n, n, rows, cols, vals)
+    sf = StarForest(1)
+    sf.set_graph(0, n, None, np.stack([np.zeros(csr.nnz, np.int64),
+                                       csr.indices], 1), nleafspace=csr.nnz)
+    return sf.setup(), csr
+
+
+@contextlib.contextmanager
+def world1_group(dev):
+    """A process group of one rank in this process — NCCL on the card,
+    gloo on the CPU — through a ``file://`` store in a temporary directory;
+    destroyed, and the directory removed, on exit."""
+    import shutil
+    import tempfile
+    from datetime import timedelta
+    import torch.distributed as dist
+    import torch
+    d = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    kw = {}
+    if dev.type == "cuda":
+        kw["device_id"] = torch.device("cuda", torch.cuda.current_device()
+                                       if dev.index is None else dev.index)
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"file://{d}/store", rank=0,
+                            world_size=1, timeout=timedelta(seconds=300),
+                            **kw)
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def padded(t, rows: int):
+    """``t`` with zero rows appended up to ``rows`` (a DistSF shard)."""
+    import torch
+    return torch.cat([t, t.new_zeros((rows - t.shape[0],)
+                                     + tuple(t.shape[1:]))])
+
+
+def dist_op(obj, kind: str, op: str, root, leaf):
+    """One bcast / reduce through ``SFComm`` (global tensors) or ``DistSF``
+    (padded shards; the result trimmed to the real rows) — split form."""
+    from repro_torch.core import DistSF
+    if not isinstance(obj, DistSF):
+        if kind == "bcast":
+            return obj.bcast_begin(root, op).end(leaf)
+        return obj.reduce_end(obj.reduce_begin(leaf, op), root)
+    if kind == "bcast":
+        out = obj.bcast_end(obj.bcast_begin(root, op), leaf)
+        return out[: obj.plan.nleafspace[0]]
+    out = obj.reduce_end(obj.reduce_begin(leaf, op), root)
+    return out[: obj.plan.nroots[0]]
+
+
+def phase_dist(sz: Sizes, dev):
+    """The ``"dist"`` backend on one rank: every op bitwise against
+    ``"cuda"`` and against the plain versions, through ``SFComm`` and
+    ``DistSF``, under the SF's ``local_only`` lowering and ``"general"``
+    (an all-to-all); then the times.  Returns (record, launches)."""
+    import torch
+    from repro_torch.core import DistSF, SFComm, build_padded_plan
+    from repro_torch.kernels import ops as kops
+    on_card = dev.type == "cuda"
+    it = sz.timing_iters
+    t0 = time.perf_counter()
+    sf, csr = column_gather_sf(sz.dist_grid)
+    n, E = sf.nroots_total, sf.nleafspace_total
+    out = {"phase": "dist", "roots": n, "leaves": E,
+           "Lmax": int(np.bincount(csr.indices).max()),
+           "sf_setup_s": time.perf_counter() - t0}
+    g = torch.Generator(device=dev).manual_seed(11)
+    cu = SFComm(sf, backend="cuda", device=dev)
+    x = torch.randn(n, generator=g, device=dev)
+    row_of = torch.as_tensor(np.repeat(np.arange(n), np.diff(csr.indptr)),
+                             device=dev)
+    a = torch.as_tensor(csr.data.astype(np.float32), device=dev)
+    # unit (): x and MatMultTranspose's terms a_ij x_i; unit (3,): random
+    data = {(): (x, a * x[row_of]),
+            (3,): (torch.randn(n, 3, generator=g, device=dev),
+                   torch.randn(E, 3, generator=g, device=dev))}
+    ri = torch.randint(0, 100, (n,), generator=g, device=dev,
+                       dtype=torch.int32)
+    li = torch.randint(0, 100, (E,), generator=g, device=dev,
+                       dtype=torch.int32)
+    want = {(u, k, op): dist_op(cu, k, op, *data[u])
+            for u in data for k, op in DIST_OPS}
+    want_fetch = cu.fetch_and_op(ri, li)
+    out["payload_mb"] = {str(u): data[u][1].numel() * 4 / 1e6 for u in data}
+
+    with world1_group(dev) as group:
+        t1 = time.perf_counter()
+        plan = build_padded_plan(sf)
+        out["padded_plan_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        comms = {low: SFComm(sf, backend="dist", device=dev, group=group,
+                             lowering=low, plan=plan)
+                 for low in ("auto", "general")}
+        out["dist_setup_s"] = time.perf_counter() - t1
+        out["lowerings"] = {k: c.backend.dist.lowering
+                            for k, c in comms.items()}
+        check(out["lowerings"] == {"auto": "local_only",
+                                   "general": "general"},
+              f"lowerings {out['lowerings']}")
+        check(comms["auto"].backend_name == "dist", "backend name")
+        shards = {u: (padded(r, plan.root_pad), padded(lf, plan.leaf_pad))
+                  for u, (r, lf) in data.items()}
+        fetch_shards = (padded(ri, plan.root_pad), padded(li, plan.leaf_pad))
+
+        # the dist path: counters from 0, driven through the entry points
+        kops.reset_launch_counts()
+        checked = 0
+        for low, comm in comms.items():
+            sfo = comm.backend.dist
+            for u in data:
+                for kind, op in DIST_OPS:
+                    w = want[(u, kind, op)]
+                    for obj, args in ((comm, data[u]), (sfo, shards[u])):
+                        got = dist_op(obj, kind, op, *args)
+                        check(same_bits(got, w), f"dist {low} "
+                              f"{type(obj).__name__} {kind} {op} {u} != "
+                              f"cuda")
+                        checked += 1
+            for got in (comm.fetch_and_op(ri, li),
+                        sfo.fetch_and_op(*fetch_shards)):
+                for gt, wt, m in zip(got, want_fetch, (n, E)):
+                    check(same_bits(gt[:m], wt), f"dist {low} fetch_and_op")
+                checked += 1
+        if on_card:
+            torch.cuda.synchronize()
+        launches = kops.launch_counts()
+        missing = [k for k in DIST_PATH if launches[k] == 0]
+        check(not missing or not on_card, f"the dist path never launched "
+              f"{missing}")
+        # the plain versions (index_select, the plain fold): not counted
+        for low in ("auto", "general"):
+            plain = DistSF(sf, group=group, device=dev, lowering=low,
+                           plan=plan, use_kernels=False)
+            for u in data:
+                for kind, op in DIST_OPS:
+                    check(same_bits(dist_op(plain, kind, op, *shards[u]),
+                                    want[(u, kind, op)]),
+                          f"dist {low} plain {kind} {op} {u}")
+                    checked += 1
+        out["bitwise_checks"] = checked
+        out["launches"] = {k: v for k, v in launches.items() if v}
+        del want
+        out.update(dist_times(sf, csr, plan, comms, cu, data[()],
+                              shards[()], group, dev, it))
+    gc.collect()
+    return out, launches
+
+
+def dist_child(device: str, grid: int, iters: int) -> int:
+    """``chip_smoke.py --dist DEVICE GRID ITERS``: :func:`phase_dist` in
+    this process (the kernels built already), its record and launch counts
+    printed as one ``DIST_RESULT`` JSON line."""
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    import torch
+    from repro_torch.kernels import _build
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        _build.build_all()          # loads the parent's build
+        dev = torch.device("cuda", torch.cuda.current_device())
+    res, launches = phase_dist(Sizes(dist_grid=grid, timing_iters=iters),
+                               dev)
+    print("DIST_RESULT " + json.dumps({"record": res, "launches": launches}),
+          flush=True)
+    return 0
+
+
+def dist_in_child(sz: Sizes, dev):
+    """(record, launches) of the ``dist`` phase, run by :func:`dist_child`
+    in a process of its own; fails if the child does."""
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--dist", dev.type,
+         str(sz.dist_grid), str(sz.timing_iters)], capture_output=True,
+        text=True, timeout=900)
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("DIST_RESULT ")]
+    check(proc.returncode == 0 and len(lines) == 1,
+          f"the dist phase's child exited {proc.returncode}: "
+          f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+    out = json.loads(lines[0][len("DIST_RESULT "):])
+    return out["record"], out["launches"]
+
+
+def dist_times(sf, csr, plan, comms, cu, data, shards, group, dev,
+               it: int) -> dict:
+    """Device and call ms of each op on "cuda" and "dist" (the facade and
+    DistSF under both lowerings; unit () f32), of the world-1 collectives
+    alone, and of bcast_begin / spmv_ell / bcast_end against sync_mode."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import DistSF
+    from repro_torch.kernels import spmv_ell as ell_mod
+    root, leaf = data
+    rs, ls = shards
+    sfo = {low: c.backend.dist for low, c in comms.items()}
+    variants = {"cuda": (cu, data), "dist": (comms["auto"], data),
+                "dist_general": (comms["general"], data),
+                "dist_sf": (sfo["auto"], shards),
+                "dist_sf_general": (sfo["general"], shards)}
+    times = {}
+    for kind, op in DIST_OPS:
+        row = {}
+        for name, (obj, args) in variants.items():
+            fn = lambda: dist_op(obj, kind, op, *args)
+            row[name] = {"device_ms": device_ms(fn, dev, it),
+                         "call_ms": call_ms(fn, dev, it)}
+        times[f"{kind}_{op}"] = row
+    ri, li = (torch.randint(0, 100, (m,), device=dev, dtype=torch.int32)
+              for m in (sf.nroots_total, sf.nleafspace_total))
+    fri, fli = padded(ri, plan.root_pad), padded(li, plan.leaf_pad)
+    row = {}
+    for name, fn in (("cuda", lambda: cu.fetch_and_op(ri, li)),
+                     ("dist", lambda: comms["auto"].fetch_and_op(ri, li)),
+                     ("dist_sf", lambda: sfo["auto"].fetch_and_op(fri, fli)),
+                     ("dist_sf_general",
+                      lambda: sfo["general"].fetch_and_op(fri, fli))):
+        row[name] = {"device_ms": device_ms(fn, dev, it),
+                     "call_ms": call_ms(fn, dev, it)}
+    times["fetch_and_op_sum"] = row
+    ratio = {name: times["reduce_sum"][name]["device_ms"]
+             / times["reduce_sum"]["cuda"]["device_ms"]
+             for name in variants if name != "cuda"}
+    # the collectives alone: the general lowering's (R*P = 1)-row
+    # all-to-all, an all-to-all of the whole leaf payload, and the facade's
+    # all-gather of a padded root shard
+    one, one_out = rs[:1].clone(), torch.empty_like(rs[:1])
+    big_out, ag_out = torch.empty_like(leaf), torch.empty_like(rs)
+    colls = {}
+    for name, fn, nbytes in (
+            ("all_to_all_single_general", lambda: dist.all_to_all_single(
+                one_out, one, group=group), one.numel() * 4),
+            ("all_to_all_single_leaf_payload", lambda: dist.all_to_all_single(
+                big_out, leaf, group=group), leaf.numel() * 4),
+            ("all_gather_into_tensor_root_shard",
+             lambda: dist.all_gather_into_tensor(ag_out, rs, group=group),
+             rs.numel() * 4)):
+        colls[name] = {"bytes": nbytes, "device_ms": device_ms(fn, dev, it),
+                       "call_ms": call_ms(fn, dev, it)}
+    # the paper's §4.1 overlap: the bcast in flight over the local SpMV
+    ell_data, ell_cols, _ = csr.to_ell(np.float32)
+    ed = torch.as_tensor(ell_data, device=dev)
+    ec = torch.as_tensor(ell_cols, device=dev)
+    xz = torch.cat([root, root.new_zeros(1)])
+    sync = DistSF(sf, group=group, device=dev, lowering="general",
+                  plan=plan, sync_mode=True)
+
+    def split(obj):
+        def run():
+            pend = obj.bcast_begin(rs)
+            y = ell_mod.spmv_ell(ed, ec, xz)
+            return obj.bcast_end(pend, ls), y
+        return run
+    lv_a, y_a = split(sfo["general"])()
+    lv_s, y_s = split(sync)()
+    check(same_bits(lv_a, lv_s) and same_bits(y_a, y_s),
+          "sync_mode changed the bits")
+    check(same_bits(lv_a[: sf.nleafspace_total],
+                    cu.bcast(root, torch.zeros_like(leaf))), "bcast + spmv")
+    overlap = {"begin_spmv_end_ms": [], "sync_mode_ms": []}
+    for name in ("begin_spmv_end_ms", "sync_mode_ms", "sync_mode_ms",
+                 "begin_spmv_end_ms"):
+        obj = sfo["general"] if name == "begin_spmv_end_ms" else sync
+        overlap[name].append(call_ms(split(obj), dev, it))
+    overlap["spmv_alone_ms"] = call_ms(lambda: ell_mod.spmv_ell(ed, ec, xz),
+                                       dev, it)
+    overlap["bcast_alone_ms"] = call_ms(
+        lambda: dist_op(sfo["general"], "bcast", "replace", rs, ls), dev, it)
+    return {"times": times, "reduce_sum_device_ratio_to_cuda": ratio,
+            "collectives": colls, "overlap": overlap}
+
+
 def serve_config(sz: Sizes):
     from repro_torch.configs import get_config
     cfg = get_config(sz.serve_arch)
@@ -4002,6 +4308,14 @@ def run(dev, sz: Sizes) -> list:
     """All phases on ``dev``; returns the kernel records."""
     import torch
     from repro_torch.kernels import ops as kops
+    on_card = dev.type == "cuda"
+    # the distributed backend in a child process of its own (a rank's
+    # process; phase_dist zeroes the counters before its drive): run late
+    # in this process, after the other paths' windows, its torch.profiler
+    # windows came back without all their device events
+    dist_res, dist_launches = dist_in_child(sz, dev)
+    emit(dist_res)
+
     rng = np.random.default_rng(0)
     objs = phase_setup(sz, dev, rng)
     emit(objs["setup"])
@@ -4043,7 +4357,6 @@ def run(dev, sz: Sizes) -> list:
                                for k, v in recs.items()}})
 
     # the SF path: counters from 0, driven through the user entry points
-    on_card = dev.type == "cuda"
     kops.reset_launch_counts()
     emit(phase_sf_ops(objs, dev))
     emit(phase_spmv_cg(objs, sz, dev))
@@ -4083,6 +4396,8 @@ def run(dev, sz: Sizes) -> list:
         gc.collect()
         if on_card:
             torch.cuda.empty_cache()
+
+    by_path["dist"] = dist_launches
 
     # the serving path: phase_serve zeroes the counters before its drive
     serve = phase_serve(sz, dev)
@@ -4127,6 +4442,8 @@ def run(dev, sz: Sizes) -> list:
 def main() -> int:
     if sys.argv[1:2] == ["--out-of-range"]:
         return out_of_range_child(sys.argv[2], sys.argv[3])
+    if sys.argv[1:2] == ["--dist"]:
+        return dist_child(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]))
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "

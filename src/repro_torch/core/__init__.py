@@ -9,6 +9,9 @@ Public API:
   UnitSpec                   §3.2 MPI_Datatype unit: payload rows are
                              (n, *unit) dof blocks on every path
   SFOps                      plain torch ops on global tensors
+  DistSF, DistPending, PaddedPlan
+                             per-rank SF ops over a torch.distributed group
+                             (the "dist" backend, DistBackend)
   FieldBundle, FieldSpec     fused multi-field exchange (SFComm.*_multi)
   patterns.analyze           §5.2 pattern discovery
   redplan                    shared sort-segment reduction machinery (§3.3)
@@ -31,9 +34,12 @@ from .mpiops import Op, get_op
 from .unit import UnitSpec, resolve_unit
 from .ops import PendingComm, SFOps
 from .fields import FieldBundle, FieldSpec, PendingMulti
-from .plan import GlobalPlan, build_global_plan
+from .plan import GlobalPlan, PaddedPlan, build_global_plan, \
+    build_padded_plan
+from .distributed import DistPending, DistSF, pad_ragged, unpad_ragged
 from .redplan import ReductionPlan, build_reduction_plan
-from .backend import (CudaBackend, GlobalBackend, SFBackend, SFComm,
+from .backend import (CudaBackend, DistBackend, GlobalBackend, SFBackend,
+                      SFComm,
                       available_backends, make_backend, register_backend,
                       select_backend)
 from .device import resolve_device
@@ -49,9 +55,10 @@ __all__ = [
     "UnitSpec", "resolve_unit",
     "PendingComm", "SFOps",
     "FieldBundle", "FieldSpec", "PendingMulti",
-    "GlobalPlan", "build_global_plan",
+    "GlobalPlan", "PaddedPlan", "build_global_plan", "build_padded_plan",
+    "DistSF", "DistPending", "pad_ragged", "unpad_ragged",
     "ReductionPlan", "build_reduction_plan",
-    "SFBackend", "SFComm", "GlobalBackend", "CudaBackend",
+    "SFBackend", "SFComm", "GlobalBackend", "CudaBackend", "DistBackend",
     "available_backends", "make_backend", "register_backend",
     "select_backend", "resolve_device", "PlanCache",
     "DynPlan", "BoundDynSF", "star_forest_from_assignment",

@@ -14,11 +14,18 @@ setup time via ``-sf_backend``.  This module is that layer for the port:
                 segment reduce for reductions with repeated roots.  The
                 counterpart of the reference's ``"pallas"`` backend, with
                 every routing decision kept.
+  ``"dist"``    :class:`repro_torch.core.distributed.DistSF` behind the
+                global-array facade: each process of a ``torch.distributed``
+                group (NCCL on the card, gloo on the CPU) runs its rank's
+                shard, and every process gets the whole result.  The
+                counterpart of the reference's ``"shardmap"`` backend.
 
 ``select_backend`` mirrors ``-sf_backend``'s default logic with the static
-heuristic: an explicit hint wins; general-pattern SFs on a CUDA device take
-the kernel path; everything else uses ``"global"``.  ``register_backend``
-lets downstream code add implementations without touching this module.
+heuristic: an explicit hint wins; a process group whose size equals the
+SF's rank count (more than one) selects ``"dist"``; general-pattern SFs on
+a CUDA device take the kernel path; everything else uses ``"global"``.
+``register_backend`` lets downstream code add implementations without
+touching this module.
 
 The user-facing object is :class:`SFComm`: build once per StarForest on a
 device (the card unless ``device="cpu"`` is asked for), then call
@@ -31,14 +38,17 @@ reduction is the same bits on either, from run to run.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import time
 from typing import Any, Callable, Dict, Optional, Protocol, Tuple, \
     runtime_checkable
 
 import torch
+import torch.distributed as dist
 
 from .device import check_payload, index_tensor, kernel_index, resolve_device
+from .distributed import DistSF, _bytes, unpad_ragged
 from .fields import FieldBundle
 from .graph import StarForest
 from .mpiops import SUM, get_op
@@ -54,7 +64,7 @@ __all__ = [
     "SFBackend", "SFComm",
     "register_backend", "available_backends", "make_backend",
     "select_backend",
-    "GlobalBackend", "CudaBackend",
+    "GlobalBackend", "CudaBackend", "DistBackend",
 ]
 
 
@@ -109,10 +119,12 @@ def make_backend(name: str, sf: StarForest, **kwargs) -> "SFBackend":
 
 
 def select_backend(sf: StarForest, hint: Optional[str] = None, *,
-                   device=None) -> str:
+                   device=None, group=None) -> str:
     """Pick a backend name for ``sf`` (the ``-sf_backend`` default logic).
 
-    An explicit ``hint`` wins (validated against the registry); otherwise a
+    An explicit ``hint`` wins (validated against the registry); a
+    ``torch.distributed`` ``group`` whose size equals ``sf.nranks`` (more
+    than one) selects the rank decomposition ``"dist"``; otherwise a
     general-pattern SF on a CUDA device (the default device) takes the
     kernel path and everything else — including the allgather / permute /
     local-only patterns — defaults to ``"global"``.
@@ -123,6 +135,9 @@ def select_backend(sf: StarForest, hint: Optional[str] = None, *,
             raise ValueError(f"unknown SF backend hint {hint!r}; registered: "
                              f"{available_backends()}")
         return hint
+    if group is not None and sf.nranks > 1 \
+            and dist.get_world_size(group) == sf.nranks:
+        return "dist"
     dev = torch.device("cuda" if device is None else device)
     if pat.analyze(sf).kind == pat.GENERAL and dev.type == "cuda":
         return "cuda"
@@ -327,6 +342,144 @@ def _fusable(root_dtype: torch.dtype, leaf_dtype: torch.dtype) -> bool:
 
 
 # --------------------------------------------------------------------------
+# "dist" — DistSF behind the global-array facade
+# --------------------------------------------------------------------------
+class _DistComm(PendingComm):
+    """The facade's token of a ``"dist"`` exchange: ``payload`` is the
+    :class:`repro_torch.core.distributed.DistPending` in flight."""
+
+    def converted(self, fn, dtype):
+        # the rows arrive at the wait: the DistPending maps them then (its
+        # own dtype cleared, so its decorator converts nothing twice)
+        return dataclasses.replace(
+            self, payload=self.payload.converted(fn, None), dtype=dtype)
+
+
+@unsigned_payloads
+class DistBackend:
+    """Explicit rank decomposition over a ``torch.distributed`` group: the
+    counterpart of the reference's ``ShardmapBackend``
+    (``src/repro/core/backend.py``), as ``"cuda"`` is of ``"pallas"``.
+
+    It keeps ``SFComm``'s global-array contract on every process: each holds
+    the global tensors, cuts its own rank's shard (``sf.root_offsets()`` /
+    ``leaf_offsets()``, padded with zeros to the plan's shard rows), runs
+    :class:`repro_torch.core.distributed.DistSF` on it, and rebuilds the
+    global result with one ``all_gather_into_tensor`` of the padded shards,
+    trimmed.  So every process returns the tensor ``"global"`` returns.
+    Unlike the reference's deferred token, ``bcast_begin`` /
+    ``reduce_begin`` really pack and issue the collective; the end waits,
+    unpacks and gathers.  ``gather``, ``scatter`` and ``compute_degrees``
+    go through :class:`GlobalBackend` on the global tensors, as in the
+    reference."""
+
+    name = "dist"
+
+    def __init__(self, sf: StarForest, plan=None, unit=None, *, device=None,
+                 group=None, lowering: str = "auto", sync_mode: bool = False,
+                 use_kernels: Optional[bool] = None):
+        sf.setup()
+        self.sf = sf
+        self.dist = DistSF(sf, group=group, plan=plan, lowering=lowering,
+                           sync_mode=sync_mode, use_kernels=use_kernels,
+                           unit=unit, device=device)
+        self.device = self.dist.device
+        self._globalops: Optional[GlobalBackend] = None
+
+    @property
+    def plan(self):
+        return self.dist.plan
+
+    @property
+    def unit(self):
+        return self.dist.unit
+
+    # ------------------------------------------------------------ plumbing
+    def _cut(self, data, offsets, pad: int, what: str) -> torch.Tensor:
+        """This rank's rows of a global tensor, padded with zero rows."""
+        data = check_payload(data, self.device, what)
+        if data.dim() == 0 or int(data.shape[0]) != int(offsets[-1]):
+            raise ValueError(f"{what} must have {int(offsets[-1])} rows, got "
+                             f"shape {tuple(data.shape)}")
+        me = self.dist.rank
+        lo, hi = int(offsets[me]), int(offsets[me + 1])
+        shard = data.new_zeros((pad,) + tuple(data.shape[1:]))
+        shard[: hi - lo] = data[lo:hi]
+        return shard
+
+    def _join(self, shard: torch.Tensor, sizes) -> torch.Tensor:
+        """The global tensor of every rank's padded ``shard``."""
+        full = shard.new_empty((self.dist.nranks,) + tuple(shard.shape))
+        if full.numel():
+            dist.all_gather_into_tensor(_bytes(full), _bytes(shard),
+                                        group=self.dist.group)
+        return torch.cat(unpad_ragged(full, sizes))
+
+    def _roots(self, data) -> torch.Tensor:
+        return self._cut(data, self.sf.root_offsets(), self.plan.root_pad,
+                         "rootdata")
+
+    def _leaves(self, data) -> torch.Tensor:
+        return self._cut(data, self.sf.leaf_offsets(), self.plan.leaf_pad,
+                         "leafdata")
+
+    # ------------------------------------------------------------ ops
+    def bcast_begin(self, rootdata, op="replace") -> _DistComm:
+        op = get_op(op)
+        return _DistComm("bcast", self.dist.bcast_begin(self._roots(rootdata),
+                                                        op), op, self)
+
+    def bcast_end(self, pending: _DistComm, leafdata) -> torch.Tensor:
+        out = self.dist.bcast_end(pending.payload, self._leaves(leafdata))
+        return self._join(out, self.plan.nleafspace)
+
+    def bcast(self, rootdata, leafdata, op="replace"):
+        return self.bcast_end(self.bcast_begin(rootdata, op), leafdata)
+
+    def reduce_begin(self, leafdata, op="sum") -> _DistComm:
+        op = get_op(op)
+        return _DistComm("reduce", self.dist.reduce_begin(
+            self._leaves(leafdata), op), op, self)
+
+    def reduce_end(self, pending: _DistComm, rootdata) -> torch.Tensor:
+        out = self.dist.reduce_end(pending.payload, self._roots(rootdata))
+        return self._join(out, self.plan.nroots)
+
+    def reduce(self, leafdata, rootdata, op="sum"):
+        return self.reduce_end(self.reduce_begin(leafdata, op), rootdata)
+
+    def fetch_and_op(self, rootdata, leafdata, op="sum"):
+        ro, lu = self.dist.fetch_and_op(self._roots(rootdata),
+                                        self._leaves(leafdata), op)
+        return (self._join(ro, self.plan.nroots),
+                self._join(lu, self.plan.nleafspace))
+
+    # gather / scatter reorganize into the multi-root layout, a host-derived
+    # index transform shared with the global backend
+    def _gops(self) -> GlobalBackend:
+        if self._globalops is None:
+            self._globalops = GlobalBackend(self.sf, device=self.device)
+        return self._globalops
+
+    @property
+    def nmulti(self) -> int:
+        return self._gops().nmulti
+
+    def gather(self, leafdata):
+        return self._gops().gather(leafdata)
+
+    def scatter(self, multirootdata, leafdata=None):
+        return self._gops().scatter(multirootdata, leafdata)
+
+    def compute_degrees(self) -> torch.Tensor:
+        ones = torch.ones((self.sf.nleafspace_total,), dtype=torch.int32,
+                          device=self.device)
+        zeros = torch.zeros((self.sf.nroots_total,), dtype=torch.int32,
+                            device=self.device)
+        return self.reduce(ones, zeros)
+
+
+# --------------------------------------------------------------------------
 # facade
 # --------------------------------------------------------------------------
 class SFComm:
@@ -340,7 +493,9 @@ class SFComm:
     ``select_backend`` unless named explicitly — the paper's ``-sf_backend``
     override.  Payload rows are ``(*unit)`` dof blocks; pass ``unit=`` to
     pin and validate the unit shape/dtype.  Operations return new tensors
-    and leave their arguments untouched.
+    and leave their arguments untouched.  ``group`` is the
+    ``torch.distributed`` process group of the ``"dist"`` backend (default:
+    the world group); a group whose size is the SF's rank count selects it.
 
     Every operation reports into :mod:`repro_torch.core.sflog` (counts,
     wall time, bytes = plan edges x unit row, split-phase overlap windows),
@@ -350,12 +505,14 @@ class SFComm:
     """
 
     def __init__(self, sf: StarForest, backend: Optional[str] = None, *,
-                 device=None, unit=None, **backend_kwargs):
+                 device=None, unit=None, group=None, **backend_kwargs):
         sf.setup()
         self.sf = sf
         self.device = resolve_device(device)
         name = backend if backend is not None \
-            else select_backend(sf, device=self.device)
+            else select_backend(sf, device=self.device, group=group)
+        if name == "dist":
+            backend_kwargs["group"] = group
         self.backend = make_backend(name, sf, device=self.device, unit=unit,
                                     **backend_kwargs)
         self._bundles: Dict[tuple, "FieldBundle"] = {}
@@ -529,5 +686,10 @@ def _cuda_factory(sf, plan=None, unit=None, device=None):
     return CudaBackend(sf, plan=plan, unit=unit, device=device)
 
 
+def _dist_factory(sf, plan=None, unit=None, device=None, **kwargs):
+    return DistBackend(sf, plan=plan, unit=unit, device=device, **kwargs)
+
+
 register_backend("global", _global_factory)
 register_backend("cuda", _cuda_factory)
+register_backend("dist", _dist_factory)

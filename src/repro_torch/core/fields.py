@@ -352,7 +352,15 @@ class FieldBundle:
 
 def _sibling_backend(backend):
     """A shallow copy of ``backend`` with only the plan's unit constraint
-    lifted: the device index tensors and caches stay shared."""
+    lifted: the device index tensors and caches stay shared (for
+    ``"dist"``, those of its ``DistSF``; group, lowering and sync mode
+    too)."""
+    dist_sf = getattr(backend, "dist", None)      # the "dist" facade
+    if dist_sf is not None:
+        sib = copy.copy(backend)
+        sib.dist = copy.copy(dist_sf)
+        sib.dist.plan = dataclasses.replace(dist_sf.plan, unit=UnitSpec())
+        return sib
     plan = getattr(backend, "plan", None)
     if plan is None:
         raise TypeError(f"cannot derive an unconstrained sibling of "

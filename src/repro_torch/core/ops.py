@@ -20,7 +20,7 @@ folded segment by segment in buffer order (the ``sf_unpack`` kernel on the
 card), then written with one duplicate-free scatter, so a float reduction
 is the same bits on every run and on either backend.  :func:`unsigned_payloads`
 carries uint16 / uint32 payloads, which torch can neither gather nor
-combine, through signed types.
+combine, through signed types, and bool payloads through uint8.
 """
 
 from __future__ import annotations
@@ -71,6 +71,12 @@ class PendingComm:
             sflog.pending_end(info, t0, out)
         return out
 
+    def converted(self, fn, dtype: torch.dtype) -> "PendingComm":
+        """This token with its payload rows mapped by ``fn``, now of
+        ``dtype`` (:func:`unsigned_payloads`' conversion by value)."""
+        return dataclasses.replace(self, payload=fn(self.payload),
+                                   dtype=dtype)
+
 
 def _apply_unique(target: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
                   op: Op) -> torch.Tensor:
@@ -96,9 +102,16 @@ class SortedUnpack:
     tensor, its plain version on the CPU), then one duplicate-free scatter
     combines the segment rows into a copy of ``rootdata``.  Logical ops
     reduce through the plain segment ops over their int32 view.
+    ``red`` is a :class:`ReductionPlan`, or any object with its segment
+    fields (``nseg``, ``duplicate_free``, ``win_src`` / ``win_dst``,
+    ``dst_sorted``, ``seg_dst``, ``seg_of_slot``, ``seg_first``,
+    ``seg_len``).  ``plain=True`` folds through the kernels' plain version
+    on any device (the distributed lowering's ``use_kernels=False``).
     """
 
-    def __init__(self, red: ReductionPlan, device: torch.device):
+    def __init__(self, red: ReductionPlan, device: torch.device,
+                 plain: bool = False):
+        self.plain = plain
         self.nseg, self.duplicate_free = red.nseg, red.duplicate_free
         self.win_src = index_tensor(red.win_src, device)
         self.win_dst = index_tensor(red.win_dst, device)
@@ -121,8 +134,9 @@ class SortedUnpack:
             if self.duplicate_free:
                 # one slot per root: the unpack scatter is the reduction
                 return _apply_unique(rootdata, self.dst_sorted, sv, op)
-            seg = kops.segment_reduce_rows(sv, self.seg_first, self.seg_len,
-                                           op=op.name)
+            fold = sf_unpack.segment_reduce_plain if self.plain \
+                else kops.segment_reduce_rows
+            seg = fold(sv, self.seg_first, self.seg_len, op=op.name)
         else:
             seg = op.segment(sv, self.seg_of_slot, self.nseg)
         return _apply_unique(rootdata, self.seg_dst, seg, op)
@@ -133,9 +147,16 @@ _FOLDS = ("sum", "prod", "max", "min")
 # torch implements no gather, scatter or arithmetic for uint16 / uint32 on
 # the CPU.  Replace, sum and prod give the same bits in two's complement, so
 # they move such payloads as same-width signed views; max, min and the
-# logical ops compare, so they widen them (and narrow the result back).
-_SIGNED = {torch.uint16: torch.int16, torch.uint32: torch.int32}
-_WIDE = {torch.uint16: torch.int32, torch.uint32: torch.int64}
+# logical ops compare, so they widen them (and narrow the result back).  A
+# bool payload rides uint8 0/1 either way: there max and min are logical or
+# and and, bit for bit, and the segment reduce takes uint8.
+_SIGNED = {torch.uint16: torch.int16, torch.uint32: torch.int32,
+           torch.bool: torch.uint8}
+_WIDE = {torch.uint16: torch.int32, torch.uint32: torch.int64,
+         torch.bool: torch.uint8}
+# the reference's TypeError for a sum or product into bool (jnp's add and
+# multiply take no bool)
+_NO_BOOL = {"sum": "add", "prod": "multiply"}
 
 
 def _keeps_bits(op) -> bool:
@@ -158,16 +179,34 @@ def _uncarry(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return t.view(dtype) if t.dtype == _SIGNED[dtype] else t.to(dtype)
 
 
+def _check_bool_dst(op, dst) -> None:
+    name = _NO_BOOL.get(get_op(op).name)
+    if name is not None and _dtype(dst) == torch.bool:
+        raise TypeError(f"{name} does not accept dtype bool: an SF "
+                        f"{get_op(op).name} into a bool destination")
+
+
 def unsigned_payloads(cls):
-    """Class decorator for an SF backend: every operation takes uint16 and
-    uint32 payloads, carried as signed views (replace, sum, prod, between
-    payloads of one dtype) or widened (otherwise), its result returned in
-    the caller's dtype.  A begin records its payload's dtype on the
-    :class:`PendingComm`; an end whose destination has another dtype first
-    converts the payload to it by value, as the reduction itself would."""
+    """Class decorator for an SF backend: every operation takes uint16,
+    uint32 and bool payloads, carried as signed views (replace, sum, prod,
+    between payloads of one dtype) or widened (otherwise) — a bool as
+    uint8 either way — its result returned in the caller's dtype.  A
+    payload of another dtype than a bool destination is first converted
+    to bool by value, and a bool payload to a non-bool destination's dtype
+    (so a sum gives the counts in that dtype), as a reduction that casts
+    first would.  A begin records its payload's dtype on the pending
+    token; an end whose destination has another dtype, and one of the two
+    is carried, first converts the payload to it by value through the
+    token's ``converted``.  A sum or product into bool raises
+    ``TypeError``, as the reference does.  Methods the class lacks are
+    left out."""
     def pair(f, default):
         @functools.wraps(f)
         def run(self, src, dst, op=default):
+            _check_bool_dst(op, dst)
+            if torch.bool in (_dtype(src), _dtype(dst)) \
+                    and None not in (_dtype(src), _dtype(dst)):
+                src = src.to(dst.dtype)
             view = _keeps_bits(op) and _dtype(src) == _dtype(dst)
             return _uncarry(f(self, _carry(src, view), _carry(dst, view), op),
                             _dtype(dst))
@@ -184,12 +223,13 @@ def unsigned_payloads(cls):
     def end(f):
         @functools.wraps(f)
         def run(self, pending, dst):
-            view, dt = _keeps_bits(pending.op), _dtype(dst)
-            if dt is not None and pending.dtype not in (None, dt) and (
-                    pending.dtype in _SIGNED or dt in _SIGNED):
-                vals = _uncarry(pending.payload, pending.dtype).to(dt)
-                pending = dataclasses.replace(
-                    pending, payload=_carry(vals, view), dtype=dt)
+            _check_bool_dst(pending.op, dst)
+            view, dt, src = _keeps_bits(pending.op), _dtype(dst), \
+                pending.dtype
+            if dt is not None and src not in (None, dt) and (
+                    src in _SIGNED or dt in _SIGNED):
+                pending = pending.converted(
+                    lambda v: _carry(_uncarry(v, src).to(dt), view), dt)
             return _uncarry(f(self, pending, _carry(dst, view)), dt)
         return run
 
@@ -218,15 +258,15 @@ def unsigned_payloads(cls):
                               _carry(leafdata, view)), _dtype(like))
         return run
 
-    cls.bcast = pair(cls.bcast, "replace")
-    cls.reduce = pair(cls.reduce, "sum")
-    cls.bcast_begin = begin(cls.bcast_begin, "replace")
-    cls.reduce_begin = begin(cls.reduce_begin, "sum")
-    cls.bcast_end = end(cls.bcast_end)
-    cls.reduce_end = end(cls.reduce_end)
-    cls.fetch_and_op = fetch(cls.fetch_and_op)
-    cls.gather = gather(cls.gather)
-    cls.scatter = scatter(cls.scatter)
+    for name, wrap in (("bcast", lambda f: pair(f, "replace")),
+                       ("reduce", lambda f: pair(f, "sum")),
+                       ("bcast_begin", lambda f: begin(f, "replace")),
+                       ("reduce_begin", lambda f: begin(f, "sum")),
+                       ("bcast_end", end), ("reduce_end", end),
+                       ("fetch_and_op", fetch), ("gather", gather),
+                       ("scatter", scatter)):
+        if hasattr(cls, name):
+            setattr(cls, name, wrap(getattr(cls, name)))
     return cls
 
 

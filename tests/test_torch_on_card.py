@@ -553,3 +553,67 @@ def test_long_route_replays_in_a_cuda_graph(dev, dtype, op):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(_raw(got), _raw(want))
+
+
+# --------------------------------------------- the distributed backend
+@pytest.mark.parametrize("low", ["auto", "general"])
+def test_cuda_dist_world1_nccl_is_the_cuda_backends_bits(dev, low):
+    """``DistSF`` and ``SFComm(backend="dist")`` on an NCCL group of one
+    rank against ``"cuda"`` bit for bit (a 12^3 column-gather SF; units ()
+    and (3,), every op, fetch-and-add), the reduce through the hand
+    kernels."""
+    from repro_torch.core import DistSF
+    sf, _ = chip_smoke.column_gather_sf(12)
+    n, E = sf.nroots_total, sf.nleafspace_total
+    cu = SFComm(sf, backend="cuda", device=dev)
+    with chip_smoke.world1_group(dev) as group:
+        comm = SFComm(sf, backend="dist", device=dev, group=group,
+                      lowering=low)
+        sfo = comm.backend.dist
+        assert sfo.lowering == ("local_only" if low == "auto" else "general")
+        for unit in [(), (3,)]:
+            root = _values((n,) + unit, torch.float32, dev, seed=3)
+            leaf = _values((E,) + unit, torch.float32, dev, seed=4)
+            rs = chip_smoke.padded(root, sfo.plan.root_pad)
+            ls = chip_smoke.padded(leaf, sfo.plan.leaf_pad)
+            for kind, op in chip_smoke.DIST_OPS:
+                want = chip_smoke.dist_op(cu, kind, op, root, leaf)
+                kops.reset_launch_counts()
+                got = chip_smoke.dist_op(comm, kind, op, root, leaf)
+                if kind == "reduce" and op != "replace":
+                    assert kops.segment_reduce_blocked.launches == 1
+                assert chip_smoke.same_bits(got, want), (unit, kind, op)
+                assert chip_smoke.same_bits(
+                    chip_smoke.dist_op(sfo, kind, op, rs, ls), want)
+        ri = _values((n,), torch.int32, dev, seed=5) % 100
+        li = _values((E,), torch.int32, dev, seed=6) % 100
+        for a, b in zip(comm.fetch_and_op(ri, li), cu.fetch_and_op(ri, li)):
+            assert torch.equal(a, b)
+        plain = DistSF(sf, group=group, device=dev, lowering=low,
+                       use_kernels=False)
+        root = _values((n,), torch.float32, dev, seed=7)
+        leaf = _values((E,), torch.float32, dev, seed=8)
+        rs = chip_smoke.padded(root, plain.plan.root_pad)
+        ls = chip_smoke.padded(leaf, plain.plan.leaf_pad)
+        for kind, op in chip_smoke.DIST_OPS:
+            assert chip_smoke.same_bits(
+                chip_smoke.dist_op(plain, kind, op, rs, ls),
+                chip_smoke.dist_op(cu, kind, op, root, leaf))
+
+
+def test_cuda_dist_refuses_a_group_that_cannot_carry_the_card(dev, tmp_path):
+    """A gloo group with CUDA shards raises, naming the mismatch; nothing
+    is moved to the CPU."""
+    from datetime import timedelta
+    import torch.distributed as dist
+    from repro_torch.core import DistSF
+    sf, _ = chip_smoke.column_gather_sf(4)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1,
+                            timeout=timedelta(seconds=60))
+    try:
+        with pytest.raises(ValueError, match="gloo process group does not "
+                                             "carry cuda tensors"):
+            DistSF(sf, device=dev)
+    finally:
+        dist.destroy_process_group()

@@ -385,3 +385,109 @@ def test_global_float_reduce_is_the_cuda_backends_fold(name, dtype, rng):
     for a, b in zip(gl.fetch_and_op(t(root), t(leaf)),
                     cu.fetch_and_op(t(root), t(leaf))):
         assert torch.equal(a, b)
+
+
+# ------------------------------------------------- bool payloads (F1, F2)
+_BOOL_ROOTS = ["int32", "int8", "uint8", "float32", "float16", "bfloat16"]
+
+
+def _jax_of(a, dtype: str):
+    return jnp.asarray(a).astype(dtype)
+
+
+def _torch_of(a, dtype: str):
+    return t(np.asarray(a)).to(getattr(torch, dtype))
+
+
+def _as_np(x) -> np.ndarray:
+    """A result as numpy; bfloat16 through float32 (exact)."""
+    if isinstance(x, torch.Tensor):
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+    x = np.asarray(x)
+    return x.astype(np.float32) if x.dtype.name == "bfloat16" else x
+
+
+def _bool_ref(name, backend, leaf_is_bool):
+    """The port backend's reference counterpart for one case: ``"pallas"``
+    for ``"cuda"`` (``"global"`` where it would take its strided pack).
+    From bool leaves the reference ``"pallas"`` folds in bool: its sums are
+    logical ors and its max / min raise (``test_reference_pallas_bool_
+    folds``); there the port's ``"cuda"`` returns the ``"global"`` answer,
+    the counts in the root dtype."""
+    if backend == "cuda" and leaf_is_bool:
+        return _ref_global(name)
+    return _comms(name, backend)[0]
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("name", sorted(FIXTURES))
+def test_bool_payloads_match_reference(name, backend, rng):
+    """F1: max / min into a bool root (bool or int32 leaves); F2: sum, max
+    and min from bool leaves into int32 / int8 / uint8 / float32 / float16
+    / bfloat16 roots (the counts, in the root dtype); bool bcasts; sum and
+    prod into bool destinations raise TypeError, as in the reference.
+    Fused and split forms, bitwise."""
+    _, comm = _comms(name, backend)
+    sf = comm.sf
+    lb = rng.integers(0, 2, (sf.nleafspace_total,)).astype(bool)
+    rb = rng.integers(0, 2, (sf.nroots_total,)).astype(bool)
+    li = rng.integers(0, 3, (sf.nleafspace_total,)).astype(np.int32)
+
+    def check(leaf, root, rdt, op, leaf_is_bool):
+        ref = _bool_ref(name, backend, leaf_is_bool)
+        want = _as_np(ref.reduce(jnp.asarray(leaf), _jax_of(root, rdt), op))
+        ldt = "bool" if leaf_is_bool else "int32"
+        tl, tr = _torch_of(leaf, ldt), _torch_of(root, rdt)
+        for got in (comm.reduce(tl, tr, op),
+                    comm.reduce_end(comm.reduce_begin(tl, op), tr),
+                    comm.reduce_begin(tl, op).end(tr)):
+            assert got.dtype == getattr(torch, rdt), (op, rdt)
+            np.testing.assert_array_equal(_as_np(got), want,
+                                          err_msg=f"{op} into {rdt}")
+
+    for op in ("max", "min"):                       # F1
+        check(lb, rb, "bool", op, True)
+        check(li, rb, "bool", op, False)
+    for rdt in _BOOL_ROOTS:                         # F2
+        root = rng.integers(0, 3, (sf.nroots_total,))
+        for op in ("sum", "max", "min"):
+            check(lb, root, rdt, op, True)
+    ref = _ref_global(name)
+    for op in ("replace", "max", "min"):
+        want = np.asarray(ref.bcast(jnp.asarray(rb), jnp.asarray(lb), op))
+        np.testing.assert_array_equal(n(comm.bcast(t(rb), t(lb), op)), want)
+        np.testing.assert_array_equal(
+            n(comm.bcast_begin(t(rb), op).end(t(lb))), want)
+    check(lb, rb, "bool", "replace", True)
+    for op in ("sum", "prod"):                      # the error surface
+        for fn in (lambda: comm.bcast(t(rb), t(lb), op),
+                   lambda: comm.bcast_begin(t(rb), op).end(t(lb)),
+                   lambda: comm.reduce(t(lb), t(rb), op),
+                   lambda: comm.reduce_begin(t(li), op).end(t(rb))):
+            with pytest.raises(TypeError, match="does not accept dtype bool"):
+                fn()
+        with pytest.raises(TypeError, match="does not accept dtype bool"):
+            ref.reduce(jnp.asarray(lb), jnp.asarray(rb), op)
+
+
+def test_reference_pallas_bool_folds(rng):
+    """Pins the reference difference the port's ``"cuda"`` does not mirror
+    (ROADMAP Queue 3): on the allgather fixture (four leaves a root) the
+    reference ``"pallas"`` sums bool leaves as a logical or and refuses
+    max from them, where ``"global"`` and both port backends count."""
+    sf = FIXTURES["allgather"]()
+    pallas = RefComm(sf, backend="pallas")
+    lb = rng.integers(0, 2, (sf.nleafspace_total,)).astype(bool)
+    zero = np.zeros(sf.nroots_total, np.int32)
+    counts = np.asarray(_ref_global("allgather").reduce(
+        jnp.asarray(lb), jnp.asarray(zero), "sum"))
+    assert counts.max() > 1
+    np.testing.assert_array_equal(
+        np.asarray(pallas.reduce(jnp.asarray(lb), jnp.asarray(zero), "sum")),
+        np.minimum(counts, 1))
+    for backend in BACKENDS:
+        np.testing.assert_array_equal(
+            n(_comms("allgather", backend)[1].reduce(t(lb), t(zero), "sum")),
+            counts)
+    with pytest.raises(ValueError):
+        pallas.reduce(jnp.asarray(lb), jnp.asarray(lb), "max")

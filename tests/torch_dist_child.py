@@ -1,0 +1,231 @@
+"""One rank of a gloo process group for ``tests/test_torch_distributed.py``.
+
+The parent writes the star forests (rank graphs as numpy arrays) and the
+global payloads to one ``.npz``; every rank runs the same ops through the
+per-rank ``DistSF`` API and through ``SFComm(backend="dist")``, under the
+SF's own lowering and under ``"general"``, and writes its results to
+``rank<r>.npz``.  This module imports only numpy at the top, and torch and
+``repro_torch`` in the child (never JAX or the reference package).
+"""
+
+import os
+import traceback
+from datetime import timedelta
+
+import numpy as np
+
+# payload name -> (unit, dtype); the parent makes the data
+PAYLOADS = {"i32x3": ((3,), "int32"), "f32x2x2": ((2, 2), "float32"),
+            "bool": ((), "bool"), "u16x2": ((2,), "uint16")}
+OPS = ("replace", "sum", "prod", "max", "min")
+LOWERINGS = ("auto", "general")
+# the star forests of each world size (names of the parent's builders)
+WORLDS = {2: ("general_r2s0", "general_r2s1", "allgather_r2", "permute_r2",
+              "local_only", "strided"),
+          4: ("general0", "general1", "allgather", "permute", "composed",
+              "composed_inverse", "embedded")}
+COLLECTIVES = ("all_to_all_single", "all_gather_into_tensor",
+               "reduce_scatter_tensor", "batch_isend_irecv")
+
+
+def ops_for(dtype: str):
+    """The ops a payload takes (a sum or product into bool raises)."""
+    return ("replace", "max", "min") if dtype == "bool" else OPS
+
+
+def key(*parts) -> str:
+    return "|".join(str(p) for p in parts)
+
+
+def graph_arrays(sf) -> dict:
+    """The rank graphs of a reference or port StarForest, as arrays."""
+    out = {}
+    for r in range(sf.nranks):
+        g = sf.graph(r)
+        out[key("graph", r)] = np.array([g.nroots, g.nleafspace], np.int64)
+        out[key("local", r)] = np.asarray(g.local, np.int64)
+        out[key("remote", r)] = np.stack(
+            [np.asarray(g.remote_rank, np.int64),
+             np.asarray(g.remote_offset, np.int64)], 1).reshape(-1, 2)
+    return out
+
+
+def _star_forest(data, name: str, world: int):
+    from repro_torch.core import RankGraph, StarForest
+    graphs = []
+    for r in range(world):
+        nroots, nleafspace = data[key(name, "graph", r)]
+        remote = data[key(name, "remote", r)]
+        graphs.append(RankGraph(nroots=int(nroots),
+                                nleafspace=int(nleafspace),
+                                local=data[key(name, "local", r)],
+                                remote_rank=remote[:, 0].copy(),
+                                remote_offset=remote[:, 1].copy()))
+    return StarForest.from_rank_graphs(graphs)
+
+
+class _Counting:
+    """Counts the collective calls made through ``torch.distributed``."""
+
+    def __init__(self, dist):
+        self.counts = dict.fromkeys(COLLECTIVES, 0)
+        for name in COLLECTIVES:
+            setattr(dist, name, self._wrap(name, getattr(dist, name)))
+
+    def _wrap(self, name, fn):
+        def run(*args, **kwargs):
+            self.counts[name] += 1
+            return fn(*args, **kwargs)
+        return run
+
+    def during(self, fn) -> np.ndarray:
+        before = dict(self.counts)
+        fn()
+        return np.array([self.counts[c] - before[c] for c in COLLECTIVES])
+
+
+def _run(rank: int, world: int, data, out: dict) -> None:
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import DistSF, SFComm
+    counting = _Counting(dist)
+    cpu = torch.device("cpu")
+
+    def tensor(name, payload, side):
+        return torch.from_numpy(data[key(name, payload, side)].copy())
+
+    for name in WORLDS[world]:
+        sf = _star_forest(data, name, world)
+        ro, lo = sf.root_offsets(), sf.leaf_offsets()
+        for low in LOWERINGS:
+            comm = SFComm(sf, backend="dist", device=cpu, lowering=low)
+            sfo = comm.backend.dist
+            out[key(name, low, "lowering")] = np.array([sfo.lowering])
+            pads = {"root": sfo.plan.root_pad, "leaf": sfo.plan.leaf_pad}
+
+            def shard(t, off, side):
+                """This rank's rows of a global tensor, zero-padded."""
+                s = t.new_zeros((pads[side],) + tuple(t.shape[1:]))
+                s[: off[rank + 1] - off[rank]] = t[off[rank]: off[rank + 1]]
+                return s
+            for pl, (unit, dtype) in PAYLOADS.items():
+                root, leaf = tensor(name, pl, "root"), tensor(name, pl, "leaf")
+                rs, ls = shard(root, ro, "root"), shard(leaf, lo, "leaf")
+                nr, nl = int(ro[rank + 1] - ro[rank]), \
+                    int(lo[rank + 1] - lo[rank])
+                for op in ops_for(dtype):
+                    res = {
+                        "comm": (comm.bcast(root, leaf, op),
+                                 comm.reduce(leaf, root, op)),
+                        "comm_split": (
+                            comm.bcast_begin(root, op).end(leaf),
+                            comm.reduce_end(comm.reduce_begin(leaf, op),
+                                            root)),
+                        "sf": (sfo.bcast_end(sfo.bcast_begin(rs, op),
+                                             ls)[:nl],
+                               sfo.reduce_end(sfo.reduce_begin(ls, op),
+                                              rs)[:nr])}
+                    for api, (b, r) in res.items():
+                        out[key(name, low, api, "bcast", pl, op)] = b.numpy()
+                        out[key(name, low, api, "reduce", pl, op)] = r.numpy()
+            ri, li = tensor(name, "fetch", "root"), tensor(name, "fetch",
+                                                           "leaf")
+            for k, v in zip(("root", "leaf"), comm.fetch_and_op(ri, li)):
+                out[key(name, low, "comm", "fetch", k)] = v.numpy()
+            fr, fl = sfo.fetch_and_op(shard(ri, ro, "root"),
+                                      shard(li, lo, "leaf"))
+            out[key(name, low, "sf", "fetch", "root")] = fr[:nr].numpy()
+            out[key(name, low, "sf", "fetch", "leaf")] = \
+                fl[:lo[rank + 1] - lo[rank]].numpy()
+            # the leaf-dtype fold: int8 leaves summed into int32 roots
+            out[key(name, low, "comm", "mixed")] = comm.reduce(
+                tensor(name, "mixed", "leaf"),
+                tensor(name, "mixed", "root")).numpy()
+        # the collectives each lowering issues (DistSF alone)
+        sfo = DistSF(sf, device=cpu)
+        rs = sfo.pad_root_stack([tensor(name, "f32x2x2", "root")[
+            ro[rank]: ro[rank + 1]]])[0]
+        ls = sfo.pad_leaf_stack([tensor(name, "f32x2x2", "leaf")[
+            lo[rank]: lo[rank + 1]]])[0]
+        for op in ("replace", "sum"):
+            out[key(name, "calls", "bcast", op)] = counting.during(
+                lambda: sfo.bcast(rs, ls, op))
+            out[key(name, "calls", "reduce", op)] = counting.during(
+                lambda: sfo.reduce(ls, rs, op))
+        out[key(name, "calls", "fetch")] = counting.during(
+            lambda: sfo.fetch_and_op(rs[:, 0, 0].contiguous(),
+                                     ls[:, 0, 0].contiguous()))
+        # the split: compute placed between begin and end, sync_mode, and
+        # the plain path, all against the fused op's bits
+        fused = (sfo.bcast(rs, ls, "sum"), sfo.reduce(ls, rs, "sum"))
+        pb, pr = sfo.bcast_begin(rs, "sum"), sfo.reduce_begin(ls, "sum")
+        x = torch.randn(256, 256, generator=torch.Generator().manual_seed(1))
+        out[key(name, "between")] = (x @ x).sum().numpy()
+        split = (sfo.bcast_end(pb, ls), sfo.reduce_end(pr, rs))
+        sync = DistSF(sf, device=cpu, sync_mode=True)
+        plain = DistSF(sf, device=cpu, use_kernels=False)
+        for tag, (b, r) in (("fused", fused), ("split", split),
+                            ("sync", (sync.bcast(rs, ls, "sum"),
+                                      sync.reduce(ls, rs, "sum"))),
+                            ("plain", (plain.bcast(rs, ls, "sum"),
+                                       plain.reduce(ls, rs, "sum")))):
+            out[key(name, "variant", tag, "bcast")] = b.numpy()
+            out[key(name, "variant", tag, "reduce")] = r.numpy()
+    if world == 4:
+        _consumers(rank, data, out, cpu)
+
+
+def _consumers(rank: int, data, out: dict, cpu) -> None:
+    """grow_overlap on "dist" against "global"; bcast_multi / reduce_multi
+    on "dist" (a pinned unit: the sibling backend) against per-field
+    ops."""
+    import torch
+    from repro_torch.core import SFComm, UnitSpec
+    from repro_torch.meshdist.plex import (HexMesh, distribute, grow_overlap,
+                                           initial_distribution)
+    for backend in ("dist", "global"):
+        dm = distribute(initial_distribution(HexMesh(4, 4, 2), 4, "rand",
+                                             seed=3), device=cpu)
+        ov = grow_overlap(dm, levels=2, backend=backend, device=cpu)
+        for q in range(4):
+            out[key("overlap", backend, "cells", q)] = ov.cells[q]
+            out[key("overlap", backend, "level", q)] = ov.level[q]
+    sf = _star_forest(data, "general0", 4)
+    comm = SFComm(sf, backend="dist", device=cpu,
+                  unit=UnitSpec((3,), np.float32))
+    gen = torch.Generator().manual_seed(5)
+    roots = [torch.randn(sf.nroots_total, 3, generator=gen) for _ in range(3)]
+    leaves = [torch.randn(sf.nleafspace_total, 3, generator=gen)
+              for _ in range(3)]
+    for i, (m, s) in enumerate(zip(comm.bcast_multi(roots, leaves),
+                                   [comm.bcast(r, l) for r, l in
+                                    zip(roots, leaves)])):
+        out[key("multi", "bcast", i)] = np.stack([m.numpy(), s.numpy()])
+    for i, (m, s) in enumerate(zip(
+            comm.reduce_multi(leaves, roots, "sum"),
+            [comm.reduce(l, r, "sum") for r, l in zip(roots, leaves)])):
+        out[key("multi", "reduce", i)] = np.stack([m.numpy(), s.numpy()])
+
+
+def main(rank: int, world: int, store: str, in_path: str,
+         out_dir: str) -> None:
+    """Join the gloo group through the ``file://`` store, run every case,
+    write ``rank<r>.npz`` (a traceback to ``rank<r>.err`` on failure)."""
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    try:
+        dist.init_process_group("gloo", init_method="file://" + store,
+                                rank=rank, world_size=world,
+                                timeout=timedelta(seconds=60))
+        try:
+            out = {}
+            with np.load(in_path) as data:
+                _run(rank, world, data, out)
+            np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+        finally:
+            dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
