@@ -13,6 +13,20 @@ Phases, each printing one JSON line and asserting as it goes:
            (2,097,152 unknowns) as ``ParCSR`` over 8 logical ranks in
            z-slabs, a random general star forest (8 ranks, 2^20 roots,
            2^22 edges), a local-only SF, a 3D-box halo SF and a wide-row SF.
+  tuning   the autotuner (``kernels/tuning.py``), from setup on: every sweep
+           of the run checks each candidate of its signature bitwise
+           against the plain version on the call's own inputs (NaN
+           payloads included) and records
+           each candidate's best-round device ms, the default's, the
+           winner and its speed-up over the default; the sf_ops and
+           spmv_cg paths' signatures sweep right after setup (their calls
+           once each on the setup objects), the dist child's, the dmda,
+           mg, assembly and plex paths' as those paths make their first
+           calls.  The line comes after the plex phase.  Each path then
+           takes its winners: the general and wide-row SFs launch the
+           kernels their plan's winners name, the graph CG captures only
+           routes its eager chunks' winners named, and the dist path
+           launches its plan's winners.
   kernels  every kernel entry point against its plain PyTorch version on the
            card, at the main path's shapes and over a sweep of units, dtypes
            and ops (bitwise, except ``spmv_ell``: max|d| <= 1e-5 max|y|);
@@ -63,7 +77,10 @@ Phases, each printing one JSON line and asserting as it goes:
            route (the short one), and ``long_cut_sweep`` times a segment of
            64-4,096 rows alone and beside 262,144 short ones on the short
            and the long route (the table ``LONG_SEG`` comes from).
-  sf_ops   ``SFComm(backend="cuda")`` against ``SFComm(backend="global")``.
+  sf_ops   ``SFComm(backend="cuda")`` against ``SFComm(backend="global")``;
+           then the fixed_rule path: the wide-row bcast and reduce and the
+           general reduce again with ``REPRO_SF_AUTOTUNE=0``, bitwise the
+           tuned calls, its launches counted apart from the sf path's.
   spmv_cg  SpMV / SpMV^T against scipy in float64, then both CG loops on the
            Poisson matrix through the ELL kernel (``cg_loops``): the
            host-stepped ``cg`` and ``cg_async``, replayed as a CUDA graph,
@@ -172,6 +189,29 @@ Phases, each printing one JSON line and asserting as it goes:
            ``pack_blocked`` rows), and both dispatch lowerings at both
            serving shapes (``fuse_switch``).
 
+  families (in a child process: ``chip_smoke.py --families DEVICE``, which
+           prints one ``FAMILIES_RESULT`` JSON line) the model families of
+           the twelfth slice, bf16, random weights from seeded generators,
+           each freed before the next: hymba-1.5b at its published width
+           and depth (32 layers) through ``ServeEngine(batch=8,
+           s_max=4096)`` + ``loadgen.drive`` on 16 requests (prompts
+           64-3,000 tokens, past the sliding layers' 2,048-key window;
+           16-64 new tokens), prefill(2,500) against prefill + decode_step,
+           a batch-1 engine stream against direct greedy decoding (float32,
+           2 layers, a 2,100-token prompt), profiled windows of the
+           longest prefill and of five decode steps by kernel group;
+           whisper-base (6 + 6 layers) on (8, 1,500, 512) frame
+           embeddings: every flash call of a prefill (encoder, cross-
+           attention) against the plain version, prefill against decode,
+           prefill and 64 decode steps; xlstm-350m (24 layers, no kernel):
+           decode after a 300-token prefill against forward of 301,
+           prefill 8 x 512 and 32 decode steps; llava-next-34b at full
+           width, 16 of 60 layers: prefill from ``embed[tokens]`` bitwise
+           the prefill from tokens, then from 2,880 visual embeddings.
+           Row 8 at hymba's and whisper's shapes beside SDPA
+           (``family_shapes`` on the kernels line).  The counted drives
+           (hymba's engine, whisper's prefill and decode, xlstm's,
+           llava's prefill) are the families path.
   long_sweep  the long segment reduce (segments over ``LONG_SEG`` rows)
            of both wrappers bitwise, NaN payloads included, against the
            plain version: every dtype and op at units (), (3,) and (2, 2),
@@ -181,17 +221,21 @@ Phases, each printing one JSON line and asserting as it goes:
            launches leave torch.profiler on the card returning windows
            without all their device events.
 
-Eight paths carry the kernels: ``sf_ops`` + ``spmv_cg`` (the SF kernels),
-``dmda`` (``pack_blocked``, ``segment_reduce_blocked``, ``spmv_ell``),
-``mg`` (``pack_blocked``, ``segment_reduce_blocked``, ``spmv_ell``),
-``assembly`` (``pack_blocked``, ``segment_reduce_blocked``), ``plex``
-(``pack_blocked``), ``dist`` (``pack_blocked``,
-``segment_reduce_blocked``), the
-serve phase's drive (``flash_attention``) and the moe phase's drive
-(``pack``, ``pack_blocked``, ``flash_attention``).  Every launch counter is set
-to 0 just before each and read just after, and each kernel must have
-launched on its path; a kernel's ``launches_by_path`` are those counts and
-its ``launches`` their sum.
+Ten paths carry the kernels: ``sf_ops`` + ``spmv_cg`` (the SF kernels),
+``fixed_rule`` (the fixed rule's wide gather and one-segment-a-CTA
+reduce, which the tuned paths launch only where a sweep picks them),
+``dmda`` (a gather, a segment reduce, ``spmv_ell``), ``mg`` (the same),
+``assembly`` (a gather, a segment reduce), ``plex`` (a gather), ``dist``
+(a gather, a segment reduce), the serve phase's drive
+(``flash_attention``), the moe phase's drive (``pack``, ``pack_blocked``,
+``flash_attention``) and the families phase's drives
+(``flash_attention``).  A gather is ``pack`` or ``pack_blocked`` and a
+segment reduce ``segment_reduce_sorted`` or ``segment_reduce_blocked``,
+as the tuner's winners name them (``PACK``, ``SEGRED``).  Every launch
+counter is set to 0 just before each path and read just after, each
+kernel must have launched on its path and every kernel on some path; a
+kernel's ``launches_by_path`` are those counts and its ``launches`` their
+sum.
 A ``profiler`` line counts the profiled windows and those taken again
 because the profiler returned them without all their device events.
 The line before the last two is ``{"kernels": [...]}``, then the card's
@@ -256,15 +300,19 @@ SOURCES = {
     "spmv_ell": "src/repro_torch/kernels/csrc/spmv_ell.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
 }
-SF_PATH = ("pack", "pack_blocked", "pack_strided", "bcast_fused",
-           "segment_reduce_sorted", "segment_reduce_blocked", "spmv_ell")
-DMDA_PATH = ("pack_blocked", "segment_reduce_blocked", "spmv_ell")
+# each path's kernels; a tuple is a tuned kind's kernels, of which the
+# path launches the ones its signatures' winners name (PACK, SEGRED)
+PACK = ("pack", "pack_blocked")
+SEGRED = ("segment_reduce_sorted", "segment_reduce_blocked")
+SF_PATH = (PACK, "pack_strided", "bcast_fused", SEGRED, "spmv_ell")
+DMDA_PATH = (PACK, SEGRED, "spmv_ell")
 SERVE_PATH = ("flash_attention",)
-MG_PATH = ("pack_blocked", "segment_reduce_blocked", "spmv_ell")
-ASSEMBLY_PATH = ("pack_blocked", "segment_reduce_blocked")
-PLEX_PATH = ("pack_blocked",)
+MG_PATH = (PACK, SEGRED, "spmv_ell")
+ASSEMBLY_PATH = (PACK, SEGRED)
+PLEX_PATH = (PACK,)
 MOE_PATH = ("pack", "pack_blocked", "flash_attention")
-DIST_PATH = ("pack_blocked", "segment_reduce_blocked")
+DIST_PATH = (PACK, SEGRED)
+FAMILIES_PATH = ("flash_attention",)
 # MoE layer, dispatch="sf" against dispatch="dense", float32: the
 # reference's tests/test_models.py:127-159
 MOE_RTOL, MOE_ATOL, MOE_AUX_RTOL = 1e-5, 1e-6, 1e-6
@@ -325,10 +373,42 @@ class Sizes:
     dyn_leaves: int = 1 << 18     # picks
     dyn_width: int = 4096         # bf16 hidden rows (phi's d_model)
     hub_rows: int = 1 << 22       # fetch_fold's one-segment max / min / sum
+    # families: hymba-1.5b served at its published size, whisper-base and
+    # xlstm-350m at theirs, llava-next-34b at full width and llava_layers
+    # of its 60 layers, all in bf16 (families_smoke=True: the smoke configs
+    # at small sizes, for rehearsals on the CPU)
+    families_smoke: bool = False
+    hymba_batch: int = 8
+    hymba_s_max: int = 4096
+    hymba_requests: int = 16
+    hymba_prompt: tuple = (64, 3000)  # the sliding layers' 2,048 keys bite
+    hymba_new: tuple = (16, 64)
+    hymba_check_prompt: int = 2500
+    hymba_short_scan: int = 100       # an SSM scan shorter than a chunk
+    hymba_stream_prompt: int = 2100   # the float32 engine-vs-greedy stream
+    whisper_batch: int = 8
+    whisper_frames: int = 1500        # whisper's 30 s window
+    whisper_prompt: int = 4
+    whisper_s_max: int = 448          # whisper's decoder context
+    whisper_steps: int = 64
+    xlstm_batch: int = 8
+    xlstm_prefill: int = 512
+    xlstm_steps: int = 32
+    xlstm_check: int = 300            # not a multiple of 128
+    llava_layers: int = 16            # 19.6 GB of 60 layers' 68.8
+    llava_tokens: int = 2880          # LLaVA-NeXT anyres: 5 x 576
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def missing_kernels(path: tuple, counts: dict) -> list:
+    """The entries of ``path`` (a kernel, or a tuple of a tuned kind's
+    kernels, any of which will do) that launched no time in ``counts``."""
+    return [k for k in path
+            if not any(counts[n] for n in ((k,) if isinstance(k, str)
+                                           else k))]
 
 
 def check(cond, msg: str) -> None:
@@ -1872,6 +1952,7 @@ def phase_sf_ops(objs, dev) -> dict:
         root = torch.randn((sf.nroots_total,) + unit, generator=g, device=dev)
         leaf = torch.randn((sf.nleafspace_total,) + unit, generator=g,
                            device=dev)
+        root_g, leaf_g = root, leaf          # the (3,) pair, kept below
         for op in ["replace", "sum"]:
             bits(cu.bcast(root, leaf, op), gl.bcast(root, leaf, op),
                  f"bcast {op} {unit}")
@@ -1898,8 +1979,11 @@ def phase_sf_ops(objs, dev) -> dict:
     bits(deg, gl.compute_degrees(), "compute_degrees")
     check(np.array_equal(deg.cpu().numpy(), plan.degrees), "degrees")
     moved = {k for k, v in kops.launch_counts().items() if v > before[k]}
-    check(not on_card or {"pack_blocked", "segment_reduce_blocked"} <= moved,
-          f"general SF ops launched only {sorted(moved)}")
+    want = plan_kernels(cu.backend._key)
+    check(not on_card or (want <= moved and moved & set(PACK)
+                          and moved & set(SEGRED)),
+          f"general SF ops launched {sorted(moved)}, their winners name "
+          f"{sorted(want)}")
 
     # local-only SF: the replace bcast goes through the fused kernel
     loc = objs["local"]
@@ -1938,7 +2022,8 @@ def phase_sf_ops(objs, dev) -> dict:
                               kops.pack_strided.routes.items()
                               if v > routes[k]}
 
-    # wide rows: one row / one segment per CTA
+    # wide rows: the kernels the winners name (the fixed rule: one row / one
+    # segment per CTA)
     wide = objs["wide"]
     wcu = SFComm(wide, backend="cuda", device=dev)
     wgl = SFComm(wide, backend="global", device=dev)
@@ -1950,8 +2035,31 @@ def phase_sf_ops(objs, dev) -> dict:
     close(wcu.reduce(leaf, root, "sum"), wgl.reduce(leaf, root, "sum"),
           "wide reduce sum")
     moved = {k for k, v in kops.launch_counts().items() if v > before[k]}
-    check(not on_card or moved == {"pack", "segment_reduce_sorted"},
-          f"wide-row ops launched {sorted(moved)}")
+    want = plan_kernels(wcu.backend._key)
+    check(not on_card or moved == want, f"wide-row ops launched "
+          f"{sorted(moved)}, their winners name {sorted(want)}")
+    out["wide_row_kernels"] = sorted(moved)
+    # the fixed_rule path: the same calls with REPRO_SF_AUTOTUNE=0 (the
+    # winners set aside), the same bits, through one row / one segment per
+    # CTA; its launches are counted from 0 and reported as a path of their
+    # own (out["fixed_rule_launches"]), the sf path's counts put back
+    tuned = (wcu.bcast(root, leaf), wcu.reduce(leaf, root, "sum"),
+             cu.reduce(leaf_g, root_g, "sum"))
+    saved = kops._saved_counts()
+    kops.reset_launch_counts()
+    with fixed_rule():
+        fixed = (wcu.bcast(root, leaf), wcu.reduce(leaf, root, "sum"),
+                 cu.reduce(leaf_g, root_g, "sum"))
+    out["fixed_rule_launches"] = kops.launch_counts()
+    kops._restore_counts(saved)
+    moved = {k for k, v in out["fixed_rule_launches"].items() if v}
+    for a, b, what in zip(tuned, fixed, ("wide bcast", "wide reduce sum",
+                                         "general reduce sum (3,)")):
+        check(same_raw_bits(a, b), f"{what}: tuned != fixed rule")
+    check(not on_card or {"pack", "segment_reduce_sorted"} <= moved,
+          f"the fixed rule's wide-row ops launched {sorted(moved)}")
+    out["fixed_rule_equals_tuned"] = ["wide bcast", "wide reduce sum",
+                                      "general reduce sum (3,)"]
     if dev.type == "cuda":
         torch.cuda.synchronize()
     out["checks"] = "bitwise except float sums (max|d| <= 1e-6 max|y|)"
@@ -2115,6 +2223,13 @@ def cg_loops(A, S, bh, sz: Sizes, dev, tol: float = 1e-5) -> dict:
     stages = {"prepare_ms": (t1 - t0) * 1e3}
     if dev.type == "cuda":
         g, captured = _capture(loop)
+        # the graph launches the routes its eager chunks' winners named
+        routes = {k for k, c in captured.items() if c and k in TUNED_NAMES}
+        want = plan_kernels(A.comm.backend._key)
+        check(routes <= want, f"the graph CG captured "
+              f"{sorted(routes)}, its eager chunks' winners name "
+              f"{sorted(want)}")
+        stages["captured_tuned_routes"] = sorted(routes)
         sync(dev)
         t2 = time.perf_counter()
         replays = _replay(loop, g, captured)
@@ -3355,9 +3470,13 @@ def phase_dist(sz: Sizes, dev):
         if on_card:
             torch.cuda.synchronize()
         launches = kops.launch_counts()
-        missing = [k for k in DIST_PATH if launches[k] == 0]
+        missing = missing_kernels(DIST_PATH, launches)
         check(not missing or not on_card, f"the dist path never launched "
               f"{missing}")
+        named = plan_kernels(plan.comm_signature())
+        check(not on_card or named <= {k for k, v in launches.items() if v},
+              f"the dist path launched {launches}, its winners name "
+              f"{sorted(named)}")
         # the plain versions (index_select, the plain fold): not counted
         for low in ("auto", "general"):
             plain = DistSF(sf, group=group, device=dev, lowering=low,
@@ -3384,20 +3503,24 @@ def dist_child(device: str, grid: int, iters: int) -> int:
     sys.path.insert(0, os.path.join(HERE, "src"))
     import torch
     from repro_torch.kernels import _build
+    from repro_torch.kernels import tuning
     dev = torch.device(device)
     if dev.type == "cuda":
         _build.build_all()          # loads the parent's build
         dev = torch.device("cuda", torch.cuda.current_device())
+    tuning.on_sweep, TUNING["path"] = on_sweep, "dist"
     res, launches = phase_dist(Sizes(dist_grid=grid, timing_iters=iters),
                                dev)
-    print("DIST_RESULT " + json.dumps({"record": res, "launches": launches}),
+    print("DIST_RESULT " + json.dumps({"record": res, "launches": launches,
+                                       "tuning": TUNING["records"]}),
           flush=True)
     return 0
 
 
 def dist_in_child(sz: Sizes, dev):
-    """(record, launches) of the ``dist`` phase, run by :func:`dist_child`
-    in a process of its own; fails if the child does."""
+    """(record, launches, tuning records) of the ``dist`` phase, run by
+    :func:`dist_child` in a process of its own; fails if the child
+    does."""
     proc = subprocess.run(
         [sys.executable, os.path.abspath(__file__), "--dist", dev.type,
          str(sz.dist_grid), str(sz.timing_iters)], capture_output=True,
@@ -3408,7 +3531,7 @@ def dist_in_child(sz: Sizes, dev):
           f"the dist phase's child exited {proc.returncode}: "
           f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
     out = json.loads(lines[0][len("DIST_RESULT "):])
-    return out["record"], out["launches"]
+    return out["record"], out["launches"], out["tuning"]
 
 
 def dist_times(sf, csr, plan, comms, cu, data, shards, group, dev,
@@ -3742,10 +3865,11 @@ def plain_kernels():
     from repro_torch.kernels import ops as kops, sf_pack, sf_unpack
     real = kops.pack_rows, kops.segment_reduce_rows
 
-    def pack_rows(data, idx, *, dynamic=False):
+    def pack_rows(data, idx, *, dynamic=False, key=None):
         return sf_pack.pack_plain(data, idx)
 
-    def segment_reduce_rows(sv, first, length, *, op="sum"):
+    def segment_reduce_rows(sv, first, length, *, op="sum", key=None,
+                            dynamic=False):
         return sf_unpack.segment_reduce_plain(sv, first, length, op)
     kops.pack_rows, kops.segment_reduce_rows = pack_rows, segment_reduce_rows
     try:
@@ -3761,9 +3885,9 @@ def recorded_gathers(log: list):
     from repro_torch.kernels import ops as kops
     real = kops.pack_rows
 
-    def pack_rows(data, idx, *, dynamic=False):
+    def pack_rows(data, idx, *, dynamic=False, key=None):
         log.append((data, idx))
-        return real(data, idx, dynamic=dynamic)
+        return real(data, idx, dynamic=dynamic, key=key)
     kops.pack_rows = pack_rows
     try:
         yield
@@ -4303,6 +4427,706 @@ def phase_moe(sz: Sizes, dev) -> dict:
     return out
 
 
+# --------------------------------------------------------------- families
+# the families phase's sizes for a rehearsal on the CPU (smoke configs)
+FAMILIES_SMOKE = dict(
+    hymba_batch=4, hymba_s_max=64, hymba_requests=4, hymba_prompt=(4, 40),
+    hymba_new=(2, 6), hymba_check_prompt=24, hymba_short_scan=10,
+    hymba_stream_prompt=24,
+    whisper_batch=2, whisper_frames=24, whisper_s_max=32, whisper_steps=4,
+    xlstm_batch=2, xlstm_prefill=16, xlstm_steps=3, xlstm_check=20,
+    llava_layers=2, llava_tokens=16, timing_iters=2)
+
+
+def family_config(arch: str, sz: Sizes):
+    """``arch``'s published config (its smoke config with
+    ``families_smoke``, for rehearsals on the CPU)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return cfg.smoke_config() if sz.families_smoke else cfg
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def family_flash(dev, what: str, B: int, Sq: int, Skv: int, H: int,
+                 Hkv: int, D: int, causal: bool, window, it: int) -> dict:
+    """Row 8 at a family's shape, bf16: the kernel against its plain
+    version within FLASH_TOL, device ms (CUDA-graph replays between CUDA
+    events: torch.profiler drops events in this process's late windows)
+    beside the bound and SDPA on the same inputs (with the boolean mask
+    where one is needed)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=dev).manual_seed(7 * Sq + Skv)
+    q = torch.randn(B, Sq, H, D, generator=g, device=dev).bfloat16()
+    k = torch.randn(B, Skv, Hkv, D, generator=g, device=dev).bfloat16()
+    v = torch.randn(B, Skv, Hkv, D, generator=g, device=dev).bfloat16()
+    run = lambda: fa.flash_attention(q, k, v, causal=causal, window=window)
+    plain = lambda: fa.flash_attention_plain(q, k, v, causal=causal,
+                                             window=window)
+    err = flash_check(run(), plain(), f"flash at {what}")
+    mask = None
+    if causal or window is not None:
+        qpos = torch.arange(Sq, device=dev)[:, None] + (Skv - Sq)
+        kpos = torch.arange(Skv, device=dev)[None, :]
+        mask = torch.ones(Sq, Skv, dtype=torch.bool, device=dev)
+        if causal:
+            mask &= kpos <= qpos
+        if window is not None:
+            mask &= kpos > qpos - window
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    library = lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    nops = 4.0 * visible_pairs(Sq, Skv, causal, window) * H * D * B
+    bms, by = bound(nbytes, nops, BF16_OPS_PER_S)
+    rec = {"what": what, "B": B, "Sq": Sq, "Skv": Skv, "H": H, "Hkv": Hkv,
+           "D": D, "causal": causal, "window": window,
+           "route": fa.route(q.dtype, D), "max_abs_err": err,
+           "ms": graph_ms(run, dev, it), "plain_ms": graph_ms(plain, dev, it),
+           "library_ms": graph_ms(library, dev, it),
+           "bound_ms": bms, "bound_by": by}
+    rec["share_of_bound"] = bms / rec["ms"]
+    return rec
+
+
+@contextlib.contextmanager
+def checked_attention_core(log: list):
+    """Within the block, every prefill attention core call (the flash
+    kernel) is held against its plain version within FLASH_TOL; ``log``
+    gets each call's shape and max|d|."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops as kops
+    real = kops.flash_attention
+
+    def core(q, k, v, **kw):
+        out = real(q, k, v, **kw)
+        what = f"{tuple(q.shape)} over {tuple(k.shape)} {kw}"
+        log.append({"q": list(q.shape), "k": list(k.shape),
+                    "causal": kw.get("causal", True),
+                    "max_abs_err": flash_check(
+                        out, fa.flash_attention_plain(q, k, v, **kw), what)})
+        return out
+    kops.flash_attention = core
+    try:
+        yield
+    finally:
+        kops.flash_attention = real
+
+
+def prefill_vs_decode(T, params, cfg, inputs: dict, s_max: int) -> dict:
+    """prefill(prompt)'s last logits against prefill(prompt[:-1]) +
+    decode_step(prompt[-1]), ||d|| / ||y|| within PREFILL_DECODE_REL_TOL
+    (``inputs``: tokens, and enc_embeds where the model has an encoder)."""
+    import torch
+    toks = inputs["tokens"]
+    full, _ = T.prefill(params, cfg, s_max=s_max, **inputs)
+    _, cache = T.prefill(params, cfg, s_max=s_max,
+                         **{**inputs, "tokens": toks[:, :-1]})
+    step, _ = T.decode_step(params, cfg, toks[:, -1], cache)
+    a, b = full.float(), step.float()
+    check(bool(torch.isfinite(a).all() and torch.isfinite(b).all()),
+          f"{cfg.name}: prefill / decode logits are not finite")
+    rel = float((a - b).norm() / b.norm())
+    check(rel <= PREFILL_DECODE_REL_TOL, f"{cfg.name} prefill vs decode "
+          f"logits: ||d||/||y|| {rel} > {PREFILL_DECODE_REL_TOL}")
+    return {"prompt": int(toks.shape[1]), "rel_l2": rel,
+            "tol": PREFILL_DECODE_REL_TOL, "max_abs": max_abs(a, b),
+            "same_argmax": bool((a.argmax(-1) == b.argmax(-1)).all())}
+
+
+def counted(run, acc: dict):
+    """``run()`` with the launch counters from 0; its counts are added to
+    ``acc``.  Returns (result, seconds)."""
+    from repro_torch.kernels import ops as kops
+    sync_all()
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run()
+    sync_all()
+    secs = time.perf_counter() - t0
+    for k, v in kops.launch_counts().items():
+        acc[k] = acc.get(k, 0) + v
+    return res, secs
+
+
+def sync_all() -> None:
+    import torch
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+def profiled_groups(fn, dev) -> dict:
+    """A profiled window of ``fn()``: wall and device ms, idle share and
+    device ms by kernel group (taken again while the profiler returns no
+    device event)."""
+    for wait in (0.0,) + RETAKE_WAITS_S:
+        time.sleep(wait)
+        by_name, wall_ms = profiled(fn, dev)
+        if by_name or dev.type != "cuda":
+            break
+        PROFILER_WINDOWS["retaken"] += 1
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_ms": wall_ms, "device_ms": busy,
+            "device_idle_share": 1.0 - busy / wall_ms if busy else None,
+            "by_group_ms": grouped_kernels(by_name),
+            "top_kernels_ms": {k[:60]: v for k, v in top}}
+
+
+def families_hymba(sz: Sizes, dev, rng, acc: dict) -> dict:
+    """hymba-1.5b at its published width and depth in bf16, served: the
+    checks, then ``hymba_requests`` requests through ``ServeEngine`` +
+    ``loadgen.drive`` (counted), profiled windows, row 8 at its shapes."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import (LoadSpec, Request, ServeEngine, drive,
+                                     synthesize, trace_fingerprint)
+    cfg = family_config("hymba-1.5b", sz)
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = T.init_params(cfg, generator=g, device=dev)
+    sync(dev)
+    out = {"arch": cfg.name, "dtype": cfg.dtype, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+           "window": cfg.attn_window,
+           "global_layers": [int(i) for i in np.flatnonzero(
+               T.hymba_windows(cfg, sz.hymba_s_max) == sz.hymba_s_max)],
+           "param_bytes": tree_bytes(params),
+           "init_s": time.perf_counter() - t0}
+    stages = out["stage_s"] = {}
+    t1 = time.perf_counter()
+    n = sz.hymba_check_prompt
+    out["prefill_vs_decode"] = prefill_vs_decode(
+        T, params, cfg, {"tokens": torch.as_tensor(
+            rng.integers(0, cfg.vocab, (1, n)), device=dev)}, n)
+    stages["prefill_vs_decode"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    # one request through the engine at batch 1 equals direct greedy
+    # decoding: float32, two layers of the full width (layer 0 global,
+    # layer 1 sliding), a prompt past the window
+    cfg32 = cfg.scaled(dtype="float32", n_layers=2)
+    p32 = T.init_params(cfg32, generator=torch.Generator(
+        device=dev).manual_seed(1), device=dev)
+    toks = rng.integers(0, cfg.vocab, sz.hymba_stream_prompt).tolist()
+    s32 = sz.hymba_stream_prompt + 16
+    req = Request(0, toks, max_new=8)
+    ServeEngine(cfg32, p32, batch=1, s_max=s32, device=dev).run([req])
+    lg, cache = T.prefill(p32, cfg32, tokens=[toks], s_max=s32)
+    want = [int(lg.argmax(-1)[0])]
+    for _ in range(7):
+        lg, cache = T.decode_step(p32, cfg32, [want[-1]], cache)
+        want.append(int(lg.argmax(-1)[0]))
+    check(req.out == want, f"hymba engine stream {req.out} != direct "
+          f"greedy {want}")
+    out["engine_equals_direct_greedy"] = {
+        "layers": 2, "dtype": "float32", "prompt": len(toks),
+        "tokens": len(want)}
+    del p32, cache
+    gc.collect()
+    stages["engine_stream"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out["ssm_scan"] = ssm_scan_record(params, cfg, sz, dev, rng)
+    stages["ssm_scan"] = time.perf_counter() - t1
+
+    trace = synthesize(LoadSpec(rate_rps=1000.0,
+                                n_requests=sz.hymba_requests,
+                                prompt_len=sz.hymba_prompt,
+                                max_new=sz.hymba_new, vocab=cfg.vocab,
+                                seed=0))
+    eng = ServeEngine(cfg, params, batch=sz.hymba_batch,
+                      s_max=sz.hymba_s_max, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    gc.collect()
+    drive_counts = {}
+    metrics, wall = counted(lambda: drive(eng, trace), drive_counts)
+    for k, v in drive_counts.items():
+        acc[k] = acc.get(k, 0) + v
+    reqs = [r for _, r in trace]
+    check(all(r.done and len(r.out) == r.max_new for r in reqs),
+          "a hymba request did not finish with its budget of tokens")
+    sm90 = fa.flash_attention.launches_sm90
+    check(drive_counts["flash_attention"] == cfg.n_layers * len(reqs)
+          or dev.type != "cuda", f"hymba flash launches "
+          f"{drive_counts['flash_attention']} != {cfg.n_layers} x "
+          f"{len(reqs)} prefills")
+    check(sm90 == drive_counts["flash_attention"], f"only {sm90} of "
+          f"{drive_counts['flash_attention']} hymba flash launches took "
+          f"the wgmma route")
+    longest = max(r.prompt_len for r in reqs)
+    out.update({"trace_fingerprint": trace_fingerprint(trace),
+                "requests": len(reqs), "longest_prompt": longest,
+                "prompt_tokens": sum(r.prompt_len for r in reqs),
+                "prompts_past_window": sum(r.prompt_len > (cfg.attn_window
+                                                           or 0)
+                                           for r in reqs),
+                "drive_wall_s": wall, "metrics": metrics,
+                "launches": drive_counts,
+                "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9
+                if dev.type == "cuda" else None,
+                "ssm_graphs_after_drive": ssm_graphs()})
+    # where the time goes: the longest prompt's prefill alone, and five
+    # decode steps of all slots
+    for i in range(sz.hymba_batch):
+        eng.submit(Request(300 + i, rng.integers(
+            0, cfg.vocab, sum(sz.hymba_prompt) // 2).tolist(), max_new=64))
+    eng.step()
+    big = torch.as_tensor(rng.integers(0, cfg.vocab, (1, longest)),
+                          device=dev)
+    t1 = time.perf_counter()
+    out[f"profiled_prefill_{longest}"] = profiled_groups(
+        lambda: T.prefill(params, cfg, tokens=big, s_max=sz.hymba_s_max), dev)
+    out["profiled_5_decode_steps"] = profiled_groups(
+        lambda: [eng.step() for _ in range(5)], dev)
+    stages["profiled_windows"] = time.perf_counter() - t1
+    del eng, params
+    gc.collect()
+    t1 = time.perf_counter()
+    out["flash"] = [
+        family_flash(dev, f"hymba sliding layer, prefill {longest}", 1,
+                     longest, longest, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                     True, cfg.attn_window, sz.timing_iters),
+        family_flash(dev, f"hymba global layer, prefill {longest}", 1,
+                     longest, longest, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                     True, None, sz.timing_iters)]
+    stages["flash"] = time.perf_counter() - t1
+    return out
+
+
+def ssm_scan_record(params, cfg, sz: Sizes, dev, rng) -> dict:
+    """hymba layer 0's SSM scan over ``hymba_check_prompt`` tokens and over
+    ``hymba_short_scan`` (less than a chunk): chunks replayed as one
+    captured CUDA graph each (``models/ssm.py``, the path; the last chunk
+    padded) against the same steps launched one by one, bitwise, with the
+    call ms of each (host and device: the graph is there to cut the
+    host's launches)."""
+    import torch
+    from repro_torch.models import ssm as S
+    from repro_torch.models import transformer as T
+    bp = T.layer(params["blocks"], 0)
+    out = {}
+    for n in (sz.hymba_check_prompt, sz.hymba_short_scan):
+        x = (torch.randn(1, n, cfg.d_model,
+                         generator=torch.Generator(device=dev).manual_seed(3),
+                         device=dev) * 0.5).to(torch.bfloat16)
+        graph = lambda: S.ssm_scan(x, bp, cfg)  # noqa: E731
+        real = S._chunk_graph
+        S._chunk_graph = lambda *a: None     # the steps launched one by one
+        try:
+            eager = lambda: S.ssm_scan(x, bp, cfg)  # noqa: E731
+            y_e, h_e = eager()
+            eager_ms = call_ms(eager, dev, 2)
+        finally:
+            S._chunk_graph = real
+        y_g, h_g = graph()
+        check(same_raw_bits(y_g, y_e) and same_raw_bits(h_g, h_e),
+              f"ssm_scan over {n} tokens: the graph chunks != the steps "
+              f"launched one by one")
+        out[f"tokens_{n}"] = {"bitwise_graph_vs_steps": True,
+                              "graph_call_ms": call_ms(graph, dev, 2),
+                              "steps_call_ms": eager_ms}
+    return out
+
+
+def ssm_graphs() -> dict:
+    """The SSM chunk graphs this process holds, and their static buffers'
+    bytes."""
+    from repro_torch.models import ssm as S
+    return {"count": len(S._GRAPHS),
+            "bytes": sum(g.nbytes for g in S._GRAPHS.values())}
+
+
+def families_whisper(sz: Sizes, dev, rng, acc: dict) -> dict:
+    """whisper-base at full size in bf16: the encoder's and the cross-
+    attention's flash calls against the plain version, prefill against
+    decode, then prefill of a batch and ``whisper_steps`` greedy decode
+    steps (counted), row 8 at its shapes."""
+    import torch
+    from repro_torch.models import transformer as T
+    cfg = family_config("whisper-base", sz)
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = T.init_params(cfg, generator=g, device=dev)
+    B, F_, P = sz.whisper_batch, sz.whisper_frames, sz.whisper_prompt
+    enc = (torch.randn(B, F_, cfg.d_model, generator=g, device=dev)
+           * 0.02).to(torch.bfloat16)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (B, P)), device=dev)
+    out = {"arch": cfg.name, "dtype": cfg.dtype,
+           "layers": [cfg.enc_layers, cfg.n_layers], "d_model": cfg.d_model,
+           "batch": B, "frames": F_, "prompt": P,
+           "s_max": sz.whisper_s_max, "param_bytes": tree_bytes(params)}
+    log = []
+    with checked_attention_core(log):
+        T.prefill(params, cfg, tokens=toks, enc_embeds=enc,
+                  s_max=sz.whisper_s_max)
+    check(len(log) == cfg.enc_layers + 2 * cfg.n_layers,
+          f"{len(log)} attention core calls in whisper's prefill")
+    out["prefill_flash_checked"] = {
+        "calls": len(log), "max_abs_err": max(r["max_abs_err"] for r in log),
+        "encoder": log[0], "cross": log[-1]}
+    out["prefill_vs_decode"] = prefill_vs_decode(
+        T, params, cfg, {"tokens": toks, "enc_embeds": enc},
+        sz.whisper_s_max)
+
+    def serve():
+        lg, cache = T.prefill(params, cfg, tokens=toks, enc_embeds=enc,
+                              s_max=sz.whisper_s_max)
+        tok = lg.argmax(-1)
+        for _ in range(sz.whisper_steps):
+            lg, cache = T.decode_step(params, cfg, tok, cache)
+            tok = lg.argmax(-1)
+        check(bool(torch.isfinite(lg).all()), "whisper logits not finite")
+    counts = {}
+    _, secs = counted(serve, counts)
+    for k, v in counts.items():
+        acc[k] = acc.get(k, 0) + v
+    calls = cfg.enc_layers + 2 * cfg.n_layers \
+        + cfg.n_layers * sz.whisper_steps
+    check(counts["flash_attention"] == calls or dev.type != "cuda",
+          f"whisper flash launches {counts['flash_attention']} != {calls}")
+    out["launches"] = counts
+    out["prefill_and_decode_s"] = secs
+    out["prefill_call_ms"] = call_ms(lambda: T.prefill(
+        params, cfg, tokens=toks, enc_embeds=enc, s_max=sz.whisper_s_max),
+        dev, 3)
+    lg, cache = T.prefill(params, cfg, tokens=toks, enc_embeds=enc,
+                          s_max=sz.whisper_s_max)
+    tok = lg.argmax(-1)
+    out["decode_step_call_ms"] = call_ms(
+        lambda: T.decode_step(params, cfg, tok, {**cache, "pos": P}), dev,
+        sz.timing_iters)
+    out["flash"] = [
+        family_flash(dev, "whisper encoder", B, F_, F_, cfg.n_heads,
+                     cfg.n_kv_heads, cfg.hd, False, None, sz.timing_iters),
+        family_flash(dev, "whisper cross-attention, prefill", B, P, F_,
+                     cfg.n_heads, cfg.n_kv_heads, cfg.hd, False, None,
+                     sz.timing_iters),
+        family_flash(dev, "whisper cross-attention, decode", B, 1, F_,
+                     cfg.n_heads, cfg.n_kv_heads, cfg.hd, False, None,
+                     sz.timing_iters)]
+    del params, cache
+    return out
+
+
+def families_xlstm(sz: Sizes, dev, rng, acc: dict) -> dict:
+    """xlstm-350m at full size in bf16: decode after a prefill of
+    ``xlstm_check`` tokens (not a multiple of 128) against forward of one
+    more, then prefill of a batch and ``xlstm_steps`` decode steps timed.
+    It runs no kernel, which the counts show."""
+    import torch
+    from repro_torch.models import transformer as T
+    cfg = family_config("xlstm-350m", sz)
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = T.init_params(cfg, generator=g, device=dev)
+    n = sz.xlstm_check
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (1, n + 1)),
+                           device=dev)
+    full, _ = T.forward(params, cfg, tokens=toks)
+    _, cache = T.prefill(params, cfg, tokens=toks[:, :-1])
+    step, _ = T.decode_step(params, cfg, toks[:, -1], cache)
+    a, b = full[:, -1].float(), step.float()
+    rel = float((a - b).norm() / a.norm())
+    check(rel <= PREFILL_DECODE_REL_TOL, f"xlstm decode after {n} tokens "
+          f"vs forward of {n + 1}: ||d||/||y|| {rel}")
+    out = {"arch": cfg.name, "dtype": cfg.dtype, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "param_bytes": tree_bytes(params),
+           "decode_vs_forward": {"prefill": n, "rel_l2": rel,
+                                 "tol": PREFILL_DECODE_REL_TOL,
+                                 "max_abs": max_abs(a, b)}}
+    B, S = sz.xlstm_batch, sz.xlstm_prefill
+    batch = torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)), device=dev)
+    counts = {}
+
+    def serve():
+        lg, cache = T.prefill(params, cfg, tokens=batch)
+        tok = lg.argmax(-1)
+        for _ in range(sz.xlstm_steps):
+            lg, cache = T.decode_step(params, cfg, tok, cache)
+            tok = lg.argmax(-1)
+    _, secs = counted(serve, counts)
+    check(not any(counts.values()), f"xlstm launched {counts}")
+    out.update({"batch": B, "prefill_tokens": S, "decode_steps":
+                sz.xlstm_steps, "prefill_and_decode_s": secs})
+    sync(dev)
+    t0 = time.perf_counter()
+    lg, cache = T.prefill(params, cfg, tokens=batch)
+    sync(dev)
+    out["prefill_s"] = time.perf_counter() - t0
+    tok = lg.argmax(-1)
+    out["decode_step_call_ms"] = call_ms(
+        lambda: T.decode_step(params, cfg, tok, cache), dev, 5)
+    del params, cache
+    return out
+
+
+def families_llava(sz: Sizes, dev, rng, acc: dict) -> dict:
+    """llava-next-34b at full width, ``llava_layers`` of its 60 layers in
+    bf16: prefill from ``embeds = embed[tokens]`` equals prefill from
+    ``tokens`` bit for bit; then a prefill from ``llava_tokens`` visual
+    embeddings (counted), timed."""
+    import torch
+    from repro_torch.models import transformer as T
+    base = family_config("llava-next-34b", sz)
+    cfg = base.scaled(n_layers=min(sz.llava_layers, base.n_layers))
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = T.init_params(cfg, generator=g, device=dev)
+    sync(dev)
+    out = {"arch": cfg.name, "dtype": cfg.dtype, "layers": cfg.n_layers,
+           "of_layers": base.n_layers, "d_model": cfg.d_model,
+           "param_bytes": tree_bytes(params),
+           "init_s": time.perf_counter() - t0}
+    S = sz.llava_tokens
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (1, S)), device=dev)
+    a, ca = T.prefill(params, cfg, tokens=toks)
+    b, cb = T.prefill(params, cfg, embeds=params["embed"][toks])
+    check(same_raw_bits(a, b) and same_raw_bits(ca["k"], cb["k"]),
+          "llava prefill from embed[tokens] != prefill from tokens")
+    del ca, cb
+    out["embeds_equal_tokens"] = {"tokens": S, "bitwise": True}
+    vis = (torch.randn(1, S, cfg.d_model, generator=g, device=dev)
+           * 0.02).to(torch.bfloat16)
+    counts = {}
+    (lg, _), secs = counted(lambda: T.prefill(params, cfg, embeds=vis),
+                            counts)
+    for k, v in counts.items():
+        acc[k] = acc.get(k, 0) + v
+    check(bool(torch.isfinite(lg).all()), "llava logits not finite")
+    check(counts["flash_attention"] == cfg.n_layers or dev.type != "cuda",
+          f"llava flash launches {counts['flash_attention']}")
+    out.update({"visual_tokens": S, "launches": counts, "prefill_s": secs,
+                "prefill_call_ms": call_ms(
+                    lambda: T.prefill(params, cfg, embeds=vis), dev, 2),
+                "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9
+                if dev.type == "cuda" else None})
+    del params, lg
+    return out
+
+
+def phase_families(sz: Sizes, dev):
+    """hymba-1.5b served, whisper-base, xlstm-350m and llava-next-34b's
+    ``embeds`` path, each freed before the next.  Returns (record,
+    launches): the counted drives' launches summed, the families path."""
+    import torch
+    rng = np.random.default_rng(9)
+    t0 = time.perf_counter()
+    out, acc = {"phase": "families"}, {}
+    for name, part in (("hymba", families_hymba),
+                       ("whisper", families_whisper),
+                       ("xlstm", families_xlstm), ("llava", families_llava)):
+        t1 = time.perf_counter()
+        out[name] = part(sz, dev, rng, acc)
+        out[name]["seconds"] = time.perf_counter() - t1
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    from repro_torch.kernels import ops as kops
+    launches = {k: acc.get(k, 0) for k in kops.kernel_wrappers()}
+    out["launches"] = launches
+    return out, launches
+
+
+def families_child(device: str, smoke: bool) -> int:
+    """``chip_smoke.py --families DEVICE [smoke]``: :func:`phase_families`
+    in this process (the kernels built already), its record and launches
+    printed as one ``FAMILIES_RESULT`` JSON line."""
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    import torch
+    from repro_torch.kernels import _build
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        _build.build_all()          # loads the parent's build
+        dev = torch.device("cuda", torch.cuda.current_device())
+    sz = Sizes(families_smoke=True, **FAMILIES_SMOKE) if smoke else Sizes()
+    res, launches = phase_families(sz, dev)
+    print("FAMILIES_RESULT " + json.dumps({"record": res,
+                                           "launches": launches}),
+          flush=True)
+    return 0
+
+
+def families_in_child(sz: Sizes, dev):
+    """(record, launches) of the ``families`` phase, run by
+    :func:`families_child` in a process of its own (its models, CUDA graphs
+    and profiler windows leave this process as they found it); fails if
+    the child does."""
+    cmd = [sys.executable, os.path.abspath(__file__), "--families",
+           dev.type] + (["smoke"] if sz.families_smoke else [])
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("FAMILIES_RESULT ")]
+    check(proc.returncode == 0 and len(lines) == 1,
+          f"the families phase's child exited {proc.returncode}: "
+          f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+    out = json.loads(lines[0][len("FAMILIES_RESULT "):])
+    return out["record"], out["launches"]
+
+
+# ----------------------------------------------------------------- tuning
+# a tuned kind's candidate (the name up to its ':') -> the kernel it runs
+TUNED_KERNELS = {("pack", "row"): "pack", ("pack", "block"): "pack_blocked",
+                 ("segred", "row"): "segment_reduce_sorted",
+                 ("segred", "block"): "segment_reduce_blocked",
+                 ("localbcast", "fused"): "bcast_fused",
+                 ("localbcast", "generic"): "bcast_fused"}
+TUNED_NAMES = set(TUNED_KERNELS.values())
+# every sweep of this process, tagged with the path that made it
+TUNING = {"path": "setup", "records": []}
+
+
+@contextlib.contextmanager
+def fixed_rule():
+    """Within the block the tuned entry points take the fixed rule
+    (``REPRO_SF_AUTOTUNE=0``) on every signature: the winners are set
+    aside and put back after it."""
+    from repro_torch.kernels import ops as kops, tuning
+    saved = dict(tuning._WINNERS), dict(kops._DISPATCH)
+    mode = os.environ.get("REPRO_SF_AUTOTUNE")
+    os.environ["REPRO_SF_AUTOTUNE"] = "0"
+    tuning._WINNERS.clear()
+    kops._DISPATCH.clear()
+    try:
+        yield
+    finally:
+        if mode is None:
+            os.environ.pop("REPRO_SF_AUTOTUNE")
+        else:
+            os.environ["REPRO_SF_AUTOTUNE"] = mode
+        for live, kept in zip((tuning._WINNERS, kops._DISPATCH), saved):
+            live.clear()
+            live.update(kept)
+
+
+def winner_kernel(kind: str, name: str) -> str:
+    return TUNED_KERNELS[(kind, name.split(":")[0])]
+
+
+def plan_kernels(key) -> set:
+    """The kernels the tuner's winners name for the signatures scoped by
+    the plan key ``key`` (a plan's ``comm_signature()``)."""
+    from repro_torch.kernels import tuning
+    return {winner_kernel(k[0], w) for k, w in tuning.winners().items()
+            if k[-1] == key}
+
+
+def tuning_shape(full_key) -> dict:
+    """A swept signature's shapes by name."""
+    kind = full_key[0]
+    if kind == "pack":
+        names = ("rows", "gathered", "unit", "dtype")
+    elif kind == "segred":
+        names = ("rows", "segments", "lmax", "unit", "dtype", "op")
+    else:
+        names = ("roots", "leaves", "root_dtype", "leaf_dtype")
+    out = dict(zip(names, full_key[1:]))
+    for k in ("unit", "roots", "leaves"):
+        if k in out:
+            out[k] = list(out[k])
+    plan = full_key[-1]
+    out["plan"] = None if plan is None else str(plan[0])
+    return out
+
+
+def on_sweep(full_key, candidates, args, times, default, winner) -> None:
+    """``tuning.on_sweep``: every candidate of the swept signature bitwise
+    against the plain version on the call's own inputs (NaN payloads
+    included), then one record in ``TUNING``.  The tuner puts the launch
+    counters back after the sweep, so these launches count on no path.
+    (The plain fold takes a few launches a row of the longest segment;
+    the paths' swept segments have at most a few dozen rows.)"""
+    from repro_torch.kernels import _index, sf_pack, sf_unpack
+    kind = full_key[0]
+    if kind == "pack":
+        data, idx = args
+        want = sf_pack.pack_plain(
+            data, _index.device_index(idx, data.device, "idx")[0])
+    elif kind == "segred":
+        vals, first, length = args
+        st, ln, _, lmax = _index.segment_meta(first, length, vals.device)
+        want = sf_unpack.segment_reduce_plain(vals, st, ln, full_key[6],
+                                              lmax)
+    else:
+        root, leaf, src = args
+        want = sf_pack.bcast_fused_plain(
+            root, leaf, _index.device_index(src, leaf.device,
+                                            "src_of_leaf")[0])
+    shape = tuning_shape(full_key)
+    for name, fn in candidates.items():
+        check(same_raw_bits(fn(*args), want), f"tuning {kind} {shape}: "
+              f"candidate {name} != the plain version")
+    TUNING["records"].append({
+        "path": TUNING["path"], "kind": kind, **shape,
+        "candidates_ms": times, "default": default,
+        "default_ms": times[default], "winner": winner,
+        "winner_ms": times[winner],
+        "winner_speedup": times[default] / times[winner],
+        "winner_kernel": winner_kernel(kind, winner),
+        "checked_against": "plain", "candidates_checked": len(candidates)})
+
+
+def tuning_warm(objs, dev) -> None:
+    """The sf_ops and spmv_cg paths' SF calls once each, on the setup
+    objects through the user entry points, so that their signatures sweep
+    here (the paths' own calls then take the winners)."""
+    import torch
+    from repro_torch.core import SFComm
+    from repro_torch.kernels import ops as kops
+    g = torch.Generator(device=dev).manual_seed(12)
+
+    def rand(rows, unit=()):
+        return torch.randn((rows,) + unit, generator=g, device=dev)
+    TUNING["path"] = "sf_ops"
+    sf = objs["gen"]
+    cu = SFComm(sf, backend="cuda", device=dev, plan=objs["gen_plan"])
+    for unit in [(), (3,)]:
+        root, leaf = rand(sf.nroots_total, unit), rand(sf.nleafspace_total,
+                                                       unit)
+        cu.bcast(root, leaf, "sum")
+        for op in ("sum", "max", "replace"):
+            cu.reduce(leaf, root, op)
+        cu.scatter(cu.gather(leaf), leaf)
+    cu.fetch_and_op(rand(sf.nroots_total).to(torch.int32),
+                    rand(sf.nleafspace_total).to(torch.int32))
+    for name, unit in (("local", (3,)), ("box", ()), ("box", (3,)),
+                       ("wide", (kops.WIDE_ROW,))):
+        sfo = objs[name]
+        comm = SFComm(sfo, backend="cuda", device=dev)
+        root = rand(sfo.nroots_total, unit)
+        leaf = rand(sfo.nleafspace_total, unit)
+        comm.bcast(root, leaf)
+        if name == "local":
+            comm.bcast(root, leaf.to(torch.bfloat16))
+        else:
+            comm.reduce(leaf, root, "sum")
+    TUNING["path"] = "spmv_cg"
+    A = objs["A"]
+    x = rand(objs["coo"][0])
+    A.spmv(x, use_kernel=True)
+    A.spmv_transpose(x)
+    sync(dev)
+
+
+def tuning_record(dist_tuning: list) -> dict:
+    """The ``tuning`` line: every sweep of the SF paths (this process's and
+    the dist child's), each candidate's best-round device ms, the
+    default's, the winner and its speed-up over the default."""
+    from repro_torch.kernels import tuning
+    recs = dist_tuning + TUNING["records"]
+    return {"phase": "tuning", "sweeps": len(recs),
+            "winners_not_default": sum(r["winner"] != r["default"]
+                                       for r in recs),
+            "by_path": {p: sum(r["path"] == p for r in recs)
+                        for p in dict.fromkeys(r["path"] for r in recs)},
+            "stats": tuning.stats(), "records": recs}
+
+
 # ------------------------------------------------------------------- main
 def run(dev, sz: Sizes) -> list:
     """All phases on ``dev``; returns the kernel records."""
@@ -4313,14 +5137,24 @@ def run(dev, sz: Sizes) -> list:
     # process; phase_dist zeroes the counters before its drive): run late
     # in this process, after the other paths' windows, its torch.profiler
     # windows came back without all their device events
-    dist_res, dist_launches = dist_in_child(sz, dev)
+    dist_res, dist_launches, dist_tuning = dist_in_child(sz, dev)
     emit(dist_res)
 
     rng = np.random.default_rng(0)
     objs = phase_setup(sz, dev, rng)
     emit(objs["setup"])
 
+    # the tuner: every sweep from here on is checked and recorded
+    # (on_sweep), the sf_ops and spmv_cg signatures sweep now; the line
+    # comes after the SF paths, with their sweeps and the dist child's
+    from repro_torch.kernels import tuning
+    tuning.on_sweep = on_sweep
     t0 = time.perf_counter()
+    tuning_warm(objs, dev)
+    tuning_warm_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    TUNING["path"] = "kernels"
     recs, wide_ms = kernel_records(objs, sz, dev)
     cases = kernel_sweep(dev)
     cfg = serve_config(sz)
@@ -4358,10 +5192,14 @@ def run(dev, sz: Sizes) -> list:
 
     # the SF path: counters from 0, driven through the user entry points
     kops.reset_launch_counts()
-    emit(phase_sf_ops(objs, dev))
+    TUNING["path"] = "sf_ops"
+    sf_ops = phase_sf_ops(objs, dev)
+    emit(sf_ops)
+    TUNING["path"] = "spmv_cg"
     emit(phase_spmv_cg(objs, sz, dev))
-    by_path = {"sf": kops.launch_counts()}
-    missing = [k for k in SF_PATH if by_path["sf"][k] == 0]
+    by_path = {"sf": kops.launch_counts(),
+               "fixed_rule": sf_ops.pop("fixed_rule_launches")}
+    missing = missing_kernels(SF_PATH, by_path["sf"])
     check(not missing or not on_card, f"SF path never launched {missing}")
     del objs
     gc.collect()
@@ -4370,9 +5208,10 @@ def run(dev, sz: Sizes) -> list:
 
     # the structured-grid path: counters from 0 again
     kops.reset_launch_counts()
+    TUNING["path"] = "dmda"
     emit(phase_dmda(sz, dev))
     by_path["dmda"] = kops.launch_counts()
-    missing = [k for k in DMDA_PATH if by_path["dmda"][k] == 0]
+    missing = missing_kernels(DMDA_PATH, by_path["dmda"])
     check(not missing or not on_card, f"DMDA path never launched {missing}")
     gc.collect()
     if on_card:
@@ -4384,13 +5223,14 @@ def run(dev, sz: Sizes) -> list:
                                 ("assembly", phase_assembly, ASSEMBLY_PATH),
                                 ("plex", phase_plex, PLEX_PATH)):
         kops.reset_launch_counts()
+        TUNING["path"] = name
         res = phase(sz, dev)
         emit(res)
         by_path[name] = kops.launch_counts()
         if name == "assembly":
             recs["segment_reduce_blocked"]["fetch_fold_shape"] = \
                 res["fetch_fold"]
-        missing = [k for k in needed if by_path[name][k] == 0]
+        missing = missing_kernels(needed, by_path[name])
         check(not missing or not on_card,
               f"the {name} path never launched {missing}")
         gc.collect()
@@ -4398,12 +5238,14 @@ def run(dev, sz: Sizes) -> list:
             torch.cuda.empty_cache()
 
     by_path["dist"] = dist_launches
+    emit({**tuning_record(dist_tuning), "warm_s": tuning_warm_s})
 
     # the serving path: phase_serve zeroes the counters before its drive
+    TUNING["path"] = "serve"
     serve = phase_serve(sz, dev)
     emit(serve)
     by_path["serve"] = serve["launches"]
-    missing = [k for k in SERVE_PATH if by_path["serve"][k] == 0]
+    missing = missing_kernels(SERVE_PATH, by_path["serve"])
     check(not missing or not on_card, f"serving never launched {missing}")
     del serve
     gc.collect()
@@ -4412,10 +5254,11 @@ def run(dev, sz: Sizes) -> list:
 
     # the MoE path: qwen3-4b is freed; moe_serve zeroes the counters
     # before its drive
+    TUNING["path"] = "moe"
     moe = phase_moe(sz, dev)
     emit(moe)
     by_path["moe"] = moe["launches"]
-    missing = [k for k in MOE_PATH if by_path["moe"][k] == 0]
+    missing = missing_kernels(MOE_PATH, by_path["moe"])
     check(not missing or not on_card, f"MoE serving never launched "
           f"{missing}")
     for part in ("layer", "wide_layer", "serve"):
@@ -4425,6 +5268,17 @@ def run(dev, sz: Sizes) -> list:
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
+
+    # the families path (hymba served, whisper, xlstm, llava's embeds) in
+    # a child process: its counted drives' launches are the path's
+    fam, by_path["families"] = families_in_child(sz, dev)
+    emit(fam)
+    missing = missing_kernels(FAMILIES_PATH, by_path["families"])
+    check(not missing or not on_card, f"the families path never launched "
+          f"{missing}")
+    recs["flash_attention"]["family_shapes"] = \
+        fam["hymba"]["flash"] + fam["whisper"]["flash"]
+    del fam
 
     # the long segment reduce's sweep comes after the last profiled window:
     # its plain folds launch ~4 M small kernels, and after them torch.profiler
@@ -4436,6 +5290,7 @@ def run(dev, sz: Sizes) -> list:
     for name, rec in recs.items():
         rec["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())
+        check(rec["launches"] or not on_card, f"{name} launched on no path")
     return [recs[k] for k in REPLACES]
 
 
@@ -4444,6 +5299,8 @@ def main() -> int:
         return out_of_range_child(sys.argv[2], sys.argv[3])
     if sys.argv[1:2] == ["--dist"]:
         return dist_child(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]))
+    if sys.argv[1:2] == ["--families"]:
+        return families_child(sys.argv[2], sys.argv[3:4] == ["smoke"])
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "

@@ -92,11 +92,16 @@ def params_from_arrays(cfg: ModelConfig, tree: Dict, *,
                        device=None) -> Dict:
     """The port's params from the reference's param pytree given as nested
     dicts of numpy arrays (``{"embed", "final_norm", "lm_head"?,
-    "blocks": {...}}``), name for name and in the same dtype.  The names,
-    shapes and dtypes must be the ones ``models.transformer.init_params``
-    makes for ``cfg``: for a MoE config the blocks carry ``router`` (L, D,
-    E) in float32, ``w_in`` / ``w_gate`` (L, E, D, F) and ``w_out`` (L, E,
-    F, D), and ``shared_*`` only when ``moe_shared_ff`` is set."""
+    "blocks": {...}}``, or ``"pairs"`` for xlstm, plus ``"enc_blocks"``,
+    ``"enc_norm"`` and ``"cross_blocks"`` for an encoder-decoder), name for
+    name and in the same dtype.  The names, shapes and dtypes must be the
+    ones ``models.transformer.init_params`` makes for ``cfg``: for a MoE
+    config the blocks carry ``router`` (L, D, E) in float32, ``w_in`` /
+    ``w_gate`` (L, E, D, F) and ``w_out`` (L, E, F, D), and ``shared_*``
+    only when ``moe_shared_ff`` is set; hymba's blocks add the SSM leaves
+    (``w_dt``, ``b_dt``, ``a_log`` in float32) and ``ln_attn_out`` /
+    ``ln_ssm_out``; xlstm's pairs carry their gate weights and biases in
+    float32."""
     require_supported(cfg)
     dev = resolve_device(device)
 

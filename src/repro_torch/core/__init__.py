@@ -40,8 +40,8 @@ from .distributed import DistPending, DistSF, pad_ragged, unpad_ragged
 from .redplan import ReductionPlan, build_reduction_plan
 from .backend import (CudaBackend, DistBackend, GlobalBackend, SFBackend,
                       SFComm,
-                      available_backends, make_backend, register_backend,
-                      select_backend)
+                      available_backends, estimate_message_bytes,
+                      make_backend, register_backend, select_backend)
 from .device import resolve_device
 from .dynplan import (BoundDynSF, DynPlan, PlanCache,
                       star_forest_from_assignment)
@@ -60,7 +60,8 @@ __all__ = [
     "ReductionPlan", "build_reduction_plan",
     "SFBackend", "SFComm", "GlobalBackend", "CudaBackend", "DistBackend",
     "available_backends", "make_backend", "register_backend",
-    "select_backend", "resolve_device", "PlanCache",
+    "select_backend", "estimate_message_bytes", "resolve_device",
+    "PlanCache",
     "DynPlan", "BoundDynSF", "star_forest_from_assignment",
     "patterns", "redplan", "sflog", "simulate",
 ]

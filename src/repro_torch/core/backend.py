@@ -55,7 +55,7 @@ from .mpiops import SUM, get_op
 from .ops import (PendingComm, SFOps, SortedUnpack, _apply_unique,
                   exclusive_segment_prefix, unsigned_payloads)
 from .plan import GlobalPlan, build_global_plan
-from .unit import check_plan_unit
+from .unit import check_plan_unit, resolve_unit
 from . import patterns as pat
 from . import sflog
 from ..kernels import ops as kops
@@ -63,7 +63,7 @@ from ..kernels import ops as kops
 __all__ = [
     "SFBackend", "SFComm",
     "register_backend", "available_backends", "make_backend",
-    "select_backend",
+    "select_backend", "estimate_message_bytes",
     "GlobalBackend", "CudaBackend", "DistBackend",
 ]
 
@@ -116,6 +116,16 @@ def make_backend(name: str, sf: StarForest, **kwargs) -> "SFBackend":
         raise ValueError(f"unknown SF backend {name!r}; registered: "
                          f"{available_backends()}") from None
     return factory(sf, **kwargs)
+
+
+def estimate_message_bytes(sf: StarForest, unit=None) -> float:
+    """Per-exchange payload bytes for ``sf``: edges × unit row bytes
+    (scalar float32 rows when the unit is unpinned), the reference's
+    lookup key into its measured priors table (``select_backend``'s
+    ``priors=``, which waits with the benchmark port)."""
+    u = resolve_unit(unit)
+    row_bytes = u.nbytes if u.nbytes else 4 * max(u.size, 1)
+    return float(sf.nedges_total) * row_bytes
 
 
 def select_backend(sf: StarForest, hint: Optional[str] = None, *,
@@ -201,7 +211,8 @@ class CudaBackend:
         self._gl = index_tensor(p.gl, d)
         self._multi_slot = index_tensor(p.multi_slot, d)
         self._seg_start_of_slot = index_tensor(red.seg_start_of_slot, d)
-        self._unpack = SortedUnpack(red, d)
+        self._key = p.comm_signature()    # scopes the autotuned winners
+        self._unpack = SortedUnpack(red, d, key=self._key)
         self._k_src_of_leaf = None
         if p.nedges and p.pattern is not None \
                 and p.pattern.kind == pat.LOCAL_ONLY:
@@ -222,7 +233,7 @@ class CudaBackend:
         enumeration is parametric); rows of any ``(*unit)`` shape pass
         through unreshaped."""
         if strided is None:
-            return kops.pack_rows(data, idx)
+            return kops.pack_rows(data, idx, key=self._key)
         return kops.pack_strided_rows(data, strided)
 
     # ------------------------------------------------------------- bcast
@@ -251,7 +262,8 @@ class CudaBackend:
                 # §5.2 local/remote split: self-communication takes the fused
                 # pack→unpack kernel — no intermediate packed leaf buffer
                 return kops.local_bcast_rows(rootdata, leafdata,
-                                             self._k_src_of_leaf)
+                                             self._k_src_of_leaf,
+                                             key=self._key)
         return self.bcast_end(self.bcast_begin(rootdata, opn), leafdata)
 
     # ------------------------------------------------------------- reduce

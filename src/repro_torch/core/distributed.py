@@ -192,6 +192,7 @@ class DistSF:
             self.plan = plan
         else:
             self.plan = build_padded_plan(sf, unit=unit)
+        self._key = self.plan.comm_signature()   # scopes the tuned winners
         kind = self.plan.pattern.kind
         if lowering == "auto":
             self.lowering = kind
@@ -257,7 +258,8 @@ class DistSF:
             seg_len=p.red_seg_len[me, :ns],
             win_src=p.replace_win_src[me, :ns],
             win_dst=p.replace_win_dst[me, :ns])
-        self._unpack = SortedUnpack(red, d, plain=not self.use_kernels)
+        self._unpack = SortedUnpack(red, d, plain=not self.use_kernels,
+                                    key=self._key)
         self._roots_s = si(np.arange(p.nroots[me]))
         if self.lowering == pat.ALLGATHER:
             self._ag_src = gi(self._allgather_src_map())
@@ -283,7 +285,7 @@ class DistSF:
         """``data[idx]`` rows: the pack kernels, or ``index_select`` when
         kernels are off."""
         if self.use_kernels:
-            return kops.pack_rows(data, idx)
+            return kops.pack_rows(data, idx, key=self._key)
         return data.index_select(0, idx)
 
     def _peer(self, r: int) -> int:

@@ -314,7 +314,8 @@ class DynPlan:
             # one leaf a root: the leaf itself, no fold from the identity
             seg = _gather(sv, torch.where(length > 0, first, 0))
         else:
-            seg = kops.segment_reduce_rows(sv, first, length, op=opn.name)
+            seg = kops.segment_reduce_rows(sv, first, length, op=opn.name,
+                                           dynamic=True)
         upd = _COMBINE[opn.at_update](rootdata, seg.to(rootdata.dtype))
         return torch.where(_rows(length > 0, upd), upd, rootdata)
 

@@ -107,11 +107,13 @@ class SortedUnpack:
     ``dst_sorted``, ``seg_dst``, ``seg_of_slot``, ``seg_first``,
     ``seg_len``).  ``plain=True`` folds through the kernels' plain version
     on any device (the distributed lowering's ``use_kernels=False``).
+    ``key`` (the plan's ``comm_signature()``) scopes the segment reduce's
+    autotuned winner.
     """
 
     def __init__(self, red: ReductionPlan, device: torch.device,
-                 plain: bool = False):
-        self.plain = plain
+                 plain: bool = False, key=None):
+        self.plain, self.key = plain, key
         self.nseg, self.duplicate_free = red.nseg, red.duplicate_free
         self.win_src = index_tensor(red.win_src, device)
         self.win_dst = index_tensor(red.win_dst, device)
@@ -134,9 +136,13 @@ class SortedUnpack:
             if self.duplicate_free:
                 # one slot per root: the unpack scatter is the reduction
                 return _apply_unique(rootdata, self.dst_sorted, sv, op)
-            fold = sf_unpack.segment_reduce_plain if self.plain \
-                else kops.segment_reduce_rows
-            seg = fold(sv, self.seg_first, self.seg_len, op=op.name)
+            if self.plain:
+                seg = sf_unpack.segment_reduce_plain(sv, self.seg_first,
+                                                     self.seg_len, op.name)
+            else:
+                seg = kops.segment_reduce_rows(sv, self.seg_first,
+                                               self.seg_len, op=op.name,
+                                               key=self.key)
         else:
             seg = op.segment(sv, self.seg_of_slot, self.nseg)
         return _apply_unique(rootdata, self.seg_dst, seg, op)
@@ -299,7 +305,7 @@ class SFOps:
         self._gr_sorted = index_tensor(p.gr[p.red_perm], d)
         self._seg_start = index_tensor(p.red_seg_start, d)
         self._multi_slot = index_tensor(p.multi_slot, d)
-        self._unpack = SortedUnpack(p.red, d)
+        self._unpack = SortedUnpack(p.red, d, key=p.comm_signature())
 
     @property
     def unit(self):

@@ -17,7 +17,24 @@ import dataclasses
 
 import numpy as np
 
-__all__ = ["ReductionPlan", "build_reduction_plan"]
+__all__ = ["ReductionPlan", "build_reduction_plan", "seg_block_candidates"]
+
+
+def seg_block_candidates(nseg: int, lmax: int,
+                         max_panel_rows: int = 65536) -> tuple:
+    """Segments-per-block candidates of the blocked segment reduce for
+    ``nseg`` segments whose longest has ``lmax`` rows: 8, 32 and 128 (and
+    every segment in one block when there are at most 1,024), each held to
+    ``nseg``, keeping those whose ``(segs_per_block, lmax)`` panel stays
+    within ``max_panel_rows`` rows (the reference's rule, which the
+    autotuner's ``segred`` kind sweeps)."""
+    S = max(int(nseg), 1)
+    L = max(int(lmax), 1)
+    cands = {min(S, b) for b in (8, 32, 128)}
+    if S <= 1024:
+        cands.add(S)
+    fit = tuple(sorted(b for b in cands if b * L <= max_panel_rows))
+    return fit or (min(S, 8),)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,6 +75,12 @@ class ReductionPlan:
         if self.nseg_valid == 0:
             return 1
         return max(int(self.seg_len[: self.nseg_valid].max()), 1)
+
+    def seg_block_candidates(self, max_panel_rows: int = 65536) -> tuple:
+        """Segments-per-block candidates for the blocked segment reduce
+        (:func:`seg_block_candidates` of this plan's segments)."""
+        return seg_block_candidates(self.nseg, self.max_valid_seg_len,
+                                    max_panel_rows)
 
     @property
     def duplicate_free(self) -> bool:

@@ -1049,7 +1049,8 @@ def bcast_variant(rootdata: torch.Tensor, leafdata: torch.Tensor,
     64 rows per CTA), or ``"narrow"``, with evict-first output stores when
     ``streaming`` and its evict-first loads as ``stream_loads`` says (None:
     as ``bcast_fused``); into ``out`` when given, else a new tensor (the
-    plain version on the CPU).  Counts no launch (it is on no path)."""
+    plain version on the CPU).  Counts no launch (the autotuner's
+    ``"generic"`` candidate of the local bcast counts its own)."""
     if route not in ("generic", "narrow"):
         raise ValueError(f"route must be 'generic' or 'narrow', not {route!r}")
     src = _bcast_args(rootdata, leafdata, src_of_leaf)

@@ -5,7 +5,8 @@ decode in plain torch), SwiGLU/GELU MLPs.
 Everything is a plain function over a params dict; layer params are stacked
 along a leading L axis and the caller hands one layer's slice in.  The
 reference's ``constrain`` sharding hints have no counterpart on one card and
-are left out.  ``cross_attention`` comes with the audio family.
+are left out.  ``cross_attention`` (the audio family's decoder reading the
+encoder's K/V) is ``attention`` with ``kv_override`` and no mask.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from ..kernels import ops as kops
 from .config import ModelConfig, torch_dtype
 
 __all__ = ["rmsnorm", "rope", "attention", "attention_decode", "mlp",
-           "init_attn", "init_mlp"]
+           "init_attn", "init_mlp", "cross_attention"]
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
@@ -99,26 +100,41 @@ def init_mlp(normal: Normal, cfg: ModelConfig, layers: int,
 # --------------------------------------------------------------------------
 def attention(x: torch.Tensor, p: Dict, cfg: ModelConfig, *,
               positions: Optional[torch.Tensor] = None, causal: bool = True,
-              window=None
+              window=None, kv_override=None
               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Full-sequence attention (prefill).  x: (B, S, D).  Returns (output,
     (k, v)) so prefill can seed the KV cache.  The attention core is the
     reference's ``_chunked_attn`` function, computed by the flash-attention
-    kernel (``kernels.ops.flash_attention``) on the card."""
+    kernel (``kernels.ops.flash_attention``) on the card.
+    ``kv_override`` (k, v) feeds the encoder's K/V for cross-attention:
+    no rope on q or k, and no k norm, as in the reference."""
     B, S, _ = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = (x @ p["wq"]).reshape(B, S, H, hd)
-    k = (x @ p["wk"]).reshape(B, S, Hkv, hd)
-    v = (x @ p["wv"]).reshape(B, S, Hkv, hd)
+    if kv_override is None:
+        k = (x @ p["wk"]).reshape(B, S, Hkv, hd)
+        v = (x @ p["wv"]).reshape(B, S, Hkv, hd)
+    else:
+        k, v = kv_override
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
-        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
-    if positions is None:
-        positions = torch.arange(S, device=x.device)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+        if kv_override is None:
+            k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    if kv_override is None:
+        if positions is None:
+            positions = torch.arange(S, device=x.device)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     out = kops.flash_attention(q, k, v, causal=causal, window=window)
     return out.reshape(B, S, H * hd) @ p["wo"], (k, v)
+
+
+def cross_attention(x: torch.Tensor, p: Dict, cfg: ModelConfig,
+                    enc_kv: Tuple[torch.Tensor, torch.Tensor]
+                    ) -> torch.Tensor:
+    """Decoder queries over the encoder's (k, v), (B, Se, Hkv, hd) each,
+    with no mask (through the flash kernel, at decode too: Sq = 1)."""
+    return attention(x, p, cfg, causal=False, kv_override=enc_kv)[0]
 
 
 def attention_decode(x: torch.Tensor, p: Dict, cfg: ModelConfig,

@@ -9,14 +9,24 @@ step together through one decode program per token.
 
 Prefill runs every layer's attention through the hand-written flash
 kernel; the per-slot-position decode stays in plain torch, as the reference
-leaves it outside any kernel.  A MoE config's feed-forward dispatches
+leaves it outside any kernel.  A hymba model keeps each slot's SSM state in
+the cache (``h``, copied in at admission as the reference does) and its
+decode steps that state and takes each layer's own window (global layers
+see every key).  The reference engine's decode skips both (its attention
+only, with ``cfg.attn_window`` on every layer), so its hymba streams leave
+direct greedy decoding after a few tokens (ROADMAP Queue 3); this engine's
+equal it.  xlstm (recurrent state only, as the reference refuses it) and
+encoder-decoder models (their prompts are frame embeddings, not tokens)
+raise ``NotImplementedError``.  A MoE config's feed-forward dispatches
 through ``DynPlan`` on the hand-written gathers, in prefill and decode
 alike; its capacity ties a token's output to the other tokens of its
 routing group (at decode: every slot, idle ones feeding token 0 at their
-stale positions, as in the reference).  Prompt lengths are bucketed to
-the next power of two (right-padded; causal masking keeps real positions
-numerically unaffected, and decode overwrites each pad KV row before its
-mask exposes it).  The prepared programs are cached in a :class:`repro_torch.core.PlanCache`
+stale positions, as in the reference).  A decoder-only transformer's prompt
+lengths are bucketed to the next power of two (right-padded; causal
+masking keeps real positions numerically unaffected, and decode overwrites
+each pad KV row before its mask exposes it); hymba's are not, as in the
+reference (its SSM state would run through the pad).  The prepared
+programs are cached in a :class:`repro_torch.core.PlanCache`
 keyed ``("prefill", bucket)`` / ``("decode", batch)``; with no jit the cached
 program is the prepared closure, and the cache's hit/miss counters keep the
 reference's meaning.
@@ -44,6 +54,7 @@ from ..core.dynplan import PlanCache
 from ..models import transformer as T
 from ..models.config import ModelConfig
 from ..models.layers import rmsnorm, rope
+from ..models.ssm import ssm_step
 
 __all__ = ["Request", "ServeEngine", "next_pow2"]
 
@@ -99,6 +110,16 @@ class ServeEngine:
                  tpot_slo: Optional[float] = None,
                  clock=time.perf_counter, device=None):
         T.require_supported(cfg)
+        if cfg.block_kind == "xlstm":
+            raise NotImplementedError(
+                f"{cfg.name}: the engine inserts requests slot by slot into "
+                "a KV cache; serve a recurrent model through "
+                "models.transformer.prefill / decode_step on uniform batches")
+        if cfg.enc_layers or cfg.cross_attention:
+            raise NotImplementedError(
+                f"{cfg.name}: the engine takes token prompts; an "
+                "encoder-decoder model needs enc_embeds, through "
+                "models.transformer.prefill / decode_step")
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params are on {params['embed'].device} but "
@@ -171,7 +192,7 @@ class ServeEngine:
     def _decode_impl(cfg, params, tokens, cache, positions):
         """Per-slot-position decode: like ``decode_step`` but each batch row
         has its own position.  tokens, positions: (B,) int64 tensors.  The
-        cache's K/V tensors are updated in place.
+        cache's K/V tensors (and hymba's SSM state) are updated in place.
 
         GQA heads are grouped per KV head instead of repeating the cache;
         both contractions run in float32, as in the reference."""
@@ -180,11 +201,15 @@ class ServeEngine:
         H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
         rep = H // Hkv
         rows = torch.arange(B, device=x.device)
-        kpos = torch.arange(cache["k"].shape[2], device=x.device)
-        mask = kpos[None] <= positions[:, None]
-        if cfg.attn_window:
-            mask &= kpos[None] > positions[:, None] - cfg.attn_window
-        mask = mask[:, None, None, :]                 # (B, 1, 1, s_max)
+        s_max = cache["k"].shape[2]
+        kpos = torch.arange(s_max, device=x.device)
+        windows = T.layer_windows(cfg, s_max)
+        masks = {}                                    # window -> mask
+        for w in set(windows):
+            m = (kpos[None] <= positions[:, None]) \
+                & (kpos[None] > positions[:, None] - w)
+            masks[w] = m[:, None, None, :]            # (B, 1, 1, s_max)
+        hymba = cfg.block_kind == "hymba"
         blocks = params["blocks"]
         for i in range(cfg.n_layers):
             bp = T.layer(blocks, i)
@@ -204,9 +229,14 @@ class ServeEngine:
             qg = q.float().reshape(B, Hkv, rep, hd)
             s = torch.einsum("bkrd,bskd->bkrs", qg, ck.float()) * \
                 (1.0 / math.sqrt(hd))
-            pr = torch.softmax(s.masked_fill(~mask, -1e30), dim=-1)
+            pr = torch.softmax(s.masked_fill(~masks[windows[i]], -1e30),
+                               dim=-1)
             attn = torch.einsum("bkrs,bskd->bkrd", pr, cv.float())
-            x = x + attn.to(x.dtype).reshape(B, 1, H * hd) @ bp["wo"]
+            attn_out = attn.to(x.dtype).reshape(B, 1, H * hd) @ bp["wo"]
+            if hymba:
+                ssm_out, cache["h"][i] = ssm_step(h, bp, cfg, cache["h"][i])
+                attn_out = T.hymba_mix(attn_out, ssm_out, bp, cfg)
+            x = x + attn_out
             h2 = rmsnorm(x, bp["ln2"], cfg.norm_eps)
             if cfg.is_moe or cfg.d_ff:
                 # MoE: one routing group of all B slots, idle ones included
@@ -240,8 +270,9 @@ class ServeEngine:
                 if t0 is not None:
                     sflog.op_end("ServePrefill", t0, logits,
                                  tags={"bucket": bucket, "rid": req.rid})
-                for name in ("k", "v"):
-                    self.cache[name][:, slot].copy_(cache1[name][:, 0])
+                for name in ("k", "v", "h"):        # h: hymba's SSM state
+                    if name in self.cache:
+                        self.cache[name][:, slot].copy_(cache1[name][:, 0])
                 first = int(self._sample(logits)[0])
                 req.out.append(first)
                 self._c_tokens.add(1)

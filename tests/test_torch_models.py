@@ -253,14 +253,43 @@ def test_prefill_and_decode_logits_match(model, rng):
     assert pc["pos"] == int(rc["pos"])
 
 
-def test_other_families_raise_naming_their_step():
-    for arch in ALL_ARCHS:
-        cfg = get_config(arch).smoke_config()
-        if cfg.block_kind != "transformer" or cfg.enc_layers:
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                PT.init_params(cfg, device="cpu")
-        else:
-            PT.init_params(cfg, device="cpu")
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_arch_smoke_forward_one_step(arch):
+    """The reference's per-arch smoke test on the port: one forward, one
+    prefill and one decode of the f32 smoke config on the CPU; shapes and
+    no NaNs (every family, the vlm through ``embeds``, the audio one with
+    ``enc_embeds``)."""
+    cfg = get_config(arch).smoke_config().scaled(dtype="float32",
+                                                 remat="none")
+    gen = torch.Generator().manual_seed(0)
+    params = PT.init_params(cfg, generator=gen, device="cpu")
+    B, S = 2, 16
+    kwargs = {}
+    if cfg.family == "vlm":
+        kwargs["embeds"] = torch.randn(B, S, cfg.d_model, generator=gen) \
+            * 0.02
+    else:
+        kwargs["tokens"] = torch.randint(0, cfg.vocab, (B, S),
+                                         generator=gen)
+    if cfg.family == "audio":
+        kwargs["enc_embeds"] = torch.randn(B, 24, cfg.d_model,
+                                           generator=gen) * 0.02
+    logits, aux = PT.forward(params, cfg, **kwargs)
+    assert logits.shape == (B, S, cfg.vocab) and aux.shape == ()
+    assert not torch.isnan(logits).any()
+    lg, cache = PT.prefill(params, cfg, s_max=S + 4, **kwargs)
+    assert lg.shape == (B, cfg.vocab)
+    lg2, cache = PT.decode_step(params, cfg, lg.argmax(-1), cache)
+    assert lg2.shape == (B, cfg.vocab) and cache["pos"] == S + 1
+    assert not torch.isnan(lg2).any()
+
+
+def test_unknown_block_kind_raises():
+    cfg = get_config("qwen3-4b").smoke_config().scaled(block_kind="rwkv")
+    with pytest.raises(NotImplementedError, match="unknown block kind"):
+        PT.init_params(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="unknown block kind"):
+        PT.init_cache(cfg, 1, 8, device="cpu")
 
 
 def test_configs_are_the_references():

@@ -50,6 +50,17 @@ def dev():
     return torch.device("cuda")
 
 
+@pytest.fixture
+def fixed_rule(monkeypatch):
+    """Every tuned kind on its default, the fixed rule
+    (``REPRO_SF_AUTOTUNE=0``), so a launch check names the one kernel that
+    rule picks; the winner cache is emptied before and after."""
+    monkeypatch.setenv("REPRO_SF_AUTOTUNE", "0")
+    kops.tuning.clear_cache()
+    yield
+    kops.tuning.clear_cache()
+
+
 def _general_sf(nranks=4, per_root=50, per_leaf=150, seed=0):
     """Random general SF: repeated roots, leafless roots, holes."""
     rng = np.random.default_rng(seed)
@@ -188,9 +199,10 @@ def _mg(dev, shape=(17, 17, 9)):
     return da, Multigrid(da, nlevels=3, device=dev)
 
 
-def test_cuda_vcycle_matches_cpu_and_repeats(dev):
+def test_cuda_vcycle_matches_cpu_and_repeats(dev, fixed_rule):
     """rtol 1e-4, atol 1e-5 x max|v| against the CPU (float32 sums in
-    another order); bitwise from run to run on the card."""
+    another order); bitwise from run to run on the card; the fixed rule's
+    blocked kernels launched."""
     da, mg = _mg(dev)
     _, mg_cpu = _mg("cpu")
     b = torch.randn(da.nglobal, generator=torch.Generator().manual_seed(5))
@@ -205,9 +217,10 @@ def test_cuda_vcycle_matches_cpu_and_repeats(dev):
     assert torch.equal(mg.vcycle(b.to(dev)), got)
 
 
-def test_cuda_prolong_slot_sums_repeat_bitwise(dev):
+def test_cuda_prolong_slot_sums_repeat_bitwise(dev, fixed_rule):
     """The weighted slot sums run through the segment-reduce kernel (no
-    float atomics): the same bits on every call, and the CPU's."""
+    float atomics; the blocked one by the fixed rule): the same bits on
+    every call, and the CPU's."""
     from repro_torch.meshdist import DMDA
     from repro_torch.solvers import Transfer
     fine = DMDA((33, 17, 17), 8, stencil="star", periodic=False)
@@ -557,11 +570,12 @@ def test_long_route_replays_in_a_cuda_graph(dev, dtype, op):
 
 # --------------------------------------------- the distributed backend
 @pytest.mark.parametrize("low", ["auto", "general"])
-def test_cuda_dist_world1_nccl_is_the_cuda_backends_bits(dev, low):
+def test_cuda_dist_world1_nccl_is_the_cuda_backends_bits(dev, low,
+                                                        fixed_rule):
     """``DistSF`` and ``SFComm(backend="dist")`` on an NCCL group of one
     rank against ``"cuda"`` bit for bit (a 12^3 column-gather SF; units ()
     and (3,), every op, fetch-and-add), the reduce through the hand
-    kernels."""
+    kernels (the blocked segment reduce, by the fixed rule)."""
     from repro_torch.core import DistSF
     sf, _ = chip_smoke.column_gather_sf(12)
     n, E = sf.nroots_total, sf.nleafspace_total

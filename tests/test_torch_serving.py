@@ -191,9 +191,14 @@ def test_sampling_is_seeded(setup):
 
 def test_device_and_family_checks(setup, monkeypatch):
     _, cfg, _, params = setup
+    # a recurrent model has no KV cache to insert slots into, as the
+    # reference engine says; an encoder-decoder's prompts are embeddings
     xl = get_config("xlstm-350m").smoke_config()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="recurrent model"):
         ServeEngine(xl, params, device="cpu")
+    wh = get_config("whisper-base").smoke_config()
+    with pytest.raises(NotImplementedError, match="enc_embeds"):
+        ServeEngine(wh, params, device="cpu")
     meta = dict(params, embed=params["embed"].to("meta"))
     with pytest.raises(ValueError, match="move them there explicitly"):
         ServeEngine(cfg, meta, device="cpu")

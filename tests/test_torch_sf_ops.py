@@ -491,3 +491,28 @@ def test_reference_pallas_bool_folds(rng):
             counts)
     with pytest.raises(ValueError):
         pallas.reduce(jnp.asarray(lb), jnp.asarray(lb), "max")
+
+
+@pytest.mark.parametrize("unit", [None, (), (3,), 8, (2, 4),
+                                  "pinned_f64", "pinned_bf16"])
+@pytest.mark.parametrize("name", sorted(FIXTURES))
+def test_estimate_message_bytes_matches_reference(name, unit):
+    """``backend.estimate_message_bytes``: edges times the unit's row
+    bytes (scalar float32 rows when the unit is unpinned), as the
+    reference computes it."""
+    from repro.core.backend import estimate_message_bytes as ref_estimate
+    from repro.core.unit import UnitSpec as RefUnitSpec
+    from repro_torch.core import estimate_message_bytes
+    ref_sf = FIXTURES[name]()
+    sf = port_sf(ref_sf)
+    if unit == "pinned_f64":
+        ref_unit, port_unit = RefUnitSpec((3,), np.float64), \
+            UnitSpec((3,), np.float64)
+    elif unit == "pinned_bf16":
+        ref_unit, port_unit = RefUnitSpec((5,), jnp.bfloat16), \
+            UnitSpec((5,), torch.bfloat16)
+    else:
+        ref_unit = port_unit = unit
+    got = estimate_message_bytes(sf, unit=port_unit)
+    assert isinstance(got, float)
+    assert got == ref_estimate(ref_sf, unit=ref_unit)

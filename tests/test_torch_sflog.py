@@ -388,3 +388,48 @@ def test_hooks_off_record_nothing_and_stash_claims_once(both_on):
     pend.end(leaves)
     assert PS.event("SFBcastEnd").count == 1
     assert PS.claim_pending(pend) is None
+
+
+def test_tuning_counters_match_reference(monkeypatch):
+    """The autotuner keeps its counters in the sflog registry under
+    ``tuning.sweeps`` / ``hits`` / ``defaults`` / ``pinned`` /
+    ``candidate_errors`` in both packages, and the same autotune calls
+    (a sweep, a hit, a sweep turned off, a pin) move them alike.  The
+    port's ``candidate_errors`` stays 0: a raising candidate raises."""
+    import jax.numpy as jnp
+    from repro.kernels import tuning as RTU
+    from repro_torch.kernels import tuning as PTU
+
+    def drive(tune, cands, args):
+        monkeypatch.setenv("REPRO_SF_AUTOTUNE", "1")
+        for _ in range(3):                       # one sweep, two hits
+            tune("k", ("swept",), cands, args, default="x", work=1)
+        monkeypatch.setenv("REPRO_SF_AUTOTUNE", "0")
+        tune("k", ("off",), cands, args, default="y", work=10**9)
+        monkeypatch.setenv("REPRO_SF_IMPL_K", "y")
+        tune("k", ("pinned",), cands, args, default="x", work=1)
+        monkeypatch.delenv("REPRO_SF_IMPL_K")
+        tune("k", ("pinned",), cands, args, default="x", work=1)
+
+    def tuning_counters(S):
+        return {k: v for k, v in S.counters().items()
+                if k.startswith("tuning.")}
+
+    RTU.clear_cache()
+    PTU.clear_cache()
+    try:
+        drive(lambda kind, key, cands, args, **kw: RTU.autotune(
+                  kind, key, cands, lambda: args, **kw),
+              {"x": lambda a: a + 1, "y": lambda a: a * 2},
+              (jnp.zeros((8,)),))
+        drive(PTU.autotune, {"x": lambda a: a + 1, "y": lambda a: a * 2},
+              (torch.zeros(8),))
+        want = {f"tuning.{k}": v for k, v in
+                {"sweeps": 1, "hits": 3, "defaults": 1, "pinned": 1,
+                 "candidate_errors": 0}.items()}
+        assert tuning_counters(RS) == tuning_counters(PS) == want
+        assert PTU.stats() == RTU.stats()
+    finally:
+        RTU.clear_cache()
+        PTU.clear_cache()
+    assert tuning_counters(PS) == dict.fromkeys(want, 0)
