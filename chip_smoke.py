@@ -212,6 +212,32 @@ Phases, each printing one JSON line and asserting as it goes:
            (``family_shapes`` on the kernels line).  The counted drives
            (hymba's engine, whisper's prefill and decode, xlstm's,
            llava's prefill) are the families path.
+  train    (in a child process: ``chip_smoke.py --train DEVICE``, which
+           prints one ``TRAIN_RESULT`` JSON line; the card's memory to
+           itself) the training path, bf16, random weights from seeded
+           generators, each part freed before the next: row 8's autograd
+           Function (forward kernel, plain backward) at qwen3-4b's heads
+           (q (1024, 32, 128), causal) and hymba's (25 / 5 heads of 64,
+           window 2,048, S = 3,000), its gradients against the plain
+           version's within FLASH_BWD_REL, the backward's ms beside the
+           forward kernel's; qwen3-4b at full width and depth (36 layers,
+           4.41 B parameters, float32 moments, remat per block), 4 steps of
+           ``make_train_step`` (the launcher's path, updated in place) on
+           ``SyntheticLM`` batches of 4 x 1,024 — step ms on the host and
+           between CUDA events, tokens/s, peak memory, a profiled step by
+           kernel group — then 8 steps on one batch at lr 1e-4, whose loss
+           must fall; the DDP step over the allreduce SF (qwen3-4b at full
+           width, 4 of 36 layers, 4 grains, 25 MiB buckets): worlds 1 and 4
+           bitwise, bucketed = per-tensor bitwise, grains = 1 against
+           ``make_train_step`` (rtol / atol 1e-6), one bucket's reduce
+           (device and call ms, its bound, ``torch.sum(dim=0)``) and the
+           segment reduce alone on it, column-tiled against one CTA, both
+           bitwise the plain version; phi3.5-moe at full width: one layer's
+           gradients in float32 through the SF dispatch against the dense
+           one (MOE_GRAD_RTOL / ATOL), the 2-layer model's in bf16 (per leaf
+           within MOE_BF16_GRAD_REL), the DynPlan transpose bitwise across
+           two runs, and 3 training steps.  The counted drives (the dense
+           steps, the world-4 DDP step, the MoE steps) are the train path.
   long_sweep  the long segment reduce (segments over ``LONG_SEG`` rows)
            of both wrappers bitwise, NaN payloads included, against the
            plain version: every dtype and op at units (), (3,) and (2, 2),
@@ -221,15 +247,16 @@ Phases, each printing one JSON line and asserting as it goes:
            launches leave torch.profiler on the card returning windows
            without all their device events.
 
-Ten paths carry the kernels: ``sf_ops`` + ``spmv_cg`` (the SF kernels),
+Eleven paths carry the kernels: ``sf_ops`` + ``spmv_cg`` (the SF kernels),
 ``fixed_rule`` (the fixed rule's wide gather and one-segment-a-CTA
 reduce, which the tuned paths launch only where a sweep picks them),
 ``dmda`` (a gather, a segment reduce, ``spmv_ell``), ``mg`` (the same),
 ``assembly`` (a gather, a segment reduce), ``plex`` (a gather), ``dist``
 (a gather, a segment reduce), the serve phase's drive
 (``flash_attention``), the moe phase's drive (``pack``, ``pack_blocked``,
-``flash_attention``) and the families phase's drives
-(``flash_attention``).  A gather is ``pack`` or ``pack_blocked`` and a
+``flash_attention``), the families phase's drives
+(``flash_attention``) and the train phase's (``flash_attention``, a
+gather, a segment reduce; ``pack_strided`` in the DDP buckets).  A gather is ``pack`` or ``pack_blocked`` and a
 segment reduce ``segment_reduce_sorted`` or ``segment_reduce_blocked``,
 as the tuner's winners name them (``PACK``, ``SEGRED``).  Every launch
 counter is set to 0 just before each path and read just after, each
@@ -397,6 +424,30 @@ class Sizes:
     xlstm_check: int = 300            # not a multiple of 128
     llava_layers: int = 16            # 19.6 GB of 60 layers' 68.8
     llava_tokens: int = 2880          # LLaVA-NeXT anyres: 5 x 576
+    # train: qwen3-4b at full width and depth (4.41 B parameters), bf16,
+    # float32 moments; the DDP step at full width, ddp_layers of 36; the
+    # flash backward at qwen3-4b's and hymba's heads; phi3.5-moe at full
+    # width, moe_train_layers of 32 (train_smoke=True: the smoke configs,
+    # for rehearsals on the CPU)
+    train_smoke: bool = False
+    train_arch: str = "qwen3-4b"
+    train_batch: int = 4
+    train_seq: int = 1024
+    train_steps: int = 4
+    train_fixed_steps: int = 8
+    ddp_layers: int = 4               # 1.18 B parameters
+    ddp_grains: int = 4
+    ddp_budget: int = 25 << 20        # torch DDP's default bucket size
+    ddp_batch: int = 4
+    ddp_seq: int = 1024
+    moe_train_arch: str = "phi3.5-moe-42b-a6.6b"
+    moe_train_layers: int = 2         # 2.86 B parameters
+    moe_train_batch: int = 4
+    moe_train_seq: int = 1024
+    moe_train_steps: int = 3
+    moe_grad_tokens: tuple = (2, 256)  # the float32 layer's gradient check
+    flash_bwd_shapes: tuple = ((1024, 32, 8, 128, None),
+                               (3000, 25, 5, 64, 2048))
 
 
 def emit(obj) -> None:
@@ -4969,6 +5020,555 @@ def families_in_child(sz: Sizes, dev):
     return out["record"], out["launches"]
 
 
+# ------------------------------------------------------------------ train
+# FlashAttention's gradients (forward kernel, plain backward) against the
+# plain version's autograd gradients, bf16: per tensor ||d|| <= 1e-2 ||want||
+# (the backward recomputes the plain attention, so they agree to the bit
+# unless the recompute differs from the plain forward)
+FLASH_BWD_REL = 1e-2
+# MoE gradients through the SF dispatch against the dense dispatch: float32
+# on one layer at the reference's tests/test_models.py:162-178 tolerance;
+# bf16 through the whole model, where the two dispatches round their sums
+# in different orders, each leaf's SF gradient within 3e-2 (relative L2) of
+# the float32 gradient of the same parameters, or no further from it than
+# twice the dense dispatch's bf16 gradient is
+MOE_GRAD_RTOL, MOE_GRAD_ATOL = 2e-4, 1e-6
+MOE_BF16_GRAD_REL = 3e-2
+# one DDP step with grains=1 against make_train_step, bf16 parameters:
+# the reference's tests/test_ddp.py:359-376 (rtol 1e-6, atol 1e-6)
+DDP_STEP_RTOL, DDP_STEP_ATOL = 1e-6, 1e-6
+TRAIN_PATH = ("flash_attention", PACK, SEGRED)
+TRAIN_SMOKE = dict(train_smoke=True, train_batch=2, train_seq=32,
+                   train_fixed_steps=4, ddp_layers=2, ddp_batch=4,
+                   ddp_seq=16, ddp_budget=4096, moe_train_batch=2,
+                   moe_train_seq=32, moe_grad_tokens=(2, 24),
+                   flash_bwd_shapes=((64, 4, 2, 64, None),
+                                     (96, 5, 1, 64, 48)),
+                   timing_iters=2)
+
+
+def train_config(arch: str, sz: Sizes, **scaled):
+    """``arch``'s published config, scaled by ``scaled`` (its smoke config
+    with ``train_smoke``, for rehearsals on the CPU)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return (cfg.smoke_config() if sz.train_smoke else cfg).scaled(**scaled)
+
+
+def grad_rel(a, b) -> float:
+    """||a - b|| / ||b|| in float64 (0 when both are 0)."""
+    import torch
+    d = torch.linalg.vector_norm((a.double() - b.double()).reshape(-1))
+    nb = torch.linalg.vector_norm(b.double().reshape(-1))
+    return float(d / nb) if float(nb) else float(d)
+
+
+def step_timed(fn, dev) -> tuple:
+    """(result, host ms, device ms between CUDA events) of one ``fn()``."""
+    import torch
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        res = fn()
+        ms = (time.perf_counter() - t0) * 1e3
+        return res, ms, ms
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    res = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return res, (time.perf_counter() - t0) * 1e3, start.elapsed_time(end)
+
+
+def peak_gb(dev) -> float:
+    import torch
+    return torch.cuda.max_memory_allocated(dev) / 1e9 \
+        if dev.type == "cuda" else 0.0
+
+
+def train_flash_backward(sz: Sizes, dev) -> list:
+    """Row 8's autograd Function at training shapes (qwen3-4b's heads,
+    causal; hymba's 25 / 5 heads of 64 with its 2,048-key window): its
+    gradients against the plain version's autograd gradients, the forward
+    kernel's device ms (graph replays), the backward's and the plain
+    version's forward + backward (CUDA events, host included)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa, ops as kops
+    out = []
+    for S, H, Hkv, D, win in sz.flash_bwd_shapes:
+        g = torch.Generator(device=dev).manual_seed(S + H)
+        q, k, v = (torch.randn(S, h, D, generator=g, device=dev)
+                   .bfloat16().requires_grad_() for h in (H, Hkv, Hkv))
+        go = torch.randn(S, H, D, generator=g, device=dev).bfloat16()
+        y = kops.flash_attention(q, k, v, causal=True, window=win)
+        check(y.grad_fn is not None and "FlashAttention"
+              in type(y.grad_fn).__name__, "kops.flash_attention took no "
+              "autograd Function for inputs that require grad")
+        got = torch.autograd.grad(y, (q, k, v), go, retain_graph=True)
+        plain = fa.flash_attention_plain(q, k, v, causal=True, window=win)
+        want = torch.autograd.grad(plain, (q, k, v), go)
+        rel = {n: grad_rel(a, b) for n, a, b in zip("qkv", got, want)}
+        check(all(r <= FLASH_BWD_REL for r in rel.values()),
+              f"flash backward at {(S, H, Hkv, D, win)}: ||d||/||want|| "
+              f"{rel} over {FLASH_BWD_REL}")
+        qd, kd, vd = q.detach(), k.detach(), v.detach()
+        it = sz.timing_iters
+        fwd = graph_ms(lambda: fa.flash_attention(qd, kd, vd, causal=True,
+                                                  window=win), dev, it)
+        bwd = call_ms(lambda: torch.autograd.grad(y, (q, k, v), go,
+                                                  retain_graph=True),
+                      dev, max(it // 4, 2))
+
+        def plain_fb():
+            o = fa.flash_attention_plain(q, k, v, causal=True, window=win)
+            torch.autograd.grad(o, (q, k, v), go)
+        out.append({"q": [S, H, D], "kv_heads": Hkv, "window": win,
+                    "causal": True, "rel_err": rel,
+                    "tolerance_rel": FLASH_BWD_REL,
+                    "forward_kernel_ms": fwd, "backward_ms": bwd,
+                    "plain_forward_backward_ms": call_ms(
+                        plain_fb, dev, max(it // 4, 2))})
+        del y, got, want, plain
+    return out
+
+
+def train_dense(sz: Sizes, dev, acc: dict) -> dict:
+    """qwen3-4b at full width and depth, bf16, float32 moments, remat per
+    block: ``sz.train_steps`` steps of ``make_train_step`` (the launcher's
+    path, parameters and state updated in place) on ``SyntheticLM``
+    batches, counted; a profiled step by kernel group; then
+    ``train_fixed_steps`` steps on one batch at lr 1e-4, whose loss must
+    fall."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import transformer as T
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.optimizer import OptConfig, init_opt_state
+    from repro_torch.training.train_loop import make_train_step
+    cfg = train_config(sz.train_arch, sz, remat="block")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, generator=torch.Generator(device=dev)
+                           .manual_seed(0), device=dev)
+    nparams = sum(t.numel() for t in tree_leaves_of(params))
+    ocfg = OptConfig(warmup_steps=10, decay_steps=max(sz.train_steps, 100))
+    opt = init_opt_state(params, ocfg)
+    init_s = time.perf_counter() - t0
+    step = make_train_step(cfg, ocfg, donate=True)
+    ds = SyntheticLM(cfg.vocab, sz.train_seq, sz.train_batch, seed=0)
+    state = {"p": params, "o": opt}
+    del params, opt
+
+    def one(i):
+        state["p"], state["o"], m = step(state["p"], state["o"],
+                                         ds.batch_at(i))
+        return float(m["loss"])
+
+    steps = []
+    for i in range(sz.train_steps):
+        (loss, host, devms), _ = counted(
+            lambda: step_timed(lambda: one(i), dev), acc)
+        check(math.isfinite(loss), f"dense step {i}: loss {loss}")
+        steps.append({"loss": loss, "host_ms": host, "device_ms": devms})
+    window = profiled_groups(lambda: one(sz.train_steps), dev)
+    tokens = sz.train_batch * sz.train_seq
+    warm = steps[1:] or steps
+    host = float(np.mean([s["host_ms"] for s in warm]))
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "params": nparams, "param_count": cfg.param_count(),
+           "dtype": cfg.dtype, "moments": "float32",
+           "remat": cfg.remat, "batch": [sz.train_batch, sz.train_seq],
+           "init_s": init_s, "steps": steps, "step_host_ms": host,
+           "step_device_ms": float(np.mean([s["device_ms"] for s in warm])),
+           "tokens_per_s": tokens / host * 1e3, "peak_gb": peak_gb(dev),
+           "profiled_step": window}
+    # the same parameters on one fixed batch at lr 1e-4: the loss falls
+    state["o"] = None
+    gc.collect()
+    ocfg2 = OptConfig(lr=1e-4, warmup_steps=1, decay_steps=1000)
+    state["o"] = init_opt_state(state["p"], ocfg2)
+    step2 = make_train_step(cfg, ocfg2, donate=True)
+    fixed = ds.batch_at(10_000)
+    losses = []
+    for _ in range(sz.train_fixed_steps):
+        state["p"], state["o"], m = step2(state["p"], state["o"], fixed)
+        losses.append(float(m["loss"]))
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"{sz.train_fixed_steps} steps on one batch at lr 1e-4: losses "
+          f"{losses}")
+    out["fixed_batch"] = {"lr": 1e-4, "losses": losses}
+    del state
+    kops.reset_launch_counts()
+    return out
+
+
+def tree_leaves_of(tree) -> list:
+    from repro_torch.training.pytree import tree_leaves
+    return tree_leaves(tree)
+
+
+def tree_map_of(fn, tree):
+    from repro_torch.training.pytree import tree_map
+    return tree_map(fn, tree)
+
+
+def leaf_names(tree, prefix: str = "") -> list:
+    """Slash-joined key paths of ``tree``'s leaves, in flatten order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in leaf_names(tree[k], f"{prefix}{k}/")]
+    return [prefix[:-1]]
+
+
+def trees_equal(a, b) -> bool:
+    return all(same_raw_bits(x, y) for x, y in
+               zip(tree_leaves_of(a), tree_leaves_of(b)))
+
+
+def grain_grads(loss_fn, params, batch, G: int):
+    """The (G, *shape) stack of each grain's gradient, as the DDP step
+    makes it."""
+    import torch
+    from repro_torch.training.pytree import tree_map
+    from repro_torch.training.train_loop import value_and_grad
+    B = next(iter(batch.values())).shape[0]
+    stack = tree_map(lambda p: torch.empty((G,) + tuple(p.shape),
+                                           dtype=p.dtype, device=p.device),
+                     params)
+    for g in range(G):
+        gb = {k: v[g * (B // G):(g + 1) * (B // G)] for k, v in batch.items()}
+        _, gr = value_and_grad(loss_fn, params, gb)
+        tree_map(lambda s, x: s[g].copy_(x), stack, gr)
+    return stack
+
+
+def ddp_bucket_record(red, stack, dev, it: int) -> dict:
+    """One bucket's reduce at the DDP step's shape (the bucket whose bytes
+    lie nearest the budget): device ms (graph replays) of the fused
+    begin/end against its bound (the grain rows read once, the reduced row
+    written once) and ``torch.sum(dim=0)`` over the grain-stacked buffer,
+    and its call ms; then the segment
+    reduce alone on that buffer, column-tiled (this PR) against one CTA
+    (before), each bitwise the plain version."""
+    import torch
+    from repro_torch.kernels import sf_unpack
+    plan = red.plan
+    b = min(plan.buckets, key=lambda x: abs(x.nbytes - plan.byte_budget))
+    flat = tree_leaves_of(stack)
+    fields = red._bucket_fields(flat, b)
+    bundle = red._bundles[b.index]
+    roots = [f.new_zeros((1, f.shape[1])) for f in fields]
+    reduce = lambda: bundle.reduce_multi_begin(fields, "sum").end(roots)
+    G = red.grains
+    buf = torch.cat(fields, dim=1)
+    U = int(buf.shape[1])
+    bnd, by = bound((G + 1) * b.nbytes)
+    st = torch.zeros(1, dtype=torch.int32, device=dev)
+    ln = torch.full((1,), G, dtype=torch.int32, device=dev)
+    want = sf_unpack.segment_reduce_plain(buf, st, ln, "sum")
+    tiled = sf_unpack.short_variant(buf, st, ln, segs_per_block=1,
+                                    col_tiles=0)
+    one = sf_unpack.short_variant(buf, st, ln, segs_per_block=1,
+                                  col_tiles=1)
+    check(same_raw_bits(tiled, want) and same_raw_bits(one, want),
+          "the column-tiled or one-CTA segment reduce differs from plain")
+    got = reduce()
+    check(all(same_raw_bits(r, w) for r, w in zip(
+        got, torch.split(want, [f.shape[1] for f in fields], dim=1))),
+        "the bucket reduce differs from the plain fold")
+    return {"bucket": b.index, "leaves": len(b.leaves), "nbytes": b.nbytes,
+            "grains": G, "unit": U, "dtype": str(buf.dtype)[6:],
+            "reduce_device_ms": graph_ms(reduce, dev, it),
+            "reduce_call_ms": call_ms(reduce, dev, it),
+            "bound_ms": bnd, "bound_by": by,
+            "torch_sum_dim0_ms": graph_ms(lambda: buf.sum(dim=0), dev, it),
+            "segment_reduce_tiled_ms": graph_ms(
+                lambda: sf_unpack.short_variant(
+                    buf, st, ln, segs_per_block=1, col_tiles=0), dev, it),
+            "segment_reduce_one_cta_ms": graph_ms(
+                lambda: sf_unpack.short_variant(
+                    buf, st, ln, segs_per_block=1, col_tiles=1), dev, 2),
+            "segment_reduce_bound_ms": bound((G + 1) * U
+                                             * buf.element_size())[0],
+            "tiled_equals_one_cta_and_plain": True}
+
+
+def train_ddp(sz: Sizes, dev, acc: dict) -> dict:
+    """The DDP step over the allreduce SF: qwen3-4b at full width with
+    ``ddp_layers`` layers, bf16, ``ddp_grains`` grains, ``ddp_budget``-byte
+    buckets.  Worlds 1 and 4 give bitwise the same parameters; bucketed =
+    per-tensor bitwise on the grain-stacked gradients; grains = 1 against
+    ``make_train_step``; the world-4 step counted; one bucket timed."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.optimizer import OptConfig, init_opt_state
+    from repro_torch.training.train_loop import (TrainConfig, batch_to,
+                                                 make_ddp_train_step,
+                                                 make_loss_fn,
+                                                 make_train_step)
+    cfg = train_config(sz.train_arch, sz, n_layers=sz.ddp_layers,
+                       remat="block")
+    G = sz.ddp_grains
+    p0 = T.init_params(cfg, generator=torch.Generator(device=dev)
+                       .manual_seed(1), device=dev)
+    ocfg = OptConfig(lr=1e-4, warmup_steps=1, decay_steps=1000)
+    batch = SyntheticLM(cfg.vocab, sz.ddp_seq, sz.ddp_batch, seed=1) \
+        .batch_at(0)
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "grains": G,
+           "byte_budget": sz.ddp_budget,
+           "params": sum(t.numel() for t in tree_leaves_of(p0)),
+           "batch": [sz.ddp_batch, sz.ddp_seq], "worlds": {}}
+    after = {}
+    for world in (1, 4):
+        step, reducer = make_ddp_train_step(
+            cfg, ocfg, world=world, byte_budget=sz.ddp_budget, grains=G,
+            params_template=p0)
+        opt = init_opt_state(p0, ocfg)
+        run = lambda: step_timed(lambda: step(p0, opt, batch), dev)
+        if world == 4:
+            launches = {}
+            ((p, _, m), host, devms), _ = counted(run, launches)
+            for k, v in launches.items():
+                acc[k] = acc.get(k, 0) + v
+            out["launches_world4"] = launches
+        else:
+            (p, _, m), host, devms = run()
+        after[world] = p
+        met = reducer().metrics()
+        out["worlds"][world] = {"loss": float(m["loss"]), "host_ms": host,
+                                "device_ms": devms,
+                                "buckets": met["ddp_nbuckets"],
+                                "bucket_mb": [round(x / 2 ** 20, 3) for x
+                                              in met["ddp_bucket_bytes"]]}
+        del opt, m
+    check(trees_equal(after[1], after[4]), "DDP worlds 1 and 4 gave "
+          "different parameters")
+    out["worlds_1_4_bitwise"] = True
+    del after
+    red = reducer()
+    stack = grain_grads(make_loss_fn(cfg, TrainConfig()), p0,
+                        batch_to(batch, dev), G)
+    check(trees_equal(red.allreduce(stack), red.reduce_per_tensor(stack)),
+          "bucketed != per-tensor")
+    out["bucketed_equals_per_tensor"] = True
+    out["bucket"] = ddp_bucket_record(red, stack, dev, sz.timing_iters)
+    del stack
+    gc.collect()
+    # grains = 1: the DDP step against the plain train step
+    step1, _ = make_ddp_train_step(cfg, ocfg, world=1, byte_budget=None,
+                                   grains=1, params_template=p0)
+    pa, _, _ = step1(p0, init_opt_state(p0, ocfg), batch)
+    pb, _, _ = make_train_step(cfg, ocfg)(p0, init_opt_state(p0, ocfg),
+                                          batch)
+    worst = 0.0
+    for a, b in zip(tree_leaves_of(pa), tree_leaves_of(pb)):
+        worst = max(worst, max_abs(a, b))
+        check(bool(torch.allclose(a.float(), b.float(), rtol=DDP_STEP_RTOL,
+                                  atol=DDP_STEP_ATOL)),
+              f"DDP grains=1 vs make_train_step: max|d| {max_abs(a, b)}")
+    out["grains1_vs_train_step"] = {"max_abs": worst,
+                                    "rtol": DDP_STEP_RTOL,
+                                    "atol": DDP_STEP_ATOL}
+    return out
+
+
+def train_moe(sz: Sizes, dev, acc: dict) -> dict:
+    """phi3.5-moe at full width: (a) one MoE layer in float32, gradients
+    through the SF dispatch against the dense one at the reference's
+    tolerance; (b) ``moe_train_layers`` layers in bf16, the model's
+    gradients SF against dense within ``MOE_BF16_GRAD_REL``, and again SF
+    (repeatable or not, reported); (c) the DynPlan gather's transpose at
+    the combine's shape bitwise across two runs; (d) ``moe_train_steps``
+    counted steps with float32 moments."""
+    import torch
+    from repro_torch.core.dynplan import DynPlan
+    from repro_torch.models import moe as M, transformer as T
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.optimizer import OptConfig, init_opt_state
+    from repro_torch.training.train_loop import (TrainConfig, batch_to,
+                                                 make_loss_fn,
+                                                 make_train_step,
+                                                 value_and_grad)
+    cfg = train_config(sz.moe_train_arch, sz, n_layers=sz.moe_train_layers,
+                       remat="block")
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "experts": cfg.moe_experts, "topk": cfg.moe_topk,
+           "d_ff": cfg.moe_dff}
+    # (a) one layer, float32
+    c32 = cfg.scaled(dtype="float32")
+    g = torch.Generator(device=dev).manual_seed(31)
+    p = {k: v[0] for k, v in M.init_moe(c32, 1, generator=g,
+                                        device=dev).items()}
+    x = torch.randn(sz.moe_grad_tokens + (cfg.d_model,), generator=g,
+                    device=dev) * 0.3
+
+    def layer_grads(mode):
+        leaves = {k: v.detach().requires_grad_() for k, v in p.items()}
+        xx = x.detach().requires_grad_()
+        y, aux = M.moe_layer(xx, leaves, c32, dispatch=mode)
+        loss = torch.sum(y ** 2) + 0.01 * aux
+        return dict(zip(list(leaves) + ["x"], torch.autograd.grad(
+            loss, list(leaves.values()) + [xx])))
+
+    gs, gd = layer_grads("sf"), layer_grads("dense")
+    errs = {}
+    for k in gd:
+        errs[k] = max_abs(gs[k], gd[k])
+        check(bool(torch.allclose(gs[k], gd[k], rtol=MOE_GRAD_RTOL,
+                                  atol=MOE_GRAD_ATOL)),
+              f"moe f32 layer grad {k}: sf vs dense max|d| {errs[k]}")
+    out["layer_f32"] = {"tokens": list(sz.moe_grad_tokens),
+                        "max_abs": errs, "rtol": MOE_GRAD_RTOL,
+                        "atol": MOE_GRAD_ATOL}
+    del p, gs, gd
+    gc.collect()
+    # (b) the model, bf16: each dispatch's gradients against the float32
+    # gradients of the same parameters
+    params = T.init_params(cfg, generator=torch.Generator(device=dev)
+                           .manual_seed(2), device=dev)
+    nparams = sum(t.numel() for t in tree_leaves_of(params))
+    ds = SyntheticLM(cfg.vocab, sz.moe_train_seq, sz.moe_train_batch, seed=2)
+    b0 = batch_to(ds.batch_at(0), dev)
+    p32 = tree_map_of(lambda t: t.float(), params)
+    grads = {"f32": value_and_grad(make_loss_fn(cfg.scaled(
+        dtype="float32", moe_dispatch="dense"), TrainConfig()), p32, b0)[1]}
+    del p32
+    for mode in ("sf", "dense", "sf_again"):
+        c = cfg.scaled(moe_dispatch="dense" if mode == "dense" else "sf")
+        grads[mode] = value_and_grad(make_loss_fn(c, TrainConfig()), params,
+                                     b0)[1]
+    names = leaf_names(params)
+    leaves = {k: tree_leaves_of(v) for k, v in grads.items()}
+    per_leaf = {}
+    for i, nm in enumerate(names):
+        per_leaf[nm] = {
+            "sf_vs_f32": grad_rel(leaves["sf"][i], leaves["f32"][i]),
+            "dense_vs_f32": grad_rel(leaves["dense"][i], leaves["f32"][i]),
+            "sf_vs_dense": grad_rel(leaves["sf"][i], leaves["dense"][i])}
+    out["model_bf16"] = {
+        "params": nparams, "batch": [sz.moe_train_batch, sz.moe_train_seq],
+        "per_leaf_rel": per_leaf, "tolerance_rel": MOE_BF16_GRAD_REL,
+        "sf_grads_repeat_bitwise": trees_equal(grads["sf"],
+                                               grads["sf_again"])}
+    print("TRAIN_PART moe_model_bf16 " + json.dumps(out["model_bf16"]),
+          file=sys.stderr, flush=True)
+    for nm, r in per_leaf.items():
+        check(r["sf_vs_f32"] <= max(MOE_BF16_GRAD_REL,
+                                    2 * r["dense_vs_f32"]),
+              f"moe bf16 grad {nm}: the SF dispatch {r['sf_vs_f32']} from "
+              f"float32, the dense {r['dense_vs_f32']}")
+    del grads, leaves
+    gc.collect()
+    # (c) the transpose at the combine's shape, twice
+    G = sz.moe_train_batch
+    T_, k, E = sz.moe_train_seq, cfg.moe_topk, cfg.moe_experts
+    C = max(int(np.ceil(T_ * k * cfg.moe_capacity / E)), 1)
+    nroots, nleaves = G * E * C, G * T_ * k
+    gen = torch.Generator(device=dev).manual_seed(5)
+    lr = dyn_routing(nroots, nleaves, gen, dev)
+    root = torch.randn(nroots, cfg.d_model, generator=gen, device=dev) \
+        .bfloat16().requires_grad_()
+    cot = torch.randn(nleaves, cfg.d_model, generator=gen, device=dev) \
+        .bfloat16()
+    plan = DynPlan(nroots, nleaves)
+    tr = [torch.autograd.grad(plan.bcast(root, lr), root, cot)[0]
+          for _ in range(2)]
+    check(same_raw_bits(tr[0], tr[1]), "the DynPlan transpose changed "
+          "between runs")
+    out["transpose"] = {"roots": nroots, "leaves": nleaves,
+                        "bitwise_repeat": True}
+    # (d) training steps
+    ocfg = OptConfig(lr=1e-4, warmup_steps=1, decay_steps=1000)
+    state = {"p": params, "o": init_opt_state(params, ocfg)}
+    del params
+    step = make_train_step(cfg, ocfg, donate=True)
+    steps = []
+    for i in range(sz.moe_train_steps):
+        def one(i=i):
+            state["p"], state["o"], m = step(state["p"], state["o"],
+                                             ds.batch_at(i))
+            return float(m["loss"])
+        (loss, host, devms), _ = counted(lambda: step_timed(one, dev), acc)
+        check(math.isfinite(loss), f"moe step {i}: loss {loss}")
+        steps.append({"loss": loss, "host_ms": host, "device_ms": devms})
+    out.update(steps=steps, peak_gb=peak_gb(dev),
+               tokens_per_s=sz.moe_train_batch * sz.moe_train_seq
+               / float(np.mean([s["host_ms"] for s in steps[1:] or steps]))
+               * 1e3)
+    del state
+    return out
+
+
+def phase_train(sz: Sizes, dev):
+    """The training path: the flash Function's backward, qwen3-4b trained
+    at full size, the DDP step over the allreduce SF, phi3.5-moe trained
+    at full width; each freed before the next.  Returns (record,
+    launches): the counted drives' launches summed, the train path."""
+    import torch
+    t0 = time.perf_counter()
+    out, acc = {"phase": "train"}, {}
+    for name, part in (("flash_backward",
+                        lambda: train_flash_backward(sz, dev)),
+                       ("dense", lambda: train_dense(sz, dev, acc)),
+                       ("ddp", lambda: train_ddp(sz, dev, acc)),
+                       ("moe", lambda: train_moe(sz, dev, acc))):
+        t1 = time.perf_counter()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        res = part()
+        out[name] = res if isinstance(res, dict) else {"shapes": res}
+        out[name]["seconds"] = time.perf_counter() - t1
+        print(f"TRAIN_PART {name} " + json.dumps(out[name]),
+              file=sys.stderr, flush=True)
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    from repro_torch.kernels import ops as kops
+    launches = {k: acc.get(k, 0) for k in kops.kernel_wrappers()}
+    out["launches"] = launches
+    return out, launches
+
+
+def train_child(device: str, smoke: bool) -> int:
+    """``chip_smoke.py --train DEVICE [smoke]``: :func:`phase_train` in
+    this process (the kernels built already), its record and launches
+    printed as one ``TRAIN_RESULT`` JSON line."""
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    import torch
+    from repro_torch.kernels import _build
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        _build.build_all()          # loads the parent's build
+        dev = torch.device("cuda", torch.cuda.current_device())
+    sz = Sizes(**TRAIN_SMOKE) if smoke else Sizes()
+    res, launches = phase_train(sz, dev)
+    print("TRAIN_RESULT " + json.dumps({"record": res,
+                                        "launches": launches}), flush=True)
+    return 0
+
+
+def train_in_child(sz: Sizes, dev):
+    """(record, launches) of the ``train`` phase, run by
+    :func:`train_child` in a process of its own (the card's memory whole
+    for a 4.41 B-parameter model and its float32 moments); fails if the
+    child does."""
+    cmd = [sys.executable, os.path.abspath(__file__), "--train",
+           dev.type] + (["smoke"] if sz.train_smoke else [])
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("TRAIN_RESULT ")]
+    check(proc.returncode == 0 and len(lines) == 1,
+          f"the train phase's child exited {proc.returncode}: "
+          f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+    out = json.loads(lines[0][len("TRAIN_RESULT "):])
+    return out["record"], out["launches"]
+
+
 # ----------------------------------------------------------------- tuning
 # a tuned kind's candidate (the name up to its ':') -> the kernel it runs
 TUNED_KERNELS = {("pack", "row"): "pack", ("pack", "block"): "pack_blocked",
@@ -5280,6 +5880,22 @@ def run(dev, sz: Sizes) -> list:
         fam["hymba"]["flash"] + fam["whisper"]["flash"]
     del fam
 
+    # the training path (flash backward, qwen3-4b trained, the DDP step,
+    # phi3.5-moe trained) in a child process with the card's memory to
+    # itself: its counted drives' launches are the path's
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    train, by_path["train"] = train_in_child(sz, dev)
+    emit(train)
+    missing = missing_kernels(TRAIN_PATH, by_path["train"])
+    check(not missing or not on_card, f"the train path never launched "
+          f"{missing}")
+    recs["flash_attention"]["backward"] = train["flash_backward"]["shapes"]
+    for name in SEGRED:
+        recs[name]["ddp_bucket_shape"] = train["ddp"]["bucket"]
+    del train
+
     # the long segment reduce's sweep comes after the last profiled window:
     # its plain folds launch ~4 M small kernels, and after them torch.profiler
     # on the card returns windows without all their device events
@@ -5301,6 +5917,8 @@ def main() -> int:
         return dist_child(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]))
     if sys.argv[1:2] == ["--families"]:
         return families_child(sys.argv[2], sys.argv[3:4] == ["smoke"])
+    if sys.argv[1:2] == ["--train"]:
+        return train_child(sys.argv[2], sys.argv[3:4] == ["smoke"])
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "

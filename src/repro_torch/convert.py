@@ -23,7 +23,8 @@ from .sparse.csr import LocalCSR
 from .sparse.parmat import ParCSR
 
 __all__ = ["star_forest_from_arrays", "parcsr_from_arrays",
-           "distributed_mesh_from_arrays", "params_from_arrays"]
+           "distributed_mesh_from_arrays", "params_from_arrays",
+           "opt_state_from_arrays"]
 
 
 def star_forest_from_arrays(nranks: int,
@@ -122,3 +123,52 @@ def params_from_arrays(cfg: ModelConfig, tree: Dict, *,
             out[name] = t
         return out
     return convert("", init_params(cfg, device="meta"), tree)
+
+
+def opt_state_from_arrays(params: Dict, tree: Dict) -> Dict:
+    """The port's AdamW state (``training.optimizer``) from the
+    reference's, given as numpy arrays: ``{"m", "v", "step"}`` where ``m``
+    and ``v`` mirror ``params`` (the port's, e.g. from
+    :func:`params_from_arrays`) with, at each parameter, a float32 or
+    bfloat16 array of its shape or an int8 moment ``{"q": int8 of its
+    shape, "s": float32 of its shape[:-1] + (1,)}``.  Each moment goes to
+    its parameter's device; ``step`` becomes an int32 scalar there."""
+    def moment(where: str, p, m):
+        if isinstance(p, dict):
+            if not isinstance(m, dict) or set(m) != set(p):
+                raise KeyError(f"opt state{where} does not mirror the "
+                               f"params' {sorted(p)}")
+            return {k: moment(f"{where}.{k}", p[k], m[k]) for k in p}
+        if isinstance(m, dict):
+            if set(m) != {"q", "s"}:
+                raise KeyError(f"opt state{where}: an int8 moment has "
+                               f"q and s, got {sorted(m)}")
+            q, sc = _tensor(m["q"], p.device), _tensor(m["s"], p.device)
+            want_s = tuple(p.shape[:-1]) + (1,)
+            if q.dtype != torch.int8 or tuple(q.shape) != tuple(p.shape) \
+                    or sc.dtype != torch.float32 \
+                    or tuple(sc.shape) != want_s:
+                raise ValueError(f"opt state{where}: q {q.dtype} "
+                                 f"{tuple(q.shape)}, s {sc.dtype} "
+                                 f"{tuple(sc.shape)} for a parameter of "
+                                 f"shape {tuple(p.shape)}")
+            return {"q": q, "s": sc}
+        t = _tensor(m, p.device)
+        if tuple(t.shape) != tuple(p.shape) or \
+                t.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"opt state{where}: {t.dtype} "
+                             f"{tuple(t.shape)} for a parameter of shape "
+                             f"{tuple(p.shape)}")
+        return t
+
+    if set(tree) != {"m", "v", "step"}:
+        raise KeyError(f"opt state has {sorted(tree)}, needs m, v, step")
+    leaf = params
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    step = torch.as_tensor(np.asarray(tree["step"]).astype(np.int32),
+                           device=leaf.device)
+    if step.dim() != 0:
+        raise ValueError(f"opt state step has shape {tuple(step.shape)}")
+    return {"m": moment(".m", params, tree["m"]),
+            "v": moment(".v", params, tree["v"]), "step": step}

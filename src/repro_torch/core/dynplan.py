@@ -28,8 +28,15 @@ root's leaves in leaf order through ``kernels.ops.segment_reduce_rows``
 ``SFComm(star_forest_from_assignment(leaf_root, nroots))`` reduce; it reads
 its segment bounds back to the host once per call (MoE never takes it).
 
-The reference's ``custom_vjp`` on the gather (training through the plan)
-comes with the training slice.  ``star_forest_from_assignment``
+Training goes through the plan as through the reference's (its
+``custom_vjp`` on the gather): with grad mode on and a payload that
+requires a gradient, every gather is :class:`_Gather`, whose backward is
+the transpose — the cotangent's rows summed into the source's rows by the
+sorted segment reduce above, deterministic and with no float
+``atomicAdd`` (the reference's ``.at[idx].add`` is a scatter-add whose
+order on a GPU is not fixed) — and the general ``sum`` reduce is
+:class:`_SortedSum`, whose backward is the gather of the cotangent, 0 for
+dropped leaves.  ``star_forest_from_assignment``
 materializes a concrete routing as a real :class:`StarForest`, the bridge
 the tests use to hold DynPlan against the ``SFComm`` oracle.
 """
@@ -50,7 +57,7 @@ from . import sflog
 from ..kernels import ops as kops
 from ..kernels._index import segment_meta
 
-__all__ = ["DynPlan", "BoundDynSF", "PlanCache",
+__all__ = ["DynPlan", "BoundDynSF", "PlanCache", "gather_rows",
            "star_forest_from_assignment"]
 
 
@@ -131,8 +138,64 @@ _FOLDS = ("sum", "prod", "max", "min")
 
 
 def _gather(data: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``data[idx]`` through the pack kernels' runtime-index route."""
+    """``data[idx]`` through the pack kernels' runtime-index route;
+    differentiable (:class:`_Gather`) when grad mode is on and ``data``
+    requires a gradient."""
+    if torch.is_grad_enabled() and data.requires_grad:
+        return _Gather.apply(data, idx)
     return kops.pack_rows(data, idx, dynamic=True)
+
+
+gather_rows = _gather
+
+
+def _transpose_sum(g: torch.Tensor, idx: torch.Tensor, nrows: int
+                   ) -> torch.Tensor:
+    """The transpose of ``data[idx]`` for ``nrows`` source rows: row r is
+    the sum of the rows of ``g`` that read r, folded in their order by the
+    sorted segment reduce (0 for a row nobody read)."""
+    plan = DynPlan(nrows, idx.numel())
+    zeros = g.new_zeros((nrows,) + tuple(g.shape[1:]))
+    return plan._sorted_reduce(g, idx, zeros, get_op("sum"))
+
+
+class _Gather(torch.autograd.Function):
+    """``data[idx]`` through the hand gather; backward: the transpose
+    (:func:`_transpose_sum`)."""
+
+    @staticmethod
+    def forward(ctx, data, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = int(data.shape[0])
+        return kops.pack_rows(data, idx, dynamic=True)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        return _transpose_sum(g.contiguous(), idx, ctx.rows), None
+
+
+class _SortedSum(torch.autograd.Function):
+    """The general ``sum`` reduce (:meth:`DynPlan._sorted_reduce`);
+    backward: the cotangent gathered back to the leaves (0 for dropped
+    ones) and passed through to ``rootdata``."""
+
+    @staticmethod
+    def forward(ctx, leafdata, leaf_root, rootdata, plan):
+        ctx.save_for_backward(leaf_root)
+        ctx.plan, ctx.leaf_dtype = plan, leafdata.dtype
+        return plan._sorted_reduce(leafdata, leaf_root, rootdata,
+                                   get_op("sum"))
+
+    @staticmethod
+    def backward(ctx, g):
+        leaf_root, = ctx.saved_tensors
+        g_leaf = None
+        if ctx.needs_input_grad[0]:
+            pad = torch.cat([g, g.new_zeros((1,) + tuple(g.shape[1:]))])
+            g_leaf = _gather(pad, leaf_root).to(ctx.leaf_dtype)
+        g_root = g if ctx.needs_input_grad[2] else None
+        return g_leaf, None, g_root, None
 
 
 def _rows(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -287,6 +350,13 @@ class DynPlan:
         if rootdata is None:
             rootdata = torch.full((self.nroots,) + tuple(leafdata.shape[1:]),
                                   ident, dtype=dtype, device=dev)
+        if torch.is_grad_enabled() and (leafdata.requires_grad
+                                        or rootdata.requires_grad):
+            if opn.name != "sum":
+                raise NotImplementedError(
+                    f"DynPlan.reduce differentiates op='sum' only, not "
+                    f"{opn.name!r}")
+            return _SortedSum.apply(leafdata, leaf_root, rootdata, self)
         return self._sorted_reduce(leafdata, leaf_root, rootdata, opn)
 
     def _sorted_reduce(self, leafdata, leaf_root, rootdata, opn):

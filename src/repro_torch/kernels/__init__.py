@@ -3,7 +3,8 @@
 Each kernel module (``sf_pack``, ``sf_unpack``, ``spmv_ell``,
 ``flash_attention``) holds the wrappers of one ``csrc/*.cu`` source, their
 plain PyTorch versions and the launch counters; ``ops`` routes the SF hot
-path onto them and carries the serving path's ``flash_attention``; ``ref``
+path onto them and carries the models' ``flash_attention`` (with its
+autograd Function when a gradient is asked for); ``ref``
 keeps the reference's oracle names; ``_build`` compiles and loads the
 sources.
 The kernel modules are imported as modules (``from repro_torch.kernels

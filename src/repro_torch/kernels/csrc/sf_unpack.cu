@@ -30,7 +30,11 @@
 //   element) and walks the segment's rows in buffer order, segs_per_cta
 //   segments a CTA.  Every segment takes it while the longest is at most
 //   the cut; otherwise it skips each segment longer than the cut, which the
-//   long route writes in the same call.
+//   long route writes in the same call.  When the segment groups are too
+//   few to fill the card (a DDP gradient bucket is one segment of `grains`
+//   rows, millions of elements wide), the launcher also cuts the unit into
+//   column tiles on blockIdx.y (col_tiles), as the long route does: each
+//   element keeps its thread and its fold, so the bits do not change.
 // * Long, order-free: integer dtypes under every op, float dtypes under
 //   max / min.  The wrapper's plan (sf_unpack.long_plan, built once per
 //   segment metadata) cuts each long segment into chunks of kLongChunkRows
@@ -202,19 +206,24 @@ __device__ __forceinline__ T combine(T acc, T v) {
   return Num<T>::gt(acc, v) ? v : acc;
 }
 
+// CTA (x, y) folds segments [x * segs_per_cta, ...) over the unit's
+// columns [y * width, y * width + width).
 template <typename T, int OP>
 __global__ void segment_reduce_kernel(const T* __restrict__ buf,
                                       T* __restrict__ out,
                                       const int* __restrict__ seg_start,
                                       const int* __restrict__ seg_len,
                                       long long S, long long U,
-                                      int segs_per_cta, int long_cut) {
+                                      int segs_per_cta, int long_cut,
+                                      long long width) {
   const long long s0 = (long long)blockIdx.x * segs_per_cta;
   const long long ns = min((long long)segs_per_cta, S - s0);
-  const long long total = ns * U;
+  const long long e0 = (long long)blockIdx.y * width;
+  const long long w = min(width, U - e0);
+  const long long total = ns * w;
   for (long long t = threadIdx.x; t < total; t += blockDim.x) {
-    const long long ds = t / U;
-    const long long e = t - ds * U;
+    const long long ds = t / w;
+    const long long e = e0 + (t - ds * w);
     const long long s = s0 + ds;
     const long long start = seg_start[s];
     const int len = seg_len[s];
@@ -227,32 +236,70 @@ __global__ void segment_reduce_kernel(const T* __restrict__ buf,
   }
 }
 
+// Column tiles of the short route: col_tiles > 0 is taken as it is (1 =
+// one CTA for each segment group's whole unit); 0 lets the launcher cut
+// the unit so that the grid holds kFillCtasPerSm CTAs an SM, each tile at
+// least kMinTileCols columns (a multiple of 32) and at most 65,535 tiles.
+constexpr int kFillCtasPerSm = 8;      // 8 x 256 threads: a full SM
+constexpr long long kMinTileCols = 1024;
+
+inline int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess || sms <= 0) {
+      sms = 132;  // an H100 SXM
+    }
+  }
+  return sms;
+}
+
+inline long long tile_width(long long groups, long long U, int col_tiles) {
+  long long tiles = col_tiles;
+  if (tiles <= 0) {
+    const long long want = (long long)sm_count() * kFillCtasPerSm;
+    tiles = groups >= want ? 1 : (want + groups - 1) / groups;
+    tiles = min(tiles, (U + kMinTileCols - 1) / kMinTileCols);
+  }
+  tiles = max(1LL, min(tiles, U));
+  long long width = (U + tiles - 1) / tiles;
+  if (tiles > 1) width = (width + 31) / 32 * 32;
+  while ((U + width - 1) / width > 65535) width *= 2;
+  return width;
+}
+
 template <typename T>
 int launch(const void* buf, void* out, const int* seg_start,
            const int* seg_len, long long S, long long U, int op,
-           int segs_per_cta, int long_cut, cudaStream_t stream) {
-  const long long items = (long long)segs_per_cta * U;
+           int segs_per_cta, int long_cut, int col_tiles,
+           cudaStream_t stream) {
+  const long long groups = (S + segs_per_cta - 1) / segs_per_cta;
+  const long long width = tile_width(groups, U, col_tiles);
+  const long long items = (long long)segs_per_cta * width;
   const long long warps = (items + 31) / 32;
   const int threads = (int)(warps >= 8 ? 256 : (warps < 1 ? 32 : warps * 32));
-  const unsigned grid = (unsigned)((S + segs_per_cta - 1) / segs_per_cta);
+  if (groups > 2147483647LL) return -1;
+  const dim3 grid((unsigned)groups, (unsigned)((U + width - 1) / width));
   const T* b = (const T*)buf;
   T* o = (T*)out;
   switch (op) {
     case OP_SUM:
       segment_reduce_kernel<T, OP_SUM><<<grid, threads, 0, stream>>>(
-          b, o, seg_start, seg_len, S, U, segs_per_cta, long_cut);
+          b, o, seg_start, seg_len, S, U, segs_per_cta, long_cut, width);
       break;
     case OP_PROD:
       segment_reduce_kernel<T, OP_PROD><<<grid, threads, 0, stream>>>(
-          b, o, seg_start, seg_len, S, U, segs_per_cta, long_cut);
+          b, o, seg_start, seg_len, S, U, segs_per_cta, long_cut, width);
       break;
     case OP_MAX:
       segment_reduce_kernel<T, OP_MAX><<<grid, threads, 0, stream>>>(
-          b, o, seg_start, seg_len, S, U, segs_per_cta, long_cut);
+          b, o, seg_start, seg_len, S, U, segs_per_cta, long_cut, width);
       break;
     case OP_MIN:
       segment_reduce_kernel<T, OP_MIN><<<grid, threads, 0, stream>>>(
-          b, o, seg_start, seg_len, S, U, segs_per_cta, long_cut);
+          b, o, seg_start, seg_len, S, U, segs_per_cta, long_cut, width);
       break;
     default:
       return -1;
@@ -780,14 +827,16 @@ extern "C" {
 // Dtype codes: 0 float32, 1 float64, 2 int32, 3 bfloat16, 4 int8, 5 uint8,
 // 6 int16, 7 int64, 8 float16.  Op codes: 0 sum, 1 prod, 2 max, 3 min.
 // Returns -1 for an unknown code.  Segments longer than long_cut are left
-// to sf_segment_reduce_long.
+// to sf_segment_reduce_long.  col_tiles: the unit's column tiles on
+// blockIdx.y, 0 = the launcher's choice (tile_width).
 int sf_segment_reduce(const void* buf, void* out, const int* seg_start,
                       const int* seg_len, long long S, long long U, int dtype,
-                      int op, int segs_per_cta, int long_cut, void* stream) {
+                      int op, int segs_per_cta, int long_cut, int col_tiles,
+                      void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
 #define SF_REDUCE_AS(T)                                                  \
   return launch<T>(buf, out, seg_start, seg_len, S, U, op, segs_per_cta, \
-                   long_cut, s)
+                   long_cut, col_tiles, s)
   switch (dtype) {
     case 0: SF_REDUCE_AS(float);
     case 1: SF_REDUCE_AS(double);

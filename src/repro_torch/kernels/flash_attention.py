@@ -24,8 +24,16 @@ Two kernels, chosen by a fixed rule (:func:`route`):
 Each source's note gives its bound and design.  ``flash_attention.launches``
 counts the launches of both, ``flash_attention.launches_sm90`` those of the
 first.  The wrapper takes the plain version only for tensors on the CPU;
-for a CUDA tensor it launches one of the two kernels or raises.  There is
-no backward kernel yet, so an input that requires grad raises.
+for a CUDA tensor it launches one of the two kernels or raises.  The
+wrapper has no backward, so an input that requires grad raises there.
+
+Training goes through :class:`FlashAttention` (``kernels.ops.
+flash_attention`` takes it when grad mode is on and an input requires a
+gradient): its forward is the wrapper on detached inputs, its backward
+recomputes the same masked attention with :func:`flash_attention_plain`
+and differentiates that.  The reference trains through its plain
+``_chunked_attn`` and has no backward kernel, so the gradient is the
+reference's own; a hand-written backward kernel is open kernel work.
 """
 
 from __future__ import annotations
@@ -39,7 +47,8 @@ import torch
 from . import _build
 from ._index import require_cuda_tensor
 
-__all__ = ["flash_attention", "flash_attention_plain", "HEAD_DIMS",
+__all__ = ["flash_attention", "flash_attention_plain", "FlashAttention",
+           "HEAD_DIMS",
            "SM90", "SM90_HEAD_DIMS", "ROUTES", "route", "tile_plan",
            "TilePlan", "sm90_smem_bytes", "launch_kernel"]
 
@@ -113,8 +122,10 @@ def _check(q, k, v):
     if not (q.device == k.device == v.device):
         raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
     if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise RuntimeError("flash_attention has no backward kernel yet; "
-                           "call it on tensors that do not require grad")
+        raise RuntimeError("the flash_attention wrapper has no backward "
+                           "kernel: call it on tensors that do not require "
+                           "grad, or kernels.ops.flash_attention (its "
+                           "autograd Function) on tensors that do")
 
 
 def _window_arg(window, Sq: int, Skv: int):
@@ -305,3 +316,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention.launches = 0
 flash_attention.launches_sm90 = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable attention: the forward kernel (:func:`flash_attention`
+    on detached inputs, so it counts its launch) and a backward that
+    recomputes the plain version under grad and returns its gradients.
+    ``FlashAttention.apply(q, k, v, causal, window, scale)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = (causal, window, scale)
+        return flash_attention(q.detach(), k.detach(), v.detach(),
+                               causal=causal, window=window, scale=scale)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        causal, window, scale = ctx.mask
+        need = ctx.needs_input_grad[:3]
+        ins = [t.detach().requires_grad_(n)
+               for t, n in zip(ctx.saved_tensors, need)]
+        with torch.enable_grad():
+            out = flash_attention_plain(*ins, causal=causal, window=window,
+                                        scale=scale)
+            wrt = [t for t, n in zip(ins, need) if n]
+            got = iter(torch.autograd.grad(out, wrt, grad_out))
+        return tuple(next(got) if n else None for n in need) + \
+            (None, None, None)

@@ -43,9 +43,11 @@ rule, no sweep, no host read and no cache entry, and the gather kernels
 check the bounds on the device.  The direct entry points ``sf_pack``,
 ``sf_pack_strided``, ``sf_unpack`` and ``spmv_ell`` call one kernel each.
 
-``flash_attention`` is the serving path's prefill attention core (the
-reference's ``_chunked_attn`` function, computed by the hand-written
-kernel; ``models/layers.py::attention`` calls it).
+``flash_attention`` is the models' attention core (the reference's
+``_chunked_attn`` function, computed by the hand-written kernel;
+``models/layers.py::attention`` calls it): the kernel's wrapper, or, when
+grad mode is on and an input requires a gradient, the differentiable
+``flash_attention.FlashAttention`` around it.
 """
 
 from __future__ import annotations
@@ -63,7 +65,7 @@ from .sf_pack import (bcast_fused, bcast_variant, inverse_map, pack,
 from .sf_unpack import (segment_reduce_blocked, segment_reduce_sorted,
                         unpack_segments)
 from .spmv_ell import spmv_ell
-from .flash_attention import flash_attention
+from . import flash_attention as _fa
 from ..core.redplan import seg_block_candidates
 
 __all__ = [
@@ -291,6 +293,20 @@ def sf_unpack(target, buf_sorted, seg_start, seg_len, seg_dst, *, op="sum"):
                            op=op, segs_per_block=SEG_BLOCK)
 
 
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window=None,
+                    scale=None) -> torch.Tensor:
+    """Attention through the flash kernel (``flash_attention.
+    flash_attention``'s shapes and contract); differentiable through
+    ``FlashAttention`` when grad mode is on and q, k or v requires a
+    gradient."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _fa.FlashAttention.apply(q, k, v, causal, window, scale)
+    return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                               scale=scale)
+
+
 # --------------------------------------------------------------------------
 # launch counters
 # --------------------------------------------------------------------------
@@ -301,13 +317,13 @@ def kernel_wrappers() -> dict:
             "pack_strided": pack_strided, "bcast_fused": bcast_fused,
             "segment_reduce_sorted": segment_reduce_sorted,
             "segment_reduce_blocked": segment_reduce_blocked,
-            "spmv_ell": spmv_ell, "flash_attention": flash_attention}
+            "spmv_ell": spmv_ell, "flash_attention": _fa.flash_attention}
 
 
 def reset_launch_counts() -> None:
     for f in kernel_wrappers().values():
         f.launches = 0
-    flash_attention.launches_sm90 = 0   # the wgmma route's share
+    _fa.flash_attention.launches_sm90 = 0   # the wgmma route's share
     pack_strided.routes = {r: 0 for r in pack_strided.routes}
 
 
@@ -316,7 +332,7 @@ def launch_counts() -> dict:
 
 
 def _saved_counts() -> tuple:
-    return (launch_counts(), flash_attention.launches_sm90,
+    return (launch_counts(), _fa.flash_attention.launches_sm90,
             dict(pack_strided.routes))
 
 
@@ -324,7 +340,7 @@ def _restore_counts(saved: tuple) -> None:
     counts, sm90, routes = saved
     for name, f in kernel_wrappers().items():
         f.launches = counts[name]
-    flash_attention.launches_sm90 = sm90
+    _fa.flash_attention.launches_sm90 = sm90
     pack_strided.routes = routes
 
 

@@ -11,7 +11,9 @@ from the identity, the earlier operand first, so results are the same on
 every run and equal to the plain version bit for bit (max / min keep the
 first NaN with its payload, and of equal values the first, which decides
 +-0).  Routes (:func:`reduce_route`): while no segment is longer than
-``LONG_SEG`` rows, one thread per (segment, unit element) folds its rows;
+``LONG_SEG`` rows, one thread per (segment, unit element) folds its rows
+(with the unit cut into column tiles across CTAs when the segments are
+too few to fill the card: a DDP bucket's one segment of ``grains`` rows);
 otherwise the longer segments leave that kernel for the long route, planned
 once per segment metadata (:func:`long_plan`): chunks of
 ``LONG_CHUNK_ROWS`` rows folded by separate CTAs and their partials in
@@ -48,7 +50,8 @@ from ._index import cached, device_index, require_cuda_tensor, \
     segment_meta
 
 __all__ = ["segment_reduce_sorted", "segment_reduce_blocked",
-           "unpack_segments", "segment_reduce_plain", "LONG_SEG", "LONG_CHUNK_ROWS", "LongPlan", "long_plan",
+           "unpack_segments", "segment_reduce_plain", "short_variant",
+           "LONG_SEG", "LONG_CHUNK_ROWS", "LongPlan", "long_plan",
            "build_long_plan", "order_free", "reduce_route", "prepare"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.int32: 2,
@@ -212,12 +215,15 @@ def prepare(seg_start, seg_len, device: torch.device) -> None:
 
 # ---------------------------------------------------------------- kernels
 def _launch_short(buf, out, start, length, op: str, segs_per_cta: int,
-                  cut: int) -> None:
+                  cut: int, col_tiles: int = 0) -> None:
+    """The short route; ``col_tiles`` column tiles of the unit on the
+    grid's y axis (0: the launcher's choice, which cuts a wide unit when
+    the segment groups are too few to fill the card)."""
     S, U = start.numel(), math.prod(buf.shape[1:])
     _build.launch("sf_segment_reduce", buf.data_ptr(), out.data_ptr(),
                   start.data_ptr(), length.data_ptr(), S, U,
                   _DTYPE_CODES[buf.dtype], _OP_CODES[op], int(segs_per_cta),
-                  int(cut), _build.stream_of(buf))
+                  int(cut), int(col_tiles), _build.stream_of(buf))
 
 
 def _launch_long(buf, out, plan: LongPlan, op: str) -> None:
@@ -292,6 +298,28 @@ def segment_reduce_blocked(buf: torch.Tensor, seg_start, seg_len, *,
         raise ValueError("segs_per_block must be >= 1")
     return _reduce(segment_reduce_blocked, buf, seg_start, seg_len, op,
                    int(segs_per_block))
+
+
+def short_variant(buf: torch.Tensor, seg_start, seg_len, *,
+                  segs_per_block: int, col_tiles: int,
+                  op: str = "sum") -> torch.Tensor:
+    """The short route on a CUDA tensor with the unit's column tiles
+    forced (``col_tiles=1``: one CTA for each group of ``segs_per_block``
+    segments, as before the tiles), for comparisons in ``chip_smoke.py``;
+    every segment must be at most ``LONG_SEG`` rows (the plain version on
+    the CPU).  Counts no launch (it is on no path)."""
+    start, length, lmax = _checked(buf, seg_start, seg_len, op)
+    if buf.device.type == "cpu":
+        return segment_reduce_plain(buf, start, length, op, lmax)
+    require_cuda_tensor(buf, "buf")
+    if reduce_route(lmax, buf.dtype, op) != "short":
+        raise ValueError(f"a segment of {lmax} rows takes the long route")
+    out = torch.empty((start.numel(),) + tuple(buf.shape[1:]),
+                      dtype=buf.dtype, device=buf.device)
+    if out.numel():
+        _launch_short(buf, out, start, length, op, int(segs_per_block),
+                      LONG_SEG, int(col_tiles))
+    return out
 
 
 def unpack_segments(target: torch.Tensor, buf_sorted: torch.Tensor,

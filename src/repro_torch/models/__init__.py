@@ -1,9 +1,9 @@
-"""repro_torch.models — model configuration and the decoder-only
-transformer of the serving path, dense or MoE (``config``, ``layers``,
-``moe``, ``transformer``).  Hybrid, recurrent and encoder-decoder blocks
-come in later slices."""
+"""repro_torch.models — model configuration and the model families
+(``config``, ``layers``, ``moe``, ``ssm``, ``xlstm``, ``transformer``),
+and the sharding spec rules (``sharding``)."""
 
 from .config import ModelConfig, torch_dtype
-from . import layers, moe, transformer
+from . import layers, moe, sharding, transformer
 
-__all__ = ["ModelConfig", "torch_dtype", "layers", "moe", "transformer"]
+__all__ = ["ModelConfig", "torch_dtype", "layers", "moe", "sharding",
+           "transformer"]

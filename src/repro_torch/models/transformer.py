@@ -5,6 +5,9 @@ of ``repro/models/transformer.py``), for inference:
                   reference's names
   init_cache      an empty decode cache
   forward         full-sequence logits and the MoE aux loss, no gradient
+  forward_train   the same, differentiable (dense and MoE block kinds),
+                  each block under activation checkpointing when
+                  ``cfg.remat == "block"``
   prefill         full-sequence forward -> (last logits, decode cache);
                   every attention goes through the flash kernel
   decode_step     single-token step on the cache (plain torch self-
@@ -27,11 +30,20 @@ Families:
                       attention over the encoder's K/V, kept in the cache
 
 The reference's ``lax.scan`` over layers is a Python loop over the stacked
-leaves.  ``forward`` has no backward: the flash kernel refuses inputs that
-require grad until the training slice brings its backward kernel.  Entry
-points run on the current CUDA device unless ``device="cpu"`` is passed
-(``init_params``, ``init_cache``); the others run where the params live
-and raise on inputs placed elsewhere.
+leaves.  ``forward``, ``prefill`` and ``decode_step`` run without a graph;
+``forward_train`` keeps one: the attention core goes through the flash
+kernel's ``autograd.Function`` (forward kernel, plain backward), the MoE
+dispatch and combine through ``DynPlan``'s differentiable gathers, and the
+token lookup through the same gather, whose transpose is the sorted
+segment reduce (deterministic, no float atomics).  ``cfg.remat ==
+"block"`` wraps each block body in ``torch.utils.checkpoint`` (non-
+reentrant), as ``jax.checkpoint`` wraps the reference's scan body.
+Training hymba (its SSM scan replays a captured CUDA graph), xlstm and the
+encoder-decoder waits for a later slice: ``require_supported(cfg,
+grad=True)`` raises for them.  Entry points run on the current CUDA
+device unless ``device="cpu"`` is passed (``init_params``,
+``init_cache``); the others run where the params live and raise on inputs
+placed elsewhere.
 """
 
 from __future__ import annotations
@@ -40,8 +52,10 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core.device import check_payload, resolve_device
+from ..core.dynplan import gather_rows
 from .config import ModelConfig, torch_dtype
 from .layers import (attention, attention_decode, cross_attention,
                      init_attn, init_mlp, mlp, rmsnorm)
@@ -50,20 +64,30 @@ from .ssm import init_ssm, ssm_scan, ssm_step
 from .xlstm import (init_xlstm_pair, init_xlstm_state, xlstm_pair_scan,
                     xlstm_pair_step)
 
-__all__ = ["init_params", "init_cache", "forward", "prefill",
+__all__ = ["init_params", "init_cache", "forward", "forward_train",
+           "prefill",
            "decode_step", "hymba_windows", "layer_windows", "hymba_mix",
            "require_supported", "feed_forward", "layer", "as_tokens"]
 
 BLOCK_KINDS = ("transformer", "hymba", "xlstm")
 
 
-def require_supported(cfg: ModelConfig) -> None:
+def require_supported(cfg: ModelConfig, grad: bool = False) -> None:
     """Raise ``NotImplementedError`` for a ``block_kind`` the reference
-    does not have."""
+    does not have, and with ``grad=True`` for a family the port does not
+    train yet (hymba, xlstm, the encoder-decoder)."""
     if cfg.block_kind not in BLOCK_KINDS:
         raise NotImplementedError(f"{cfg.name}: unknown block kind "
                                   f"{cfg.block_kind!r}; the port has "
                                   f"{BLOCK_KINDS}")
+    if grad and (cfg.block_kind != "transformer" or cfg.enc_layers
+                 or cfg.cross_attention):
+        raise NotImplementedError(
+            f"{cfg.name}: training ({cfg.block_kind} blocks"
+            f"{', encoder-decoder' if cfg.enc_layers else ''}) is not "
+            f"ported yet; the port trains the dense and MoE transformer "
+            f"block kinds (hymba, xlstm and whisper training are later "
+            f"work, ROADMAP Queue 1)")
 
 
 def hymba_windows(cfg: ModelConfig, s_max: int) -> np.ndarray:
@@ -256,36 +280,44 @@ def _run_encoder(params, cfg: ModelConfig, x) -> torch.Tensor:
     return rmsnorm(x, params["enc_norm"], cfg.norm_eps)
 
 
+def _block(x, bp, cfg: ModelConfig, window, enc_out=None, cbp=None):
+    """One decoder block over the full sequence -> (x, the MoE aux loss or
+    None, (k, v, SSM state, encoder k, encoder v), None where the family
+    has none)."""
+    h = rmsnorm(x, bp["ln1"], cfg.norm_eps)
+    attn_out, (k, v) = attention(h, bp, cfg, window=window)
+    hst = ek = ev = None
+    if cfg.block_kind == "hymba":
+        ssm_out, hst = ssm_scan(h, bp, cfg)
+        attn_out = hymba_mix(attn_out, ssm_out, bp, cfg)
+    x = x + attn_out
+    if cbp is not None:
+        ek, ev = _encoder_kv(enc_out, cbp, cfg)
+        x = x + cross_attention(rmsnorm(x, cbp["ln"], cfg.norm_eps),
+                                cbp, cfg, (ek, ev))
+    aux = None
+    if cfg.is_moe:
+        ff, aux = moe_layer(rmsnorm(x, bp["ln2"], cfg.norm_eps), bp, cfg)
+        x = x + ff
+    elif cfg.d_ff:
+        x = x + mlp(rmsnorm(x, bp["ln2"], cfg.norm_eps), bp, cfg)
+    return x, aux, (k, v, hst, ek, ev)
+
+
 def _layers(params, cfg: ModelConfig, x, windows, enc_out, with_aux):
     """The decoder stack over the full sequence -> (x, the MoE aux loss
-    summed over layers when ``with_aux``, each layer's (k, v, SSM state,
-    encoder k, encoder v), None where the family has none)."""
+    summed over layers when ``with_aux``, each layer's :func:`_block`
+    states)."""
     blocks = params["blocks"]
     cross = params.get("cross_blocks")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     outs = []
     for i in range(cfg.n_layers):
-        bp = layer(blocks, i)
-        h = rmsnorm(x, bp["ln1"], cfg.norm_eps)
-        attn_out, (k, v) = attention(h, bp, cfg, window=windows[i])
-        hst = ek = ev = None
-        if cfg.block_kind == "hymba":
-            ssm_out, hst = ssm_scan(h, bp, cfg)
-            attn_out = hymba_mix(attn_out, ssm_out, bp, cfg)
-        x = x + attn_out
-        if cross is not None:
-            cbp = layer(cross, i)
-            ek, ev = _encoder_kv(enc_out, cbp, cfg)
-            x = x + cross_attention(rmsnorm(x, cbp["ln"], cfg.norm_eps),
-                                    cbp, cfg, (ek, ev))
-        if cfg.is_moe:
-            ff, a = moe_layer(rmsnorm(x, bp["ln2"], cfg.norm_eps), bp, cfg)
-            x = x + ff
-            if with_aux:
-                aux = aux + a
-        elif cfg.d_ff:
-            x = x + mlp(rmsnorm(x, bp["ln2"], cfg.norm_eps), bp, cfg)
-        outs.append((k, v, hst, ek, ev))
+        x, a, st = _block(x, layer(blocks, i), cfg, windows[i], enc_out,
+                          None if cross is None else layer(cross, i))
+        if with_aux and a is not None:
+            aux = aux + a
+        outs.append(st)
     return x, aux, outs
 
 
@@ -320,6 +352,38 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
         else None
     x, aux, _ = _layers(params, cfg, x, layer_windows(cfg, S), enc_out,
                         with_aux=True)
+    return _head(params, cfg, x), aux
+
+
+def forward_train(params, cfg: ModelConfig, *, tokens=None, embeds=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (logits (B, S, V), aux loss), differentiable: the training
+    forward of the dense and MoE block kinds (``embeds`` overrides the
+    token lookup, the VLM path).  With ``cfg.remat == "block"`` each block
+    keeps only its input for the backward and recomputes the rest there
+    (its flash launches run again)."""
+    require_supported(cfg, grad=True)
+    dev = params["embed"].device
+    if embeds is not None:
+        x = check_payload(embeds, dev, "embeds")
+    elif tokens is None:
+        raise ValueError("pass tokens= or embeds=")
+    else:
+        tok = as_tokens(tokens, dev)
+        x = gather_rows(params["embed"], tok.reshape(-1)) \
+            .reshape(tuple(tok.shape) + (cfg.d_model,))
+    windows = layer_windows(cfg, x.shape[1])
+    blocks = params["blocks"]
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    for i in range(cfg.n_layers):
+        def body(x, i=i):
+            y, a, _ = _block(x, layer(blocks, i), cfg, windows[i])
+            return y, (torch.zeros_like(aux) if a is None else a)
+        if cfg.remat == "block":
+            x, a = checkpoint(body, x, use_reentrant=False)
+        else:
+            x, a = body(x)
+        aux = aux + a
     return _head(params, cfg, x), aux
 
 

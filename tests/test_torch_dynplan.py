@@ -8,8 +8,11 @@ its own ``SFComm`` oracle on the routing's star forest.
 
 On the CPU the gathers run their plain versions; the card twins are in
 ``tests/test_torch_on_card.py`` and ``chip_smoke.py``'s ``moe`` phase.
-The training half of the reference's contracts (the gather's VJP) comes
-with the training slice.
+The training half of the reference's contracts: gradients through the
+bcast and the general reduce against the reference's ``custom_vjp``
+(``tests/test_dynplan.py::test_grad_through_bcast_and_reduce``), the
+unique and ``leaf_rep`` reduces against torch's own index gradients, and
+the transpose's bits the same from run to run.
 """
 
 import numpy as np
@@ -338,3 +341,97 @@ def test_sf_view_and_events_match_reference(routing):
     for ev in ("SFDynReduce", "SFDynBcast"):
         assert d[ev] == rd[ev]
         assert d[ev]["bytes"] == NLEAVES * 3 * 4
+
+
+# ------------------------------------------ tests/test_dynplan.py:116-140
+def test_grad_through_bcast_and_reduce(routing):
+    """The gather's gradient is the SF transpose (bcast grad = reduce,
+    reduce grad = bcast): the port's against its own transpose and the
+    reference's custom-VJP gradients."""
+    import jax
+    lr, data, root0 = routing
+    plan, rplan = DynPlan(NROOTS, NLEAVES), RDynPlan(NROOTS, NLEAVES)
+    lrj = jnp.asarray(lr)
+    r = t(root0).requires_grad_()
+    g, = torch.autograd.grad(torch.sum(plan.bcast(r, t(lr)) ** 2), r)
+    want = plan.reduce(2.0 * plan.bcast(t(root0), t(lr)), t(lr), op="sum")
+    np.testing.assert_allclose(n(g), n(want), rtol=1e-6, atol=1e-6)
+    rg = jax.grad(lambda x: jnp.sum(rplan.bcast(x, lrj) ** 2))(
+        jnp.asarray(root0))
+    np.testing.assert_allclose(n(g), np.asarray(rg), rtol=1e-6, atol=1e-6)
+
+    d = t(data).requires_grad_()
+    g2, = torch.autograd.grad(
+        torch.sum(plan.reduce(d, t(lr), op="sum", unique=False)), d)
+    # d(sum of roots)/d(leaf) = 1 for connected leaves, 0 for dropped
+    np.testing.assert_array_equal(
+        n(g2), (lr < NROOTS)[:, None] * np.ones_like(data))
+    rg2 = jax.grad(lambda x: jnp.sum(rplan.reduce(x, lrj, op="sum")))(
+        jnp.asarray(data))
+    np.testing.assert_array_equal(n(g2), np.asarray(rg2))
+
+
+@pytest.mark.parametrize("with_root", [False, True])
+def test_grad_of_general_reduce_with_rootdata(routing, with_root):
+    """A weighted loss through the general sum reduce: the leaves get the
+    cotangent of their root (0 when dropped), rootdata the cotangent
+    itself, as torch's index_add gives them."""
+    lr, data, root0 = routing
+    w = torch.arange(NROOTS * 3, dtype=torch.float32).reshape(NROOTS, 3)
+    d = t(data).requires_grad_()
+    r = t(root0).requires_grad_() if with_root else None
+    out = DynPlan(NROOTS, NLEAVES).reduce(d, t(lr), r, op="sum")
+    got = torch.autograd.grad(torch.sum(out * w), [d] + ([r] if r is not None
+                                                          else []))
+    d2 = t(data).requires_grad_()
+    r2 = t(root0).requires_grad_() if with_root else torch.zeros(NROOTS, 3)
+    keep = torch.as_tensor(lr < NROOTS)
+    ref = r2.index_add(0, t(lr)[keep], d2[keep])
+    want = torch.autograd.grad(torch.sum(ref * w), [d2] + (
+        [r2] if with_root else []))
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(n(a), n(b))
+
+
+@pytest.mark.parametrize("rep", [1, 2])
+def test_grad_of_unique_reduce_is_the_gather_transpose(rep):
+    """The one-writer reduce (and its ``leaf_rep`` composition) is a
+    gather: its gradient sums each leaf row's readers, bitwise torch's
+    own indexing gradient here (two readers at most, one order)."""
+    lr = LR_UNIQUE
+    rng = np.random.default_rng(3)
+    data = rng.standard_normal((NLEAVES // rep, 4)).astype(np.float32)
+    w = rng.standard_normal((NROOTS, 4)).astype(np.float32)
+    d = t(data).requires_grad_()
+    out = DynPlan(NROOTS, NLEAVES).reduce(d, t(lr), op="sum", unique=True,
+                                          leaf_rep=rep)
+    g, = torch.autograd.grad(torch.sum(out * t(w)), d)
+    writer = np.full(NROOTS, -1)
+    writer[lr[lr < NROOTS]] = np.flatnonzero(lr < NROOTS)
+    want = np.zeros_like(data)
+    for root, leaf in enumerate(writer):
+        if leaf >= 0:
+            want[leaf // rep] += w[root]
+    np.testing.assert_allclose(n(g), want, rtol=1e-6, atol=1e-6)
+
+
+def test_transpose_is_deterministic():
+    """The gather's transpose folds each source row's readers in leaf
+    order through the segment reduce: the same bits on every run, and the
+    same as folding them in that order by hand."""
+    rng = np.random.default_rng(11)
+    idx = rng.integers(0, 50, 4000)
+    g = torch.as_tensor(rng.standard_normal((4000, 8)).astype(np.float32))
+    src = torch.zeros(50, 8, requires_grad=True)
+    plan = DynPlan(50, 4000)
+
+    def grad():
+        out = plan.bcast(src, t(idx))
+        return torch.autograd.grad(out, src, g)[0]
+
+    a, b = grad(), grad()
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    want = torch.zeros(50, 8)
+    for i in np.argsort(idx, kind="stable"):
+        want[idx[i]] += g[i]
+    assert torch.equal(a, want)

@@ -16,7 +16,12 @@ long segment reduce (segments over ``LONG_SEG`` rows) every dtype and op
 at the cut and the chunk edges (``chip_smoke.long_case``: short, empty,
 overlapping and unsorted segments beside the long ones) and on wide rows,
 bitwise with NaN payloads, a segment of 41 chunks, the plan on the card
-against the CPU's, and a long-route reduce captured into a CUDA graph.
+against the CPU's, and a long-route reduce captured into a CUDA graph;
+for the training slice the flash Function's gradients against the plain
+version's, the column-tiled short segment reduce bitwise its one-CTA
+launch and the plain version at a DDP bucket's shape, the DynPlan
+gather's transpose repeatable bit for bit and equal to the CPU's, and the
+DDP step bitwise across worlds on the card.
 
 Every test is ``cuda``-marked and skips without a card; the file imports
 no JAX, so the card's machine runs it:
@@ -631,3 +636,77 @@ def test_cuda_dist_refuses_a_group_that_cannot_carry_the_card(dev, tmp_path):
             DistSF(sf, device=dev)
     finally:
         dist.destroy_process_group()
+
+
+# ------------------------------------------------------------ training slice
+@pytest.mark.parametrize("S,H,Hkv,D,window", [(256, 8, 2, 128, None),
+                                              (300, 5, 1, 64, 100),
+                                              (130, 4, 4, 32, None)])
+def test_flash_function_gradients_equal_plain(dev, S, H, Hkv, D, window):
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=dev).manual_seed(S)
+    q, k, v = (torch.randn(S, h, D, generator=g, device=dev).bfloat16()
+               .requires_grad_() for h in (H, Hkv, Hkv))
+    go = torch.randn(S, H, D, generator=g, device=dev).bfloat16()
+    before = fa.flash_attention.launches
+    y = kops.flash_attention(q, k, v, causal=True, window=window)
+    assert fa.flash_attention.launches == before + 1
+    got = torch.autograd.grad(y, (q, k, v), go)
+    want = torch.autograd.grad(fa.flash_attention_plain(
+        q, k, v, causal=True, window=window), (q, k, v), go)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    with pytest.raises(RuntimeError, match="require grad"):
+        fa.flash_attention(q, k, v)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("grains,U", [(4, 1_000_003), (2, 5000), (8, 77)])
+def test_column_tiled_segment_reduce_bitwise(dev, dtype, grains, U):
+    buf = torch.randn(grains, U, device=dev).to(dtype)
+    st = torch.zeros(1, dtype=torch.int32, device=dev)
+    ln = torch.full((1,), grains, dtype=torch.int32, device=dev)
+    want = sf_unpack.segment_reduce_plain(buf, st, ln, "sum")
+    for tiles in (0, 1, 3):
+        got = sf_unpack.short_variant(buf, st, ln, segs_per_block=1,
+                                      col_tiles=tiles)
+        assert chip_smoke.same_raw_bits(got, want), tiles
+    assert chip_smoke.same_raw_bits(
+        kops.segment_reduce_rows(buf, st, ln, op="sum"), want)
+
+
+def test_dynplan_transpose_repeatable_and_equals_cpu(dev):
+    from repro_torch.core import DynPlan
+    gen = torch.Generator(device=dev).manual_seed(3)
+    lr = chip_smoke.dyn_routing(500, 4000, gen, dev)
+    root = torch.randn(500, 96, generator=gen, device=dev).requires_grad_()
+    cot = torch.randn(4000, 96, generator=gen, device=dev)
+    plan = DynPlan(500, 4000)
+    got = [torch.autograd.grad(plan.bcast(root, lr), root, cot)[0]
+           for _ in range(2)]
+    assert chip_smoke.same_raw_bits(got[0], got[1])
+    rc = root.detach().cpu().requires_grad_()
+    want = torch.autograd.grad(plan.bcast(rc, lr.cpu()), rc, cot.cpu())[0]
+    assert torch.equal(got[0].cpu(), want)
+
+
+def test_ddp_step_world_invariant_on_card(dev):
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.training.data import make_batch
+    from repro_torch.training.optimizer import OptConfig, init_opt_state
+    from repro_torch.training.pytree import tree_leaves
+    from repro_torch.training.train_loop import make_ddp_train_step
+    cfg = get_config("qwen3-4b").smoke_config()
+    p0 = T.init_params(cfg, device=dev)
+    ocfg = OptConfig(lr=1e-3, warmup_steps=1)
+    batch = make_batch(cfg, 4, 32)
+    outs = []
+    for world in (1, 2, 4):
+        step, _ = make_ddp_train_step(cfg, ocfg, world=world,
+                                      byte_budget=4096, grains=4,
+                                      params_template=p0)
+        outs.append(step(p0, init_opt_state(p0, ocfg), batch)[0])
+    for o in outs[1:]:
+        assert all(chip_smoke.same_raw_bits(a, b) for a, b in
+                   zip(tree_leaves(outs[0]), tree_leaves(o)))
