@@ -448,6 +448,19 @@ class Sizes:
     moe_grad_tokens: tuple = (2, 256)  # the float32 layer's gradient check
     flash_bwd_shapes: tuple = ((1024, 32, 8, 128, None),
                                (3000, 25, 5, 64, 2048))
+    # train families: hymba-1.5b at full width and depth on 2 x 3,072
+    # tokens (the sliding layers' 2,048-key window masks), xlstm-350m at
+    # full size on 4 x 256 (two 128-step chunks: its eager cell loop is
+    # launch-bound), whisper-base on 8 x (1,500 frames, 448 tokens); bf16,
+    # float32 moments, remat per block.  Steps: (counted, on one batch).
+    hymba_train: tuple = (2, 3072)
+    hymba_train_steps: tuple = (4, 6)
+    xlstm_train: tuple = (4, 256)
+    xlstm_train_steps: tuple = (2, 4)
+    whisper_train: tuple = (8, 448, 1500)   # batch, tokens, frames
+    whisper_train_steps: tuple = (4, 6)
+    scan_check: tuple = (2, 600)      # hymba's scan Function, one layer
+    xlstm_check_train: tuple = (4, 300)   # one xlstm pair, graphs vs eager
 
 
 def emit(obj) -> None:
@@ -4612,13 +4625,40 @@ def sync_all() -> None:
         torch.cuda.synchronize()
 
 
-def profiled_groups(fn, dev) -> dict:
-    """A profiled window of ``fn()``: wall and device ms, idle share and
-    device ms by kernel group (taken again while the profiler returns no
-    device event)."""
+def profiled_kernels(fn, dev):
+    """(device ms by kernel name, wall ms) of one ``fn()`` under
+    torch.profiler with CUDA activity only, read from the raw kineto
+    events: a training step of graph replays records ~10^6 kernels, whose
+    ``key_averages()`` takes minutes to build.  On the CPU as
+    :func:`profiled`."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    if dev.type != "cuda":
+        return profiled(fn, dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    PROFILER_WINDOWS["taken"] += 1
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            by_name[e.name()] = by_name.get(e.name(), 0.0) \
+                + e.duration_ns() / 1e6
+    return by_name, wall
+
+
+def profiled_groups(fn, dev, profile=profiled) -> dict:
+    """A profiled window of ``fn()`` (through ``profile``, default
+    :func:`profiled`): wall and device ms, idle share and device ms by
+    kernel group (taken again while the profiler returns no device
+    event)."""
     for wait in (0.0,) + RETAKE_WAITS_S:
         time.sleep(wait)
-        by_name, wall_ms = profiled(fn, dev)
+        by_name, wall_ms = profile(fn, dev)
         if by_name or dev.type != "cuda":
             break
         PROFILER_WINDOWS["retaken"] += 1
@@ -4768,14 +4808,14 @@ def ssm_scan_record(params, cfg, sz: Sizes, dev, rng) -> dict:
                          generator=torch.Generator(device=dev).manual_seed(3),
                          device=dev) * 0.5).to(torch.bfloat16)
         graph = lambda: S.ssm_scan(x, bp, cfg)  # noqa: E731
-        real = S._chunk_graph
-        S._chunk_graph = lambda *a: None     # the steps launched one by one
+        real = S._use_graphs
+        S._use_graphs = lambda *a: False     # the steps launched one by one
         try:
             eager = lambda: S.ssm_scan(x, bp, cfg)  # noqa: E731
             y_e, h_e = eager()
             eager_ms = call_ms(eager, dev, 2)
         finally:
-            S._chunk_graph = real
+            S._use_graphs = real
         y_g, h_g = graph()
         check(same_raw_bits(y_g, y_e) and same_raw_bits(h_g, h_e),
               f"ssm_scan over {n} tokens: the graph chunks != the steps "
@@ -5044,6 +5084,10 @@ TRAIN_SMOKE = dict(train_smoke=True, train_batch=2, train_seq=32,
                    moe_train_seq=32, moe_grad_tokens=(2, 24),
                    flash_bwd_shapes=((64, 4, 2, 64, None),
                                      (96, 5, 1, 64, 48)),
+                   hymba_train=(2, 40), hymba_train_steps=(2, 3),
+                   xlstm_train=(2, 20), xlstm_train_steps=(2, 3),
+                   whisper_train=(2, 12, 24), whisper_train_steps=(2, 3),
+                   scan_check=(2, 600), xlstm_check_train=(2, 140),
                    timing_iters=2)
 
 
@@ -5129,9 +5173,77 @@ def train_flash_backward(sz: Sizes, dev) -> list:
                     "tolerance_rel": FLASH_BWD_REL,
                     "forward_kernel_ms": fwd, "backward_ms": bwd,
                     "plain_forward_backward_ms": call_ms(
-                        plain_fb, dev, max(it // 4, 2))})
+                        plain_fb, dev, max(it // 4, 2)),
+                    "library_forward_backward_ms": sdpa_fb_ms(
+                        q[None], k[None], v[None], go[None], True, win, dev,
+                        max(it // 4, 2))})
         del y, got, want, plain
     return out
+
+
+def sdpa_fb_ms(q, k, v, go, causal: bool, window, dev, iters: int) -> float:
+    """Milliseconds of one forward and backward of SDPA under autograd on
+    (B, S, H, D) q, k, v (``is_causal`` for a plain causal mask, a boolean
+    mask for a window, none unmasked; GQA by ``enable_gqa``): the library
+    yardstick of the flash Function's forward + backward."""
+    import torch
+    import torch.nn.functional as F
+    Sq, Skv = q.shape[1], k.shape[1]
+    mask = None
+    if window is not None:
+        qpos = torch.arange(Sq, device=dev)[:, None] + (Skv - Sq)
+        kpos = torch.arange(Skv, device=dev)[None, :]
+        mask = (kpos > qpos - window) & ((kpos <= qpos) if causal else True)
+    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_()
+                  for x in (q, k, v))
+    got = go.transpose(1, 2)
+
+    def fb():
+        o = F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=True)
+        torch.autograd.grad(o, (qt, kt, vt), got)
+    return call_ms(fb, dev, iters)
+
+
+def train_flash_cross(sz: Sizes, dev) -> dict:
+    """Row 8's autograd Function at whisper's cross-attention shape (the
+    decoder's tokens over the encoder's frames, unmasked, Sq != Skv), bf16:
+    its gradients against the plain version's within FLASH_BWD_REL, the
+    forward kernel's ms, the Function's backward, and SDPA's forward +
+    backward."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa, ops as kops
+    cfg = train_config("whisper-base", sz)
+    B, P, F_ = sz.whisper_train
+    H, D = cfg.n_heads, cfg.hd
+    g = torch.Generator(device=dev).manual_seed(448)
+    q = torch.randn(B, P, H, D, generator=g, device=dev).bfloat16() \
+        .requires_grad_()
+    k, v = (torch.randn(B, F_, cfg.n_kv_heads, D, generator=g, device=dev)
+            .bfloat16().requires_grad_() for _ in range(2))
+    go = torch.randn(B, P, H, D, generator=g, device=dev).bfloat16()
+    y = kops.flash_attention(q, k, v, causal=False)
+    check(y.grad_fn is not None and "FlashAttention"
+          in type(y.grad_fn).__name__, "no autograd Function at the cross "
+          "shape")
+    got = torch.autograd.grad(y, (q, k, v), go, retain_graph=True)
+    want = torch.autograd.grad(fa.flash_attention_plain(
+        q, k, v, causal=False), (q, k, v), go)
+    rel = {n: grad_rel(a, b) for n, a, b in zip("qkv", got, want)}
+    check(all(r <= FLASH_BWD_REL for r in rel.values()),
+          f"flash backward at whisper's cross shape: {rel} over "
+          f"{FLASH_BWD_REL}")
+    it = max(sz.timing_iters // 4, 2)
+    qd, kd, vd = q.detach(), k.detach(), v.detach()
+    return {"q": [B, P, H, D], "kv": [B, F_, cfg.n_kv_heads, D],
+            "causal": False, "rel_err": rel, "tolerance_rel": FLASH_BWD_REL,
+            "forward_kernel_ms": graph_ms(lambda: fa.flash_attention(
+                qd, kd, vd, causal=False), dev, sz.timing_iters),
+            "backward_ms": call_ms(lambda: torch.autograd.grad(
+                y, (q, k, v), go, retain_graph=True), dev, it),
+            "library_forward_backward_ms": sdpa_fb_ms(q, k, v, go, False,
+                                                      None, dev, it)}
 
 
 def train_dense(sz: Sizes, dev, acc: dict) -> dict:
@@ -5503,19 +5615,330 @@ def train_moe(sz: Sizes, dev, acc: dict) -> dict:
     return out
 
 
+# hymba's scan Function against autograd through the eager step loop,
+# float32: per leaf (Δ, u, B, C, A, h0) max|d| <= SCAN_GRAD_REL x max|want|
+SCAN_GRAD_REL = 1e-5
+TRAIN_FAMILIES = ("hymba-1.5b", "xlstm-350m", "whisper-base")
+
+
+def plain_scan(delta, u, Bc, Cc, A, h):
+    """The SSM recurrence as out-of-place torch ops, one step at a time, no
+    graph (autograd sees every step): Δ (B, S, Hm, 1), u (B, S, Hm, hd),
+    B / C (B, S, Hm, N), A (Hm, N), h (B, Hm, hd, N) -> (ys (S, B, Hm, hd,
+    1), h after S steps)."""
+    import torch
+    ys = []
+    for t in range(delta.shape[1]):
+        dec = torch.exp(A[None] * delta[:, t])[:, :, None, :]
+        h = h * dec + (delta[:, t][..., None] * u[:, t].float()[..., None]) \
+            * Bc[:, t][:, :, None, :]
+        ys.append(torch.einsum("bhdn,bhn->bhd", h, Cc[:, t]))
+    return torch.stack(ys, 0)[..., None], h
+
+
+def train_scan_check(sz: Sizes, dev) -> dict:
+    """hymba's scan Function at one layer of hymba-1.5b in float32 over
+    ``sz.scan_check`` (B, S): S = 600 crosses two 256-step chunk boundaries
+    and ends mid-chunk.  Its forward (through ``ssm_scan`` under grad)
+    bitwise the inference ``ssm_scan``; its gradients in Δ, u, B, C, A and
+    h0 against autograd through :func:`plain_scan` within SCAN_GRAD_REL;
+    the graphs it replays; its forward and backward ms beside the flash
+    Function's at the same layer (bf16, the 2,048-key window)."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import ssm as S
+    cfg = train_config("hymba-1.5b", sz).scaled(dtype="float32")
+    B, L = sz.scan_check
+    Hm, hd, N = cfg.ssm_heads, cfg.hd, cfg.ssm_state
+    g = torch.Generator(device=dev).manual_seed(600)
+
+    def normal(shape, std, dtype=None):
+        return torch.randn(shape, generator=g, device=dev).mul_(std) \
+            .to(dtype or torch.float32)
+    p = {k: v[0] for k, v in S.init_ssm(normal, cfg, 1, dev).items()}
+    x = torch.randn(B, L, cfg.d_model, generator=g, device=dev)
+    h0 = torch.randn(B, Hm, hd, N, generator=g, device=dev) * 0.1
+    with torch.no_grad():
+        y_inf, h_inf = S.ssm_scan(x, p, cfg, h0=h0)
+    y, h = S.ssm_scan(x.clone().requires_grad_(), p, cfg, h0=h0)
+    check(h.grad_fn is not None and "SelectiveScan"
+          in type(h.grad_fn).__name__, "ssm_scan under grad took no "
+          "_SelectiveScan")
+    check(same_raw_bits(y.detach(), y_inf) and same_raw_bits(h.detach(),
+                                                             h_inf),
+          "ssm_scan under grad is not bitwise the inference ssm_scan")
+    del y, h
+    with torch.no_grad():
+        u = (x @ p["in_proj"]).reshape(B, L, Hm, hd)
+        delta, Bc, Cc, A = S._gates(u, p)
+    ins = (delta, u, Bc, Cc, A, h0)
+    cot = (torch.randn(L, B, Hm, hd, 1, generator=g, device=dev),
+           torch.randn(B, Hm, hd, N, generator=g, device=dev))
+    a = [t.detach().clone().requires_grad_() for t in ins]
+    out = S._SelectiveScan.apply(*a, 256)
+    got = torch.autograd.grad(out, a, cot, retain_graph=True)
+    b = [t.detach().clone().requires_grad_() for t in ins]
+    want = torch.autograd.grad(plain_scan(*b), b, cot)
+    rel = {}
+    for name, x1, x2 in zip(("delta", "u", "B", "C", "A", "h0"), got, want):
+        rel[name] = max_abs(x1, x2) / float(x2.abs().max())
+        check(rel[name] <= SCAN_GRAD_REL, f"scan gradient {name}: max|d| "
+              f"{rel[name]} of max|want|, over {SCAN_GRAD_REL}")
+    kinds = sorted({k[0] for k in S._GRAPHS if k[-1] == str(dev)})
+    check(dev.type != "cuda" or kinds == ["_ChunkBackGraph", "_ChunkGraph"],
+          f"the scan replayed graphs {kinds}")
+    it = max(sz.timing_iters // 4, 2)
+    rec = {"batch": B, "seq": L, "heads": [Hm, hd, N], "time_chunk": 256,
+           "rel_err": rel, "tolerance_rel": SCAN_GRAD_REL,
+           "forward_bitwise_inference": True, "graphs": kinds,
+           "graph_bytes": sum(v.nbytes for k, v in S._GRAPHS.items()
+                              if k[-1] == str(dev)),
+           "forward_ms": call_ms(lambda: S._SelectiveScan.apply(*a, 256),
+                                 dev, it),
+           "backward_ms": call_ms(lambda: torch.autograd.grad(
+               out, a, cot, retain_graph=True), dev, it),
+           "plain_forward_backward_ms": call_ms(lambda: torch.autograd.grad(
+               plain_scan(*b), b, cot), dev, 1)}
+    del out, got, want
+    fq = torch.randn(B, L, cfg.n_heads, hd, generator=g, device=dev) \
+        .bfloat16().requires_grad_()
+    fk, fv = (torch.randn(B, L, cfg.n_kv_heads, hd, generator=g, device=dev)
+              .bfloat16().requires_grad_() for _ in range(2))
+    fgo = torch.randn(B, L, cfg.n_heads, hd, generator=g, device=dev) \
+        .bfloat16()
+    W = cfg.attn_window
+    fy = kops.flash_attention(fq, fk, fv, causal=True, window=W)
+    rec["flash_same_layer"] = {
+        "q": [B, L, cfg.n_heads, hd], "kv_heads": cfg.n_kv_heads,
+        "window": W, "dtype": "bfloat16",
+        "forward_ms": call_ms(lambda: kops.flash_attention(
+            fq, fk, fv, causal=True, window=W), dev, it),
+        "backward_ms": call_ms(lambda: torch.autograd.grad(
+            fy, (fq, fk, fv), fgo, retain_graph=True), dev, it)}
+    return rec
+
+
+@contextlib.contextmanager
+def timed_function(cls, dev, spans: dict):
+    """Within the block each call of the autograd Function ``cls``'s
+    forward and backward runs between CUDA events (the host clock on the
+    CPU); ``spans["forward"]`` / ``spans["backward"]`` collect them for
+    :func:`spans_ms`."""
+    import torch
+    real = {k: cls.__dict__[k] for k in ("forward", "backward")}
+
+    def timed(fn, kind):
+        def run(*args):
+            if dev.type != "cuda":
+                t0 = time.perf_counter()
+                res = fn(*args)
+                spans[kind].append((time.perf_counter() - t0) * 1e3)
+                return res
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            res = fn(*args)
+            ev[1].record()
+            spans[kind].append(ev)
+            return res
+        return staticmethod(run)
+    for kind, fn in real.items():
+        spans.setdefault(kind, [])
+        setattr(cls, kind, timed(fn.__func__, kind))
+    try:
+        yield
+    finally:
+        for kind, fn in real.items():
+            setattr(cls, kind, fn)
+
+
+def spans_ms(spans: list) -> float:
+    """The summed ms of :func:`timed_function`'s spans (after a sync)."""
+    return float(sum(s if isinstance(s, float) else s[0].elapsed_time(s[1])
+                     for s in spans))
+
+
+def train_xlstm_check(sz: Sizes, dev) -> dict:
+    """One xlstm-350m pair at full width in float32 over ``sz.xlstm_check``
+    (B, S) steps under grad (S = 300: chunks of 128, 128 and 44): the
+    chunk graphs' outputs, state and gradients bitwise the eager chunks'
+    (the same operations launched one by one), and each way's forward +
+    backward ms."""
+    import torch
+    from repro_torch.models import xlstm as X
+    cfg = train_config("xlstm-350m", sz).scaled(dtype="float32")
+    B, L = sz.xlstm_check_train
+    g = torch.Generator(device=dev).manual_seed(L)
+
+    def normal(shape, std, dtype=None):
+        return torch.randn(shape, generator=g, device=dev).mul_(std) \
+            .to(dtype or torch.float32)
+    pp = {k: v[0] for k, v in X.init_xlstm_pair(normal, cfg, 1, dev).items()}
+    names = sorted(pp)
+    x = torch.randn(B, L, cfg.d_model, generator=g, device=dev) * 0.5
+    leaves = [x.requires_grad_()] + [pp[k].requires_grad_() for k in names]
+
+    def fwd_bwd():
+        y, st = X.xlstm_pair_scan(leaves[0], dict(zip(names, leaves[1:])),
+                                  cfg, X.init_xlstm_state(cfg, B, dev))
+        loss = y.square().sum() + sum(v.sum() for v in st.values())
+        return [y.detach(), *(v.detach() for v in st.values()),
+                *torch.autograd.grad(loss, leaves)]
+    real = X._use_graphs
+    try:
+        X._use_graphs = lambda d: False          # the eager chunks
+        want = fwd_bwd()
+        eager_ms = call_ms(fwd_bwd, dev, 1)
+    finally:
+        X._use_graphs = real
+    got = fwd_bwd()
+    check(dev.type != "cuda" or any(k[3] == str(x.device)
+                                    for k in X._GRAPHS),
+          "the xlstm chunks replayed no graph")
+    check(all(same_raw_bits(a, b) for a, b in zip(got, want)),
+          f"xlstm chunk graphs are not bitwise the eager chunks: max|d| "
+          f"{[max_abs(a, b) for a, b in zip(got, want)]}")
+    return {"batch": B, "seq": L, "chunk": X.TIME_CHUNK, "bitwise": True,
+            "graphs": len(X._GRAPHS),
+            "graph_forward_backward_ms": call_ms(fwd_bwd, dev, 2),
+            "eager_forward_backward_ms": eager_ms}
+
+
+def train_family(arch: str, sz: Sizes, dev, acc: dict) -> dict:
+    """One family at its published width and depth, bf16, float32 moments,
+    remat per block: the counted steps of ``make_train_step`` (parameters
+    and state updated in place) on ``SyntheticLM`` batches (whisper's with
+    bf16 frame embeddings), each timed on the host and between CUDA
+    events, hymba's SSM scan timed inside them; a profiled step by kernel
+    group; then steps on one batch at lr 1e-4, whose loss must fall.
+    hymba's scan Function and xlstm's cell chunks run between CUDA events
+    inside the counted steps (their share of the step's device time)."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import ssm as S, transformer as T, xlstm as X
+    from repro_torch.models.config import torch_dtype
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.optimizer import OptConfig, init_opt_state
+    from repro_torch.training.train_loop import batch_to, make_train_step
+    shape, (n_steps, n_fixed) = {
+        "hymba-1.5b": (sz.hymba_train, sz.hymba_train_steps),
+        "xlstm-350m": (sz.xlstm_train, sz.xlstm_train_steps),
+        "whisper-base": (sz.whisper_train, sz.whisper_train_steps)}[arch]
+    B, L = shape[:2]
+    frames = shape[2] if len(shape) > 2 else 0
+    cfg = train_config(arch, sz, remat="block")
+    dt = torch_dtype(cfg.dtype)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, generator=torch.Generator(device=dev)
+                           .manual_seed(0), device=dev)
+    nparams = sum(t.numel() for t in tree_leaves_of(params))
+    ocfg = OptConfig(warmup_steps=10, decay_steps=100)
+    state = {"p": params, "o": init_opt_state(params, ocfg)}
+    del params
+    init_s = time.perf_counter() - t0
+    step = make_train_step(cfg, ocfg, donate=True)
+    ds = SyntheticLM(cfg.vocab, L, B, seed=0)
+
+    def batch(i):
+        b = batch_to(ds.batch_at(i), dev)
+        if frames:
+            gen = torch.Generator(device=dev).manual_seed(i)
+            b["enc_embeds"] = (torch.randn(B, frames, cfg.d_model,
+                                           generator=gen, device=dev)
+                               * 0.02).to(dt)
+        return b
+
+    def one(b):
+        state["p"], state["o"], m = step(state["p"], state["o"], b)
+        return float(m["loss"])
+
+    steps, counts, stage = [], {}, {}
+    t1 = time.perf_counter()
+    for i in range(n_steps):
+        b = batch(i)
+        spans = {"scan": {}, "cells": {}}
+        with timed_function(S._SelectiveScan, dev, spans["scan"]), \
+                timed_function(X._CellChunk, dev, spans["cells"]):
+            (loss, host, devms), _ = counted(
+                lambda: step_timed(lambda: one(b), dev), counts)
+        check(math.isfinite(loss), f"{arch} step {i}: loss {loss}")
+        rec = {"loss": loss, "host_ms": host, "device_ms": devms}
+        for name, sp in spans.items():
+            if sp["forward"]:
+                rec[f"{name}_ms"] = [spans_ms(sp["forward"]),
+                                     spans_ms(sp["backward"])]
+                rec[f"{name}_calls"] = [len(sp["forward"]),
+                                        len(sp["backward"])]
+        steps.append(rec)
+    stage["steps_s"] = time.perf_counter() - t1
+    for k, v in counts.items():
+        acc[k] = acc.get(k, 0) + v
+    want = ([] if cfg.block_kind == "xlstm" else ["flash_attention"]) \
+        + [PACK, SEGRED]
+    missing = missing_kernels(tuple(want), counts)
+    check(not missing or dev.type != "cuda", f"{arch}'s steps never "
+          f"launched {missing}")
+    t1 = time.perf_counter()
+    window = profiled_groups(lambda: one(batch(n_steps)), dev,
+                             profiled_kernels)
+    stage["profiled_step_s"] = time.perf_counter() - t1
+    warm = steps[1:] or steps
+    host = float(np.mean([s["host_ms"] for s in warm]))
+    devms = float(np.mean([s["device_ms"] for s in warm]))
+    out = {"arch": cfg.name, "layers": [cfg.enc_layers, cfg.n_layers]
+           if cfg.enc_layers else cfg.n_layers, "d_model": cfg.d_model,
+           "params": nparams, "dtype": cfg.dtype, "moments": "float32",
+           "remat": cfg.remat, "batch": list(shape), "init_s": init_s,
+           "steps": steps, "step_host_ms": host, "step_device_ms": devms,
+           "tokens_per_s": B * L / host * 1e3, "peak_gb": peak_gb(dev),
+           "launches": counts, "profiled_step": window, "stage_s": stage}
+    # the recurrence's share: hymba's scan Function, xlstm's cell chunks
+    # (forward, remat recompute and backward, between CUDA events)
+    for name in ("scan", "cells"):
+        if f"{name}_ms" in warm[0]:
+            ms = float(np.mean([sum(s[f"{name}_ms"]) for s in warm]))
+            out[f"{name}_ms_per_step"] = ms
+            out[f"{name}_share_of_step_device_ms"] = ms / devms
+    print(f"TRAIN_PART {arch}_steps " + json.dumps(out), file=sys.stderr,
+          flush=True)
+    # the same parameters on one fixed batch at lr 1e-4: the loss falls
+    state["o"] = None
+    gc.collect()
+    ocfg2 = OptConfig(lr=1e-4, warmup_steps=1, decay_steps=1000)
+    state["o"] = init_opt_state(state["p"], ocfg2)
+    step = make_train_step(cfg, ocfg2, donate=True)
+    fixed = batch(10_000)
+    t1 = time.perf_counter()
+    losses = [one(fixed) for _ in range(n_fixed)]
+    stage["fixed_steps_s"] = time.perf_counter() - t1
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"{arch}: {n_fixed} steps on one batch at lr 1e-4: losses "
+          f"{losses}")
+    out["fixed_batch"] = {"lr": 1e-4, "losses": losses}
+    del state
+    kops.reset_launch_counts()
+    return out
+
+
 def phase_train(sz: Sizes, dev):
     """The training path: the flash Function's backward, qwen3-4b trained
     at full size, the DDP step over the allreduce SF, phi3.5-moe trained
-    at full width; each freed before the next.  Returns (record,
+    at full width, hymba's scan Function and whisper's cross shape
+    checked, then hymba, xlstm and whisper trained at full size
+    (``train_families``); each freed before the next.  Returns (record,
     launches): the counted drives' launches summed, the train path."""
     import torch
     t0 = time.perf_counter()
     out, acc = {"phase": "train"}, {}
-    for name, part in (("flash_backward",
-                        lambda: train_flash_backward(sz, dev)),
-                       ("dense", lambda: train_dense(sz, dev, acc)),
-                       ("ddp", lambda: train_ddp(sz, dev, acc)),
-                       ("moe", lambda: train_moe(sz, dev, acc))):
+    parts = [("flash_backward", lambda: train_flash_backward(sz, dev)),
+             ("dense", lambda: train_dense(sz, dev, acc)),
+             ("ddp", lambda: train_ddp(sz, dev, acc)),
+             ("moe", lambda: train_moe(sz, dev, acc)),
+             ("scan_check", lambda: train_scan_check(sz, dev)),
+             ("xlstm_check", lambda: train_xlstm_check(sz, dev)),
+             ("flash_cross", lambda: train_flash_cross(sz, dev))]
+    parts += [(arch.split("-")[0], lambda arch=arch: train_family(
+        arch, sz, dev, acc)) for arch in TRAIN_FAMILIES]
+    for name, part in parts:
         t1 = time.perf_counter()
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
@@ -5881,8 +6304,9 @@ def run(dev, sz: Sizes) -> list:
     del fam
 
     # the training path (flash backward, qwen3-4b trained, the DDP step,
-    # phi3.5-moe trained) in a child process with the card's memory to
-    # itself: its counted drives' launches are the path's
+    # phi3.5-moe trained, then hymba, xlstm and whisper trained) in a child
+    # process with the card's memory to itself: its counted drives'
+    # launches are the path's
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
@@ -5891,7 +6315,8 @@ def run(dev, sz: Sizes) -> list:
     missing = missing_kernels(TRAIN_PATH, by_path["train"])
     check(not missing or not on_card, f"the train path never launched "
           f"{missing}")
-    recs["flash_attention"]["backward"] = train["flash_backward"]["shapes"]
+    recs["flash_attention"]["backward"] = \
+        train["flash_backward"]["shapes"] + [train["flash_cross"]]
     for name in SEGRED:
         recs[name]["ddp_bucket_shape"] = train["ddp"]["bucket"]
     del train

@@ -9,10 +9,13 @@ step lines.
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \\
       --smoke --steps 20 --batch 8 --seq 128
 
-``--device`` defaults to the card (``cuda``); ``--device cpu`` runs on the
-CPU.  ``--dp``, ``--tp``, ``--pods`` and ``--devices`` exist for the
-reference's command lines; anything but one device raises, as multi-rank
-training (a device mesh over ``torch.distributed``) is later work.
+Every ``--arch`` trains: dense, MoE, hymba, xlstm and whisper, whose
+batches carry the stubbed frontend's ``enc_embeds`` (llava's ``embeds``);
+those float inputs are cast to the model's dtype.  ``--device`` defaults
+to the card (``cuda``); ``--device cpu`` runs on the CPU.  ``--dp``,
+``--tp``, ``--pods`` and ``--devices`` exist for the reference's command
+lines; anything but one device raises, as multi-rank training (a device
+mesh over ``torch.distributed``) is later work.
 """
 
 from __future__ import annotations
@@ -55,7 +58,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     from ..training.checkpoint import CheckpointManager
     from ..training.data import make_batch
     from ..training.optimizer import OptConfig
-    from ..training.train_loop import (TrainConfig, TrainState,
+    from ..models.config import torch_dtype
+    from ..training.train_loop import (TrainConfig, TrainState, batch_to,
                                        make_train_step)
 
     dev = resolve_device(args.device)
@@ -86,9 +90,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             start = int(extra["step"])
             print(f"resumed at step {start}", flush=True)
 
+    dt = torch_dtype(cfg.dtype)
     t0 = time.time()
     for i in range(start, args.steps):
-        b = make_batch(cfg, args.batch, args.seq, step=i)
+        b = batch_to(make_batch(cfg, args.batch, args.seq, step=i), dev,
+                     dt)
         st.params, st.opt_state, m = step_fn(st.params, st.opt_state, b)
         if mgr:
             mgr.maybe_save(i + 1, {"params": st.params, "opt": st.opt_state},

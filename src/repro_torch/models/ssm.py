@@ -19,6 +19,21 @@ two a step.  A scan shorter than a chunk, and the last chunk of a longer
 one, feed the missing steps Δ = 0 (a decay of 1 and no input), which leaves
 the state exactly as it was, so the returned state is the state after
 exactly S steps.
+
+Under grad the recurrence is :class:`_SelectiveScan`, an autograd Function
+with the reference's remat contract (``jax.checkpoint`` around each chunk):
+its forward is the loop above, bit for bit, and keeps only the state at
+each chunk's start; its backward walks the chunks in reverse, recomputes a
+chunk's states from its start and runs the reverse recurrence
+
+    g_t = dy_t ⊗ C_t + dec_{t+1} ⊙ g_{t+1},   dec_{S+1} ⊙ g_{S+1} = dL/dh_S
+
+from which d inp_t = g_t, d dec_t = Σ_hd g_t ⊙ h_{t-1}, d C_t = Σ_hd dy_t ⊙
+h_t and d h_0 = dec_1 ⊙ g_1.  The per-step decay and input are built one
+chunk at a time from Δ, u, B and A (forward and backward), so no (S, B,
+Hm, hd, N) tensor is ever whole.  On a CUDA device the recompute and the
+reverse steps replay captured graphs too (:class:`_ChunkBackGraph`); the
+gates' own ops stay ordinary autograd.
 """
 
 from __future__ import annotations
@@ -30,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
+from .graphs import capture
 
 __all__ = ["init_ssm", "ssm_scan", "ssm_step"]
 
@@ -79,6 +95,12 @@ def _steps(h, dec, inp, cc, ys) -> None:
         torch.matmul(h, cc[t], out=ys[t])
 
 
+def _capture(steps, C: int, device: torch.device):
+    """``steps(k)`` launches k steps on static buffers: C of them captured
+    (``graphs.capture``, warmed with one)."""
+    return capture(lambda: steps(C), device, warm=lambda: steps(1))
+
+
 class _ChunkGraph:
     """``time_chunk`` steps of the recurrence captured once as a CUDA graph
     on static buffers, replayed per chunk."""
@@ -90,15 +112,9 @@ class _ChunkGraph:
         self.h = z(B, Hm, hd, N)
         self.dec, self.inp = z(C, B, Hm, 1, N), z(C, B, Hm, hd, N)
         self.cc, self.ys = z(C, B, Hm, N, 1), z(C, B, Hm, hd, 1)
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):          # warm the kernels first
-            _steps(self.h, self.dec[:1], self.inp[:1], self.cc[:1],
-                   self.ys[:1])
-        torch.cuda.current_stream(device).wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            _steps(self.h, self.dec, self.inp, self.cc, self.ys)
+        self.graph = _capture(
+            lambda k: _steps(self.h, self.dec[:k], self.inp[:k],
+                             self.cc[:k], self.ys[:k]), C, device)
 
     def run(self, h, dec, inp, cc, ys) -> None:
         """The steps of one chunk of at most C steps: ``h`` in place, ``ys``
@@ -122,49 +138,202 @@ class _ChunkGraph:
                                       self.ys))
 
 
-# one graph per (time_chunk, batch, head shapes, device): a scan of any
-# length replays it, the last chunk padded, so the prompt length is no key
-_GRAPHS: Dict[tuple, _ChunkGraph] = {}
+class _ChunkBackGraph:
+    """The backward of ``time_chunk`` steps as two CUDA graphs on shared
+    static buffers: the recompute of a chunk's states from its start
+    (``hs[t + 1] = dec[t] ⊙ hs[t] + inp[t]``, the forward's own ``addcmul``)
+    and the reverse recurrence (``G[t] = g + dy[t] ⊗ cT[t]``, then ``g =
+    dec[t] ⊙ G[t]``), replayed per chunk."""
+
+    def __init__(self, C: int, B: int, Hm: int, hd: int, N: int,
+                 device: torch.device):
+        z = lambda *s: torch.zeros(s, dtype=torch.float32,  # noqa: E731
+                                   device=device)
+        self.hs = z(C + 1, B, Hm, hd, N)
+        self.dec, self.inp = z(C, B, Hm, 1, N), z(C, B, Hm, hd, N)
+        self.g, self.G = z(B, Hm, hd, N), z(C, B, Hm, hd, N)
+        self.dy, self.cT = z(C, B, Hm, hd, 1), z(C, B, Hm, 1, N)
+        self.recompute = _capture(
+            lambda k: _recompute(self.hs[:k + 1], self.dec[:k],
+                                 self.inp[:k]), C, device)
+        self.reverse = _capture(
+            lambda k: _reverse(self.g, self.dec[:k], self.dy[:k],
+                               self.cT[:k], self.G[:k]), C, device)
+
+    def run(self, h0, dec, inp, dy, cT, g):
+        """One chunk of at most C steps: -> (its states hs (n + 1, ...),
+        G (n, ...)), views of the static buffers valid until the next
+        ``run``; ``g`` is updated in place.  Missing steps get a decay of
+        1, no input and no output gradient, which leaves g as it was."""
+        n = dec.shape[0]
+        self.hs[0].copy_(h0)
+        self.dec[:n].copy_(dec)
+        self.inp[:n].copy_(inp)
+        self.dy[:n].copy_(dy)
+        self.cT[:n].copy_(cT)
+        if n < self.dec.shape[0]:
+            self.dec[n:].fill_(1.0)
+            self.inp[n:].zero_()
+            self.dy[n:].zero_()
+        self.recompute.replay()
+        self.g.copy_(g)
+        self.reverse.replay()
+        g.copy_(self.g)
+        return self.hs[:n + 1], self.G[:n]
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the static buffers the graphs keep allocated."""
+        return sum(t.nbytes for t in (self.hs, self.dec, self.inp, self.g,
+                                      self.G, self.dy, self.cT))
 
 
-def _chunk_graph(C, B, Hm, hd, N, device) -> _ChunkGraph:
-    key = (C, B, Hm, hd, N, str(device))
+def _recompute(hs, dec, inp) -> None:
+    """The states of a chunk from ``hs[0]``: ``hs[t + 1]`` written."""
+    for t in range(dec.shape[0]):
+        torch.addcmul(inp[t], hs[t], dec[t], out=hs[t + 1])
+
+
+def _reverse(g, dec, dy, cT, G) -> None:
+    """The reverse recurrence over a chunk, last step first: ``G[t]`` (the
+    gradient of step t's state) written, ``g`` updated in place to the
+    gradient that reaches the state before the chunk."""
+    for t in range(dec.shape[0] - 1, -1, -1):
+        torch.addcmul(g, dy[t], cT[t], out=G[t])
+        torch.mul(G[t], dec[t], out=g)
+
+
+# one graph per (kind, time_chunk, batch, head shapes, device): a scan of
+# any length replays it, the last chunk padded, so the length is no key
+_GRAPHS: Dict[tuple, object] = {}
+
+
+def _graph(kind, C, B, Hm, hd, N, device):
+    key = (kind.__name__, C, B, Hm, hd, N, str(device))
     g = _GRAPHS.get(key)
     if g is None:
-        g = _GRAPHS[key] = _ChunkGraph(C, B, Hm, hd, N, device)
+        g = _GRAPHS[key] = kind(C, B, Hm, hd, N, device)
     return g
+
+
+def _use_graphs(device: torch.device, S: int) -> bool:
+    """Replay graphs on a CUDA device, except inside a caller's own capture
+    (a graph is not captured within another: the steps are launched one by
+    one there)."""
+    return device.type == "cuda" and S > 0 \
+        and not torch.cuda.is_current_stream_capturing()
+
+
+def _chunk_inputs(delta, u, Bc, A, t0: int, t1: int):
+    """Steps t0..t1's decay (T, B, Hm, 1, N) and input (T, B, Hm, hd, N),
+    in float32, from Δ (B, S, Hm, 1), u (B, S, Hm, hd), B (B, S, Hm, N)
+    and A (Hm, N)."""
+    d = delta[:, t0:t1].transpose(0, 1)                      # (T,B,Hm,1)
+    dec = torch.exp(A[None, None] * d)[:, :, :, None, :]
+    u_t = u[:, t0:t1].transpose(0, 1).float()
+    inp = (d[..., None] * u_t[..., None]) \
+        * Bc[:, t0:t1].transpose(0, 1)[:, :, :, None, :]
+    return dec, inp
+
+
+def _scan(delta, u, Bc, Cc, A, h, C: int, starts=None) -> torch.Tensor:
+    """The recurrence over all S steps in chunks of C: ``h`` (B, Hm, hd, N)
+    float32 updated in place; returns ys (S, B, Hm, hd, 1).  ``starts``, a
+    list, gets a copy of the state at each chunk's start."""
+    B, S = delta.shape[:2]
+    Hm, hd, N = h.shape[1:]
+    ys = torch.empty((S, B, Hm, hd, 1), dtype=torch.float32, device=h.device)
+    graph = _graph(_ChunkGraph, C, B, Hm, hd, N, h.device) \
+        if _use_graphs(h.device, S) else None
+    for t0 in range(0, S, C):
+        t1 = min(t0 + C, S)
+        if starts is not None:
+            starts.append(h.clone())
+        dec, inp = _chunk_inputs(delta, u, Bc, A, t0, t1)
+        cc = Cc[:, t0:t1].transpose(0, 1)[..., None]
+        if graph is None:
+            _steps(h, dec, inp, cc, ys[t0:t1])
+        else:
+            graph.run(h, dec, inp, cc, ys[t0:t1])
+    return ys
+
+
+class _SelectiveScan(torch.autograd.Function):
+    """``_SelectiveScan.apply(delta, u, Bc, Cc, A, h0, time_chunk) -> (ys
+    (S, B, Hm, hd, 1), h after S steps)``, differentiable in all six
+    tensors; saves the state at each chunk's start and nothing per step."""
+
+    @staticmethod
+    def forward(ctx, delta, u, Bc, Cc, A, h0, time_chunk):
+        h = h0.clone()
+        starts = []
+        ys = _scan(delta, u, Bc, Cc, A, h, time_chunk, starts)
+        ctx.time_chunk = time_chunk
+        ctx.save_for_backward(delta, u, Bc, Cc, A,
+                              torch.stack(starts) if starts
+                              else h.new_empty((0,) + tuple(h.shape)))
+        return ys, h
+
+    @staticmethod
+    def backward(ctx, dys, dh):
+        delta, u, Bc, Cc, A, starts = ctx.saved_tensors
+        C = ctx.time_chunk
+        B, S = delta.shape[:2]
+        Hm, hd, N = starts.shape[2:]
+        g = dh.detach().float().clone()
+        d_delta, d_u, d_Bc, d_Cc, d_A = (torch.zeros_like(t) for t in
+                                         (delta, u, Bc, Cc, A))
+        A_ = A.detach().requires_grad_()
+        graph = _graph(_ChunkBackGraph, C, B, Hm, hd, N, g.device) \
+            if _use_graphs(g.device, S) else None
+        for ci in range((S + C - 1) // C - 1, -1, -1):
+            t0, t1 = ci * C, min(ci * C + C, S)
+            ins = [t[:, t0:t1].detach().requires_grad_()
+                   for t in (delta, u, Bc)]
+            with torch.enable_grad():
+                dec, inp = _chunk_inputs(ins[0], ins[1], ins[2], A_, 0,
+                                         t1 - t0)
+            dy = dys[t0:t1]
+            cT = Cc[:, t0:t1].transpose(0, 1)[:, :, :, None, :]
+            if graph is None:
+                hs = torch.empty((t1 - t0 + 1, B, Hm, hd, N),
+                                 dtype=torch.float32, device=g.device)
+                hs[0] = starts[ci]
+                G = torch.empty_like(hs[1:])
+                _recompute(hs, dec.detach(), inp.detach())
+                _reverse(g, dec.detach(), dy, cT, G)
+            else:
+                hs, G = graph.run(starts[ci], dec.detach(), inp.detach(), dy,
+                                  cT, g)
+            ddec = torch.sum(G * hs[:-1], dim=3, keepdim=True)
+            d_Cc[:, t0:t1] = torch.matmul(dy.transpose(-1, -2), hs[1:]
+                                          )[:, :, :, 0].transpose(0, 1)
+            got = torch.autograd.grad((dec, inp), ins + [A_], (ddec, G))
+            for dst, src in zip((d_delta, d_u, d_Bc), got[:3]):
+                dst[:, t0:t1] = src
+            d_A += got[3]
+        return d_delta, d_u, d_Bc, d_Cc, d_A, g, None
 
 
 def ssm_scan(x: torch.Tensor, p: Dict, cfg: ModelConfig,
              h0: Optional[torch.Tensor] = None, time_chunk: int = 256
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> (y (B, S, D), h after S steps (B, Hm, hd, N))."""
+    """x: (B, S, D) -> (y (B, S, D), h after S steps (B, Hm, hd, N)).
+    Differentiable (through :class:`_SelectiveScan`) when grad mode is on
+    and the inputs require grad."""
     B, S, _ = x.shape
     Hm, hd, N = cfg.ssm_heads, cfg.hd, cfg.ssm_state
     u = (x @ p["in_proj"]).reshape(B, S, Hm, hd)
     gate = F.silu(x @ p["gate_proj"]).reshape(B, S, Hm, hd)
     delta, Bc, Cc, A = _gates(u, p)
     h = torch.zeros((B, Hm, hd, N), dtype=torch.float32, device=x.device) \
-        if h0 is None else h0.float().clone()
-    ys = torch.empty((S, B, Hm, hd, 1), dtype=torch.float32, device=x.device)
-    C = time_chunk
-    # (inside a caller's own capture the steps are launched one by one: a
-    # graph is not captured within another)
-    graph = _chunk_graph(C, B, Hm, hd, N, x.device) \
-        if x.device.type == "cuda" and S \
-        and not torch.cuda.is_current_stream_capturing() else None
-    for t0 in range(0, S, C):
-        t1 = min(t0 + C, S)
-        d = delta[:, t0:t1].transpose(0, 1)                  # (T,B,Hm,1)
-        dec = torch.exp(A[None, None] * d)[:, :, :, None, :]
-        u_t = u[:, t0:t1].transpose(0, 1).float()
-        inp = (d[..., None] * u_t[..., None]) \
-            * Bc[:, t0:t1].transpose(0, 1)[:, :, :, None, :]
-        cc = Cc[:, t0:t1].transpose(0, 1)[..., None]
-        if graph is None:
-            _steps(h, dec, inp, cc, ys[t0:t1])
-        else:
-            graph.run(h, dec, inp, cc, ys[t0:t1])
+        if h0 is None else h0.float()
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (delta, u, Bc, Cc, A, h)):
+        ys, h = _SelectiveScan.apply(delta, u, Bc, Cc, A, h, time_chunk)
+    else:
+        h = h.clone()
+        ys = _scan(delta, u, Bc, Cc, A, h, time_chunk)
     y = ys[..., 0].transpose(0, 1).to(x.dtype) * gate
     return y.reshape(B, S, Hm * hd) @ p["out_proj"], h
 

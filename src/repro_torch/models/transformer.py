@@ -5,9 +5,9 @@ of ``repro/models/transformer.py``), for inference:
                   reference's names
   init_cache      an empty decode cache
   forward         full-sequence logits and the MoE aux loss, no gradient
-  forward_train   the same, differentiable (dense and MoE block kinds),
-                  each block under activation checkpointing when
-                  ``cfg.remat == "block"``
+  forward_train   the same, differentiable (every family), each block
+                  (and each xlstm pair) under activation checkpointing
+                  when ``cfg.remat == "block"``
   prefill         full-sequence forward -> (last logits, decode cache);
                   every attention goes through the flash kernel
   decode_step     single-token step on the cache (plain torch self-
@@ -31,19 +31,20 @@ Families:
 
 The reference's ``lax.scan`` over layers is a Python loop over the stacked
 leaves.  ``forward``, ``prefill`` and ``decode_step`` run without a graph;
-``forward_train`` keeps one: the attention core goes through the flash
-kernel's ``autograd.Function`` (forward kernel, plain backward), the MoE
-dispatch and combine through ``DynPlan``'s differentiable gathers, and the
-token lookup through the same gather, whose transpose is the sorted
-segment reduce (deterministic, no float atomics).  ``cfg.remat ==
-"block"`` wraps each block body in ``torch.utils.checkpoint`` (non-
-reentrant), as ``jax.checkpoint`` wraps the reference's scan body.
-Training hymba (its SSM scan replays a captured CUDA graph), xlstm and the
-encoder-decoder waits for a later slice: ``require_supported(cfg,
-grad=True)`` raises for them.  Entry points run on the current CUDA
-device unless ``device="cpu"`` is passed (``init_params``,
-``init_cache``); the others run where the params live and raise on inputs
-placed elsewhere.
+``forward_train`` keeps one: the attention core (causal, windowed,
+unmasked encoder, cross) goes through the flash kernel's
+``autograd.Function`` (forward kernel, plain backward), the MoE dispatch
+and combine through ``DynPlan``'s differentiable gathers, hymba's SSM scan
+through ``ssm._SelectiveScan`` (graph replays, chunk-boundary states
+only), xlstm's cell loops in checkpointed 128-step chunks, and the token
+lookup through the gather whose transpose is the sorted segment reduce
+(deterministic, no float atomics).  ``cfg.remat == "block"`` wraps each
+block body (encoder blocks, decoder blocks with their cross K/V
+projections, xlstm pairs) in ``torch.utils.checkpoint`` (non-reentrant),
+as ``jax.checkpoint`` wraps the reference's scan bodies.  Entry points run
+on the current CUDA device unless ``device="cpu"`` is passed
+(``init_params``, ``init_cache``); the others run where the params live
+and raise on inputs placed elsewhere.
 """
 
 from __future__ import annotations
@@ -74,20 +75,13 @@ BLOCK_KINDS = ("transformer", "hymba", "xlstm")
 
 def require_supported(cfg: ModelConfig, grad: bool = False) -> None:
     """Raise ``NotImplementedError`` for a ``block_kind`` the reference
-    does not have, and with ``grad=True`` for a family the port does not
-    train yet (hymba, xlstm, the encoder-decoder)."""
+    does not have.  Every family the reference has serves and trains, so
+    ``grad`` (kept for the training entry points' calls) changes
+    nothing."""
     if cfg.block_kind not in BLOCK_KINDS:
         raise NotImplementedError(f"{cfg.name}: unknown block kind "
                                   f"{cfg.block_kind!r}; the port has "
                                   f"{BLOCK_KINDS}")
-    if grad and (cfg.block_kind != "transformer" or cfg.enc_layers
-                 or cfg.cross_attention):
-        raise NotImplementedError(
-            f"{cfg.name}: training ({cfg.block_kind} blocks"
-            f"{', encoder-decoder' if cfg.enc_layers else ''}) is not "
-            f"ported yet; the port trains the dense and MoE transformer "
-            f"block kinds (hymba, xlstm and whisper training are later "
-            f"work, ROADMAP Queue 1)")
 
 
 def hymba_windows(cfg: ModelConfig, s_max: int) -> np.ndarray:
@@ -262,9 +256,11 @@ def _encoder_kv(enc_out, cbp, cfg: ModelConfig):
             (enc_out @ cbp["wv"]).reshape(B, Se, Hkv, hd))
 
 
-def _run_encoder(params, cfg: ModelConfig, x) -> torch.Tensor:
+def _run_encoder(params, cfg: ModelConfig, x, remat: bool = False
+                 ) -> torch.Tensor:
     """The audio encoder over frame embeddings (B, Se, D): unmasked
-    attention (rope at positions 0..Se-1) and the MLP, then its norm."""
+    attention (rope at positions 0..Se-1) and the MLP, then its norm; with
+    ``remat`` each block under non-reentrant checkpointing."""
     if x is None:
         raise ValueError(f"{cfg.name} is an encoder-decoder: pass "
                          f"enc_embeds=")
@@ -272,12 +268,19 @@ def _run_encoder(params, cfg: ModelConfig, x) -> torch.Tensor:
     ecfg = cfg.scaled(n_layers=cfg.enc_layers)
     enc = params["enc_blocks"]
     for i in range(cfg.enc_layers):
-        bp = layer(enc, i)
-        a, _ = attention(rmsnorm(x, bp["ln1"], cfg.norm_eps), bp, ecfg,
-                         causal=False)
-        x = x + a
-        x = x + mlp(rmsnorm(x, bp["ln2"], cfg.norm_eps), bp, cfg)
+        def body(x, bp=layer(enc, i)):
+            a, _ = attention(rmsnorm(x, bp["ln1"], cfg.norm_eps), bp, ecfg,
+                             causal=False)
+            x = x + a
+            return x + mlp(rmsnorm(x, bp["ln2"], cfg.norm_eps), bp, cfg)
+        x = _remat(body, remat, x)
     return rmsnorm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _remat(body, on: bool, *args):
+    """``body(*args)``, under non-reentrant checkpointing when ``on``."""
+    return checkpoint(body, *args, use_reentrant=False) if on \
+        else body(*args)
 
 
 def _block(x, bp, cfg: ModelConfig, window, enc_out=None, cbp=None):
@@ -355,13 +358,14 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
     return _head(params, cfg, x), aux
 
 
-def forward_train(params, cfg: ModelConfig, *, tokens=None, embeds=None
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+def forward_train(params, cfg: ModelConfig, *, tokens=None, embeds=None,
+                  enc_embeds=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> (logits (B, S, V), aux loss), differentiable: the training
-    forward of the dense and MoE block kinds (``embeds`` overrides the
-    token lookup, the VLM path).  With ``cfg.remat == "block"`` each block
+    forward of every family (``embeds`` overrides the token lookup, the
+    VLM path; ``enc_embeds`` feeds the encoder, the audio path).  With
+    ``cfg.remat == "block"`` each block, encoder block and xlstm pair
     keeps only its input for the backward and recomputes the rest there
-    (its flash launches run again)."""
+    (its flash launches and SSM scan run again)."""
     require_supported(cfg, grad=True)
     dev = params["embed"].device
     if embeds is not None:
@@ -372,17 +376,27 @@ def forward_train(params, cfg: ModelConfig, *, tokens=None, embeds=None
         tok = as_tokens(tokens, dev)
         x = gather_rows(params["embed"], tok.reshape(-1)) \
             .reshape(tuple(tok.shape) + (cfg.d_model,))
-    windows = layer_windows(cfg, x.shape[1])
-    blocks = params["blocks"]
+    remat = cfg.remat == "block"
     aux = torch.zeros((), dtype=torch.float32, device=dev)
+    if cfg.block_kind == "xlstm":
+        for i in range(cfg.n_layers // 2):
+            def pair(x, pp=layer(params["pairs"], i)):
+                st = init_xlstm_state(cfg, x.shape[0], x.device)
+                return xlstm_pair_scan(x, pp, cfg, st)[0]
+            x = _remat(pair, remat, x)
+        return _head(params, cfg, x), aux
+    enc_out = _run_encoder(params, cfg, enc_embeds, remat) \
+        if cfg.enc_layers else None
+    windows = layer_windows(cfg, x.shape[1])
+    blocks, cross = params["blocks"], params.get("cross_blocks")
     for i in range(cfg.n_layers):
-        def body(x, i=i):
-            y, a, _ = _block(x, layer(blocks, i), cfg, windows[i])
+        # the cross K/V are projected from enc_out inside the body, so the
+        # remat recomputes them as the reference's does
+        def body(x, enc_out, i=i):
+            y, a, _ = _block(x, layer(blocks, i), cfg, windows[i], enc_out,
+                             None if cross is None else layer(cross, i))
             return y, (torch.zeros_like(aux) if a is None else a)
-        if cfg.remat == "block":
-            x, a = checkpoint(body, x, use_reentrant=False)
-        else:
-            x, a = body(x)
+        x, a = _remat(body, remat, x, enc_out)
         aux = aux + a
     return _head(params, cfg, x), aux
 

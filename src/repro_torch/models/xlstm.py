@@ -17,6 +17,20 @@ S steps; the reference pads the time axis to a multiple of its 128-step
 chunk and returns the state after the pad steps too, where the forget
 gate's bias moves it (ROADMAP Queue 3), which this port does not copy.
 
+Each cell's time loop collects its steps' outputs in a list and stacks
+them.  Under grad it runs in chunks of ``TIME_CHUNK`` (128) steps, each
+checkpointed as the reference remats its 128-step chunks: a chunk is one
+autograd node (:class:`_CellChunk`) that keeps only its inputs, the state
+at its start included, and whose backward recomputes its steps under
+autograd and differentiates them, so only the chunk-boundary states stay
+alive (the mLSTM matrix memory C is (B, H, hd, hd) float32, 1 MB a batch
+row at xlstm-350m, and saved a few times a step).  On a CUDA device the
+chunk's forward and its backward (the recompute with it) each replay a
+CUDA graph captured once per cell and shapes (:class:`_ChunkGraphs`):
+the cells are ~25 small operations a step, which launched one by one
+(``torch.utils.checkpoint``) left the card idle 96% of a training step.
+Without grad the loop runs whole, as it always did.
+
 State per (batch, head): mLSTM ``mC`` (hd × hd), ``mn`` (hd), ``mm`` ();
 sLSTM ``sc``, ``sn``, ``sh`` (hd each) and ``sm`` ().
 """
@@ -31,10 +45,13 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig, torch_dtype
+from .graphs import capture
 from .layers import rmsnorm
 
 __all__ = ["init_xlstm_pair", "init_xlstm_state", "xlstm_pair_scan",
-           "xlstm_pair_step"]
+           "xlstm_pair_step", "TIME_CHUNK"]
+
+TIME_CHUNK = 128        # the reference's xlstm_pair_scan time_chunk
 
 
 def init_xlstm_pair(normal: Callable, cfg: ModelConfig, pairs: int,
@@ -127,6 +144,143 @@ def _slstm_cell(z_raw, i_raw, f_raw, o_in, rz, c, n, m, h_prev):
     return h, c, n, m_new
 
 
+def _slstm_step(z_raw, i_raw, f_raw, o_in, rz, c, n, m, h):
+    """:func:`_slstm_cell` as a time-loop cell: -> (h, c, n, m, h)."""
+    h, c, n, m = _slstm_cell(z_raw, i_raw, f_raw, o_in, rz, c, n, m, h)
+    return h, c, n, m, h
+
+
+def _steps(cell, seqs, state, consts=()):
+    """``cell(*inputs at t, *consts, *state) -> (out, *state)`` over time
+    axis 1 of ``seqs``: -> (the outputs stacked on axis 1, *state after
+    them)."""
+    outs = []
+    for t in range(seqs[0].shape[1]):
+        out, *state = cell(*(a[:, t] for a in seqs), *consts, *state)
+        outs.append(out)
+    return (torch.stack(outs, 1), *state)
+
+
+def _time_loop(cell, seqs, state, consts=()):
+    """:func:`_steps` over the whole sequence; under grad, in chunks of
+    ``TIME_CHUNK`` steps, each a :class:`_CellChunk` (only the
+    chunk-boundary states are kept for the backward)."""
+    if not torch.is_grad_enabled():
+        return _steps(cell, seqs, state, consts)
+    outs = []
+    for t0 in range(0, seqs[0].shape[1], TIME_CHUNK):
+        part = tuple(a[:, t0:t0 + TIME_CHUNK] for a in seqs)
+        out, *state = _CellChunk.apply(cell, len(part), len(consts), *part,
+                                       *consts, *state)
+        outs.append(out)
+    return (torch.cat(outs, 1), *state)
+
+
+class _CellChunk(torch.autograd.Function):
+    """One chunk of a cell's time loop as one checkpointed autograd node:
+    ``_CellChunk.apply(cell, n_seqs, n_consts, *seqs, *consts, *state) ->
+    (outputs stacked on axis 1, *state after them)``.  The forward runs
+    the steps without autograd and saves only its inputs; the backward
+    recomputes the steps under autograd from them and differentiates."""
+
+    @staticmethod
+    def forward(ctx, cell, n_seqs, n_consts, *tensors):
+        ctx.cell, ctx.split = cell, (n_seqs, n_consts)
+        ctx.save_for_backward(*tensors)
+        return tuple(_runner(cell, n_seqs, n_consts, tensors)
+                     .forward(tensors))
+
+    @staticmethod
+    def backward(ctx, *gouts):
+        tensors = ctx.saved_tensors
+        grads = _runner(ctx.cell, *ctx.split, tensors).backward(tensors,
+                                                                 gouts)
+        return (None, None, None) + tuple(
+            g if need else None
+            for g, need in zip(grads, ctx.needs_input_grad[3:]))
+
+
+class _EagerChunk:
+    """A chunk's forward and backward launched one op at a time (off the
+    card, and inside a caller's own CUDA-graph capture)."""
+
+    def __init__(self, cell, n_seqs: int, n_consts: int):
+        self.cell, self.n_seqs, self.n_consts = cell, n_seqs, n_consts
+
+    def _run(self, tensors):
+        a, b = self.n_seqs, self.n_seqs + self.n_consts
+        return _steps(self.cell, tensors[:a], tensors[b:], tensors[a:b])
+
+    def forward(self, tensors):
+        with torch.no_grad():
+            return self._run(tensors)
+
+    def backward(self, tensors, gouts):
+        leaves = [t.detach().requires_grad_() for t in tensors]
+        with torch.enable_grad():
+            outs = self._run(leaves)
+            return torch.autograd.grad(outs, leaves, gouts,
+                                       allow_unused=True)
+
+
+class _ChunkGraphs(_EagerChunk):
+    """:class:`_EagerChunk`'s forward and backward each captured once as a
+    CUDA graph on static buffers (inputs, output gradients), replayed per
+    chunk; what a replay returns is copied out of the graph's buffers."""
+
+    def __init__(self, cell, n_seqs: int, n_consts: int, like):
+        super().__init__(cell, n_seqs, n_consts)
+        self.ins = [torch.zeros_like(t) for t in like]
+        self.outs = self.gouts = self.grads = None
+
+        def fwd():
+            self.outs = _EagerChunk.forward(self, self.ins)
+
+        def bwd():
+            self.grads = _EagerChunk.backward(self, self.ins, self.gouts)
+        self.fwd = capture(fwd, like[0].device)
+        self.gouts = [torch.zeros_like(o) for o in self.outs]
+        self.bwd = capture(bwd, like[0].device)
+
+    def forward(self, tensors):
+        for buf, t in zip(self.ins, tensors):
+            buf.copy_(t)
+        self.fwd.replay()
+        return [o.clone() for o in self.outs]
+
+    def backward(self, tensors, gouts):
+        for buf, t in zip(self.ins + self.gouts, list(tensors) + list(gouts)):
+            buf.copy_(t)
+        self.bwd.replay()
+        return [None if g is None else g.clone() for g in self.grads]
+
+
+# one pair of graphs per (cell, input shapes and dtypes, device): every
+# chunk of that length in every pair replays them
+_GRAPHS: Dict[tuple, _ChunkGraphs] = {}
+
+
+def _use_graphs(device: torch.device) -> bool:
+    """Replay graphs on a CUDA device, except inside a caller's own
+    capture (a graph is not captured within another)."""
+    return device.type == "cuda" \
+        and not torch.cuda.is_current_stream_capturing()
+
+
+def _runner(cell, n_seqs: int, n_consts: int, tensors):
+    """The chunk's graphs where :func:`_use_graphs`, else the eager
+    chunk."""
+    dev = tensors[0].device
+    if not _use_graphs(dev):
+        return _EagerChunk(cell, n_seqs, n_consts)
+    key = (cell, n_seqs, n_consts, str(dev)) + tuple(
+        (tuple(t.shape), t.dtype) for t in tensors)
+    g = _GRAPHS.get(key)
+    if g is None:
+        g = _GRAPHS[key] = _ChunkGraphs(cell, n_seqs, n_consts, tensors)
+    return g
+
+
 def _mlstm_block(x, p, cfg: ModelConfig, st: Dict):
     """The mLSTM block (pre-norm residual) over x (B, S, D); returns (x +
     y, (C, n, m) after S steps)."""
@@ -141,11 +295,8 @@ def _mlstm_block(x, p, cfg: ModelConfig, st: Dict):
     xf = xa.to(f32)
     i_raw = xf @ p["m_wi"]
     f_raw = xf @ p["m_wf"] + p["m_bf"]
-    C, n, m = st["mC"], st["mn"], st["mm"]
-    hs = torch.empty((B, S, H, hd), dtype=f32, device=x.device)
-    for t in range(S):
-        hs[:, t], C, n, m = _mlstm_cell(q[:, t], k[:, t], v[:, t],
-                                        i_raw[:, t], f_raw[:, t], C, n, m)
+    hs, C, n, m = _time_loop(_mlstm_cell, (q, k, v, i_raw, f_raw),
+                             (st["mC"], st["mn"], st["mm"]))
     o_gate = torch.sigmoid(xa @ p["m_wo"])
     y = (hs.reshape(B, S, D).to(x.dtype) * o_gate) @ p["m_out"]
     return x + y, (C, n, m)
@@ -164,13 +315,9 @@ def _slstm_block(x, p, cfg: ModelConfig, st: Dict):
     i_raw = xf @ p["s_wi"]
     f_raw = xf @ p["s_wf"] + p["s_bf"]
     o_in = (xb @ p["s_wo"]).reshape(B, S, H, hd).to(f32)
-    rz = p["s_rz"].to(f32)
-    c, n, m, h = st["sc"], st["sn"], st["sm"], st["sh"]
-    hs = torch.empty((B, S, H, hd), dtype=f32, device=x.device)
-    for t in range(S):
-        h, c, n, m = _slstm_cell(z_raw[:, t], i_raw[:, t], f_raw[:, t],
-                                 o_in[:, t], rz, c, n, m, h)
-        hs[:, t] = h
+    hs, c, n, m, h = _time_loop(_slstm_step, (z_raw, i_raw, f_raw, o_in),
+                                (st["sc"], st["sn"], st["sm"], st["sh"]),
+                                (p["s_rz"].to(f32),))
     y = hs.reshape(B, S, D).to(x.dtype) @ p["s_out"]
     return x + y, (c, n, m, h)
 

@@ -75,10 +75,13 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return loss
 
 
-def batch_to(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
+def batch_to(batch: Dict, device: torch.device,
+             float_dtype: Optional[torch.dtype] = None
+             ) -> Dict[str, torch.Tensor]:
     """A batch of numpy arrays (or tensors already on ``device``) as
     tensors on ``device``: integer arrays as int64, float arrays as they
-    are."""
+    are, or in ``float_dtype`` where given (the stubbed frontends'
+    float32 embeddings for a bf16 model)."""
     out = {}
     for k, v in batch.items():
         if isinstance(v, torch.Tensor):
@@ -91,12 +94,15 @@ def batch_to(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
         if a.dtype.kind in "iu":
             a = a.astype(np.int64)
         out[k] = torch.as_tensor(a, device=device)
+        if float_dtype is not None and out[k].is_floating_point():
+            out[k] = out[k].to(float_dtype)
     return out
 
 
 def make_loss_fn(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
     """``loss_fn(params, batch) -> (loss, {"ce", "aux"})`` through
-    ``transformer.forward_train``."""
+    ``transformer.forward_train``: ``tokens`` (or ``embeds``), ``labels``,
+    and ``enc_embeds`` for an encoder-decoder."""
     def loss_fn(params, batch):
         kwargs = {}
         if "embeds" in batch:
@@ -104,8 +110,7 @@ def make_loss_fn(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
         else:
             kwargs["tokens"] = batch["tokens"]
         if "enc_embeds" in batch:
-            raise NotImplementedError(f"{cfg.name}: encoder-decoder "
-                                      f"training is not ported yet")
+            kwargs["enc_embeds"] = batch["enc_embeds"]
         logits, aux = T.forward_train(params, cfg, **kwargs)
         loss = cross_entropy(logits, batch["labels"], tcfg.z_loss)
         return loss + tcfg.aux_loss * aux, {"ce": loss, "aux": aux}

@@ -21,7 +21,11 @@ for the training slice the flash Function's gradients against the plain
 version's, the column-tiled short segment reduce bitwise its one-CTA
 launch and the plain version at a DDP bucket's shape, the DynPlan
 gather's transpose repeatable bit for bit and equal to the CPU's, and the
-DDP step bitwise across worlds on the card.
+DDP step bitwise across worlds on the card; for the families' training
+hymba's graph-backed scan Function against autograd through the eager
+step loop, xlstm's chunk graphs bitwise its eager chunks, the flash
+Function at whisper's cross shape against the plain
+version, and a hymba smoke train step on the card against the CPU's.
 
 Every test is ``cuda``-marked and skips without a card; the file imports
 no JAX, so the card's machine runs it:
@@ -710,3 +714,87 @@ def test_ddp_step_world_invariant_on_card(dev):
     for o in outs[1:]:
         assert all(chip_smoke.same_raw_bits(a, b) for a, b in
                    zip(tree_leaves(outs[0]), tree_leaves(o)))
+
+
+# ------------------------------------------------- training of the families
+@pytest.mark.parametrize("S,chunk", [(600, 256), (45, 16)])
+def test_scan_function_graphs_equal_eager_steps(dev, S, chunk):
+    """The scan Function replays its graphs (forward, recompute, reverse);
+    its forward is bitwise the inference loop's, its gradients within
+    chip_smoke.SCAN_GRAD_REL of autograd through the eager step loop."""
+    from repro_torch.models import ssm as PSSM
+    g = torch.Generator(device=dev).manual_seed(S)
+    B, Hm, hd, N = 2, 25, 64, 16
+    r = lambda *s: torch.randn(s, generator=g, device=dev)  # noqa: E731
+    ins = [r(B, S, Hm, 1).abs() * 0.3, r(B, S, Hm, hd), r(B, S, Hm, N),
+           r(B, S, Hm, N), -r(Hm, N).abs() - 0.1, r(B, Hm, hd, N) * 0.1]
+    cot = (r(S, B, Hm, hd, 1), r(B, Hm, hd, N))
+    h_inf = ins[5].clone()
+    ys_inf = PSSM._scan(*ins[:5], h_inf, chunk)
+    a = [t.clone().requires_grad_() for t in ins]
+    out = PSSM._SelectiveScan.apply(*a, chunk)
+    assert torch.equal(out[0].detach(), ys_inf)
+    assert torch.equal(out[1].detach(), h_inf)
+    got = torch.autograd.grad(out, a, cot)
+    kinds = {k[0] for k in PSSM._GRAPHS if k[1] == chunk and k[2] == B}
+    assert kinds == {"_ChunkGraph", "_ChunkBackGraph"}
+    b = [t.clone().requires_grad_() for t in ins]
+    want = torch.autograd.grad(chip_smoke.plain_scan(*b), b, cot)
+    for x, w in zip(got, want):
+        assert float((x - w).abs().max()) <= \
+            chip_smoke.SCAN_GRAD_REL * float(w.abs().max())
+
+
+def test_xlstm_chunk_graphs_equal_eager_chunks(dev):
+    """One xlstm pair under grad at S = 300 (chunks of 128, 128 and 44):
+    the chunk graphs' outputs, state and gradients bitwise the eager
+    chunks' (``chip_smoke.train_xlstm_check`` at a smoke width)."""
+    sz = chip_smoke.Sizes(**chip_smoke.TRAIN_SMOKE)
+    sz.xlstm_check_train = (2, 300)
+    rec = chip_smoke.train_xlstm_check(sz, dev)
+    assert rec["bitwise"] and rec["graphs"] >= 4
+
+
+def test_flash_function_at_whisper_cross_shape(dev):
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=dev).manual_seed(1500)
+    q = torch.randn(2, 448, 8, 64, generator=g, device=dev).bfloat16() \
+        .requires_grad_()
+    k, v = (torch.randn(2, 1500, 8, 64, generator=g, device=dev)
+            .bfloat16().requires_grad_() for _ in range(2))
+    go = torch.randn(2, 448, 8, 64, generator=g, device=dev).bfloat16()
+    got = torch.autograd.grad(kops.flash_attention(q, k, v, causal=False),
+                              (q, k, v), go)
+    want = torch.autograd.grad(fa.flash_attention_plain(q, k, v,
+                                                        causal=False),
+                               (q, k, v), go)
+    for a, b in zip(got, want):
+        assert chip_smoke.grad_rel(a, b) <= chip_smoke.FLASH_BWD_REL
+
+
+def test_hymba_smoke_train_step_card_equals_cpu(dev):
+    """One float32 train step of hymba's smoke config (40 tokens: the
+    sliding layer's window of 16 masks) on the card and on the CPU from
+    the same parameters: each element within 5e-3 and each leaf's
+    difference within 1e-3 of the CPU step's norm."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.training.data import make_batch
+    from repro_torch.training.optimizer import OptConfig, init_opt_state
+    from repro_torch.training.pytree import tree_leaves, tree_map
+    from repro_torch.training.train_loop import make_train_step
+    cfg = get_config("hymba-1.5b").smoke_config().scaled(dtype="float32",
+                                                         remat="block")
+    ocfg = OptConfig(lr=1e-2, warmup_steps=1)
+    p0 = T.init_params(cfg, device="cpu")
+    b = make_batch(cfg, 2, 40)
+    step = make_train_step(cfg, ocfg)
+    want = step(p0, init_opt_state(p0, ocfg), b)[0]
+    pc = tree_map(lambda t: t.to(dev), p0)
+    got = step(pc, init_opt_state(pc, ocfg), b)[0]
+    for g_, w, b0 in zip(tree_leaves(got), tree_leaves(want),
+                         tree_leaves(p0)):
+        d = g_.cpu().double() - w.double()
+        assert float(d.abs().max()) <= 5e-3
+        assert float(d.norm()) <= 1e-3 * float((w.double() - b0.double())
+                                               .norm())

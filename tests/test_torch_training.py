@@ -186,18 +186,6 @@ def test_remat_gives_the_same_gradients():
         assert torch.equal(a, c)
 
 
-@pytest.mark.parametrize("arch", ["hymba-1.5b", "xlstm-350m",
-                                  "whisper-base"])
-def test_training_families_not_ported_raise(arch):
-    cfg = get_config(arch).smoke_config()
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        T.require_supported(cfg, grad=True)
-    p = T.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        L.value_and_grad(L.make_loss_fn(cfg, L.TrainConfig()), p,
-                         L.batch_to(D.make_batch(cfg, 1, 4, enc_len=4), CPU))
-
-
 # --------------------------------------------------------------- the step
 def _ocfg(**kw):
     kw = dict(lr=1e-2, warmup_steps=1, decay_steps=100, **kw)
@@ -529,6 +517,23 @@ def test_launch_train_smoke_on_cpu(tmp_path, capsys):
     out = capsys.readouterr().out.splitlines()
     assert out[1] == "resumed at step 2"
     assert out[2].startswith("step    3 loss=") and out[-1] == "done"
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "xlstm-350m",
+                                  "whisper-base"])
+def test_launch_train_families_on_cpu(arch, capsys):
+    """The launcher trains every family: two smoke steps of hymba, xlstm
+    and whisper (whose batches carry ``enc_embeds``), finite losses."""
+    assert launch_train.main(["--arch", arch, "--smoke", "--batch", "2",
+                              "--seq", "12", "--steps", "2", "--device",
+                              "cpu"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith(f"arch={arch}-smoke params~")
+    assert [ln.split(" loss=")[0] for ln in lines[1:-1]] == \
+        ["step    0", "step    1"]
+    assert all(np.isfinite(float(ln.split("loss=")[1].split()[0]))
+               for ln in lines[1:-1])
+    assert lines[-1] == "done"
 
 
 @pytest.mark.parametrize("flag", ["--dp", "--tp", "--pods", "--devices"])
