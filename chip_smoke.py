@@ -238,6 +238,31 @@ Phases, each printing one JSON line and asserting as it goes:
            within MOE_BF16_GRAD_REL), the DynPlan transpose bitwise across
            two runs, and 3 training steps.  The counted drives (the dense
            steps, the world-4 DDP step, the MoE steps) are the train path.
+  launch   (in a child process: ``chip_smoke.py --launch DEVICE``, which
+           prints one ``LAUNCH_RESULT`` JSON line) the launch tooling on a
+           device mesh, over an NCCL group of one rank (``file://`` store):
+           qwen3-4b at full size (36 layers, bf16, float32 moments, remat
+           per block) through the launcher's sharded path
+           (``launch.train.sharded_state``: each leaf made whole from seed
+           0 and placed as a DTensor by ``param_specs`` / ``shardings`` on a
+           (1, 1) mesh; ``make_train_step(param_shardings=)``), 4 counted
+           steps of 4 x 1,024 tokens (``make_batch``, the launcher's
+           stream): step ms, tokens/s, peak, a profiled step's idle share;
+           at 4 of 36 layers one step through the mesh bitwise
+           ``make_train_step`` without a mesh (loss, every parameter and
+           moment), both timed in turns (the DTensor layer's cost), the
+           mesh step's ``max_memory_allocated`` and FlopCounterMode's count
+           of both; the dry run of that 4-layer cell under a fake group of
+           one rank (``--launch-dryrun DEVICE``, a child of its own): FLOPs
+           equal to the card's count, peak within ``LAUNCH_PEAK_REL`` of
+           the card's, the roofline row from ``HW`` beside the measured
+           step; the production 16 x 16 mesh's dry run of qwen3-4b and
+           mistral-large-123b x {train_4k, prefill_32k, decode_32k}
+           (``python -m repro_torch.launch.dryrun``, records under
+           ``reports/torch_dryrun``): per cell the seconds, peak GiB
+           a device, ``fits80G``, the collective counts.  The counted
+           drives (the full steps, the 4-layer mesh steps) are the launch
+           path.
   long_sweep  the long segment reduce (segments over ``LONG_SEG`` rows)
            of both wrappers bitwise, NaN payloads included, against the
            plain version: every dtype and op at units (), (3,) and (2, 2),
@@ -247,7 +272,7 @@ Phases, each printing one JSON line and asserting as it goes:
            launches leave torch.profiler on the card returning windows
            without all their device events.
 
-Eleven paths carry the kernels: ``sf_ops`` + ``spmv_cg`` (the SF kernels),
+Twelve paths carry the kernels: ``sf_ops`` + ``spmv_cg`` (the SF kernels),
 ``fixed_rule`` (the fixed rule's wide gather and one-segment-a-CTA
 reduce, which the tuned paths launch only where a sweep picks them),
 ``dmda`` (a gather, a segment reduce, ``spmv_ell``), ``mg`` (the same),
@@ -255,8 +280,11 @@ reduce, which the tuned paths launch only where a sweep picks them),
 (a gather, a segment reduce), the serve phase's drive
 (``flash_attention``), the moe phase's drive (``pack``, ``pack_blocked``,
 ``flash_attention``), the families phase's drives
-(``flash_attention``) and the train phase's (``flash_attention``, a
-gather, a segment reduce; ``pack_strided`` in the DDP buckets).  A gather is ``pack`` or ``pack_blocked`` and a
+(``flash_attention``), the train phase's (``flash_attention``, a
+gather, a segment reduce; ``pack_strided`` in the DDP buckets) and the
+launch phase's (``flash_attention`` on each rank's shards under
+``local_map``, the token lookup's gather and its transpose's segment
+reduce).  A gather is ``pack`` or ``pack_blocked`` and a
 segment reduce ``segment_reduce_sorted`` or ``segment_reduce_blocked``,
 as the tuner's winners name them (``PACK``, ``SEGRED``).  Every launch
 counter is set to 0 just before each path and read just after, each
@@ -461,6 +489,21 @@ class Sizes:
     whisper_train_steps: tuple = (4, 6)
     scan_check: tuple = (2, 600)      # hymba's scan Function, one layer
     xlstm_check_train: tuple = (4, 300)   # one xlstm pair, graphs vs eager
+    # launch: qwen3-4b at full size through the launcher's sharded path on a
+    # (1, 1) mesh over an NCCL group of one rank (bf16, float32 moments,
+    # remat per block), its launch_check_layers-layer step bitwise against
+    # make_train_step, the dry run of that cell against the card, and the
+    # production mesh's dry run of launch_cells x launch_shapes
+    # (launch_smoke=True: the smoke config and a CPU dry run, for
+    # rehearsals on the CPU)
+    launch_smoke: bool = False
+    launch_arch: str = "qwen3-4b"
+    launch_batch: int = 4
+    launch_seq: int = 1024
+    launch_steps: int = 4
+    launch_check_layers: int = 4
+    launch_cells: tuple = ("qwen3-4b", "mistral-large-123b")
+    launch_shapes: tuple = ("train_4k", "prefill_32k", "decode_32k")
 
 
 def emit(obj) -> None:
@@ -5992,6 +6035,397 @@ def train_in_child(sz: Sizes, dev):
     return out["record"], out["launches"]
 
 
+# ----------------------------------------------------------------- launch
+LAUNCH_PATH = ("flash_attention", PACK, SEGRED)
+LAUNCH_SMOKE = dict(launch_smoke=True, launch_batch=2, launch_seq=32,
+                    launch_steps=2, launch_check_layers=2,
+                    launch_cells=("qwen3-4b",), timing_iters=2)
+# the dry run's prediction of the card's step at world 1: FLOPs exactly
+# (the same ops at the same shapes); peak memory within this share of the
+# card's max_memory_allocated (the caching allocator rounds each block up
+# and keeps cuBLAS's workspace, which the count does not model)
+LAUNCH_PEAK_REL = 0.15
+LAUNCH_CARD_SHAPE = "launch_card"
+
+
+def launch_config(sz: Sizes, **scaled):
+    """``launch_arch``'s published config (its smoke config with
+    ``launch_smoke``), scaled by ``scaled``."""
+    from repro_torch.configs import get_config
+    cfg = get_config(sz.launch_arch)
+    return (cfg.smoke_config() if sz.launch_smoke else cfg).scaled(**scaled)
+
+
+def launch_batches(cfg, sz: Sizes, steps: int) -> list:
+    """The launcher's data stream (``training.data.make_batch``), steps
+    0 .. steps - 1."""
+    from repro_torch.training.data import make_batch
+    return [make_batch(cfg, sz.launch_batch, sz.launch_seq, step=i)
+            for i in range(steps)]
+
+
+def launch_full(sz: Sizes, dev, mesh, acc: dict) -> dict:
+    """qwen3-4b at full size through the launcher's path
+    (``launch.train.sharded_state`` + ``make_train_step(param_shardings=)``)
+    on the (1, 1) mesh: ``launch_steps`` counted steps of ``launch_batch`` x
+    ``launch_seq`` tokens, step ms on the host and between CUDA events,
+    tokens/s, peak memory, a profiled step's idle share."""
+    import torch
+    from repro_torch.launch.train import sharded_state
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.train_loop import make_train_step
+    cfg = launch_config(sz, remat="block")
+    ocfg = OptConfig(warmup_steps=10, decay_steps=max(sz.launch_steps, 100))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params, opt, psh, _ = sharded_state(cfg, ocfg, mesh, dev)
+    init_s = time.perf_counter() - t0
+    step = make_train_step(cfg, ocfg, donate=True, param_shardings=psh)
+    state = {"p": params, "o": opt}
+    del params, opt
+    batches = launch_batches(cfg, sz, sz.launch_steps + 1)
+
+    def one(i):
+        state["p"], state["o"], m = step(state["p"], state["o"], batches[i])
+        return float(m["loss"])
+
+    steps = []
+    for i in range(sz.launch_steps):
+        (loss, host, devms), _ = counted(
+            lambda: step_timed(lambda: one(i), dev), acc)
+        check(math.isfinite(loss), f"launch step {i}: loss {loss}")
+        steps.append({"loss": loss, "host_ms": host, "device_ms": devms})
+    window = profiled_groups(lambda: one(sz.launch_steps), dev)
+    warm = steps[1:] or steps
+    host = float(np.mean([s["host_ms"] for s in warm]))
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
+           "moments": "float32", "remat": cfg.remat,
+           "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+           "placements": {"embed": str(state["p"]["embed"].placements),
+                          "wq": str(state["p"]["blocks"]["wq"].placements)},
+           "batch": [sz.launch_batch, sz.launch_seq], "init_s": init_s,
+           "steps": steps, "step_host_ms": host,
+           "step_device_ms": float(np.mean([s["device_ms"] for s in warm])),
+           "tokens_per_s": sz.launch_batch * sz.launch_seq / host * 1e3,
+           "peak_gb": peak_gb(dev), "profiled_step": window}
+    del state
+    return out
+
+
+def tree_local(tree):
+    """A tree of DTensors as their local shards."""
+    return tree_map_of(lambda t: t.to_local() if hasattr(t, "to_local")
+                       else t, tree)
+
+
+def launch_bitwise(sz: Sizes, dev, mesh, acc: dict) -> dict:
+    """qwen3-4b at full width, ``launch_check_layers`` layers: one step
+    through the mesh path against ``make_train_step`` without a mesh from
+    the same parameters, bitwise in the loss and every parameter and
+    moment; then both steps timed in turns (plain, mesh, mesh, plain: the
+    DTensor layer's cost), the mesh step counted with its peak memory
+    (``max_memory_allocated``, the plain state freed) and FlopCounterMode's
+    count of both steps."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.launch.train import sharded_state
+    from repro_torch.models import transformer as T
+    from repro_torch.training.optimizer import OptConfig, init_opt_state
+    from repro_torch.training.train_loop import make_train_step
+    cfg = launch_config(sz, n_layers=sz.launch_check_layers, remat="block")
+    ocfg = OptConfig(warmup_steps=10, decay_steps=100)
+    mp, mo, psh, _ = sharded_state(cfg, ocfg, mesh, dev)
+    pp = T.init_params(cfg, generator=torch.Generator(device=dev)
+                       .manual_seed(0), device=dev)
+    po = init_opt_state(pp, ocfg)
+    same_start = all(same_bits(a, b) for a, b in zip(
+        tree_leaves_of(tree_local(mp)), tree_leaves_of(pp)))
+    check(same_start, "the mesh path's parameters differ from "
+          "init_params's before the step")
+    plain = make_train_step(cfg, ocfg, donate=True)
+    meshed = make_train_step(cfg, ocfg, donate=True, param_shardings=psh)
+    batches = launch_batches(cfg, sz, 6)
+    pp, po, pm = plain(pp, po, batches[0])
+    (mp, mo, mm), _ = counted(lambda: meshed(mp, mo, batches[0]), acc)
+    names = leaf_names(pp)
+    diff = [n for n, a, b in zip(names, tree_leaves_of(tree_local(mp)),
+                                 tree_leaves_of(pp)) if not same_bits(a, b)]
+    mdiff = [n for n, a, b in zip(
+        leaf_names(po["m"]) + leaf_names(po["v"]),
+        tree_leaves_of(tree_local(mo["m"])) + tree_leaves_of(
+            tree_local(mo["v"])),
+        tree_leaves_of(po["m"]) + tree_leaves_of(po["v"]))
+        if not same_bits(a, b)]
+    loss_same = same_bits(mm["loss"], pm["loss"])
+    check(loss_same and not diff and not mdiff,
+          f"the mesh step is not bitwise make_train_step: loss "
+          f"{float(mm['loss'])} vs {float(pm['loss'])}, parameters "
+          f"{diff[:5]}, moments {mdiff[:5]}")
+    out = {"layers": cfg.n_layers, "loss": float(pm["loss"]),
+           "bitwise": {"loss": loss_same, "params": len(names),
+                       "params_differing": diff, "moments_differing": mdiff}}
+    st = {"pp": pp, "po": po, "mp": mp, "mo": mo}
+    del pp, po, mp, mo
+
+    def run_plain(i):
+        st["pp"], st["po"], m = plain(st["pp"], st["po"], batches[i])
+        return m
+
+    def run_mesh(i):
+        st["mp"], st["mo"], m = meshed(st["mp"], st["mo"], batches[i])
+        return m
+    turns = []
+    for i, (kind, fn) in enumerate((("plain", run_plain),
+                                    ("mesh", run_mesh),
+                                    ("mesh", run_mesh),
+                                    ("plain", run_plain))):
+        _, host, devms = step_timed(lambda: fn(1 + i // 2), dev)
+        turns.append({"path": kind, "host_ms": host, "device_ms": devms})
+    with FlopCounterMode(display=False) as fc:
+        run_plain(3)
+    plain_flops = fc.get_total_flops()
+    del st["pp"], st["po"]
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    (_, host, devms), _ = counted(
+        lambda: step_timed(lambda: run_mesh(4), dev), acc)
+    card_peak = torch.cuda.max_memory_allocated(dev) \
+        if dev.type == "cuda" else 0
+    with FlopCounterMode(display=False) as fc:
+        run_mesh(5)
+    mean = {k: float(np.mean([t["host_ms"] for t in turns
+                              if t["path"] == k])) for k in ("plain", "mesh")}
+    out.update({
+        "turns": turns, "plain_step_ms": mean["plain"],
+        "mesh_step_ms": mean["mesh"],
+        "dtensor_overhead_ms": mean["mesh"] - mean["plain"],
+        "mesh_counted_step": {"host_ms": host, "device_ms": devms},
+        "card_flops_mesh": fc.get_total_flops(),
+        "card_flops_plain": plain_flops,
+        "card_peak_bytes": card_peak, "resident_before_bytes": base})
+    del st
+    return out
+
+
+def launch_dryrun_child(device: str, smoke: bool) -> int:
+    """``chip_smoke.py --launch-dryrun DEVICE [smoke]``: the dry run of the
+    bitwise check's cell (``launch_check_layers`` layers, ``launch_batch``
+    x ``launch_seq``, one microbatch, float32 moments) under a fake group
+    of one rank on a (1, 1) mesh, printed as one ``LAUNCH_DRYRUN`` JSON
+    line."""
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    import dataclasses as dc
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.cells import CellOptions
+    from repro_torch.launch.mesh import make_mesh
+    sz = Sizes(**LAUNCH_SMOKE) if smoke else Sizes()
+    configs.SHAPES[LAUNCH_CARD_SHAPE] = dict(
+        seq_len=sz.launch_seq, global_batch=sz.launch_batch, kind="train")
+    cfg = launch_config(sz, n_layers=sz.launch_check_layers)
+    overrides = {k: v for k, v in dc.asdict(cfg).items()
+                 if k not in ("name", "remat", "seq_shard")}
+    dryrun.fake_group(1)
+    mesh = make_mesh((1, 1), ("data", "model"), device_type=device)
+    rec = dryrun.run_cell(sz.launch_arch, LAUNCH_CARD_SHAPE, mesh,
+                          CellOptions(microbatches=1), overrides,
+                          device=device)
+    rec["cell"] = f"{sz.launch_arch}__{LAUNCH_CARD_SHAPE}__1x1"
+    print("LAUNCH_DRYRUN " + json.dumps(rec), flush=True)
+    return 0
+
+
+def launch_dryrun_card(sz: Sizes, dev, bit: dict) -> dict:
+    """The dry run of the bitwise check's cell at world 1 (a child
+    process), beside the card's counts: FLOPs against FlopCounterMode's of
+    the mesh step (equal), peak against ``max_memory_allocated`` (within
+    ``LAUNCH_PEAK_REL``), and the roofline row built from ``HW`` beside
+    the measured step."""
+    from repro_torch.launch.roofline import roofline_row
+    cmd = [sys.executable, os.path.abspath(__file__), "--launch-dryrun",
+           dev.type] + (["smoke"] if sz.launch_smoke else [])
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("LAUNCH_DRYRUN ")]
+    check(proc.returncode == 0 and len(lines) == 1,
+          f"the launch dry run's child exited {proc.returncode}: "
+          f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+    rec = json.loads(lines[0][len("LAUNCH_DRYRUN "):])
+    pred_flops = rec["op_cost"]["flops"]
+    pred_peak = rec["memory"]["peak_per_device"]
+    card_flops = bit["card_flops_mesh"]
+    card_peak = bit["card_peak_bytes"]
+    check(pred_flops == card_flops,
+          f"the dry run predicts {pred_flops} FLOPs, the card's step "
+          f"counted {card_flops}")
+    check(card_flops == bit["card_flops_plain"],
+          f"the mesh step counted {card_flops} FLOPs, make_train_step "
+          f"{bit['card_flops_plain']}")
+    if dev.type == "cuda":
+        check(abs(pred_peak / card_peak - 1) <= LAUNCH_PEAK_REL,
+              f"the dry run predicts a peak of {pred_peak} bytes, the card "
+              f"allocated {card_peak} at most")
+    row = roofline_row(rec)
+    step_s = bit["mesh_counted_step"]["device_ms"] / 1e3
+    bound_s = max(row["compute_s"], row["memory_s"], row["collective_s"])
+    return {"seconds": time.perf_counter() - t0, "cell": rec["cell"],
+            "dryrun_s": {"lower": rec["lower_s"], "step": rec["step_s"]},
+            "flops": {"dryrun": pred_flops, "card": card_flops,
+                      "ratio": pred_flops / card_flops if card_flops
+                      else None},
+            "peak_bytes": {"dryrun": pred_peak, "card": card_peak,
+                           "ratio": pred_peak / card_peak if card_peak
+                           else None},
+            "op_cost": rec["op_cost"],
+            "roofline": row, "measured_step_s": step_s,
+            "bound_over_measured": bound_s / step_s if step_s else None}
+
+
+LAUNCH_DRYRUN_DIR = os.path.join(HERE, "reports", "torch_dryrun")
+
+
+def launch_production_start(sz: Sizes, dev):
+    """Start ``python -m repro_torch.launch.dryrun`` on the 16 x 16
+    production mesh for ``launch_cells`` x ``launch_shapes`` (a child
+    process, which runs the mesh in another; host work only, so it runs
+    beside the card's parts of the phase), its records written under
+    ``reports/torch_dryrun``.  Returns (the process, its start)."""
+    os.makedirs(LAUNCH_DRYRUN_DIR, exist_ok=True)
+    device = "cuda" if dev.type == "cuda" else "cpu"
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+           ",".join(sz.launch_cells), "--shape",
+           ",".join(sz.launch_shapes), "--mesh", "single", "--out",
+           LAUNCH_DRYRUN_DIR, "--device", device, "--force"]
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env,
+                            start_new_session=True), time.perf_counter()
+
+
+def stop_group(proc) -> None:
+    """Kill ``proc``'s process group (it and the children it started) if
+    it still runs, and reap it."""
+    import signal
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+    proc.communicate()
+
+
+def launch_production(sz: Sizes, dev, started) -> dict:
+    """The production dry run's records (:func:`launch_production_start`):
+    per cell the seconds, the peak GiB per device, ``fits80G`` and the
+    collective counts, and the roofline rows."""
+    from repro_torch.launch.roofline import roofline_row
+    proc, t0 = started
+    stdout, stderr = proc.communicate(timeout=900)
+    check(proc.returncode == 0,
+          f"the production dry run exited {proc.returncode}: "
+          f"{stdout[-3000:]}{stderr[-4000:]}")
+    device = "cuda" if dev.type == "cuda" else "cpu"
+    out_dir = LAUNCH_DRYRUN_DIR
+    cells = []
+    for arch in sz.launch_cells:
+        for shape in sz.launch_shapes:
+            path = os.path.join(out_dir, f"{arch}__{shape}__16x16.json")
+            check(os.path.exists(path), f"the dry run wrote no {path}")
+            with open(path) as f:
+                rec = json.load(f)
+            check(rec["status"] == "ok", f"{path}: {rec.get('status')}")
+            row = roofline_row(rec)
+            cells.append({
+                "cell": rec["cell"], "seconds": rec["lower_s"]
+                + rec["step_s"], "depths_run": rec["depths_run"],
+                "peak_gib": rec["memory"]["peak_per_device"] / 2 ** 30,
+                "fits80G": rec["fits80G"],
+                "collective_counts": rec["op_cost"]["collective_counts"],
+                "collective_bytes": rec["op_cost"]["collective_bytes"],
+                "flops_per_device": rec["op_cost"]["flops"],
+                "roofline": {k: row[k] for k in (
+                    "compute_s", "memory_s", "collective_s", "dominant",
+                    "useful_frac", "roofline_frac")}})
+    return {"seconds": time.perf_counter() - t0, "device": device,
+            "out_dir": os.path.relpath(out_dir, HERE), "cells": cells}
+
+
+def phase_launch(sz: Sizes, dev):
+    """The launch path: qwen3-4b trained at full size through the
+    launcher's sharded path on a (1, 1) mesh over an NCCL group of one rank
+    (gloo on the CPU), the 4-layer mesh step bitwise ``make_train_step``,
+    the dry run against the card, the production mesh's dry run (started
+    first: host work, which runs beside the card's).  Returns (record,
+    launches): the counted drives' launches, the launch path."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.mesh import make_mesh
+    t0 = time.perf_counter()
+    out, acc = {"phase": "launch"}, {}
+    production = launch_production_start(sz, dev)
+    try:
+        with world1_group(dev):
+            mesh = make_mesh((1, 1), ("data", "model"),
+                             device_type=dev.type)
+            for name, part in (
+                    ("full", lambda: launch_full(sz, dev, mesh, acc)),
+                    ("bitwise", lambda: launch_bitwise(sz, dev, mesh,
+                                                       acc))):
+                t1 = time.perf_counter()
+                out[name] = part()
+                out[name]["seconds"] = time.perf_counter() - t1
+                print(f"LAUNCH_PART {name} " + json.dumps(out[name]),
+                      file=sys.stderr, flush=True)
+                gc.collect()
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()
+        out["dryrun_vs_card"] = launch_dryrun_card(sz, dev, out["bitwise"])
+        out["production"] = launch_production(sz, dev, production)
+    finally:
+        stop_group(production[0])
+    out["seconds"] = time.perf_counter() - t0
+    launches = {k: acc.get(k, 0) for k in kops.kernel_wrappers()}
+    out["launches"] = launches
+    return out, launches
+
+
+def launch_child(device: str, smoke: bool) -> int:
+    """``chip_smoke.py --launch DEVICE [smoke]``: :func:`phase_launch` in
+    this process (the kernels built already), its record and launches
+    printed as one ``LAUNCH_RESULT`` JSON line."""
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    import torch
+    from repro_torch.kernels import _build
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        _build.build_all()          # loads the parent's build
+        dev = torch.device("cuda", torch.cuda.current_device())
+    sz = Sizes(**LAUNCH_SMOKE) if smoke else Sizes()
+    res, launches = phase_launch(sz, dev)
+    print("LAUNCH_RESULT " + json.dumps({"record": res,
+                                         "launches": launches}), flush=True)
+    return 0
+
+
+def launch_in_child(sz: Sizes, dev):
+    """(record, launches) of the ``launch`` phase, run by
+    :func:`launch_child` in a process of its own (an NCCL group, and the
+    card's memory whole for qwen3-4b's training state); fails if the child
+    does."""
+    cmd = [sys.executable, os.path.abspath(__file__), "--launch",
+           dev.type] + (["smoke"] if sz.launch_smoke else [])
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("LAUNCH_RESULT ")]
+    check(proc.returncode == 0 and len(lines) == 1,
+          f"the launch phase's child exited {proc.returncode}: "
+          f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+    out = json.loads(lines[0][len("LAUNCH_RESULT "):])
+    return out["record"], out["launches"]
+
+
 # ----------------------------------------------------------------- tuning
 # a tuned kind's candidate (the name up to its ':') -> the kernel it runs
 TUNED_KERNELS = {("pack", "row"): "pack", ("pack", "block"): "pack_blocked",
@@ -6321,6 +6755,20 @@ def run(dev, sz: Sizes) -> list:
         recs[name]["ddp_bucket_shape"] = train["ddp"]["bucket"]
     del train
 
+    # the launch path (the sharded step through the launcher on a (1, 1)
+    # mesh over an NCCL group of one rank, the dry run against the card,
+    # the production mesh's dry run) in a child process: its counted
+    # drives' launches are the path's
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    launch, by_path["launch"] = launch_in_child(sz, dev)
+    emit(launch)
+    missing = missing_kernels(LAUNCH_PATH, by_path["launch"])
+    check(not missing or not on_card, f"the launch path never launched "
+          f"{missing}")
+    del launch
+
     # the long segment reduce's sweep comes after the last profiled window:
     # its plain folds launch ~4 M small kernels, and after them torch.profiler
     # on the card returns windows without all their device events
@@ -6344,6 +6792,10 @@ def main() -> int:
         return families_child(sys.argv[2], sys.argv[3:4] == ["smoke"])
     if sys.argv[1:2] == ["--train"]:
         return train_child(sys.argv[2], sys.argv[3:4] == ["smoke"])
+    if sys.argv[1:2] == ["--launch"]:
+        return launch_child(sys.argv[2], sys.argv[3:4] == ["smoke"])
+    if sys.argv[1:2] == ["--launch-dryrun"]:
+        return launch_dryrun_child(sys.argv[2], sys.argv[3:4] == ["smoke"])
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "

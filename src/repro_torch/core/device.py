@@ -14,7 +14,8 @@ import torch
 
 from ..kernels._index import device_index
 
-__all__ = ["resolve_device", "check_payload", "index_tensor", "kernel_index"]
+__all__ = ["resolve_device", "check_payload", "index_tensor", "kernel_index",
+           "is_fake"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -56,3 +57,10 @@ def kernel_index(a: np.ndarray, device: torch.device) -> torch.Tensor:
     t = torch.as_tensor(a.astype(np.int32), device=device)
     device_index(t, device)
     return t
+
+
+def is_fake(t) -> bool:
+    """True for a ``FakeTensor`` (the dry run's tensors: shapes, dtypes and
+    devices without data)."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    return isinstance(t, FakeTensor)

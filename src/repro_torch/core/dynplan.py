@@ -56,6 +56,7 @@ from .unit import UnitSpec, resolve_unit
 from . import sflog
 from ..kernels import ops as kops
 from ..kernels._index import segment_meta
+from .device import is_fake
 
 __all__ = ["DynPlan", "BoundDynSF", "PlanCache", "gather_rows",
            "star_forest_from_assignment"]
@@ -143,6 +144,14 @@ def _gather(data: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     requires a gradient."""
     if torch.is_grad_enabled() and data.requires_grad:
         return _Gather.apply(data, idx)
+    return _pack(data, idx)
+
+
+def _pack(data: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The gather kernel's runtime-index route; on fake tensors (the dry
+    run) its output, without the plain version's host bounds read."""
+    if is_fake(data):
+        return torch.index_select(data, 0, idx.long())
     return kops.pack_rows(data, idx, dynamic=True)
 
 
@@ -167,11 +176,14 @@ class _Gather(torch.autograd.Function):
     def forward(ctx, data, idx):
         ctx.save_for_backward(idx)
         ctx.rows = int(data.shape[0])
-        return kops.pack_rows(data, idx, dynamic=True)
+        return _pack(data, idx)
 
     @staticmethod
     def backward(ctx, g):
         idx, = ctx.saved_tensors
+        if is_fake(g):
+            # the dry run: the transpose's result, without its host read
+            return g.new_zeros((ctx.rows,) + tuple(g.shape[1:])), None
         return _transpose_sum(g.contiguous(), idx, ctx.rows), None
 
 

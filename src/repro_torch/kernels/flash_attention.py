@@ -41,14 +41,16 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 from ._index import require_cuda_tensor
 
 __all__ = ["flash_attention", "flash_attention_plain", "FlashAttention",
-           "HEAD_DIMS",
+           "HEAD_DIMS", "flash_flops",
            "SM90", "SM90_HEAD_DIMS", "ROUTES", "route", "tile_plan",
            "TilePlan", "sm90_smem_bytes", "launch_kernel"]
 
@@ -270,6 +272,9 @@ def launch_kernel(kernel: str, q, k, v, *, causal: bool = True, window=None,
         require_cuda_tensor(t, what)
         if t.data_ptr() % 16:
             raise ValueError(f"{what} must start on a 16-byte boundary")
+        if not t.is_contiguous():
+            raise ValueError(f"{what} must be contiguous (the kernels "
+                             f"take no strides)")
     batched = q.dim() == 4
     B = int(q.shape[0]) if batched else 1
     Sq, H, D = (int(s) for s in q.shape[-3:])
@@ -309,9 +314,41 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window=None,
                     scale=None) -> torch.Tensor:
     """q: (Sq, H, D); k, v: (Skv, Hkv, D) with Hkv | H (or all with a
-    leading batch dimension).  Returns q's shape and dtype."""
+    leading batch dimension).  Returns q's shape and dtype.  The call is
+    the operator ``torch.ops.repro_torch.flash_attention``, so that
+    ``FakeTensorMode`` (the dry run) allocates its output without running
+    it and ``FlopCounterMode`` counts it (:func:`flash_flops`)."""
+    return torch.ops.repro_torch.flash_attention(
+        q, k, v, bool(causal), None if window is None else int(window),
+        None if scale is None else float(scale))
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool, window: Optional[int],
+              scale: Optional[float]) -> torch.Tensor:
     return launch_kernel(route(q.dtype, q.shape[-1]), q, k, v, causal=causal,
                          window=window, scale=scale)
+
+
+@_flash_op.register_fake
+def _flash_fake(q, k, v, causal, window, scale):
+    _check(q, k, v)
+    return torch.empty_like(q)
+
+
+def flash_flops(q_shape, k_shape) -> int:
+    """The operator's FLOPs as the plain version computes them: q k^T and
+    p v over every (query, key) pair, 4 B Sq Skv H D (the kernel skips the
+    tiles a mask hides; this count does not)."""
+    B = q_shape[0] if len(q_shape) == 4 else 1
+    Sq, H, D = q_shape[-3:]
+    return 4 * B * Sq * k_shape[-3] * H * D
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flash_flop_formula(q_shape, k_shape, v_shape, *args, **kwargs) -> int:
+    return flash_flops(q_shape, k_shape)
 
 
 flash_attention.launches = 0
@@ -342,5 +379,7 @@ class FlashAttention(torch.autograd.Function):
                                         scale=scale)
             wrt = [t for t, n in zip(ins, need) if n]
             got = iter(torch.autograd.grad(out, wrt, grad_out))
-        return tuple(next(got) if n else None for n in need) + \
-            (None, None, None)
+        # contiguous: a DTensor view of a sharded gradient (the sharded
+        # step's projections) needs a contiguous local tensor
+        return tuple(next(got).contiguous() if n else None
+                     for n in need) + (None, None, None)

@@ -4,9 +4,13 @@ decode in plain torch), SwiGLU/GELU MLPs.
 
 Everything is a plain function over a params dict; layer params are stacked
 along a leading L axis and the caller hands one layer's slice in.  The
-reference's ``constrain`` sharding hints have no counterpart on one card and
-are left out.  ``cross_attention`` (the audio family's decoder reading the
-encoder's K/V) is ``attention`` with ``kv_override`` and no mask.
+reference's ``constrain`` sharding pins sit where it has them (q/k/v and
+the attention output, the FFN); they act on DTensors under an ambient mesh
+(``models.sharding.constrain``) and are the identity otherwise.  On
+DTensors the attention core runs per rank on its shards
+(``models.meshed``).  ``cross_attention`` (the audio family's decoder
+reading the encoder's K/V) is ``attention`` with ``kv_override`` and no
+mask.
 """
 
 from __future__ import annotations
@@ -19,11 +23,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core.device import is_fake
 from ..kernels import ops as kops
 from .config import ModelConfig, torch_dtype
+from .meshed import (is_dtensor, sharded_cache_write, sharded_decode_core,
+                     sharded_flash, split_heads)
+from .sharding import constrain
 
 __all__ = ["rmsnorm", "rope", "attention", "attention_decode", "mlp",
-           "init_attn", "init_mlp", "cross_attention"]
+           "init_attn", "init_mlp", "cross_attention", "decode_core"]
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
@@ -48,7 +56,11 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
          ) -> torch.Tensor:
     """x: (..., S, H, hd); positions: (S,) absolute positions."""
     hd = x.shape[-1]
-    freqs = _rope_freqs_on(hd, float(theta), x.device)
+    if is_fake(positions):     # the dry run: no fake tensor is cached
+        freqs = torch.as_tensor(_rope_freqs(hd, float(theta)),
+                                dtype=torch.float32, device=x.device)
+    else:
+        freqs = _rope_freqs_on(hd, float(theta), x.device)
     ang = positions[:, None].float() * freqs[None, :]           # (S, hd/2)
     cos = torch.cos(ang)[..., None, :]
     sin = torch.sin(ang)[..., None, :]
@@ -110,10 +122,10 @@ def attention(x: torch.Tensor, p: Dict, cfg: ModelConfig, *,
     no rope on q or k, and no k norm, as in the reference."""
     B, S, _ = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    q = constrain(split_heads(x @ p["wq"], H, hd), model_dim=2)
     if kv_override is None:
-        k = (x @ p["wk"]).reshape(B, S, Hkv, hd)
-        v = (x @ p["wv"]).reshape(B, S, Hkv, hd)
+        k = constrain(split_heads(x @ p["wk"], Hkv, hd), model_dim=2)
+        v = constrain(split_heads(x @ p["wv"], Hkv, hd), model_dim=2)
     else:
         k, v = kv_override
     if cfg.qk_norm:
@@ -125,8 +137,12 @@ def attention(x: torch.Tensor, p: Dict, cfg: ModelConfig, *,
             positions = torch.arange(S, device=x.device)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    out = kops.flash_attention(q, k, v, causal=causal, window=window)
-    return out.reshape(B, S, H * hd) @ p["wo"], (k, v)
+    if is_dtensor(q):
+        out = sharded_flash(q, k, v, causal=causal, window=window)
+    else:
+        out = kops.flash_attention(q, k, v, causal=causal, window=window)
+    out = constrain(out, model_dim=2)
+    return constrain(out.reshape(B, S, H * hd) @ p["wo"]), (k, v)
 
 
 def cross_attention(x: torch.Tensor, p: Dict, cfg: ModelConfig,
@@ -150,39 +166,67 @@ def attention_decode(x: torch.Tensor, p: Dict, cfg: ModelConfig,
     reference."""
     B = x.shape[0]
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (x @ p["wq"]).reshape(B, 1, H, hd)
-    k = (x @ p["wk"]).reshape(B, 1, Hkv, hd)
-    v = (x @ p["wv"]).reshape(B, 1, Hkv, hd)
+    q = split_heads(x @ p["wq"], H, hd)
+    k = split_heads(x @ p["wk"], Hkv, hd)
+    v = split_heads(x @ p["wv"], Hkv, hd)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
     pos_t = torch.full((1,), pos, device=x.device)
     q = rope(q, pos_t, cfg.rope_theta)
     k = rope(k, pos_t, cfg.rope_theta)
-    cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
-    Smax = cache_k.shape[1]
+    if is_dtensor(cache_k):
+        sharded_cache_write(cache_k, k, pos)
+        sharded_cache_write(cache_v, v, pos)
+        out = sharded_decode_core(q, cache_k, cache_v, pos, window,
+                                  decode_core)
+    else:
+        cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
+        cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
+        out = decode_core(q, cache_k, cache_v, pos, window)
+    return out.reshape(B, 1, H * hd) @ p["wo"], cache_k, cache_v
+
+
+def decode_core(q, cache_k, cache_v, pos: int, window, first: int = 0,
+                reduce=None):
+    """The decode attention of q (B, 1, H, hd) over keys ``first ..
+    first + Smax`` of the caches (B, Smax, Hkv, hd) -> (B, 1, H, hd), in
+    q's dtype.  ``reduce(t, op)`` combines a softmax statistic over the
+    ranks that hold the other keys (``"max"`` / ``"sum"``; the sequence-
+    sharded cache of ``models.meshed.sharded_decode_core``): with it the
+    softmax is taken in pieces, max and sum combined before the
+    probabilities are rounded and the partial outputs summed."""
+    B, _, H, hd = q.shape
+    Smax, Hkv = cache_k.shape[1], cache_k.shape[2]
     rep = H // Hkv
     qg = q.reshape(B, Hkv, rep, hd).float()
     s = torch.einsum("bkrd,bskd->bkrs", qg, cache_k.float()) * \
         (1.0 / math.sqrt(hd))
-    kpos = torch.arange(Smax, device=x.device)
+    kpos = torch.arange(first, first + Smax, device=q.device)
     mask = kpos <= pos
     if window is not None:
         mask &= kpos > pos - window
     s = s.masked_fill(~mask, -1e30)
-    pr = torch.softmax(s, dim=-1).to(cache_v.dtype).float()
-    out = torch.einsum("bkrs,bskd->bkrd", pr, cache_v.float()).to(x.dtype)
-    return out.reshape(B, 1, H * hd) @ p["wo"], cache_k, cache_v
+    if reduce is None:
+        pr = torch.softmax(s, dim=-1)
+    else:
+        mx = reduce(torch.amax(s, dim=-1, keepdim=True), "max")
+        e = torch.exp(s - mx)
+        pr = e / reduce(torch.sum(e, dim=-1, keepdim=True), "sum")
+    pr = pr.to(cache_v.dtype).float()
+    out = torch.einsum("bkrs,bskd->bkrd", pr, cache_v.float())
+    if reduce is not None:
+        out = reduce(out, "sum")
+    return out.to(q.dtype).reshape(B, 1, H, hd)
 
 
 # --------------------------------------------------------------------------
 # feed-forward
 # --------------------------------------------------------------------------
 def mlp(x: torch.Tensor, p: Dict, cfg: ModelConfig) -> torch.Tensor:
-    h = x @ p["w_in"]
+    h = constrain(x @ p["w_in"], model_dim=2)
     if cfg.mlp_kind == "swiglu":
-        h = F.silu(x @ p["w_gate"]) * h
+        h = F.silu(constrain(x @ p["w_gate"], model_dim=2)) * h
     else:
         h = F.gelu(h, approximate="tanh")      # jax.nn.gelu's default
-    return h @ p["w_out"]
+    return constrain(h @ p["w_out"])

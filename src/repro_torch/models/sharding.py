@@ -21,22 +21,28 @@ Mesh axes: ``pod`` (inter-pod), ``data`` (DP/FSDP/ZeRO), ``model``
     over ``model`` when divisible, else sequence over ``model``.
   * the layer-stacked leading L axis is never sharded.
 
-The port runs on one device: :func:`constrain` is the identity, and placing
-tensors by these specs on a device mesh (the reference's ``shardings()``
-with ``NamedSharding``) waits for multi-rank training with
-``launch/mesh.py`` (ROADMAP Queue 1).
+On a device mesh (``launch.mesh``) :func:`shardings` turns a spec tree
+into :class:`NamedSharding` leaves, one DTensor placement per mesh
+dimension: ``Shard(d)`` where tensor dimension ``d``'s entry names that
+mesh dimension, ``Replicate()`` elsewhere (the reference's
+``NamedSharding(mesh, PartitionSpec)``).  :func:`constrain` pins an
+activation DTensor under an ambient mesh (``launch.mesh.use_mesh``) and is
+the identity outside one.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 
 from .config import ModelConfig
+from .meshed import is_dtensor, whole
 
 __all__ = ["param_specs", "batch_spec", "cache_specs", "dp_axes",
-           "constrain"]
+           "constrain", "NamedSharding", "shardings", "placements_of",
+           "is_spec", "place"]
 
 DP = ("pod", "data")   # flattened data-parallel axes (pod may be absent)
 
@@ -165,7 +171,105 @@ def cache_specs(cache, cfg: ModelConfig, mesh: Mesh, batch: int,
     return walk(cache, "")
 
 
+def is_spec(x) -> bool:
+    """A spec is a tuple of entries, each ``None``, a name or a tuple of
+    names (a spec tree's leaf)."""
+    return isinstance(x, tuple) and all(
+        e is None or isinstance(e, str)
+        or (isinstance(e, tuple) and all(isinstance(n, str) for n in e))
+        for e in x)
+
+
+def placements_of(spec: Spec, axis_names: Tuple[str, ...]) -> Tuple:
+    """One DTensor placement per mesh dimension for ``spec``: ``Shard(d)``
+    on each mesh dimension that entry ``d`` names (a tuple entry shards
+    dimension ``d`` over each of its mesh dimensions, outermost first, as
+    ``PartitionSpec`` does), ``Replicate()`` on the others."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = [Replicate()] * len(axis_names)
+    for d, entry in enumerate(spec):
+        names = () if entry is None else (
+            (entry,) if isinstance(entry, str) else entry)
+        for n in names:
+            if n not in axis_names:
+                raise ValueError(f"spec {spec} names {n!r}, not an axis of "
+                                 f"the mesh {axis_names}")
+            j = axis_names.index(n)
+            if out[j] != Replicate():
+                raise ValueError(f"spec {spec} shards two dimensions over "
+                                 f"{n!r}")
+            out[j] = Shard(d)
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh: the counterpart of ``jax.sharding.NamedSharding``.
+    ``placements`` has one entry per mesh dimension."""
+    mesh: object
+    spec: Spec
+
+    @property
+    def placements(self) -> Tuple:
+        return placements_of(self.spec, tuple(self.mesh.mesh_dim_names))
+
+    def distribute(self, t):
+        """``t`` (the whole tensor, the same on every rank) as a DTensor in
+        this layout: each rank keeps its shard."""
+        from torch.distributed.tensor import distribute_tensor
+        return distribute_tensor(t, self.mesh, self.placements)
+
+
+def shardings(mesh, spec_tree):
+    """Map a spec tree (``param_specs``, ``cache_specs``, ...) to
+    :class:`NamedSharding` leaves."""
+    if is_spec(spec_tree):
+        return NamedSharding(mesh, spec_tree)
+    if isinstance(spec_tree, dict):
+        return {k: shardings(mesh, v) for k, v in spec_tree.items()}
+    raise TypeError(f"not a spec tree: {spec_tree!r}")
+
+
+def place(tree, sharding_tree):
+    """Each leaf of ``tree`` (whole tensors, the same on every rank) in the
+    layout of the matching :class:`NamedSharding` of ``sharding_tree``
+    (the reference's ``jax.device_put(tree, shardings)``).  A 0-dim leaf
+    (the optimizer's step) stays a plain tensor: every rank holds it
+    whole.  A leaf that is a DTensor already is redistributed."""
+    if isinstance(tree, dict):
+        return {k: place(v, sharding_tree[k]) for k, v in tree.items()}
+    if tree.dim() == 0:
+        return whole(tree)
+    if is_dtensor(tree):
+        return tree.redistribute(sharding_tree.mesh,
+                                 sharding_tree.placements)
+    return sharding_tree.distribute(tree)
+
+
 def constrain(x, *, batch_dim: int = 0, model_dim: Optional[int] = None):
-    """The identity: the reference pins activations to the ambient mesh,
-    and one device has none."""
-    return x
+    """Pin an activation to (batch over the dp axes[, ``model_dim`` over
+    ``model``]), each where it divides, under the ambient mesh: the
+    DTensor is redistributed to that layout.  The identity outside a mesh,
+    for a plain tensor, and where neither pin applies (the reference's
+    rule, ``repro/models/sharding.py`` ``constrain``)."""
+    from ..launch.mesh import current_mesh
+    mesh = current_mesh()
+    if mesh is None or not is_dtensor(x):
+        return x
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    spec = [None] * x.ndim
+    dp = dp_axes(sizes)
+    if dp:
+        dpsize = int(np.prod([sizes[a] for a in dp]))
+        if x.shape[batch_dim] % dpsize == 0:
+            spec[batch_dim] = _entry(dp)
+    if model_dim is not None and "model" in sizes \
+            and model_dim != batch_dim \
+            and x.shape[model_dim] % sizes["model"] == 0:
+        spec[model_dim] = "model"
+    if all(e is None for e in spec):
+        return x
+    want = placements_of(tuple(spec), tuple(mesh.mesh_dim_names))
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(mesh, want)

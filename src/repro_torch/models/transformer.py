@@ -60,7 +60,9 @@ from ..core.dynplan import gather_rows
 from .config import ModelConfig, torch_dtype
 from .layers import (attention, attention_decode, cross_attention,
                      init_attn, init_mlp, mlp, rmsnorm)
+from .meshed import is_dtensor, require_meshable, sharded_lookup
 from .moe import init_moe, moe_layer
+from .sharding import constrain
 from .ssm import init_ssm, ssm_scan, ssm_step
 from .xlstm import (init_xlstm_pair, init_xlstm_state, xlstm_pair_scan,
                     xlstm_pair_step)
@@ -217,9 +219,9 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, dtype=None, *,
 # blocks
 # --------------------------------------------------------------------------
 def _head(params, cfg: ModelConfig, x):
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    x = constrain(rmsnorm(x, params["final_norm"], cfg.norm_eps))
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return x @ head
+    return constrain(x @ head, model_dim=x.ndim - 1)
 
 
 def _last_x(x, last_pos):
@@ -240,6 +242,9 @@ def _inputs(params, tokens, embeds) -> torch.Tensor:
         return check_payload(embeds, dev, "embeds")
     if tokens is None:
         raise ValueError("pass tokens= or embeds=")
+    if is_dtensor(params["embed"]):
+        return constrain(sharded_lookup(params["embed"],
+                                        as_tokens(tokens, dev)))
     return params["embed"][as_tokens(tokens, dev)]
 
 
@@ -286,8 +291,13 @@ def _remat(body, on: bool, *args):
 def _block(x, bp, cfg: ModelConfig, window, enc_out=None, cbp=None):
     """One decoder block over the full sequence -> (x, the MoE aux loss or
     None, (k, v, SSM state, encoder k, encoder v), None where the family
-    has none)."""
-    h = rmsnorm(x, bp["ln1"], cfg.norm_eps)
+    has none).  With ``cfg.seq_shard`` the residual stream between blocks
+    is sequence-sharded over ``model`` under a mesh (the reference's
+    sequence parallelism): the projections take whole sequences, so the
+    normed residual is gathered and the block's output scattered again."""
+    sd = 1 if cfg.seq_shard else None
+    x = constrain(x, model_dim=sd)
+    h = constrain(rmsnorm(x, bp["ln1"], cfg.norm_eps))
     attn_out, (k, v) = attention(h, bp, cfg, window=window)
     hst = ek = ev = None
     if cfg.block_kind == "hymba":
@@ -303,8 +313,9 @@ def _block(x, bp, cfg: ModelConfig, window, enc_out=None, cbp=None):
         ff, aux = moe_layer(rmsnorm(x, bp["ln2"], cfg.norm_eps), bp, cfg)
         x = x + ff
     elif cfg.d_ff:
-        x = x + mlp(rmsnorm(x, bp["ln2"], cfg.norm_eps), bp, cfg)
-    return x, aux, (k, v, hst, ek, ev)
+        x = x + mlp(constrain(rmsnorm(x, bp["ln2"], cfg.norm_eps)), bp,
+                    cfg)
+    return constrain(x, model_dim=sd), aux, (k, v, hst, ek, ev)
 
 
 def _layers(params, cfg: ModelConfig, x, windows, enc_out, with_aux):
@@ -345,6 +356,7 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
     ``embeds`` overrides the token lookup (VLM path); ``enc_embeds`` feeds
     the encoder (audio path)."""
     require_supported(cfg)
+    require_meshable(cfg, params)
     x = _inputs(params, tokens, embeds)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.block_kind == "xlstm":
@@ -367,15 +379,19 @@ def forward_train(params, cfg: ModelConfig, *, tokens=None, embeds=None,
     keeps only its input for the backward and recomputes the rest there
     (its flash launches and SSM scan run again)."""
     require_supported(cfg, grad=True)
+    require_meshable(cfg, params)
     dev = params["embed"].device
     if embeds is not None:
         x = check_payload(embeds, dev, "embeds")
     elif tokens is None:
         raise ValueError("pass tokens= or embeds=")
+    elif is_dtensor(params["embed"]):
+        x = sharded_lookup(params["embed"], as_tokens(tokens, dev))
     else:
         tok = as_tokens(tokens, dev)
         x = gather_rows(params["embed"], tok.reshape(-1)) \
             .reshape(tuple(tok.shape) + (cfg.d_model,))
+    x = constrain(x)
     remat = cfg.remat == "block"
     aux = torch.zeros((), dtype=torch.float32, device=dev)
     if cfg.block_kind == "xlstm":
@@ -415,6 +431,7 @@ def prefill(params, cfg: ModelConfig, *, tokens=None, embeds=None,
     overwrites before its mask ever exposes them).  The cache is
     left-aligned in (L, B, s_max, Hkv, hd) tensors."""
     require_supported(cfg)
+    require_meshable(cfg, params)
     x = _inputs(params, tokens, embeds)
     B, S, _ = x.shape
     if cfg.block_kind == "xlstm":
@@ -429,6 +446,9 @@ def prefill(params, cfg: ModelConfig, *, tokens=None, embeds=None,
         else None
     x, _, outs = _layers(params, cfg, x, layer_windows(cfg, s_max), enc_out,
                          with_aux=False)
+    if is_dtensor(x):
+        return _head(params, cfg, _last_x(x, last_pos))[:, 0], \
+            _stacked_cache(cfg, outs, S, s_max)
     cache = init_cache(cfg, B, s_max, x.dtype, device=x.device,
                        enc_len=0 if enc_out is None else enc_out.shape[1])
     for i, (k, v, hst, ek, ev) in enumerate(outs):
@@ -443,6 +463,30 @@ def prefill(params, cfg: ModelConfig, *, tokens=None, embeds=None,
     return _head(params, cfg, _last_x(x, last_pos))[:, 0], cache
 
 
+def _stacked_cache(cfg: ModelConfig, outs, S: int, s_max: int) -> Dict:
+    """The decode cache of a prefill on a device mesh: each layer's K and V
+    DTensors stacked along L, zero-padded to ``s_max`` and placed by
+    ``cache_specs`` (the dense block kinds' cache)."""
+    from ..launch.mesh import mesh_sizes
+    from .sharding import NamedSharding, cache_specs
+    cache = {"pos": S}
+    for n, j in (("k", 0), ("v", 1)):
+        t = torch.stack([o[j] for o in outs])
+        if s_max > S:
+            pad = torch.zeros((t.shape[0], t.shape[1], s_max - S)
+                              + tuple(t.shape[3:]), dtype=t.dtype,
+                              device=t.device)
+            t = torch.cat([t, pad], dim=2)
+        cache[n] = t
+    mesh = cache["k"].device_mesh
+    specs = cache_specs(cache, cfg, mesh_sizes(mesh), cache["k"].shape[1],
+                        s_max)
+    for n in ("k", "v"):
+        want = NamedSharding(mesh, specs[n]).placements
+        cache[n] = cache[n].redistribute(mesh, want)
+    return cache
+
+
 @torch.no_grad()
 def decode_step(params, cfg: ModelConfig, tokens, cache: Dict
                 ) -> Tuple[torch.Tensor, Dict]:
@@ -450,8 +494,13 @@ def decode_step(params, cfg: ModelConfig, tokens, cache: Dict
     cache's tensors are updated in place (the returned cache shares them);
     ``pos`` advances by one."""
     require_supported(cfg)
+    require_meshable(cfg, params)
     dev = params["embed"].device
-    x = params["embed"][as_tokens(tokens, dev)[:, None]]
+    if is_dtensor(params["embed"]):
+        x = constrain(sharded_lookup(params["embed"],
+                                     as_tokens(tokens, dev)[:, None]))
+    else:
+        x = params["embed"][as_tokens(tokens, dev)[:, None]]
     pos = int(cache["pos"])
     if cfg.block_kind == "xlstm":
         pairs = cache["pairs"]

@@ -9,8 +9,12 @@ Format: one directory per step containing
                     their raw 16 bits
 
 A checkpoint that either package writes loads in the other bit for bit.
-Leaves are whole tensors (one device), so a checkpoint is independent of
-any device count; a restart on another world size reads the same files.
+Leaves are whole tensors, so a checkpoint is independent of any device
+count or mesh: a DTensor leaf (training on a device mesh) is gathered
+whole and written by rank 0 alone, and ``load_checkpoint(...,
+shardings=)`` places each leaf in a layout on restore, so a checkpoint
+saved at world 1 restores under a (2, 2) mesh and the reverse (the
+elastic restore).
 Atomicity: writes go to ``<dir>.tmp``, then a rename — a crash mid-write
 never corrupts the latest complete checkpoint.  ``latest_step`` scans for
 the newest complete manifest.
@@ -25,6 +29,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..models.meshed import is_dtensor, whole
 
 __all__ = ["save_checkpoint", "load_checkpoint", "latest_step",
            "CheckpointManager"]
@@ -60,6 +66,7 @@ def _unflatten_into(template, flat, prefix=""):
 
 def _host_bytes(leaf) -> Tuple[np.ndarray, str]:
     """(a little-endian numpy array of the leaf's bits, its dtype name)."""
+    leaf = whole(leaf)
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu().contiguous()
         if t.dtype in _FORMATS:
@@ -90,20 +97,29 @@ def save_checkpoint(path: str, step: int, tree: Dict,
     atomically under ``path/step_XXXXXXXX``."""
     final = os.path.join(path, f"step_{step:08d}")
     tmp = final + ".tmp"
-    os.makedirs(tmp, exist_ok=True)
+    flat = _flatten(tree)
+    sharded = any(is_dtensor(v) for v in flat.values())
+    writer = not sharded or torch.distributed.get_rank() == 0
+    if writer:
+        os.makedirs(tmp, exist_ok=True)
     manifest = {"step": step, "leaves": {}, "extra": extra or {}}
-    for name, leaf in _flatten(tree).items():
-        arr, dtype = _host_bytes(leaf)
+    for name, leaf in flat.items():
+        arr, dtype = _host_bytes(leaf)      # a collective for a DTensor
+        if not writer:
+            continue
         fn = name.replace("/", "__") + ".bin"
         with open(os.path.join(tmp, fn), "wb") as f:
             f.write(arr.tobytes())
         manifest["leaves"][name] = {
             "file": fn, "shape": list(arr.shape), "dtype": dtype}
-    with open(os.path.join(tmp, "manifest.json"), "w") as f:
-        json.dump(manifest, f)
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.rename(tmp, final)
+    if writer:
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)
+    if sharded:
+        torch.distributed.barrier()     # every rank sees the new step
     return final
 
 
@@ -119,11 +135,13 @@ def latest_step(path: str) -> Optional[int]:
 
 
 def load_checkpoint(path: str, step: int, template: Dict, *,
-                    device=None) -> Tuple[Dict, Dict]:
+                    device=None, shardings=None) -> Tuple[Dict, Dict]:
     """Load into the structure of ``template``.  Each leaf goes to
     ``device`` when given, else to the device of the template's leaf of
-    the same name (the CPU where that is no tensor).  Returns (tree,
-    the saved ``extra``)."""
+    the same name (the CPU where that is no tensor).  ``shardings`` (a
+    ``models.sharding.NamedSharding`` tree mirroring ``template``, the
+    reference's argument) places each whole leaf on its mesh
+    (``models.sharding.place``).  Returns (tree, the saved ``extra``)."""
     d = os.path.join(path, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
@@ -133,10 +151,16 @@ def load_checkpoint(path: str, step: int, template: Dict, *,
         with open(os.path.join(d, meta["file"]), "rb") as f:
             raw = f.read()
         like = flat_t.get(name)
+        if is_dtensor(like):
+            like = like.to_local()
         dev = device if device is not None else (
             like.device if isinstance(like, torch.Tensor) else "cpu")
         out[name] = _from_bytes(raw, meta, dev)
-    return _unflatten_into(template, out), manifest["extra"]
+    tree = _unflatten_into(template, out)
+    if shardings is not None:
+        from ..models.sharding import place
+        tree = place(tree, shardings)
+    return tree, manifest["extra"]
 
 
 class CheckpointManager:
@@ -163,9 +187,10 @@ class CheckpointManager:
             shutil.rmtree(os.path.join(self.path, f"step_{s:08d}"),
                           ignore_errors=True)
 
-    def restore_latest(self, template, *, device=None):
+    def restore_latest(self, template, *, device=None, shardings=None):
         s = latest_step(self.path)
         if s is None:
             return None, None, None
-        tree, extra = load_checkpoint(self.path, s, template, device=device)
+        tree, extra = load_checkpoint(self.path, s, template, device=device,
+                                      shardings=shardings)
         return s, tree, extra

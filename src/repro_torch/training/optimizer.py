@@ -16,6 +16,15 @@ path, the counterpart of the reference's donated buffers); by default new
 tensors are returned and the inputs are left as they were.  Either way the
 bits are the same.  Every per-step scalar (step, lr, clip, bias
 corrections) stays on the device: an update reads nothing back to the host.
+
+On a device mesh the parameters are DTensors and every moment has its
+parameter's layout (``launch.cells._opt_specs``: ZeRO-3; an int8 moment's
+scale ``s`` is sharded like its rows and whole along the last axis).  The
+shared scalars are plain, replicated tensors (the grad norm summed over
+the mesh).  With float32 or bfloat16 moments the update is elementwise, so
+each rank updates its local shards as above, with the bits of the
+whole-tensor update; int8 moments take their per-row scales over whole
+rows, so those leaves are updated as DTensors.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from ..models.meshed import is_dtensor, whole, wrap_local
 from .pytree import flatten_up_to, tree_flatten, tree_leaves, tree_map, \
     tree_unflatten
 
@@ -83,10 +93,25 @@ def _moment_dtype(kind: str) -> torch.dtype:
 
 def _moment_zero(x: torch.Tensor, kind: str):
     if kind == "int8":
-        return {"q": torch.zeros(x.shape, dtype=torch.int8, device=x.device),
-                "s": torch.full(tuple(x.shape[:-1]) + (1,), 1e-12,
-                                dtype=torch.float32, device=x.device)}
-    return torch.zeros(x.shape, dtype=_moment_dtype(kind), device=x.device)
+        return {"q": torch.zeros_like(x, dtype=torch.int8),
+                "s": _scale_like(x)}
+    return torch.zeros_like(x, dtype=_moment_dtype(kind))
+
+
+def _scale_like(x: torch.Tensor) -> torch.Tensor:
+    """An int8 moment's initial scales (1e-12 per trailing row) for ``x``;
+    on a DTensor sharded like its rows and replicated along the last
+    axis."""
+    if not is_dtensor(x):
+        return torch.full(tuple(x.shape[:-1]) + (1,), 1e-12,
+                          dtype=torch.float32, device=x.device)
+    from torch.distributed.tensor import Replicate, Shard
+    loc = x.to_local()
+    s = torch.full(tuple(loc.shape[:-1]) + (1,), 1e-12,
+                   dtype=torch.float32, device=loc.device)
+    pl = [Replicate() if p == Shard(x.ndim - 1) else p
+          for p in x.placements]
+    return wrap_local(s, x.device_mesh, pl, tuple(x.shape[:-1]) + (1,))
 
 
 def _moment_read(m, kind: str) -> torch.Tensor:
@@ -106,15 +131,26 @@ def init_opt_state(params, cfg: OptConfig) -> Dict:
     kind = cfg.moments_dtype
     _moment_dtype(kind)
     leaves = tree_leaves(params)
-    dev = leaves[0].device if leaves else torch.device("cpu")
+    dev = _local(leaves[0]).device if leaves else torch.device("cpu")
     return {"m": tree_map(lambda x: _moment_zero(x, kind), params),
             "v": tree_map(lambda x: _moment_zero(x, kind), params),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
 def global_norm(tree) -> torch.Tensor:
-    leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
+    """The norm over every leaf, a plain tensor (a DTensor leaf's sum of
+    squares summed over the mesh)."""
+    leaves = [whole(torch.sum(torch.square(x.float())))
+              for x in tree_leaves(tree)]
     return torch.sqrt(torch.sum(torch.stack(leaves)))
+
+
+def _local(t):
+    """A DTensor's local shard (a moment dict's, entry by entry), else
+    ``t``."""
+    if isinstance(t, dict):
+        return {k: _local(v) for k, v in t.items()}
+    return t.to_local() if is_dtensor(t) else t
 
 
 def _update_scalars(grads, opt_state: Dict, cfg: OptConfig):
@@ -195,6 +231,8 @@ def _make_leaf_updater(cfg: OptConfig, lr, clip, bc1, bc2):
         return new_p, _moment_write(mf, kind), _moment_write(vf, kind)
 
     def upd(p, g, m, v, inplace: bool):
+        if is_dtensor(p):
+            return upd_dtensor(p, g, m, v, inplace)
         out = (p, m, v) if inplace else \
             (torch.empty_like(p), _empty_like(m), _empty_like(v))
         parts = _parts(p)
@@ -207,6 +245,31 @@ def _make_leaf_updater(cfg: OptConfig, lr, clip, bc1, bc2):
             for dst, src in zip(out, new):
                 _copy_into(_index(dst, i), src)
         return out
+
+    def upd_dtensor(p, g, m, v, inplace: bool):
+        """A DTensor leaf: its local shards through ``upd`` (elementwise
+        moments), or the DTensor itself under implicit replication (int8
+        moments, whose scales span whole rows)."""
+        if g.placements != p.placements:
+            g = g.redistribute(p.device_mesh, p.placements)
+        if kind != "int8":
+            out = (p, m, v) if inplace else \
+                (torch.empty_like(p), _empty_like(m), _empty_like(v))
+            for dst, src in zip(out, (p, m, v)):
+                if dst is not src:
+                    dst.to_local().copy_(src.to_local())
+            upd(*(t.to_local() for t in (out[0], g, out[1], out[2])),
+                True)
+            return out
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        with implicit_replication():
+            new = upd_flat(p, g, m, v)
+            if not inplace:
+                return new
+            for dst, src in zip((p, m, v), new):
+                _copy_into(dst, src)
+            return p, m, v
 
     return upd
 

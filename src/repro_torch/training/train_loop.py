@@ -28,6 +28,9 @@ import torch
 
 from ..core.device import resolve_device
 from ..models import transformer as T
+from ..models.meshed import is_dtensor, sharded_pick, whole, wrap_local
+from ..launch.mesh import mesh_sizes
+from ..models.sharding import NamedSharding, batch_spec, constrain
 from ..models.config import ModelConfig, torch_dtype
 from .optimizer import (OptConfig, adamw_update, adamw_update_bucketed,
                         init_opt_state)
@@ -52,18 +55,25 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
     The reference's numerics: the max shift (held out of the gradient),
     float32 log-sum-exp, the z-loss on the full lse.  The gold logit comes
-    from ``torch.gather``: the reference takes it by a masked reduction
-    over the vocab axis instead so that GSPMD can shard that axis (a
-    gather over a model-sharded axis would replicate the float32 logits
-    on every device); on one device there is no vocab sharding to keep,
-    and the gather reads one logit a token."""
-    m = torch.amax(logits, dim=-1, keepdim=True).detach()
+    from ``torch.gather``, one logit read a token (the reference takes it
+    by a masked reduction over the vocab so that GSPMD can shard that
+    axis).  On DTensor logits (a device mesh) each rank gathers from its
+    own vocabulary shard and the picks are summed over the vocabulary's
+    mesh dimensions (``models.meshed.sharded_pick``: the vocab-parallel
+    cross-entropy, which gathers no logits); with the vocabulary whole it
+    is the same gather.  The per-token statistics are pinned to the batch
+    layout (``constrain``), so the vocab reductions end in an all-reduce
+    and the logit gradients keep the logits' layout."""
+    m = constrain(torch.amax(logits, dim=-1, keepdim=True).detach())
     shifted = (logits - m).float()
     sumexp = torch.sum(torch.exp(shifted), dim=-1)
-    lse_rel = torch.log(sumexp)
+    lse_rel = constrain(torch.log(constrain(sumexp)))
     labels = labels.long()
-    gold_rel = torch.gather(shifted, -1,
-                            labels.clamp(min=0)[..., None])[..., 0]
+    gold_at = labels.clamp(min=0)[..., None]
+    if is_dtensor(logits):
+        gold_rel = constrain(sharded_pick(shifted, gold_at))
+    else:
+        gold_rel = torch.gather(shifted, -1, gold_at)[..., 0]
     mask = (labels >= 0).float()
     ce = (lse_rel - gold_rel) * mask
     denom = torch.clamp(torch.sum(mask), min=1.0)
@@ -149,45 +159,120 @@ def _params_device(params) -> torch.device:
 
 def make_train_step(cfg: ModelConfig, ocfg: OptConfig,
                     tcfg: TrainConfig = TrainConfig(), *,
-                    donate: bool = False) -> Callable:
+                    donate: bool = False, param_shardings=None,
+                    batch_shardings=None) -> Callable:
     """Returns ``train_step(params, opt_state, batch) -> (params', opt',
     metrics)``.
 
     ``batch`` holds arrays with a leading global-batch axis (numpy, or
     tensors on the params' device); with ``tcfg.microbatches = G > 1`` the
     step runs G microbatches accumulating gradients in ``grad_dtype``,
-    divides by G and takes one optimizer update (gradient accumulation)."""
+    divides by G and takes one optimizer update (gradient accumulation).
+
+    On a device mesh the parameters and optimizer state are DTensors
+    placed by ``param_shardings`` (a ``models.sharding.NamedSharding``
+    tree, the ZeRO layout), and every gradient and the microbatch
+    accumulator are pinned to that layout, as the reference's
+    ``constrain_g`` pins them.  ``batch_shardings`` (a ``NamedSharding``
+    per batch key; default: ``batch_spec``, batch over the dp axes) places
+    each microbatch, cut from the global batch as the plain step cuts it.
+    The step runs with its mesh ambient (``launch.mesh.use_mesh``) and
+    under ``implicit_replication()``: the plain tensors the model makes
+    (rope tables, positions, masks, the optimizer's scalars) count as
+    replicated.  Metrics are plain tensors."""
     loss_fn = make_loss_fn(cfg, tcfg)
     gdt = torch_dtype(tcfg.grad_dtype)
+    mesh = None
+    if param_shardings is not None:
+        mesh = tree_leaves(param_shardings)[0].mesh
 
-    def train_step(params, opt_state, batch):
+    def constrain_g(tree):
+        if param_shardings is None:
+            return tree
+        return tree_map(_pin, tree, param_shardings)
+
+    def place(batch):
+        """The batch's leaves as DTensors (each whole leaf distributed by
+        its sharding; a DTensor leaf as it is)."""
+        if mesh is None:
+            return batch
+        out = {}
+        for k, v in batch.items():
+            sh = (batch_shardings or {}).get(k) or NamedSharding(
+                mesh, batch_spec(mesh_sizes(mesh)))
+            out[k] = v if is_dtensor(v) else sh.distribute(v)
+        return out
+
+    def step(params, opt_state, batch):
         dev = _params_device(params)
-        batch = batch_to(batch, dev)
+        batch = place(batch_to(batch, dev))
         G = tcfg.microbatches
         if G == 1:
             (loss, met), grads = value_and_grad(loss_fn, params, batch)
+            grads = constrain_g(grads)
         else:
             B = next(iter(batch.values())).shape[0]
             if B % G:
                 raise ValueError(f"batch axis {B} not divisible by {G} "
                                  f"microbatches")
-            acc = tree_map(lambda p: torch.zeros(p.shape, dtype=gdt,
-                                                 device=dev), params)
+            acc = constrain_g(tree_map(
+                lambda p: torch.zeros_like(p, dtype=gdt), params))
             lsum = torch.zeros((), dtype=torch.float32, device=dev)
             for g in range(G):
-                mb = {k: v[g * (B // G):(g + 1) * (B // G)]
-                      for k, v in batch.items()}
+                mb = {k: _microbatch(v, g, G) for k, v in batch.items()}
                 (l, _), gr = value_and_grad(loss_fn, params, mb)
-                acc = tree_map(lambda a, b: a + b.to(gdt), acc, gr)
-                lsum = lsum + l
-            grads = tree_map(lambda a: (a / G).to(gdt), acc)
+                acc = constrain_g(tree_map(lambda a, b: a + b.to(gdt), acc,
+                                           gr))
+                lsum = lsum + whole(l)
+            grads = constrain_g(tree_map(lambda a: (a / G).to(gdt), acc))
             loss = lsum / G
             met = {"ce": loss, "aux": torch.zeros_like(loss)}
         params, opt_state, omet = adamw_update(params, grads, opt_state,
                                                ocfg, inplace=donate)
-        return params, opt_state, {"loss": loss, **met, **omet}
+        return params, opt_state, {
+            "loss": whole(loss), **{k: whole(v) for k, v in met.items()},
+            **omet}
+
+    def train_step(params, opt_state, batch):
+        if mesh is None:
+            return step(params, opt_state, batch)
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        from ..launch.mesh import use_mesh
+        with use_mesh(mesh), implicit_replication():
+            return step(params, opt_state, batch)
 
     return train_step
+
+
+def _microbatch(v: torch.Tensor, g: int, G: int) -> torch.Tensor:
+    """Microbatch ``g`` of ``G`` of a batch leaf: rows ``g B/G .. (g+1)
+    B/G`` of a plain tensor.  A DTensor leaf (batch over the dp axes) is
+    cut on each rank's own rows, so microbatch ``g`` is the ``g``-th part
+    of every rank's rows and no row moves between ranks; on one rank that
+    is the plain cut, and with every microbatch's labels unmasked (the
+    token mean's denominator the same in each) the accumulated gradient is
+    the plain step's up to rounding."""
+    if not is_dtensor(v):
+        B = v.shape[0]
+        return v[g * (B // G):(g + 1) * (B // G)]
+    loc = v.to_local()
+    n = loc.shape[0]
+    if n % G:
+        raise ValueError(f"{n} local batch rows not divisible by {G} "
+                         f"microbatches")
+    return wrap_local(loc[g * (n // G):(g + 1) * (n // G)], v.device_mesh,
+                      v.placements,
+                      (v.shape[0] // G,) + tuple(v.shape[1:]))
+
+
+def _pin(t, sharding):
+    """``t`` in ``sharding``'s layout (a DTensor redistributed if it is
+    not)."""
+    want = sharding.placements
+    if is_dtensor(t) and tuple(t.placements) != want:
+        return t.redistribute(sharding.mesh, want)
+    return t
 
 
 def make_ddp_train_step(cfg: Optional[ModelConfig], ocfg: OptConfig,

@@ -55,3 +55,61 @@ def test_torch_train_lm_runs_and_resumes_on_the_cpu(arch, tmp_path):
     assert first[1].startswith("step    0 loss=") and first[-1] == "done."
     assert second[1] == "resumed from step 2"
     assert second[2].startswith("step    2 loss=") and second[-1] == "done."
+
+
+def _example(name: str, timeout: int = 300) -> str:
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "examples", name), "--device",
+         "cpu"], capture_output=True, text=True, env=env, timeout=timeout,
+        cwd=ROOT)
+    assert out.returncode == 0, out.stderr[-4000:]
+    return out.stdout
+
+
+def test_torch_async_cg_runs_on_the_cpu():
+    """CG and the fused-loop CGAsync converge to the same x
+    (``examples/async_cg.py``'s demo)."""
+    lines = _example("torch_async_cg.py").splitlines()
+    assert lines[0].startswith("CG       : iters=") and \
+        lines[0].endswith("converged=True")
+    assert lines[1].startswith("CGAsync  : iters=") and \
+        lines[1].endswith("converged=True")
+    assert lines[0].split()[2] == lines[1].split()[2]   # the same iters
+    assert lines[3] == "max |x_cg - x_async| = 0.00e+00"
+    assert lines[-1].endswith("us/iter on cpu")
+
+
+def test_torch_mesh_distribution_runs_on_the_cpu():
+    """Every layout distributes, the ghost assembly counts 8 hexes at every
+    owned vertex, and one bcast fills the 2-level overlap."""
+    text = _example("torch_mesh_distribution.py")
+    for kind in ("seq", "chunks", "rand"):
+        assert f"{kind:7s}: cells/rank=64..64" in text
+    assert "every owned vertex counts 8 incident hexes -> True" in text
+    assert "one bcast fills every halo correctly -> True" in text
+
+
+def test_torch_multigrid_poisson_runs_on_the_cpu():
+    """The stash flushes once; V(1,1)-PCG converges in fewer iterations
+    than plain CG (the reference's demo: 88 against 8)."""
+    text = _example("torch_multigrid_poisson.py")
+    assert "1 flush (= one SF reduce)" in text
+    assert "hierarchy: (33, 33) -> (17, 17) -> (9, 9) -> (5, 5)" in text
+    plain = [ln for ln in text.splitlines() if ln.startswith("plain CG")][0]
+    pre = [ln for ln in text.splitlines() if ln.startswith("V(1,1)-PCG")][0]
+    assert "converged=True" in plain and "converged=True" in pre
+    assert int(pre.split(":")[1].split()[0]) * 4 < \
+        int(plain.split(":")[1].split()[0])
+
+
+def test_torch_serve_lm_runs_on_the_cpu():
+    """Nine requests through ``ServeEngine`` with 4 slots: every request
+    gets its 12 tokens."""
+    lines = _example("torch_serve_lm.py").splitlines()
+    assert [ln.split(":")[0] for ln in lines[:3]] == \
+        ["req 0", "req 1", "req 2"]
+    for ln in lines[:3]:
+        assert len(ln.split("-> ")[1].strip("[]").split(",")) == 12
+    assert lines[-1].startswith("... 9 requests, 108 tokens in")
+    assert lines[-1].endswith("continuous batching, cpu)")

@@ -6,6 +6,9 @@ per-rank ``DistSF`` API and through ``SFComm(backend="dist")``, under the
 SF's own lowering and under ``"general"``, and writes its results to
 ``rank<r>.npz``.  This module imports only numpy at the top, and torch and
 ``repro_torch`` in the child (never JAX or the reference package).
+
+:func:`mesh_main` is one rank of ``tests/test_torch_mesh.py``'s sharded
+training step on a device mesh (DTensor placements over the gloo group).
 """
 
 import os
@@ -227,5 +230,156 @@ def main(rank: int, world: int, store: str, in_path: str,
             dist.destroy_process_group()
     except BaseException:
         with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+# ----------------------------------------------------------------- meshes
+# the sharded step's meshes of each world size, and the smoke config it
+# trains (float32, so that the ranks' sums differ from world 1's only in
+# their order)
+MESHES = {4: ((2, 2), (4, 1), (1, 4))}
+MESH_STEPS = 2
+MESH_BATCH = (4, 16)
+# prefill then decode steps on each mesh: (batch, prompt, s_max, steps);
+# on (1, 4) the smoke config's 2 KV heads do not divide over ``model``, so
+# the cache shards its sequence
+SERVE = (4, 12, 16, 3)
+
+
+def mesh_config():
+    from repro_torch.configs import get_config
+    return get_config("qwen3-4b").smoke_config().scaled(dtype="float32")
+
+
+def mesh_batches(cfg) -> list:
+    from repro_torch.training.data import make_batch
+    return [make_batch(cfg, *MESH_BATCH, step=i) for i in range(MESH_STEPS)]
+
+
+def _mesh_run(rank: int, world: int, ckpt_in: str, out_dir: str,
+              out: dict) -> None:
+    """Per mesh: ``MESH_STEPS`` sharded steps from init_params's seed-0
+    parameters (loss and every parameter whole), the world-1 checkpoint
+    restored into the mesh's layout, the (2, 2) state saved for world 1 to
+    restore, and a non-dense family refused on the mesh."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import sharded_state
+    from repro_torch.models import transformer as T
+    from repro_torch.models.sharding import param_specs, place, shardings
+    from repro_torch.configs import get_config
+    from repro_torch.training.checkpoint import (latest_step,
+                                                 load_checkpoint,
+                                                 save_checkpoint)
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.train_loop import make_train_step
+    from repro_torch.launch.mesh import mesh_sizes
+    cpu = torch.device("cpu")
+    cfg = mesh_config()
+    ocfg = OptConfig(warmup_steps=2, decay_steps=10)
+    names = None
+    for shape in MESHES[world]:
+        tag = "x".join(map(str, shape))
+        mesh = make_mesh(shape, ("data", "model"), device_type="cpu")
+        params, opt, psh, osh = sharded_state(cfg, ocfg, mesh, cpu)
+        out[key(tag, "placements", "wq")] = np.array(
+            str(params["blocks"]["wq"].placements))
+        step = make_train_step(cfg, ocfg, donate=True, param_shardings=psh)
+        for i, b in enumerate(mesh_batches(cfg)):
+            params, opt, m = step(params, opt, b)
+            out[key(tag, "loss", i)] = m["loss"].numpy()
+        flat = {}
+        _named(params, "", flat)
+        names = sorted(flat)
+        for n in names:
+            out[key(tag, "param", n)] = flat[n].full_tensor().numpy()
+        _serve_on_mesh(cfg, params, mesh, tag, out)
+        # the world-1 checkpoint, restored into this mesh's layout
+        s = latest_step(ckpt_in)
+        tree, _ = load_checkpoint(ckpt_in, s, {"params": params, "opt": opt},
+                                  shardings={"params": psh, "opt": osh})
+        got = {}
+        _named(tree["params"], "", got)
+        out[key(tag, "restored_placements_equal")] = np.array(all(
+            tuple(got[n].placements) == tuple(flat[n].placements)
+            for n in names))
+        for n in names:
+            out[key(tag, "restored", n)] = got[n].full_tensor().numpy()
+        if shape == (2, 2):
+            save_checkpoint(os.path.join(out_dir, "ckpt_mesh"), 7,
+                            {"params": params, "opt": opt},
+                            extra={"step": 7})
+            # a non-dense family on a mesh with an axis larger than 1
+            hcfg = get_config("hymba-1.5b").smoke_config().scaled(
+                dtype="float32")
+            hp = T.init_params(hcfg, device=cpu)
+            hp = place(hp, shardings(mesh, param_specs(
+                hp, hcfg, mesh_sizes(mesh))))
+            try:
+                T.forward_train(hp, hcfg, tokens=torch.zeros(
+                    (2, 8), dtype=torch.int64))
+                out[key("hymba", "refused")] = np.array("")
+            except NotImplementedError as e:
+                out[key("hymba", "refused")] = np.array(str(e))
+    out["names"] = np.array(names)
+
+
+def serve_tokens(cfg):
+    """The prompt (B, S) of :func:`_serve_on_mesh`, from a seed."""
+    B, S = SERVE[0], SERVE[1]
+    return np.random.default_rng(3).integers(0, cfg.vocab, (B, S))
+
+
+def _serve_on_mesh(cfg, params, mesh, tag: str, out: dict) -> None:
+    """Prefill and greedy decode steps on the mesh (the parameters after
+    the steps), every logit row whole, and the cache's layout."""
+    import torch
+    from repro_torch.launch.cells import _on_mesh
+    from repro_torch.launch.mesh import mesh_sizes
+    from repro_torch.models import transformer as T
+    from repro_torch.models.sharding import NamedSharding, batch_spec
+    bs = NamedSharding(mesh, batch_spec(mesh_sizes(mesh)))
+    toks = torch.as_tensor(serve_tokens(cfg))
+    logits, cache = _on_mesh(mesh, lambda: T.prefill(
+        params, cfg, tokens=bs.distribute(toks), s_max=SERVE[2]))
+    out[key(tag, "serve", 0)] = logits.full_tensor().numpy()
+    out[key(tag, "cache_placements")] = np.array(str(cache["k"].placements))
+    nxt = logits.full_tensor().argmax(-1)
+    for i in range(1, SERVE[3]):
+        logits, cache = _on_mesh(mesh, lambda: T.decode_step(
+            params, cfg, bs.distribute(nxt), cache))
+        out[key(tag, "serve", i)] = logits.full_tensor().numpy()
+        nxt = logits.full_tensor().argmax(-1)
+
+
+def _named(tree, prefix: str, out: dict) -> None:
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            _named(tree[k], f"{prefix}/{k}" if prefix else k, out)
+    else:
+        out[prefix] = tree
+
+
+def mesh_main(rank: int, world: int, store: str, ckpt_in: str,
+              out_dir: str) -> None:
+    """One rank of the sharded-step case: join the gloo group, run
+    :func:`_mesh_run`, write ``mesh_rank<r>.npz`` (a traceback to
+    ``mesh_rank<r>.err`` on failure)."""
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    try:
+        dist.init_process_group("gloo", init_method="file://" + store,
+                                rank=rank, world_size=world,
+                                timeout=timedelta(seconds=120))
+        try:
+            out = {}
+            _mesh_run(rank, world, ckpt_in, out_dir, out)
+            np.savez(os.path.join(out_dir, f"mesh_rank{rank}.npz"), **out)
+        finally:
+            dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(out_dir, f"mesh_rank{rank}.err"), "w") as f:
             f.write(traceback.format_exc())
         raise
