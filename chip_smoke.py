@@ -502,8 +502,24 @@ class Sizes:
     launch_seq: int = 1024
     launch_steps: int = 4
     launch_check_layers: int = 4
-    launch_cells: tuple = ("qwen3-4b", "mistral-large-123b")
-    launch_shapes: tuple = ("train_4k", "prefill_32k", "decode_32k")
+    # every arch, dealt round-robin among launch_dryrun_jobs children:
+    # the six slowest (a train cell 45-80 s of host time) first
+    launch_cells: tuple = ("hymba-1.5b", "xlstm-350m", "llava-next-34b",
+                           "kimi-k2-1t-a32b", "qwen3-14b", "whisper-base",
+                           "mistral-large-123b", "phi3.5-moe-42b-a6.6b",
+                           "qwen3-4b", "starcoder2-3b")
+    launch_shapes: tuple = ("train_4k", "prefill_32k", "decode_32k",
+                            "long_500k")
+    launch_dryrun_jobs: int = 6
+    # the other families through the same path on the (1, 1) mesh: each
+    # one's mesh step bitwise make_train_step at launch_family_check_layers
+    # layers (xlstm: one pair), then launch_family_steps counted steps at
+    # the train phase's sizes (phi3.5-moe at full width, moe_train_layers
+    # of 32 layers; hymba-1.5b, xlstm-350m and whisper-base whole)
+    launch_families: tuple = ("phi3.5-moe-42b-a6.6b", "hymba-1.5b",
+                              "xlstm-350m", "whisper-base")
+    launch_family_check_layers: int = 2
+    launch_family_steps: int = 3
 
 
 def emit(obj) -> None:
@@ -6036,10 +6052,16 @@ def train_in_child(sz: Sizes, dev):
 
 
 # ----------------------------------------------------------------- launch
-LAUNCH_PATH = ("flash_attention", PACK, SEGRED)
+# rows 1, 2, 5 and 8: the token lookup and the MoE dispatch's gathers
+# (hidden-state rows, the weight column), their transposes in the
+# backward, attention
+LAUNCH_PATH = ("flash_attention", "pack", "pack_blocked", SEGRED)
 LAUNCH_SMOKE = dict(launch_smoke=True, launch_batch=2, launch_seq=32,
                     launch_steps=2, launch_check_layers=2,
-                    launch_cells=("qwen3-4b",), timing_iters=2)
+                    launch_cells=("qwen3-4b", "hymba-1.5b"),
+                    launch_shapes=("decode_32k", "long_500k"),
+                    launch_dryrun_jobs=2, launch_family_steps=2,
+                    timing_iters=2)
 # the dry run's prediction of the card's step at world 1: FLOPs exactly
 # (the same ops at the same shapes); peak memory within this share of the
 # card's max_memory_allocated (the caching allocator rounds each block up
@@ -6211,6 +6233,138 @@ def launch_bitwise(sz: Sizes, dev, mesh, acc: dict) -> dict:
     return out
 
 
+def launch_family_shape(arch: str, sz: Sizes) -> tuple:
+    """(batch, tokens, encoder frames or 0, layers or None for the
+    published depth) of ``arch``'s timed steps: the train phase's."""
+    if sz.launch_smoke:
+        return 2, 32, 24 if arch == "whisper-base" else 0, None
+    return {"phi3.5-moe-42b-a6.6b": (sz.moe_train_batch, sz.moe_train_seq,
+                                     0, sz.moe_train_layers),
+            "hymba-1.5b": sz.hymba_train + (0, None),
+            "xlstm-350m": sz.xlstm_train + (0, None),
+            "whisper-base": sz.whisper_train + (None,)}[arch]
+
+
+def launch_family(arch: str, sz: Sizes, dev, mesh, acc: dict) -> dict:
+    """``arch`` through the launcher's sharded path on the (1, 1) mesh:
+    (a) at ``launch_family_check_layers`` layers one mesh step against
+    ``make_train_step`` from the same parameters on the same batch,
+    bitwise in the loss and every parameter and moment; (b) at the train
+    phase's sizes (:func:`launch_family_shape`) ``launch_family_steps``
+    counted steps, each timed on the host and between CUDA events,
+    tokens/s, peak memory and a profiled step's idle share.  bf16, float32
+    moments, remat per block."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import sharded_state
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import torch_dtype
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.optimizer import OptConfig, init_opt_state
+    from repro_torch.training.train_loop import batch_to, make_train_step
+    B, L, frames, layers = launch_family_shape(arch, sz)
+    base = get_config(arch)
+    base = (base.smoke_config() if sz.launch_smoke else base).scaled(
+        remat="block")
+    dt = torch_dtype(base.dtype)
+    ds = SyntheticLM(base.vocab, L, B, seed=0)
+
+    def batch(i):
+        b = batch_to(ds.batch_at(i), dev)
+        if frames:
+            gen = torch.Generator(device=dev).manual_seed(i)
+            b["enc_embeds"] = (torch.randn(B, frames, base.d_model,
+                                           generator=gen, device=dev)
+                               * 0.02).to(dt)
+        return b
+
+    ocfg = OptConfig(warmup_steps=10, decay_steps=100)
+    out = {"arch": base.name, "batch": [B, L] + ([frames] if frames else [])}
+    # (a) bitwise at reduced depth (phi3.5-moe: one layer, so that two
+    # full-width states and their moments fit the card together)
+    t0 = time.perf_counter()
+    cfg = base.scaled(n_layers=1 if base.is_moe
+                      else sz.launch_family_check_layers)
+    mp, mo, psh, _ = sharded_state(cfg, ocfg, mesh, dev)
+    pp = T.init_params(cfg, generator=torch.Generator(device=dev)
+                       .manual_seed(0), device=dev)
+    po = init_opt_state(pp, ocfg)
+    plain = make_train_step(cfg, ocfg, donate=True)
+    meshed = make_train_step(cfg, ocfg, donate=True, param_shardings=psh)
+    b0 = batch(0)
+    pp, po, pm = plain(pp, po, b0)
+    (mp, mo, mm), _ = counted(lambda: meshed(mp, mo, b0), acc)
+    names = leaf_names(pp)
+    diff = [n for n, a, b in zip(names, tree_leaves_of(tree_local(mp)),
+                                 tree_leaves_of(pp)) if not same_bits(a, b)]
+    mdiff = [n for n, a, b in zip(
+        leaf_names(po["m"]) + leaf_names(po["v"]),
+        tree_leaves_of(tree_local(mo["m"])) + tree_leaves_of(
+            tree_local(mo["v"])),
+        tree_leaves_of(po["m"]) + tree_leaves_of(po["v"]))
+        if not same_bits(a, b)]
+    loss_same = same_bits(mm["loss"], pm["loss"])
+    check(loss_same and not diff and not mdiff,
+          f"{arch}: the mesh step is not bitwise make_train_step: loss "
+          f"{float(mm['loss'])} vs {float(pm['loss'])}, parameters "
+          f"{diff[:5]}, moments {mdiff[:5]}")
+    out["bitwise"] = {"layers": cfg.n_layers, "loss": float(pm["loss"]),
+                      "loss_same": loss_same, "params": len(names),
+                      "params_differing": diff, "moments_differing": mdiff,
+                      "seconds": time.perf_counter() - t0}
+    del mp, mo, pp, po, plain, meshed
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    # (b) the timed steps
+    cfg = base if layers is None else base.scaled(n_layers=layers)
+    t0 = time.perf_counter()
+    params, opt, psh, _ = sharded_state(cfg, ocfg, mesh, dev)
+    out["init_s"] = time.perf_counter() - t0
+    step = make_train_step(cfg, ocfg, donate=True, param_shardings=psh)
+    state = {"p": params, "o": opt}
+    del params, opt
+
+    def one(b):
+        state["p"], state["o"], m = step(state["p"], state["o"], b)
+        return float(m["loss"])
+
+    steps, counts = [], {}
+    for i in range(sz.launch_family_steps):
+        b = batch(1 + i)
+        (loss, host, devms), _ = counted(
+            lambda: step_timed(lambda: one(b), dev), counts)
+        check(math.isfinite(loss), f"{arch} mesh step {i}: loss {loss}")
+        steps.append({"loss": loss, "host_ms": host, "device_ms": devms})
+    for k, v in counts.items():
+        acc[k] = acc.get(k, 0) + v
+    want = ["pack", SEGRED] + (["flash_attention"]
+                               if cfg.block_kind != "xlstm" else []) + (
+        ["pack_blocked"] if cfg.is_moe else [])
+    missing = missing_kernels(tuple(want), counts)
+    check(not missing or dev.type != "cuda",
+          f"{arch}'s mesh steps never launched {missing}")
+    bn = batch(1 + sz.launch_family_steps)
+    window = profiled_groups(lambda: one(bn), dev, profiled_kernels)
+    warm = steps[1:] or steps
+    host = float(np.mean([s["host_ms"] for s in warm]))
+    out.update({
+        "layers": [cfg.enc_layers, cfg.n_layers] if cfg.enc_layers
+        else cfg.n_layers, "d_model": cfg.d_model, "dtype": cfg.dtype,
+        "params": sum(t.numel() for t in tree_leaves_of(state["p"])),
+        "placements": {n: str(t.placements) for n, t in zip(
+            leaf_names(state["p"]), tree_leaves_of(state["p"]))
+            if n.split("/")[-1] in ("w_in", "router", "in_proj", "m_wq",
+                                    "wq")},
+        "steps": steps, "step_host_ms": host,
+        "step_device_ms": float(np.mean([s["device_ms"] for s in warm])),
+        "tokens_per_s": B * L / host * 1e3, "peak_gb": peak_gb(dev),
+        "launches": counts, "profiled_step": window})
+    del state
+    return out
+
+
 def launch_dryrun_child(device: str, smoke: bool) -> int:
     """``chip_smoke.py --launch-dryrun DEVICE [smoke]``: the dry run of the
     bitwise check's cell (``launch_check_layers`` layers, ``launch_batch``
@@ -6300,7 +6454,8 @@ def launch_production_start(sz: Sizes, dev):
     cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
            ",".join(sz.launch_cells), "--shape",
            ",".join(sz.launch_shapes), "--mesh", "single", "--out",
-           LAUNCH_DRYRUN_DIR, "--device", device, "--force"]
+           LAUNCH_DRYRUN_DIR, "--device", device, "--force", "--jobs",
+           str(sz.launch_dryrun_jobs)]
     env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True, env=env,
@@ -6319,7 +6474,9 @@ def stop_group(proc) -> None:
 def launch_production(sz: Sizes, dev, started) -> dict:
     """The production dry run's records (:func:`launch_production_start`):
     per cell the seconds, the peak GiB per device, ``fits80G`` and the
-    collective counts, and the roofline rows."""
+    collective counts, and the roofline rows; a cell skipped by design
+    (``long_500k`` of a full-attention family) with its reason.  Every
+    other cell must be ``ok``."""
     from repro_torch.launch.roofline import roofline_row
     proc, t0 = started
     stdout, stderr = proc.communicate(timeout=900)
@@ -6335,10 +6492,15 @@ def launch_production(sz: Sizes, dev, started) -> dict:
             check(os.path.exists(path), f"the dry run wrote no {path}")
             with open(path) as f:
                 rec = json.load(f)
+            if rec["status"] == "skipped" and shape == "long_500k":
+                cells.append({"cell": rec["cell"], "status": "skipped",
+                              "reason": rec["reason"]})
+                continue
             check(rec["status"] == "ok", f"{path}: {rec.get('status')}")
             row = roofline_row(rec)
             cells.append({
-                "cell": rec["cell"], "seconds": rec["lower_s"]
+                "cell": rec["cell"], "status": "ok",
+                "seconds": rec["lower_s"]
                 + rec["step_s"], "depths_run": rec["depths_run"],
                 "peak_gib": rec["memory"]["peak_per_device"] / 2 ** 30,
                 "fits80G": rec["fits80G"],
@@ -6356,9 +6518,11 @@ def phase_launch(sz: Sizes, dev):
     """The launch path: qwen3-4b trained at full size through the
     launcher's sharded path on a (1, 1) mesh over an NCCL group of one rank
     (gloo on the CPU), the 4-layer mesh step bitwise ``make_train_step``,
-    the dry run against the card, the production mesh's dry run (started
-    first: host work, which runs beside the card's).  Returns (record,
-    launches): the counted drives' launches, the launch path."""
+    then phi3.5-moe, hymba, xlstm and whisper through the same path
+    (:func:`launch_family`), the dry run against the card, the production
+    mesh's dry run of every arch and shape (started first: host work,
+    which runs beside the card's).  Returns (record, launches): the
+    counted drives' launches, the launch path."""
     import torch
     from repro_torch.kernels import ops as kops
     from repro_torch.launch.mesh import make_mesh
@@ -6369,10 +6533,12 @@ def phase_launch(sz: Sizes, dev):
         with world1_group(dev):
             mesh = make_mesh((1, 1), ("data", "model"),
                              device_type=dev.type)
-            for name, part in (
-                    ("full", lambda: launch_full(sz, dev, mesh, acc)),
-                    ("bitwise", lambda: launch_bitwise(sz, dev, mesh,
-                                                       acc))):
+            parts = [("full", lambda: launch_full(sz, dev, mesh, acc)),
+                     ("bitwise", lambda: launch_bitwise(sz, dev, mesh,
+                                                        acc))]
+            parts += [(arch.split("-")[0], lambda arch=arch: launch_family(
+                arch, sz, dev, mesh, acc)) for arch in sz.launch_families]
+            for name, part in parts:
                 t1 = time.perf_counter()
                 out[name] = part()
                 out[name]["seconds"] = time.perf_counter() - t1

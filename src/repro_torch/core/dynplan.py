@@ -246,7 +246,8 @@ class DynPlan:
     # ---------------------------------------------------------------- utils
     def _edges(self, leaf_root, device=None) -> torch.Tensor:
         """``leaf_root`` as an integer tensor (on ``device`` when given),
-        after the shape check; on the CPU also the range check."""
+        after the shape check; on the CPU also the range check (not on
+        the dry run's fake tensors, which hold no values)."""
         if not isinstance(leaf_root, torch.Tensor):
             leaf_root = torch.as_tensor(np.asarray(leaf_root),
                                         device=device)
@@ -262,7 +263,8 @@ class DynPlan:
             raise ValueError(
                 f"leaf_root has shape {tuple(leaf_root.shape)}, plan has "
                 f"{self.nleaves} leaves")
-        if leaf_root.device.type == "cpu" and leaf_root.numel():
+        if leaf_root.device.type == "cpu" and leaf_root.numel() \
+                and not is_fake(leaf_root):
             lo, hi = (int(v) for v in torch.aminmax(leaf_root))
             if lo < 0 or hi > self.nroots:
                 raise ValueError(

@@ -21,33 +21,37 @@ group).  For every cell it:
      against ``launch.mesh.HW.hbm_bytes()``) in place of ``fits16G``.
 
 An eager step costs host time in proportion to its depth, so by default a
-cell deeper than 4 layers is run at 2, 3 and 4 layers and its counts and
-peak are extended to its depth along the parabola through them.  Every
+cell deeper than 4 layers is run at 2, 3 and 4 layers and its counts are
+extended to its depth along the parabola through them.  Every
 layer runs the same ops at the same shapes (stacked leaves, the L axis
-never sharded), so FLOPs and collectives are affine in depth, and so are
-the parameters, moments, gradients and saved activations that make the
-peak (a maximum over the step, so extended only as far as its largest
-moment stays where it is: exact for the counts, approximate for the peak
-where fixed activations outweigh the layers); the bytes are not affine: each layer's slice of a stacked leaf takes
-its gradient through ``select``'s backward, a zero-filled tensor of the
-whole stack, so that traffic grows with the square of the depth (the
-parabola is exact for it).  ``run_cell(depth="full")`` runs every layer
-(the tests hold the extension to it).  Arguments are always sized at full
-depth.
+never sharded), so FLOPs and collectives are affine in depth; the bytes
+are not: each layer's slice of a stacked leaf takes its gradient through
+``select``'s backward, a zero-filled tensor of the whole stack, so that
+traffic grows with the square of the depth (the parabola is exact for
+it).  The peak is a maximum over the step, not a polynomial: it is
+extended along the line through the two deepest runs (the parameters,
+moments, gradients and saved activations grow in proportion to the
+depth), never below the deepest run's, which is approximate where fixed
+activations outweigh the layers.  ``run_cell(depth="full")`` runs every
+layer (the tests hold the extension to it).  Arguments are always sized
+at full depth.
 
-The MoE, hymba, xlstm and whisper families' sharded steps are not ported
-(ROADMAP Queue 1): their cells on a mesh with an axis larger than 1 write
-``status: "skipped"`` records with that reason, as ``long_500k`` does for
-the full-attention families.  ``--device cuda`` (the default) runs on fake
+Every family runs on every mesh; ``long_500k`` of a full-attention family
+writes a ``status: "skipped"`` record with that reason.  xlstm's layers
+come in (mLSTM, sLSTM) pairs, so its cells run at 2, 4 and 6 layers (1, 2
+and 3 pairs) and are extended from those.  ``--device cuda`` (the
+default) runs on fake
 CUDA tensors over a CUDA mesh, so DTensor lowers each layout change as it
 does on the card (``--device cpu``: a CPU mesh, whose shard-to-shard moves
 DTensor lowers to all-gathers, for machines without a CUDA build).
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch qwen3-4b]
       [--shape train_4k] [--mesh single|multi|both] [--out DIR]
-      [--device cuda|cpu] [--force]
+      [--device cuda|cpu] [--jobs N] [--force]
 
 Restartable: cells with a report are skipped unless ``--force``.
+``--jobs N`` deals the archs among N children per mesh, run at once (each
+its own fake group; a cell is single-threaded host work).
 """
 
 from __future__ import annotations
@@ -66,6 +70,7 @@ __all__ = ["main", "run_cell", "skip_reason", "MESHES", "fake_group"]
 MESHES = {"single": ((16, 16), ("data", "model")),
           "multi": ((2, 16, 16), ("pod", "data", "model"))}
 DEPTHS = (2, 3, 4)        # the depths a deeper cell is run at
+PAIR_DEPTHS = (2, 4, 6)   # xlstm's: 1, 2 and 3 (mLSTM, sLSTM) pairs
 
 
 def fake_group(world: int, rank: int = 0) -> None:
@@ -87,14 +92,10 @@ def fake_group(world: int, rank: int = 0) -> None:
 def skip_reason(arch: str, shape: str, mesh_shape: Sequence[int]
                 ) -> Optional[str]:
     """Why a cell is not run, or None."""
-    from ..configs import get_config, shape_supported
-    from ..models.meshed import meshable
+    from ..configs import shape_supported
     if not shape_supported(arch, shape):
         return ("full-attention arch: long_500k needs sub-quadratic "
                 "attention")
-    if max(mesh_shape) > 1 and not meshable(get_config(arch)):
-        return ("the sharded step covers the dense block kinds; the MoE / "
-                "hymba / xlstm / whisper sharded step is ROADMAP Queue 1")
     return None
 
 
@@ -149,7 +150,18 @@ def _extend(runs, depths, L: int) -> Dict:
         "collective_bytes_by_kind": {k: at(
             [c.collective_bytes_by_kind.get(k, 0) for c in costs])
             for k in kinds},
-        "peak": at([r["peak"] for r in runs])}
+        "peak": _peak_at([r["peak"] for r in runs], depths, L)}
+
+
+def _peak_at(peaks, depths, L: int) -> float:
+    """The peak at depth ``L``: the line through the two deepest runs (the
+    parameters, moments, gradients and saved activations that make it grow
+    in proportion to the depth), never below the deepest run's.  A
+    maximum over the step is not a polynomial of the depth: where a fixed
+    activation (the logits) makes the shallow runs' peaks, a parabola
+    through three of them can bend down past zero at full depth."""
+    (d0, p0), (d1, p1) = sorted(zip(depths, peaks))[-2:]
+    return max(p1, p1 + (p1 - p0) / (d1 - d0) * (L - d1))
 
 
 def run_cell(arch: str, shape: str, mesh, opts=None, overrides=None, *,
@@ -160,14 +172,16 @@ def run_cell(arch: str, shape: str, mesh, opts=None, overrides=None, *,
     from .cells import build_cell, cell_options
     from .mesh import HW
     opts = opts or cell_options(arch, shape)
-    L = int((overrides or {}).get("n_layers", get_config(arch).n_layers))
+    cfg = get_config(arch)
+    L = int((overrides or {}).get("n_layers", cfg.n_layers))
+    depths_at = PAIR_DEPTHS if cfg.block_kind == "xlstm" else DEPTHS
     t0 = time.perf_counter()
     from torch._subclasses.fake_tensor import FakeTensorMode
     with FakeTensorMode():
         full = build_cell(arch, shape, mesh, opts, overrides, device=device)
         arg_bytes = _local_bytes(full["args"])
     lower_s = time.perf_counter() - t0
-    if depth == "full" or L <= DEPTHS[-1]:
+    if depth == "full" or L <= depths_at[-1]:
         runs = [_measure(arch, shape, mesh, opts, overrides, device)]
         c = runs[0]["cost"]
         got = {"flops": c.flops, "bytes_accessed": c.bytes_accessed,
@@ -179,14 +193,15 @@ def run_cell(arch: str, shape: str, mesh, opts=None, overrides=None, *,
     else:
         runs = [_measure(arch, shape, mesh, opts,
                          {**(overrides or {}), "n_layers": d}, device)
-                for d in DEPTHS]
-        got = _extend(runs, DEPTHS, L)
-        depths = list(DEPTHS)
+                for d in depths_at]
+        got = _extend(runs, depths_at, L)
+        depths = list(depths_at)
     peak = int(round(got.pop("peak")))
     donated = full["meta"]["kind"] == "train"
     return {
         "cell": None, "status": "ok", "meta": full["meta"],
         "device": device, "depths_run": depths,
+        "peak_by_depth": [r["peak"] for r in runs],
         "lower_s": lower_s + sum(r["build_s"] for r in runs),
         "step_s": sum(r["step_s"] for r in runs),
         "memory": {"argument_bytes": arg_bytes, "output_bytes": 0,
@@ -262,6 +277,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--out", default="reports/torch_dryrun")
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="children per mesh, the archs dealt among them")
     ap.add_argument("--child", default=None, choices=list(MESHES),
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -273,19 +290,22 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                      args.device)
     meshes = {"single": ["single"], "multi": ["multi"],
               "both": ["single", "multi"]}[args.mesh]
+    src = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [src] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    jobs = max(1, min(args.jobs, len(archs)))
     rc = 0
     for name in meshes:
-        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
-               "--child", name, "--arch", ",".join(archs),
-               "--shape", ",".join(shapes), "--out", args.out,
-               "--device", args.device] + \
-            (["--force"] if args.force else [])
-        src = os.path.dirname(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__))))
-        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-            [src] + [p for p in os.environ.get("PYTHONPATH", "").split(
-                os.pathsep) if p]))
-        rc = max(rc, subprocess.run(cmd, env=env).returncode)
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun",
+             "--child", name, "--arch", ",".join(archs[j::jobs]),
+             "--shape", ",".join(shapes), "--out", args.out,
+             "--device", args.device] + (["--force"] if args.force
+                                         else []), env=env)
+            for j in range(jobs)]
+        rc = max([rc] + [p.wait() for p in procs])
     print(f"\ndone; exit {rc}", flush=True)
     return rc
 

@@ -32,21 +32,33 @@ layout (``ShardingPropagator._propagate_tensor_meta_non_cached``); the
 mode counts nothing while that runs, so a count does not depend on what
 ran before it.
 
-Eager execution runs every loop iteration, so the reference's
-``while_trip_counts`` and ``unresolved_whiles`` have no counterpart.
+Eager execution runs every loop iteration, except the recurrences'
+time loops (hymba's SSM scan, xlstm's cells), which on the dry run's fake
+tensors run one step under :func:`trips`: its counts are multiplied by
+the number of steps, as the reference multiplies a while loop's body by
+``while_trip_counts`` (an eager count of xlstm's 4,096-step train cell
+would take hours of host time).  What the steps not run would keep alive
+at once (xlstm's per-step outputs until they are stacked, and the
+activations a chunk's recompute saves for its backward) is added to the
+live bytes by :func:`held`.  Ops made once per loop (stacking the steps'
+outputs, the gradients of the whole sequences) are counted once, so the
+select backward of each step's slice, which eager autograd pays at every
+step, is not counted.
+``unresolved_whiles`` has no counterpart.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import weakref
-from typing import Callable, Dict, Iterable
+from typing import Callable, Dict, Iterable, Iterator
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
-__all__ = ["OpCost", "analyze_step", "CostMode"]
+__all__ = ["OpCost", "analyze_step", "CostMode", "trips", "held"]
 
 # functional collectives (c10d functional and its legacy wrappers) by kind
 _COLLECTIVES = {
@@ -60,6 +72,37 @@ _COLLECTIVES = {
 }
 _GATHERS = ("all-gather",)
 _SKIP = ("wait_tensor",)
+
+_TRIPS = [1]           # the product of the active trips() counts
+_ACTIVE = []           # the CostModes entered, innermost last
+
+
+@contextlib.contextmanager
+def trips(n: int) -> Iterator[None]:
+    """Within the block every op counts as run ``n`` times more (the one
+    trip of a loop of ``n`` identical trips that is run)."""
+    _TRIPS.append(_TRIPS[-1] * int(n))
+    try:
+        yield
+    finally:
+        _TRIPS.pop()
+
+
+@contextlib.contextmanager
+def held(nbytes: int) -> Iterator[None]:
+    """Within the block ``nbytes`` more bytes count as live in the
+    innermost :class:`CostMode` (none outside one): storage that the trips
+    a loop does not run would hold at once."""
+    mode = _ACTIVE[-1] if _ACTIVE else None
+    n = int(nbytes) if mode is not None else 0
+    if n > 0:
+        mode.live_bytes += n
+        mode.cost.peak_bytes = max(mode.cost.peak_bytes, mode.live_bytes)
+    try:
+        yield
+    finally:
+        if n > 0:
+            mode.live_bytes -= n
 
 
 @dataclasses.dataclass
@@ -121,12 +164,14 @@ class CostMode(TorchDispatchMode):
         def unpatch():
             ShardingPropagator._propagate_tensor_meta_non_cached = orig
         self._unpatch = unpatch
+        _ACTIVE.append(self)
         return super().__enter__()
 
     def __exit__(self, *exc):
         try:
             return super().__exit__(*exc)
         finally:
+            _ACTIVE.remove(self)
             self._unpatch()
 
     def track(self, tensors: Iterable[torch.Tensor]) -> None:
@@ -167,10 +212,11 @@ class CostMode(TorchDispatchMode):
         packet = func._overloadpacket
         name = packet.__name__
         c = self.cost
+        n = _TRIPS[-1]
         kind = _COLLECTIVES.get(name)
         if kind is not None:
-            nb = _nbytes(out if kind in _GATHERS else args[0])
-            c.collective_counts[kind] = c.collective_counts.get(kind, 0) + 1
+            nb = _nbytes(out if kind in _GATHERS else args[0]) * n
+            c.collective_counts[kind] = c.collective_counts.get(kind, 0) + n
             c.collective_bytes_by_kind[kind] = \
                 c.collective_bytes_by_kind.get(kind, 0) + nb
             c.collective_bytes += nb
@@ -178,13 +224,14 @@ class CostMode(TorchDispatchMode):
         if name in _SKIP:
             return out
         if packet in self.registry:
-            c.flops += self.registry[packet](*args, **kwargs, out_val=out)
+            c.flops += n * self.registry[packet](*args, **kwargs,
+                                                 out_val=out)
         view, inplace = _aliases(func)
         if not view:
             # an in-place op's output is its first operand, read once and
             # written once
-            c.bytes_accessed += _nbytes(args) + _nbytes(kwargs) + (
-                _nbytes(args[0]) if inplace else _nbytes(out))
+            c.bytes_accessed += n * (_nbytes(args) + _nbytes(kwargs) + (
+                _nbytes(args[0]) if inplace else _nbytes(out)))
         return out
 
 

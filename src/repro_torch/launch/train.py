@@ -21,12 +21,12 @@ spec rules (``param_specs`` / ``shardings``: FSDP / ZeRO-3 over ``data``,
 tensor parallel over ``model``) and the optimizer state by ``_opt_specs``;
 the step runs on DTensors (``make_train_step(param_shardings=)``), and
 checkpoints save whole leaves and restore into the mesh's layout, so a run
-resumes at another mesh shape.  Under a mesh with an axis larger than 1
-the dense block kinds train; the MoE, hymba, xlstm and whisper families
-raise (ROADMAP Queue 1).  Without ``torchrun`` and with all three at 1 it
-is the one-device path: every ``--arch`` trains (whisper's batches carry
-the stubbed frontend's ``enc_embeds``, llava's ``embeds``; float inputs
-are cast to the model's dtype).  ``--device`` defaults to the card
+resumes at another mesh shape.  Every ``--arch`` trains on a mesh (MoE
+with its experts over ``model``; hymba's scan and xlstm's cells on each
+rank's batch rows and heads: ``models.meshed``).  Without ``torchrun``
+and with all three at 1 it is the one-device path.  Either way whisper's
+batches carry the stubbed frontend's ``enc_embeds`` and llava's
+``embeds``; float inputs are cast to the model's dtype.  ``--device`` defaults to the card
 (``cuda``); ``--device cpu`` runs on the CPU.  ``--devices`` exists for
 the reference's command lines (virtual host devices); anything but 1
 raises: ranks come from ``torchrun``.

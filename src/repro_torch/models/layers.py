@@ -28,7 +28,7 @@ from ..kernels import ops as kops
 from .config import ModelConfig, torch_dtype
 from .meshed import (is_dtensor, sharded_cache_write, sharded_decode_core,
                      sharded_flash, split_heads)
-from .sharding import constrain
+from .sharding import constrain, merge_heads
 
 __all__ = ["rmsnorm", "rope", "attention", "attention_decode", "mlp",
            "init_attn", "init_mlp", "cross_attention", "decode_core"]
@@ -142,7 +142,7 @@ def attention(x: torch.Tensor, p: Dict, cfg: ModelConfig, *,
     else:
         out = kops.flash_attention(q, k, v, causal=causal, window=window)
     out = constrain(out, model_dim=2)
-    return constrain(out.reshape(B, S, H * hd) @ p["wo"]), (k, v)
+    return constrain(merge_heads(out) @ p["wo"]), (k, v)
 
 
 def cross_attention(x: torch.Tensor, p: Dict, cfg: ModelConfig,

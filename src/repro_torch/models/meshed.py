@@ -2,10 +2,10 @@
 
 Parameters placed by ``models.sharding.shardings`` are DTensors, and the
 activations that come from them are DTensors whose layouts DTensor's
-sharding propagation works out op by op (the counterpart of GSPMD).  Two
-calls run on each rank's local shards instead, through
+sharding propagation works out op by op (the counterpart of GSPMD).  The
+calls below run on each rank's local shards instead, through
 ``torch.distributed.tensor.experimental.local_map``, because the kernels
-behind them take plain tensors:
+and recurrences behind them take plain tensors:
 
   * :func:`sharded_flash`: attention is local per batch row and per query
     head, so each rank launches the flash kernel (row 8) on its own batch
@@ -21,6 +21,15 @@ behind them take plain tensors:
     partial sum over those mesh dimensions.  The embedding's model
     dimension is gathered first (the FSDP all-gather of a weight).
 
+  * :func:`sharded_moe`: expert parallelism.  Each rank routes the tokens
+    of its batch rows (whole over ``model``, as the reference pins them),
+    keeps the picks whose slot falls among its own experts, and runs the
+    DynPlan dispatch, the expert products and the combine on them; the
+    output is a partial sum over ``model``, made whole by one all-reduce.
+  * :func:`sharded_heads`: a recurrence (hymba's SSM scan, xlstm's cells)
+    on each rank's batch rows and heads, the heads over ``model`` where
+    they divide.
+
 Every op between them is DTensor's; tensors made inside the model (rope
 tables, positions, the loss's masks) are plain and the train step runs
 under ``implicit_replication()``, which treats them as replicated.
@@ -30,10 +39,10 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["is_dtensor", "mesh_of", "whole", "wrap_local", "meshable",
-           "require_meshable", "sharded_flash", "sharded_lookup",
-           "split_heads", "whole_groups", "sharded_cache_write",
-           "sharded_decode_core", "sharded_pick"]
+__all__ = ["is_dtensor", "mesh_of", "whole", "wrap_local", "sharded_flash",
+           "sharded_lookup", "split_heads", "whole_groups",
+           "sharded_cache_write", "sharded_decode_core", "sharded_pick",
+           "sharded_moe", "sharded_heads", "sharded_set"]
 
 
 def is_dtensor(x) -> bool:
@@ -60,6 +69,15 @@ def wrap_local(local, mesh, placements, shape):
                               shape=shape, stride=tuple(reversed(stride)))
 
 
+def _as_dtensor(t, mesh):
+    """A plain tensor (the same on every rank) as a replicated DTensor; a
+    DTensor as it is."""
+    from torch.distributed.tensor import Replicate
+    if t is None or is_dtensor(t):
+        return t
+    return wrap_local(t, mesh, [Replicate()] * mesh.ndim, t.shape)
+
+
 def mesh_of(tree):
     """The device mesh of the first DTensor leaf of ``tree``, or None."""
     if isinstance(tree, dict):
@@ -69,29 +87,6 @@ def mesh_of(tree):
                 return m
         return None
     return tree.device_mesh if is_dtensor(tree) else None
-
-
-def meshable(cfg) -> bool:
-    """Whether the sharded step covers ``cfg``'s family: the dense block
-    kinds (dense, llava's embeddings).  MoE (expert parallelism needs the
-    DynPlan dispatch across ranks), hymba, xlstm and whisper (their own
-    scans and encoder) wait in ROADMAP Queue 1."""
-    return not cfg.is_moe and cfg.block_kind == "transformer" \
-        and not cfg.enc_layers and not cfg.cross_attention
-
-
-def require_meshable(cfg, params) -> None:
-    """Raise for a family that is not :func:`meshable` under a mesh with
-    an axis larger than 1; on a mesh whose axes are all 1 every family
-    runs."""
-    mesh = mesh_of(params)
-    if mesh is None or max(mesh.shape) == 1:
-        return
-    if not meshable(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: the sharded step covers the dense block kinds "
-            f"only; a {'x'.join(map(str, mesh.shape))} mesh needs the "
-            f"MoE / hymba / xlstm / whisper sharded step (ROADMAP Queue 1)")
 
 
 def _coord(mesh, dim: int) -> int:
@@ -226,9 +221,7 @@ def sharded_lookup(embed, tokens):
     from ..core.dynplan import gather_rows
     mesh = embed.device_mesh
     sizes = tuple(mesh.shape)
-    if not is_dtensor(tokens):
-        tokens = wrap_local(tokens, mesh, [Replicate()] * len(sizes),
-                            tokens.shape)
+    tokens = _as_dtensor(tokens, mesh)
     ep, tp, op, gp = [], [], [], []
     vocab_dims = []
     for j, (pe, pt) in enumerate(zip(embed.placements, tokens.placements)):
@@ -324,8 +317,7 @@ def sharded_pick(x, idx):
     from torch.distributed.tensor.experimental import local_map
     mesh = x.device_mesh
     last = x.ndim - 1
-    if not is_dtensor(idx):
-        idx = wrap_local(idx, mesh, [Replicate()] * mesh.ndim, idx.shape)
+    idx = _as_dtensor(idx, mesh)
     vocab_dims = [j for j, p in enumerate(x.placements)
                   if p == Shard(last) and mesh.size(j) > 1]
     xp = [Replicate() if p == Shard(last) and mesh.size(j) == 1 else p
@@ -353,3 +345,170 @@ def sharded_pick(x, idx):
                    in_grad_placements=(tuple(xp), tuple(ip)),
                    device_mesh=mesh, redistribute_inputs=True)
     return fn(x, idx)
+
+
+def _dp_dims(mesh) -> list:
+    """The mesh dimensions of the data-parallel axes (``pod``, ``data``)."""
+    return [j for j, n in enumerate(mesh.mesh_dim_names)
+            if n in ("pod", "data")]
+
+
+def _batch_sharded(mesh, rows: int) -> bool:
+    """Whether ``rows`` (a batch or group count) divides over the dp
+    dimensions taken together, and there is more than one dp rank."""
+    n = 1
+    for j in _dp_dims(mesh):
+        n *= mesh.size(j)
+    return n > 1 and rows % n == 0
+
+
+def sharded_moe(x, p, G: int, T: int, C: int, k: int, mode: str):
+    """``models.moe``'s layer without the shared expert on a DTensor x (B,
+    S, D) -> (y (B, S, D), aux loss), with the reference's layout: groups
+    over the dp dimensions where G divides them (else every rank routes
+    the whole batch, as the reference's pin leaves ``xg`` whole), whole
+    over ``model``; the expert stacks' E over ``model``, their D gathered
+    (FSDP).
+
+    Two calls run per rank.  The router (:func:`models.moe.route`) gives
+    every model rank of a data shard the same picks, slots and weights,
+    and the aux loss's statistics of its groups (the mean probability and
+    top-1 counts, partial sums over dp, made whole before their product).
+    Then each rank keeps the picks whose slot lies in its experts' range
+    ``[e0 C, (e0 + E_l) C)``, rebased onto a local buffer of G_l E_l C
+    rows (every other pick points at the drop row), and runs
+    :func:`models.moe.experts` on them: the DynPlan exchange is local, and
+    y is a partial sum over ``model`` (one all-reduce, 4,096 x 7,168 bf16
+    a layer for kimi-k2 at train_4k against the reference's 589 MB
+    all-gather of the expert outputs; the k picks are then summed across
+    ranks, not in one rank's order).  Gradients: x and the weights' a
+    partial sum over ``model`` from the second call; the expert stacks'
+    Shard on E, their dp part reduce-scattered into D; the router's a
+    partial sum over dp."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    from .moe import aux_loss, aux_parts, experts, route
+    mesh = x.device_mesh
+    B, D = x.shape[0], x.shape[-1]
+    E = p["w_in"].shape[0]
+    dp = _dp_dims(mesh)
+    ndp = 1
+    for j in dp:
+        ndp *= mesh.size(j)
+    gshard = _batch_sharded(mesh, G) and B % ndp == 0
+    ej = [j for j, pl in enumerate(p["w_in"].placements) if pl == Shard(0)]
+    rep = [Replicate()] * mesh.ndim
+    xp, part_dp, wp, wg, yp, xg_grad = ([] for _ in range(6))
+    for j in range(mesh.ndim):
+        sh = j in dp and gshard
+        xp.append(Shard(0) if sh else Replicate())
+        part_dp.append(Partial() if sh else Replicate())
+        wp.append(Shard(0) if j in ej else Replicate())
+        wg.append(Shard(0) if j in ej else part_dp[-1])
+        yp.append(Partial() if j in ej else xp[-1])
+        xg_grad.append(Partial() if j in ej else xp[-1])
+    xp, part_dp, wp, wg, yp, xg_grad = (tuple(t) for t in (
+        xp, part_dp, wp, wg, yp, xg_grad))
+    G_l = G // ndp if gshard else G
+
+    def local_route(xl, rl):
+        probs, wk, eidx, slot, keep = route(xl.reshape(G_l, T, D), rl, k, C)
+        me, cnt = aux_parts(probs, eidx, rl.shape[-1])
+        if gshard:
+            me = me / ndp
+        return wk, slot, keep, me, cnt
+
+    wk, slot, keep, me, cnt = local_map(
+        local_route, out_placements=(xp, xp, xp, part_dp, part_dp),
+        in_placements=(xp, tuple(rep)), in_grad_placements=(xp, part_dp),
+        device_mesh=mesh, redistribute_inputs=True)(x, p["router"])
+
+    def local_experts(xl, wkl, sl, kl, w_in, w_gate, w_out):
+        E_l = w_in.shape[0]
+        e0 = 0
+        for j in ej:
+            e0 = e0 * mesh.size(j) + _coord(mesh, j)
+        lo = e0 * E_l * C
+        mine = kl & (sl >= lo) & (sl < lo + E_l * C)
+        ls = torch.where(mine, sl - lo, E_l * C)
+        y = experts(xl.reshape(G_l, T, D), wkl, ls, mine, w_in, w_gate,
+                    w_out, C, mode)
+        return y.reshape(xl.shape)
+
+    y = local_map(
+        local_experts, out_placements=list(yp),
+        in_placements=(xp, xp, xp, xp, wp, wp, wp),
+        in_grad_placements=(xg_grad, xg_grad, xp, xp, wg, wg, wg),
+        device_mesh=mesh, redistribute_inputs=True)(
+            x, wk, slot, keep, p["w_in"], p["w_gate"], p["w_out"])
+    me, cnt = (t.redistribute(mesh, rep) for t in (me, cnt))
+    return y, aux_loss(me, cnt, G * T, E)
+
+
+def sharded_heads(fn, args, roles, out_heads, heads: int):
+    """``fn(*args)`` on each rank's shards, for a recurrence that is local
+    per batch row and per head (hymba's SSM scan, xlstm's cells): the
+    batch (dimension 0 of every activation) over the dp dimensions where
+    it divides them, the heads over ``model`` where ``heads`` divides it
+    (else whole on every model rank: a shard may not split a head).
+
+    ``roles[i]`` says what ``args[i]`` is: ``("act", h)`` an activation or
+    state whose head dimension is ``h`` (None: no head dimension), plain
+    tensors taken as replicated; ``("param", h)`` a replicated weight,
+    sliced to the rank's heads on dimension ``h``, whose gradient is a
+    partial sum over the dp dimensions that shard the batch; ``None`` for
+    an argument that is None.  ``fn`` returns a tuple of activations
+    whose head dimensions are ``out_heads``."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = next(a.device_mesh for a in args if is_dtensor(a))
+    batch = next(a.shape[0] for a, r in zip(args, roles)
+                 if r is not None and r[0] == "act")
+    bshard = _batch_sharded(mesh, batch)
+    dp = _dp_dims(mesh)
+    names = mesh.mesh_dim_names
+
+    def hsharded(j):
+        return names[j] == "model" and mesh.size(j) > 1 \
+            and heads % mesh.size(j) == 0
+
+    def place(kind, h, grad=False):
+        out = []
+        for j in range(mesh.ndim):
+            if j in dp:
+                if kind == "act" and bshard:
+                    out.append(Shard(0))
+                else:
+                    out.append(Partial() if grad and bshard
+                               else Replicate())
+            elif hsharded(j):
+                # a tensor with no head dimension is read by every head:
+                # its gradient is a partial sum over the heads' ranks
+                out.append(Shard(h) if h is not None else
+                           Partial() if grad else Replicate())
+            else:
+                out.append(Replicate())
+        return tuple(out)
+
+    args = [_as_dtensor(a, mesh) for a in args]
+    inp = tuple(None if r is None else place(*r) for r in roles)
+    grads = tuple(None if r is None else place(*r, grad=True)
+                  for r in roles)
+    outp = tuple(place("act", h) for h in out_heads)
+    return local_map(fn, out_placements=outp, in_placements=inp,
+                     in_grad_placements=grads, device_mesh=mesh,
+                     redistribute_inputs=True)(*args)
+
+
+def sharded_set(stack, i: int, new) -> None:
+    """``stack[i] = new`` in place on a DTensor ``stack`` (a cache leaf
+    stacked on an unsharded leading L axis): ``new`` is brought to the
+    layout of ``stack[i]`` and each rank writes its own shard."""
+    from torch.distributed.tensor import Shard
+    mesh = stack.device_mesh
+    want = [Shard(p.dim - 1) if isinstance(p, Shard) else p
+            for p in stack.placements]
+    new = _as_dtensor(new, mesh)
+    if list(new.placements) != want:
+        new = new.redistribute(mesh, want)
+    stack.to_local()[i].copy_(new.to_local())

@@ -29,8 +29,9 @@ feeding the router exactly what the reference feeds it.
 
 The expert products ``gecd,edf->gecf`` and the router product are plain
 large products, left to ``torch.einsum`` as the reference leaves them to
-XLA.  The reference's sharding constraints are the identity on one device
-and are left out.
+XLA.  The reference's sharding constraints (experts over ``model``) are
+kept on a device mesh by :func:`repro_torch.models.meshed.sharded_moe`,
+which runs :func:`route` and :func:`experts` on each rank's shards.
 """
 
 from __future__ import annotations
@@ -47,8 +48,11 @@ from ..core.dynplan import DynPlan, PlanCache
 from ..core.fields import FieldBundle
 from ..core.unit import _np_dtype
 from .config import ModelConfig, torch_dtype
+from .meshed import is_dtensor, sharded_moe
+from .sharding import constrain
 
-__all__ = ["init_moe", "moe_layer", "plan_cache", "routing_leaf_root"]
+__all__ = ["init_moe", "moe_layer", "plan_cache", "routing_leaf_root",
+           "route", "experts", "aux_parts", "aux_loss"]
 
 # module-level skeleton cache: one DynPlan per dispatch signature, shared by
 # every layer and step with the same (G, T, k, E, C, D, dtype) problem
@@ -177,40 +181,31 @@ def _moe_plan(G: int, T: int, k: int, E: int, C: int, D: int,
         sig, lambda: DynPlan(G * E * C, G * T * k, label=("moe",) + sig))
 
 
-def moe_layer(x: torch.Tensor, p: Dict, cfg: ModelConfig, *,
-              groups: Optional[int] = None,
-              dispatch: Optional[str] = None
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> (y, aux_loss).  Router in float32; top-k softmax over
-    the selected logits; capacity C = ceil(T * k * cf / E) per group of T
-    tokens.  ``p`` holds one layer's leaves (``transformer.layer``).
-
-    ``dispatch="sf"`` (the default via ``cfg.moe_dispatch``): dispatch is
-    the plan's fused leaf→root reduce of the hidden state and combine
-    weight, combine the root→leaf bcast of the weighted expert outputs;
-    on the card neither reads anything back to the host.
-    ``dispatch="dense"`` keeps the per-group scatter/gather formulation
-    (same slots, same drops, same weights)."""
-    mode = dispatch if dispatch is not None \
-        else getattr(cfg, "moe_dispatch", "sf")
-    if mode not in ("sf", "dense"):
-        raise ValueError(f"unknown moe dispatch mode {mode!r}")
-    B, S, D = x.shape
-    E, k = cfg.moe_experts, cfg.moe_topk
-    G = groups if groups is not None else (B if S > 1 else 1)
-    T = (B * S) // G
-    xg = x.reshape(G, T, D)
-
-    logits = torch.einsum("gtd,de->gte", xg.float(), p["router"])
+def route(xg: torch.Tensor, router: torch.Tensor, k: int, C: int
+          ) -> Tuple[torch.Tensor, ...]:
+    """The router over groups xg (G, T, D): -> (probs (G, T, E) float32,
+    the top-k weights wk (G, T, k) renormalized, in xg's dtype, expert ids
+    eidx, and :func:`_capacity_slots`'s slot and keep)."""
+    logits = torch.einsum("gtd,de->gte", xg.float(), router)
     probs = torch.softmax(logits, dim=-1)
     wk, eidx = torch.topk(probs, k, dim=-1)                 # (G, T, k)
-    wk = (wk / wk.sum(dim=-1, keepdim=True)).to(x.dtype)
+    wk = (wk / wk.sum(dim=-1, keepdim=True)).to(xg.dtype)
+    slot, keep = _capacity_slots(eidx, C, router.shape[-1])
+    return probs, wk, eidx, slot, keep
 
-    C = max(int(np.ceil(T * k * cfg.moe_capacity / E)), 1)
-    slot, keep = _capacity_slots(eidx, C, E)
 
+def experts(xg: torch.Tensor, wk: torch.Tensor, slot: torch.Tensor,
+            keep: torch.Tensor, w_in: torch.Tensor, w_gate: torch.Tensor,
+            w_out: torch.Tensor, C: int, mode: str) -> torch.Tensor:
+    """Dispatch, expert products and combine for the E experts of the
+    stacks ``w_in`` / ``w_gate`` (E, D, F) and ``w_out`` (E, F, D): xg (G,
+    T, D), slots in [0, E*C] (E*C drops) -> y (G, T, D), each token the
+    weighted sum of its kept picks."""
+    G, T, D = xg.shape
+    k = slot.shape[-1]
+    E = w_in.shape[0]
     if mode == "sf":
-        plan = _moe_plan(G, T, k, E, C, D, x.dtype)
+        plan = _moe_plan(G, T, k, E, C, D, xg.dtype)
         leaf_root = routing_leaf_root(slot, keep, C, E)
         w_leaf = wk.reshape(G * T * k, 1)
         # capacity slots never repeat -> one writer per root: the reduce is
@@ -225,7 +220,7 @@ def moe_layer(x: torch.Tensor, p: Dict, cfg: ModelConfig, *,
             fb = FieldBundle.for_data(bound, [x_leaf, w_leaf])
             buf, sw = fb.reduce_multi(
                 [x_leaf, w_leaf],
-                [x.new_zeros((G * E * C, D)), x.new_zeros((G * E * C, 1))],
+                [xg.new_zeros((G * E * C, D)), xg.new_zeros((G * E * C, 1))],
                 op="sum")
         else:
             # prefill-sized: compose with the token->pick replication
@@ -238,9 +233,9 @@ def moe_layer(x: torch.Tensor, p: Dict, cfg: ModelConfig, *,
         buf = _dispatch_dense(xg, slot, keep, C, E)
     h = buf.reshape(G, E, C, D)
 
-    up = torch.einsum("gecd,edf->gecf", h, p["w_in"])
-    gate = torch.einsum("gecd,edf->gecf", h, p["w_gate"])
-    out = torch.einsum("gecf,efd->gecd", F.silu(gate) * up, p["w_out"])
+    up = torch.einsum("gecd,edf->gecf", h, w_in)
+    gate = torch.einsum("gecd,edf->gecf", h, w_gate)
+    out = torch.einsum("gecf,efd->gecd", F.silu(gate) * up, w_out)
     out_flat = out.reshape(G, E * C, D)
 
     if mode == "sf":
@@ -253,25 +248,72 @@ def moe_layer(x: torch.Tensor, p: Dict, cfg: ModelConfig, *,
         y = picks[:, :, 0]
         for j in range(1, k):
             y = y + picks[:, :, j]
-        y = y.reshape(B, S, D)
-    else:
-        rows = torch.arange(G, device=x.device)[:, None, None]
-        gathered = out_flat[rows, slot.clamp(max=E * C - 1)]  # (G, T, k, D)
-        gathered = gathered * keep[..., None].to(out_flat.dtype)
-        y = torch.einsum("gtkd,gtk->gtd", gathered,
-                         wk.to(out_flat.dtype)).reshape(B, S, D)
+        return y
+    rows = torch.arange(G, device=xg.device)[:, None, None]
+    gathered = out_flat[rows, slot.clamp(max=E * C - 1)]  # (G, T, k, D)
+    gathered = gathered * keep[..., None].to(out_flat.dtype)
+    return torch.einsum("gtkd,gtk->gtd", gathered, wk.to(out_flat.dtype))
 
-    # load-balance aux loss (Switch-style); top-1 counts by an integer
-    # index_add (exact), never a (G, T, E) one-hot
+
+def aux_parts(probs: torch.Tensor, eidx: torch.Tensor, E: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The load-balance loss's statistics of these groups: the mean router
+    probability per expert (E,) and the top-1 counts (E,) int64, by an
+    integer index_add (exact), never a (G, T, E) one-hot."""
     me = probs.mean(dim=(0, 1))                                 # (E,)
     top1 = eidx[..., 0].reshape(-1)
-    cnt = torch.zeros(E, dtype=torch.int64, device=x.device).index_add_(
+    cnt = torch.zeros(E, dtype=torch.int64, device=probs.device).index_add_(
         0, top1, torch.ones_like(top1))
-    ce = cnt.float() / (G * T)
-    aux = E * torch.sum(me * ce)
+    return me, cnt
+
+
+def aux_loss(me: torch.Tensor, cnt: torch.Tensor, tokens: int, E: int
+             ) -> torch.Tensor:
+    """Switch's load-balance loss E * sum(me * ce), ce the top-1 counts
+    over ``tokens``."""
+    ce = cnt.float() / tokens
+    return E * torch.sum(me * ce)
+
+
+def moe_layer(x: torch.Tensor, p: Dict, cfg: ModelConfig, *,
+              groups: Optional[int] = None,
+              dispatch: Optional[str] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> (y, aux_loss).  Router in float32; top-k softmax over
+    the selected logits; capacity C = ceil(T * k * cf / E) per group of T
+    tokens.  ``p`` holds one layer's leaves (``transformer.layer``).
+
+    ``dispatch="sf"`` (the default via ``cfg.moe_dispatch``): dispatch is
+    the plan's fused leaf→root reduce of the hidden state and combine
+    weight, combine the root→leaf bcast of the weighted expert outputs;
+    on the card neither reads anything back to the host.
+    ``dispatch="dense"`` keeps the per-group scatter/gather formulation
+    (same slots, same drops, same weights).  On a DTensor ``x`` (a device
+    mesh) the layer is ``models.meshed.sharded_moe``: experts over
+    ``model``, each rank's exchange local."""
+    mode = dispatch if dispatch is not None \
+        else getattr(cfg, "moe_dispatch", "sf")
+    if mode not in ("sf", "dense"):
+        raise ValueError(f"unknown moe dispatch mode {mode!r}")
+    B, S, D = x.shape
+    E, k = cfg.moe_experts, cfg.moe_topk
+    G = groups if groups is not None else (B if S > 1 else 1)
+    T = (B * S) // G
+    C = max(int(np.ceil(T * k * cfg.moe_capacity / E)), 1)
+    if is_dtensor(x):
+        y, aux = sharded_moe(x, p, G, T, C, k, mode)
+    else:
+        xg = x.reshape(G, T, D)
+        probs, wk, eidx, slot, keep = route(xg, p["router"], k, C)
+        y = experts(xg, wk, slot, keep, p["w_in"], p["w_gate"], p["w_out"],
+                    C, mode).reshape(B, S, D)
+        aux = aux_loss(*aux_parts(probs, eidx, E), G * T, E)
 
     if cfg.moe_shared_ff:
-        shared = (F.silu(x @ p["shared_gate"]) * (x @ p["shared_in"])) \
-            @ p["shared_out"]
+        # pinned as the dense MLP's products are (the identity off a mesh)
+        shared = constrain((F.silu(constrain(x @ p["shared_gate"],
+                                             model_dim=2))
+                            * constrain(x @ p["shared_in"], model_dim=2))
+                           @ p["shared_out"])
         y = y + shared
     return y, aux

@@ -41,8 +41,8 @@ from .config import ModelConfig
 from .meshed import is_dtensor, whole
 
 __all__ = ["param_specs", "batch_spec", "cache_specs", "dp_axes",
-           "constrain", "NamedSharding", "shardings", "placements_of",
-           "is_spec", "place"]
+           "constrain", "merge_heads", "NamedSharding", "shardings",
+           "placements_of", "is_spec", "place"]
 
 DP = ("pod", "data")   # flattened data-parallel axes (pod may be absent)
 
@@ -273,3 +273,15 @@ def constrain(x, *, batch_dim: int = 0, model_dim: Optional[int] = None):
     if tuple(x.placements) == want:
         return x
     return x.redistribute(mesh, want)
+
+
+def merge_heads(t):
+    """(B, S, H, hd) -> (B, S, H * hd), pinned with the merged dimension
+    over ``model`` where it divides (:func:`constrain`).  The pin's
+    backward gathers the gradient before the reshape's: the product that
+    follows hands back a gradient sharded on the merged dimension, which
+    DTensor cannot unflatten where its shards would split a head (llava's
+    56 heads, hymba's 25, xlstm's 4 on 16 ranks).  The plain reshape off a
+    mesh."""
+    B, S = t.shape[0], t.shape[1]
+    return constrain(t.reshape(B, S, -1), model_dim=2)

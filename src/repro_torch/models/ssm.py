@@ -44,8 +44,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core.device import is_fake
+from ..launch.op_cost import trips
 from .config import ModelConfig
 from .graphs import capture
+from .meshed import is_dtensor, sharded_heads, split_heads
+from .sharding import merge_heads
 
 __all__ = ["init_ssm", "ssm_scan", "ssm_step"]
 
@@ -86,10 +90,19 @@ def _gates(u: torch.Tensor, p: Dict):
     return delta, Bc.float(), Cc.float(), A
 
 
+def _one_trip(t: torch.Tensor, T: int) -> bool:
+    """Whether a loop of T steps on ``t`` runs one step counted T times
+    (the dry run's fake tensors: ``launch.op_cost.trips``)."""
+    return T > 1 and is_fake(t)
+
+
 def _steps(h, dec, inp, cc, ys) -> None:
     """The recurrence over the leading (time) axis of ``dec`` (T, B, Hm, 1,
     N), ``inp`` (T, B, Hm, hd, N) and ``cc`` (T, B, Hm, N, 1): ``h`` is
     updated in place and ``ys[t]`` (B, Hm, hd, 1) written."""
+    if _one_trip(h, dec.shape[0]):
+        with trips(dec.shape[0]):
+            return _steps(h, dec[:1], inp[:1], cc[:1], ys[:1])
     for t in range(dec.shape[0]):
         torch.addcmul(inp[t], h, dec[t], out=h)
         torch.matmul(h, cc[t], out=ys[t])
@@ -190,6 +203,9 @@ class _ChunkBackGraph:
 
 def _recompute(hs, dec, inp) -> None:
     """The states of a chunk from ``hs[0]``: ``hs[t + 1]`` written."""
+    if _one_trip(hs, dec.shape[0]):
+        with trips(dec.shape[0]):
+            return _recompute(hs[:2], dec[:1], inp[:1])
     for t in range(dec.shape[0]):
         torch.addcmul(inp[t], hs[t], dec[t], out=hs[t + 1])
 
@@ -198,6 +214,9 @@ def _reverse(g, dec, dy, cT, G) -> None:
     """The reverse recurrence over a chunk, last step first: ``G[t]`` (the
     gradient of step t's state) written, ``g`` updated in place to the
     gradient that reaches the state before the chunk."""
+    if _one_trip(g, dec.shape[0]):
+        with trips(dec.shape[0]):
+            return _reverse(g, dec[-1:], dy[-1:], cT[-1:], G[-1:])
     for t in range(dec.shape[0] - 1, -1, -1):
         torch.addcmul(g, dy[t], cT[t], out=G[t])
         torch.mul(G[t], dec[t], out=g)
@@ -216,11 +235,12 @@ def _graph(kind, C, B, Hm, hd, N, device):
     return g
 
 
-def _use_graphs(device: torch.device, S: int) -> bool:
-    """Replay graphs on a CUDA device, except inside a caller's own capture
-    (a graph is not captured within another: the steps are launched one by
-    one there)."""
-    return device.type == "cuda" and S > 0 \
+def _use_graphs(t: torch.Tensor, S: int) -> bool:
+    """Replay graphs for a tensor on a CUDA device, except inside a
+    caller's own capture (a graph is not captured within another: the
+    steps are launched one by one there) and for the dry run's fake
+    tensors (no memory to capture)."""
+    return t.device.type == "cuda" and S > 0 and not is_fake(t) \
         and not torch.cuda.is_current_stream_capturing()
 
 
@@ -244,7 +264,7 @@ def _scan(delta, u, Bc, Cc, A, h, C: int, starts=None) -> torch.Tensor:
     Hm, hd, N = h.shape[1:]
     ys = torch.empty((S, B, Hm, hd, 1), dtype=torch.float32, device=h.device)
     graph = _graph(_ChunkGraph, C, B, Hm, hd, N, h.device) \
-        if _use_graphs(h.device, S) else None
+        if _use_graphs(h, S) else None
     for t0 in range(0, S, C):
         t1 = min(t0 + C, S)
         if starts is not None:
@@ -285,7 +305,7 @@ class _SelectiveScan(torch.autograd.Function):
                                          (delta, u, Bc, Cc, A))
         A_ = A.detach().requires_grad_()
         graph = _graph(_ChunkBackGraph, C, B, Hm, hd, N, g.device) \
-            if _use_graphs(g.device, S) else None
+            if _use_graphs(g, S) else None
         for ci in range((S + C - 1) // C - 1, -1, -1):
             t0, t1 = ci * C, min(ci * C + C, S)
             ins = [t[:, t0:t1].detach().requires_grad_()
@@ -315,42 +335,74 @@ class _SelectiveScan(torch.autograd.Function):
         return d_delta, d_u, d_Bc, d_Cc, d_A, g, None
 
 
-def ssm_scan(x: torch.Tensor, p: Dict, cfg: ModelConfig,
-             h0: Optional[torch.Tensor] = None, time_chunk: int = 256
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> (y (B, S, D), h after S steps (B, Hm, hd, N)).
-    Differentiable (through :class:`_SelectiveScan`) when grad mode is on
-    and the inputs require grad."""
-    B, S, _ = x.shape
-    Hm, hd, N = cfg.ssm_heads, cfg.hd, cfg.ssm_state
-    u = (x @ p["in_proj"]).reshape(B, S, Hm, hd)
-    gate = F.silu(x @ p["gate_proj"]).reshape(B, S, Hm, hd)
+def _scan_heads(u, gate, w_bc, w_dt, b_dt, a_log, h0, time_chunk: int):
+    """The scan of heads u, gate (B, S, Hm, hd) from the state h0 (None:
+    zeros) -> (y (B, S, Hm, hd) in u's dtype, h after S steps)."""
+    B, _, Hm, hd = u.shape
+    p = {"w_bc": w_bc, "w_dt": w_dt, "b_dt": b_dt, "a_log": a_log}
     delta, Bc, Cc, A = _gates(u, p)
-    h = torch.zeros((B, Hm, hd, N), dtype=torch.float32, device=x.device) \
-        if h0 is None else h0.float()
+    h = torch.zeros((B, Hm, hd, a_log.shape[-1]), dtype=torch.float32,
+                    device=u.device) if h0 is None else h0.float()
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (delta, u, Bc, Cc, A, h)):
         ys, h = _SelectiveScan.apply(delta, u, Bc, Cc, A, h, time_chunk)
     else:
         h = h.clone()
         ys = _scan(delta, u, Bc, Cc, A, h, time_chunk)
-    y = ys[..., 0].transpose(0, 1).to(x.dtype) * gate
-    return y.reshape(B, S, Hm * hd) @ p["out_proj"], h
+    return ys[..., 0].transpose(0, 1).to(u.dtype) * gate, h
+
+
+def _step_heads(u, gate, w_bc, w_dt, b_dt, a_log, h):
+    """One step of heads u, gate (B, 1, Hm, hd) on the state h (B, Hm, hd,
+    N) -> (y (B, 1, Hm, hd), h')."""
+    p = {"w_bc": w_bc, "w_dt": w_dt, "b_dt": b_dt, "a_log": a_log}
+    delta, Bc, Cc, A = _gates(u, p)
+    u_t, d_t = u[:, 0].float(), delta[:, 0]
+    decay = torch.exp(A[None] * d_t)
+    h = h * decay[:, :, None, :] + (d_t[:, :, None] * u_t[..., None]) \
+        * Bc[:, 0][:, :, None, :]
+    y = torch.einsum("bhdn,bhn->bhd", h, Cc[:, 0])[:, None].to(u.dtype) \
+        * gate
+    return y, h
+
+
+# the roles of _scan_heads's / _step_heads's tensors for
+# meshed.sharded_heads: u and gate (B, S, Hm, hd), the per-head weights,
+# the state (B, Hm, hd, N); their outputs y and h
+_HEAD_ROLES = (("act", 2), ("act", 2), ("param", 0), ("param", 0),
+               ("param", 0), ("param", 0))
+_HEAD_OUT = (2, 1)
+
+
+def _heads(fn, x, p, cfg: ModelConfig, h, *extra):
+    """``fn`` on the SSM heads of x (B, S, D) -> (y (B, S, D), h): the
+    input and gate projections split into heads, on a device mesh each
+    rank's batch rows and heads (``meshed.sharded_heads``)."""
+    Hm, hd = cfg.ssm_heads, cfg.hd
+    u = split_heads(x @ p["in_proj"], Hm, hd)
+    gate = split_heads(F.silu(x @ p["gate_proj"]), Hm, hd)
+    args = (u, gate, p["w_bc"], p["w_dt"], p["b_dt"], p["a_log"], h)
+    if is_dtensor(u):
+        y, h = sharded_heads(
+            lambda *a: fn(*a, *extra), args,
+            _HEAD_ROLES + ((None if h is None else ("act", 1)),),
+            _HEAD_OUT, Hm)
+    else:
+        y, h = fn(*args, *extra)
+    return merge_heads(y) @ p["out_proj"], h
+
+
+def ssm_scan(x: torch.Tensor, p: Dict, cfg: ModelConfig,
+             h0: Optional[torch.Tensor] = None, time_chunk: int = 256
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> (y (B, S, D), h after S steps (B, Hm, hd, N)).
+    Differentiable (through :class:`_SelectiveScan`) when grad mode is on
+    and the inputs require grad."""
+    return _heads(_scan_heads, x, p, cfg, h0, time_chunk)
 
 
 def ssm_step(x: torch.Tensor, p: Dict, cfg: ModelConfig, h: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Single decode step.  x: (B, 1, D); h: (B, Hm, hd, N) -> (y (B, 1,
     D), h')."""
-    B = x.shape[0]
-    Hm, hd, N = cfg.ssm_heads, cfg.hd, cfg.ssm_state
-    u = (x @ p["in_proj"]).reshape(B, 1, Hm, hd)
-    gate = F.silu(x @ p["gate_proj"]).reshape(B, 1, Hm, hd)
-    delta, Bc, Cc, A = _gates(u, p)
-    u_t, d_t = u[:, 0].float(), delta[:, 0]
-    decay = torch.exp(A[None] * d_t)
-    h = h * decay[:, :, None, :] + (d_t[:, :, None] * u_t[..., None]) \
-        * Bc[:, 0][:, :, None, :]
-    y = torch.einsum("bhdn,bhn->bhd", h, Cc[:, 0])[:, None].to(x.dtype) \
-        * gate
-    return y.reshape(B, 1, Hm * hd) @ p["out_proj"], h
+    return _heads(_step_heads, x, p, cfg, h)

@@ -60,7 +60,7 @@ from ..core.dynplan import gather_rows
 from .config import ModelConfig, torch_dtype
 from .layers import (attention, attention_decode, cross_attention,
                      init_attn, init_mlp, mlp, rmsnorm)
-from .meshed import is_dtensor, require_meshable, sharded_lookup
+from .meshed import is_dtensor, sharded_lookup, sharded_set, split_heads
 from .moe import init_moe, moe_layer
 from .sharding import constrain
 from .ssm import init_ssm, ssm_scan, ssm_step
@@ -255,10 +255,11 @@ def hymba_mix(attn_out, ssm_out, bp, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _encoder_kv(enc_out, cbp, cfg: ModelConfig):
-    B, Se, _ = enc_out.shape
+    """The cross attention's K and V (B, Se, Hkv, hd) from the encoder's
+    output, pinned as ``attention`` pins its own (heads over ``model``)."""
     Hkv, hd = cfg.n_kv_heads, cfg.hd
-    return ((enc_out @ cbp["wk"]).reshape(B, Se, Hkv, hd),
-            (enc_out @ cbp["wv"]).reshape(B, Se, Hkv, hd))
+    return tuple(constrain(split_heads(enc_out @ cbp[w], Hkv, hd),
+                           model_dim=2) for w in ("wk", "wv"))
 
 
 def _run_encoder(params, cfg: ModelConfig, x, remat: bool = False
@@ -310,7 +311,9 @@ def _block(x, bp, cfg: ModelConfig, window, enc_out=None, cbp=None):
                                 cbp, cfg, (ek, ev))
     aux = None
     if cfg.is_moe:
-        ff, aux = moe_layer(rmsnorm(x, bp["ln2"], cfg.norm_eps), bp, cfg)
+        # whole sequences into the router (the reference's pin of xg)
+        ff, aux = moe_layer(constrain(rmsnorm(x, bp["ln2"], cfg.norm_eps)),
+                            bp, cfg)
         x = x + ff
     elif cfg.d_ff:
         x = x + mlp(constrain(rmsnorm(x, bp["ln2"], cfg.norm_eps)), bp,
@@ -356,7 +359,6 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
     ``embeds`` overrides the token lookup (VLM path); ``enc_embeds`` feeds
     the encoder (audio path)."""
     require_supported(cfg)
-    require_meshable(cfg, params)
     x = _inputs(params, tokens, embeds)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.block_kind == "xlstm":
@@ -379,7 +381,6 @@ def forward_train(params, cfg: ModelConfig, *, tokens=None, embeds=None,
     keeps only its input for the backward and recomputes the rest there
     (its flash launches and SSM scan run again)."""
     require_supported(cfg, grad=True)
-    require_meshable(cfg, params)
     dev = params["embed"].device
     if embeds is not None:
         x = check_payload(embeds, dev, "embeds")
@@ -431,7 +432,6 @@ def prefill(params, cfg: ModelConfig, *, tokens=None, embeds=None,
     overwrites before its mask ever exposes them).  The cache is
     left-aligned in (L, B, s_max, Hkv, hd) tensors."""
     require_supported(cfg)
-    require_meshable(cfg, params)
     x = _inputs(params, tokens, embeds)
     B, S, _ = x.shape
     if cfg.block_kind == "xlstm":
@@ -465,14 +465,17 @@ def prefill(params, cfg: ModelConfig, *, tokens=None, embeds=None,
 
 def _stacked_cache(cfg: ModelConfig, outs, S: int, s_max: int) -> Dict:
     """The decode cache of a prefill on a device mesh: each layer's K and V
-    DTensors stacked along L, zero-padded to ``s_max`` and placed by
-    ``cache_specs`` (the dense block kinds' cache)."""
+    DTensors stacked along L and zero-padded to ``s_max``, hymba's SSM
+    state ``h`` and the encoder's ``ck`` / ``cv`` stacked, each placed by
+    ``cache_specs``."""
     from ..launch.mesh import mesh_sizes
     from .sharding import NamedSharding, cache_specs
     cache = {"pos": S}
-    for n, j in (("k", 0), ("v", 1)):
+    for n, j in (("k", 0), ("v", 1), ("h", 2), ("ck", 3), ("cv", 4)):
+        if outs[0][j] is None:
+            continue
         t = torch.stack([o[j] for o in outs])
-        if s_max > S:
+        if n in ("k", "v") and s_max > S:
             pad = torch.zeros((t.shape[0], t.shape[1], s_max - S)
                               + tuple(t.shape[3:]), dtype=t.dtype,
                               device=t.device)
@@ -481,10 +484,20 @@ def _stacked_cache(cfg: ModelConfig, outs, S: int, s_max: int) -> Dict:
     mesh = cache["k"].device_mesh
     specs = cache_specs(cache, cfg, mesh_sizes(mesh), cache["k"].shape[1],
                         s_max)
-    for n in ("k", "v"):
-        want = NamedSharding(mesh, specs[n]).placements
-        cache[n] = cache[n].redistribute(mesh, want)
+    for n in cache:
+        if n != "pos":
+            want = NamedSharding(mesh, specs[n]).placements
+            cache[n] = cache[n].redistribute(mesh, want)
     return cache
+
+
+def _set(stack, i: int, new) -> None:
+    """``stack[i] = new`` for a cache leaf, a DTensor's on each rank's
+    shard (``meshed.sharded_set``)."""
+    if is_dtensor(stack):
+        sharded_set(stack, i, new)
+    else:
+        stack[i] = new
 
 
 @torch.no_grad()
@@ -494,7 +507,6 @@ def decode_step(params, cfg: ModelConfig, tokens, cache: Dict
     cache's tensors are updated in place (the returned cache shares them);
     ``pos`` advances by one."""
     require_supported(cfg)
-    require_meshable(cfg, params)
     dev = params["embed"].device
     if is_dtensor(params["embed"]):
         x = constrain(sharded_lookup(params["embed"],
@@ -508,7 +520,7 @@ def decode_step(params, cfg: ModelConfig, tokens, cache: Dict
             x, st = xlstm_pair_step(x, layer(params["pairs"], i), cfg,
                                     layer(pairs, i))
             for n, a in st.items():
-                pairs[n][i] = a
+                _set(pairs[n], i, a)
         return _head(params, cfg, x)[:, 0], {"pairs": pairs, "pos": pos + 1}
     s_max = cache["k"].shape[2]
     if pos >= s_max:
@@ -523,7 +535,8 @@ def decode_step(params, cfg: ModelConfig, tokens, cache: Dict
                                           cache["v"][i], pos,
                                           window=windows[i])
         if cfg.block_kind == "hymba":
-            ssm_out, cache["h"][i] = ssm_step(h, bp, cfg, cache["h"][i])
+            ssm_out, hst = ssm_step(h, bp, cfg, cache["h"][i])
+            _set(cache["h"], i, hst)
             attn_out = hymba_mix(attn_out, ssm_out, bp, cfg)
         x = x + attn_out
         if cross is not None:

@@ -44,9 +44,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core.device import is_fake
+from ..launch.op_cost import held, trips
 from .config import ModelConfig, torch_dtype
 from .graphs import capture
 from .layers import rmsnorm
+from .meshed import is_dtensor, sharded_heads, split_heads
+from .sharding import constrain, merge_heads
 
 __all__ = ["init_xlstm_pair", "init_xlstm_state", "xlstm_pair_scan",
            "xlstm_pair_step", "TIME_CHUNK"]
@@ -154,8 +158,16 @@ def _steps(cell, seqs, state, consts=()):
     """``cell(*inputs at t, *consts, *state) -> (out, *state)`` over time
     axis 1 of ``seqs``: -> (the outputs stacked on axis 1, *state after
     them)."""
+    T = seqs[0].shape[1]
+    if T > 1 and is_fake(seqs[0]):
+        # the dry run: one step counted T times (launch.op_cost.trips),
+        # the other steps' outputs alive until they are stacked
+        with trips(T):
+            out, *state = cell(*(a[:, 0] for a in seqs), *consts, *state)
+        with held((T - 1) * out.untyped_storage().nbytes()):
+            return (torch.stack([out] * T, 1), *state)
     outs = []
-    for t in range(seqs[0].shape[1]):
+    for t in range(T):
         out, *state = cell(*(a[:, t] for a in seqs), *consts, *state)
         outs.append(out)
     return (torch.stack(outs, 1), *state)
@@ -167,25 +179,38 @@ def _time_loop(cell, seqs, state, consts=()):
     chunk-boundary states are kept for the backward)."""
     if not torch.is_grad_enabled():
         return _steps(cell, seqs, state, consts)
+    S = seqs[0].shape[1]
+    full = S // TIME_CHUNK
+    if full > 1 and is_fake(seqs[0]):
+        # the dry run: one whole chunk counted as all of them, forward and
+        # backward (launch.op_cost.trips); a last short chunk as it is
+        parts = [(0, full)] + ([(full * TIME_CHUNK, 1)]
+                               if S % TIME_CHUNK else [])
+    else:
+        parts = [(t0, 1) for t0 in range(0, S, TIME_CHUNK)]
     outs = []
-    for t0 in range(0, seqs[0].shape[1], TIME_CHUNK):
+    for t0, n in parts:
         part = tuple(a[:, t0:t0 + TIME_CHUNK] for a in seqs)
-        out, *state = _CellChunk.apply(cell, len(part), len(consts), *part,
-                                       *consts, *state)
-        outs.append(out)
+        with trips(n):
+            out, *state = _CellChunk.apply(cell, len(part), len(consts), n,
+                                           *part, *consts, *state)
+        outs += [out] * n
     return (torch.cat(outs, 1), *state)
 
 
 class _CellChunk(torch.autograd.Function):
     """One chunk of a cell's time loop as one checkpointed autograd node:
-    ``_CellChunk.apply(cell, n_seqs, n_consts, *seqs, *consts, *state) ->
-    (outputs stacked on axis 1, *state after them)``.  The forward runs
-    the steps without autograd and saves only its inputs; the backward
-    recomputes the steps under autograd from them and differentiates."""
+    ``_CellChunk.apply(cell, n_seqs, n_consts, n_trips, *seqs, *consts,
+    *state) -> (outputs stacked on axis 1, *state after them)``.  The
+    forward runs the steps without autograd and saves only its inputs; the
+    backward recomputes the steps under autograd from them and
+    differentiates.  ``n_trips`` (1 but in the dry run) is the number of
+    alike chunks the node stands for, its backward counted that often
+    (``launch.op_cost.trips``)."""
 
     @staticmethod
-    def forward(ctx, cell, n_seqs, n_consts, *tensors):
-        ctx.cell, ctx.split = cell, (n_seqs, n_consts)
+    def forward(ctx, cell, n_seqs, n_consts, n_trips, *tensors):
+        ctx.cell, ctx.split, ctx.trips = cell, (n_seqs, n_consts), n_trips
         ctx.save_for_backward(*tensors)
         return tuple(_runner(cell, n_seqs, n_consts, tensors)
                      .forward(tensors))
@@ -193,11 +218,12 @@ class _CellChunk(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *gouts):
         tensors = ctx.saved_tensors
-        grads = _runner(ctx.cell, *ctx.split, tensors).backward(tensors,
-                                                                 gouts)
-        return (None, None, None) + tuple(
+        with trips(ctx.trips):
+            grads = _runner(ctx.cell, *ctx.split, tensors).backward(
+                tensors, gouts)
+        return (None, None, None, None) + tuple(
             g if need else None
-            for g, need in zip(grads, ctx.needs_input_grad[3:]))
+            for g, need in zip(grads, ctx.needs_input_grad[4:]))
 
 
 class _EagerChunk:
@@ -216,11 +242,48 @@ class _EagerChunk:
             return self._run(tensors)
 
     def backward(self, tensors, gouts):
+        if is_fake(tensors[0]):
+            return self._one_trip_backward(tensors, gouts)
         leaves = [t.detach().requires_grad_() for t in tensors]
         with torch.enable_grad():
             outs = self._run(leaves)
             return torch.autograd.grad(outs, leaves, gouts,
                                        allow_unused=True)
+
+    def _one_trip_backward(self, tensors, gouts):
+        """The dry run's backward of a chunk of T steps: one step's
+        recompute and backward counted T times (``launch.op_cost.trips``),
+        the sequences' gradients made once."""
+        a = self.n_seqs
+        T = tensors[0].shape[1]
+        inputs = {t.untyped_storage()._cdata for t in tensors}
+        saved = {}
+
+        def pack(t):
+            st = t.untyped_storage()
+            if st._cdata not in inputs:
+                saved[st._cdata] = st.nbytes()
+            return t
+        with trips(T):
+            leaves = [t[:, 0].detach().requires_grad_() for t in tensors[:a]]
+            leaves += [t.detach().requires_grad_() for t in tensors[a:]]
+            with torch.enable_grad():
+                with torch.autograd.graph.saved_tensors_hooks(pack, _same):
+                    outs = self.cell(*leaves)
+                # the recompute of the chunk's other steps: their saved
+                # activations and outputs, and the outputs stacked, alive
+                # as its backward starts; the sequences' gradients there,
+                # each accumulated whole and a step's select backward
+                # (whole too) added to it
+                out = outs[0].untyped_storage().nbytes()
+                grads = sum(2 * t.numel() * t.element_size()
+                            for t in tensors[:a])
+                with held((T - 1) * (sum(saved.values()) + out) + T * out
+                          + grads):
+                    got = torch.autograd.grad(outs, leaves,
+                                              [gouts[0][:, 0], *gouts[1:]],
+                                              allow_unused=True)
+        return [torch.zeros_like(t) for t in tensors[:a]] + list(got[a:])
 
 
 class _ChunkGraphs(_EagerChunk):
@@ -260,10 +323,11 @@ class _ChunkGraphs(_EagerChunk):
 _GRAPHS: Dict[tuple, _ChunkGraphs] = {}
 
 
-def _use_graphs(device: torch.device) -> bool:
-    """Replay graphs on a CUDA device, except inside a caller's own
-    capture (a graph is not captured within another)."""
-    return device.type == "cuda" \
+def _use_graphs(t: torch.Tensor) -> bool:
+    """Replay graphs for a tensor on a CUDA device, except inside a
+    caller's own capture (a graph is not captured within another) and for
+    the dry run's fake tensors (no memory to capture)."""
+    return t.device.type == "cuda" and not is_fake(t) \
         and not torch.cuda.is_current_stream_capturing()
 
 
@@ -271,55 +335,86 @@ def _runner(cell, n_seqs: int, n_consts: int, tensors):
     """The chunk's graphs where :func:`_use_graphs`, else the eager
     chunk."""
     dev = tensors[0].device
-    if not _use_graphs(dev):
+    if not _use_graphs(tensors[0]):
         return _EagerChunk(cell, n_seqs, n_consts)
     key = (cell, n_seqs, n_consts, str(dev)) + tuple(
         (tuple(t.shape), t.dtype) for t in tensors)
     g = _GRAPHS.get(key)
     if g is None:
-        g = _GRAPHS[key] = _ChunkGraphs(cell, n_seqs, n_consts, tensors)
+        # the capture's own autograd graph (the backward's) must not reach
+        # the saved-tensor hooks of a caller's activation checkpoint: the
+        # first chunk of a checkpointed pair captures, its recompute
+        # replays, and the checkpoint requires both to save alike
+        with torch.autograd.graph.saved_tensors_hooks(_same, _same):
+            g = _GRAPHS[key] = _ChunkGraphs(cell, n_seqs, n_consts,
+                                            tensors)
     return g
+
+
+def _same(t):
+    return t
+
+
+def _cells(cell, seqs, state, consts, H: int):
+    """:func:`_time_loop` of ``cell``; on a device mesh on each rank's
+    batch rows and heads (``meshed.sharded_heads``): the sequences (B, S,
+    H[, hd]) and the state (B, H[, ...]) split on their head dimension,
+    the per-head constants (H, ...) too."""
+    if not any(is_dtensor(t) for t in seqs):
+        return _time_loop(cell, seqs, state, consts)
+    ns, nc = len(seqs), len(consts)
+
+    def run(*a):
+        return _time_loop(cell, a[:ns], a[ns + nc:], a[ns:ns + nc])
+    roles = (("act", 2),) * ns + (("param", 0),) * nc + (("act", 1),) * \
+        len(state)
+    return sharded_heads(run, tuple(seqs) + tuple(consts) + tuple(state),
+                         roles, (2,) + (1,) * len(state), H)
 
 
 def _mlstm_block(x, p, cfg: ModelConfig, st: Dict):
     """The mLSTM block (pre-norm residual) over x (B, S, D); returns (x +
-    y, (C, n, m) after S steps)."""
-    B, S, D = x.shape
+    y, (C, n, m) after S steps).  Under a mesh the residual stream in and
+    out is pinned to batch over the dp axes (``sharding.constrain``), as
+    the dense blocks pin theirs."""
+    x = constrain(x)
+    D = x.shape[-1]
     H = cfg.n_heads
     hd = D // H
     f32 = torch.float32
     xa = rmsnorm(x, p["m_norm"], cfg.norm_eps)
-    q = (xa @ p["m_wq"]).reshape(B, S, H, hd).to(f32)
-    k = ((xa @ p["m_wk"]).reshape(B, S, H, hd) / math.sqrt(hd)).to(f32)
-    v = (xa @ p["m_wv"]).reshape(B, S, H, hd).to(f32)
+    q = split_heads(xa @ p["m_wq"], H, hd).to(f32)
+    k = (split_heads(xa @ p["m_wk"], H, hd) / math.sqrt(hd)).to(f32)
+    v = split_heads(xa @ p["m_wv"], H, hd).to(f32)
     xf = xa.to(f32)
     i_raw = xf @ p["m_wi"]
     f_raw = xf @ p["m_wf"] + p["m_bf"]
-    hs, C, n, m = _time_loop(_mlstm_cell, (q, k, v, i_raw, f_raw),
-                             (st["mC"], st["mn"], st["mm"]))
+    hs, C, n, m = _cells(_mlstm_cell, (q, k, v, i_raw, f_raw),
+                         (st["mC"], st["mn"], st["mm"]), (), H)
     o_gate = torch.sigmoid(xa @ p["m_wo"])
-    y = (hs.reshape(B, S, D).to(x.dtype) * o_gate) @ p["m_out"]
-    return x + y, (C, n, m)
+    y = (merge_heads(hs).to(x.dtype) * o_gate) @ p["m_out"]
+    return constrain(x + y), (C, n, m)
 
 
 def _slstm_block(x, p, cfg: ModelConfig, st: Dict):
     """The sLSTM block (pre-norm residual) over x (B, S, D); returns (x +
     y, (c, n, m, h) after S steps)."""
-    B, S, D = x.shape
+    x = constrain(x)
+    D = x.shape[-1]
     H = cfg.n_heads
     hd = D // H
     f32 = torch.float32
     xb = rmsnorm(x, p["s_norm"], cfg.norm_eps)
-    z_raw = (xb @ p["s_wz"]).reshape(B, S, H, hd).to(f32)
+    z_raw = split_heads(xb @ p["s_wz"], H, hd).to(f32)
     xf = xb.to(f32)
     i_raw = xf @ p["s_wi"]
     f_raw = xf @ p["s_wf"] + p["s_bf"]
-    o_in = (xb @ p["s_wo"]).reshape(B, S, H, hd).to(f32)
-    hs, c, n, m, h = _time_loop(_slstm_step, (z_raw, i_raw, f_raw, o_in),
-                                (st["sc"], st["sn"], st["sm"], st["sh"]),
-                                (p["s_rz"].to(f32),))
-    y = hs.reshape(B, S, D).to(x.dtype) @ p["s_out"]
-    return x + y, (c, n, m, h)
+    o_in = split_heads(xb @ p["s_wo"], H, hd).to(f32)
+    hs, c, n, m, h = _cells(_slstm_step, (z_raw, i_raw, f_raw, o_in),
+                            (st["sc"], st["sn"], st["sm"], st["sh"]),
+                            (p["s_rz"].to(f32),), H)
+    y = merge_heads(hs).to(x.dtype) @ p["s_out"]
+    return constrain(x + y), (c, n, m, h)
 
 
 def xlstm_pair_scan(x: torch.Tensor, p: Dict, cfg: ModelConfig,

@@ -448,3 +448,34 @@ def test_require_supported_raises_only_for_unknown_block_kinds():
     for grad in (False, True):
         with pytest.raises(NotImplementedError, match="unknown block kind"):
             T.require_supported(cfg, grad=grad)
+
+
+def test_xlstm_chunk_graphs_first_captured_inside_a_checkpoint(monkeypatch):
+    """A pair under non-reentrant activation checkpointing whose chunk
+    graphs are captured during its forward (no graph cached yet, as in a
+    process's first xlstm step on the card): the capture's autograd graph
+    stays out of the checkpoint's saved-tensor hooks, so the recompute
+    (which replays) saves what the forward saved, and the gradients are
+    the eager chunks' bits."""
+    _, cfg, _, pp = model("xlstm-350m")
+    x = torch.randn(2, 200, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(5)) * 0.5
+    ppp = {k: v[0].clone() for k, v in pp["pairs"].items()}
+    runs = []
+    for graphs in (False, True):
+        PX._GRAPHS.clear()
+        monkeypatch.setattr(PX, "_use_graphs", lambda dev, on=graphs: on)
+        leaves = [x.clone().requires_grad_()] + \
+            [ppp[k].clone().requires_grad_() for k in sorted(ppp)]
+
+        def pair(xx, *ws):
+            st = PX.init_xlstm_state(cfg, 2, CPU)
+            return PX.xlstm_pair_scan(xx, dict(zip(sorted(ppp), ws)), cfg,
+                                      st)[0]
+        y = torch.utils.checkpoint.checkpoint(pair, *leaves,
+                                              use_reentrant=False)
+        runs.append([y, *torch.autograd.grad(y.square().sum(), leaves)])
+    monkeypatch.undo()
+    PX._GRAPHS.clear()
+    for a, b in zip(*runs):
+        assert torch.equal(a.detach(), b.detach())

@@ -6,12 +6,13 @@ reference's (``repro.launch``) on the CPU.
 the reference's on a one-device mesh (``eval_shape`` only on the reference
 side, meta tensors on the port's; no compile, nothing runs).
 ``roofline_row`` keeps the reference's math with the H100's constants.
-``shardings()`` gives every parameter leaf of every dense config the
+``shardings()`` gives every parameter leaf of every config the
 placements that ``param_specs`` names, on the production meshes, under a
 ``fake`` group of 512 ranks (a subprocess: one default group a process).
 The dry run's step runs under a fake group of 8 on a (4, 2) mesh at the
-reference's small-mesh cell (qwen3-4b with its overrides), and at world 1
-its per-device FLOPs equal ``FlopCounterMode``'s count of the plain step.
+reference's small-mesh cell (qwen3-4b with its overrides) and at a tiny
+phi3.5-moe cell (4 experts over ``model``), and at world 1 its per-device
+FLOPs equal ``FlopCounterMode``'s count of the plain step.
 """
 
 import dataclasses
@@ -44,14 +45,20 @@ from repro_torch.launch import roofline as PR  # noqa: E402
 from repro_torch.launch.mesh import HW  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 
-DENSE = [a for a in ALL_ARCHS
-         if not get_config(a).is_moe
-         and get_config(a).block_kind == "transformer"
-         and not get_config(a).enc_layers]
 # the reference's small-mesh cell (tests/test_launch.py)
 SMALL_OVERRIDES = dict(n_layers=4, d_model=128, n_heads=8, n_kv_heads=4,
                        head_dim=16, d_ff=256, vocab=512)
+# a tiny MoE cell on the same mesh: 4 experts over model = 2
+MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+MOE_OVERRIDES = dict(d_ff=0, moe_experts=4, moe_topk=2, moe_dff=64)
+# narrow cells whose heads do not divide 16 model ranks: llava-next-34b's
+# 56 query heads over 8 KV heads, xlstm-350m's 4 (their published counts)
+UNEVEN_HEADS = {"llava-next-34b": dict(d_model=448, n_heads=56, n_kv_heads=8,
+                                       head_dim=8),
+                "xlstm-350m": dict(d_model=256, n_heads=4, n_kv_heads=4,
+                                   head_dim=64, d_ff=0)}
 TINY = {"tiny_train": dict(seq_len=64, global_batch=8, kind="train"),
+        "tiny_train_16x16": dict(seq_len=32, global_batch=32, kind="train"),
         "tiny_decode": dict(seq_len=64, global_batch=8, kind="decode")}
 
 
@@ -212,13 +219,13 @@ def test_shardings_name_the_param_specs_placements():
                                       p))] = str(t.placements)
                 walk(sh, "")
         print(json.dumps(out))
-    """ % (DENSE,)).splitlines()[-1])
+    """ % (ALL_ARCHS,)).splitlines()[-1])
     n = 0
     for shape, axes in (((16, 16), ("data", "model")),
                         ((2, 16, 16), ("pod", "data", "model"))):
         mesh = types.SimpleNamespace(axis_names=axes,
                                      shape=dict(zip(axes, shape)))
-        for arch in DENSE:
+        for arch in ALL_ARCHS:
             rcfg = ref_config(arch)
             rparams = jax.eval_shape(lambda k: RT.init_params(k, rcfg),
                                      jax.random.PRNGKey(0))
@@ -249,13 +256,14 @@ DRY_RUNS = """
     for world, shape, cells in %(runs)r:
         dryrun.fake_group(world)
         mesh = make_mesh(shape, ("data", "model"), device_type="cpu")
-        for cell, layers, depth in cells:
+        for arch, cell, layers, depth in cells:
+            ov = dict(%(ov)r, n_layers=layers, **%(arch_ov)r.get(arch, {}))
             rec = dryrun.run_cell(
-                "qwen3-4b", cell, mesh,
-                CellOptions(microbatches=2) if cell == "tiny_train"
-                else CellOptions(), dict(%(ov)r, n_layers=layers),
-                device="cpu", depth=depth)
-            out["|".join((str(world), cell, str(layers), depth))] = rec
+                arch, cell, mesh,
+                CellOptions(microbatches=2) if "train" in cell
+                else CellOptions(), ov, device="cpu", depth=depth)
+            out["|".join((arch, str(world), cell, str(layers),
+                          depth))] = rec
         dist.destroy_process_group()
     print(json.dumps(out))
 """
@@ -267,12 +275,20 @@ def dry_runs():
     the reference's small-mesh cells under a fake group of 8 on (4, 2),
     the train cell at 5 layers extended from 2, 3 and 4 and run whole,
     and the train cell under a fake group of 1 on (1, 1)."""
-    runs = [(8, (4, 2), [("tiny_train", 5, "auto"),
-                         ("tiny_train", 5, "full"),
-                         ("tiny_decode", 4, "auto")]),
-            (1, (1, 1), [("tiny_train", 4, "auto")])]
+    q, m = "qwen3-4b", MOE_ARCH
+    runs = [(8, (4, 2), [(q, "tiny_train", 5, "auto"),
+                         (q, "tiny_train", 5, "full"),
+                         (q, "tiny_decode", 4, "auto"),
+                         (m, "tiny_train", 5, "auto"),
+                         (m, "tiny_train", 5, "full"),
+                         (m, "tiny_decode", 4, "auto")]),
+            (1, (1, 1), [(q, "tiny_train", 4, "auto")]),
+            (256, (16, 16), [(a, "tiny_train_16x16", 2, "full")
+                             for a in UNEVEN_HEADS])]
     return json.loads(_run(DRY_RUNS % dict(
-        tiny=TINY, runs=runs, ov=SMALL_OVERRIDES)).splitlines()[-1])
+        tiny=TINY, runs=runs, ov=SMALL_OVERRIDES,
+        arch_ov={m: MOE_OVERRIDES, **UNEVEN_HEADS}),
+        timeout=600).splitlines()[-1])
 
 
 def test_dry_run_small_mesh_cells_count(dry_runs):
@@ -284,7 +300,8 @@ def test_dry_run_small_mesh_cells_count(dry_runs):
     whose largest moment can move as layers are added (this config's
     layers are small beside its fixed activations): extended, it is held
     within 5%."""
-    for key in ("8|tiny_train|5|full", "8|tiny_decode|4|auto"):
+    for key in ("qwen3-4b|8|tiny_train|5|full",
+                "qwen3-4b|8|tiny_decode|4|auto"):
         rec = dry_runs[key]
         oc = rec["op_cost"]
         assert rec["status"] == "ok"
@@ -293,7 +310,8 @@ def test_dry_run_small_mesh_cells_count(dry_runs):
             rec["memory"]["argument_bytes"] > 0
         assert rec["fits80G"] and rec["meta"]["mesh"] == {"data": 4,
                                                           "model": 2}
-    full, ext = dry_runs["8|tiny_train|5|full"], dry_runs["8|tiny_train|5|auto"]
+    full = dry_runs["qwen3-4b|8|tiny_train|5|full"]
+    ext = dry_runs["qwen3-4b|8|tiny_train|5|auto"]
     assert full["op_cost"]["collective_bytes"] > 0
     assert set(full["op_cost"]["collective_counts"]) >= {"all-reduce"}
     assert ext["depths_run"] == [2, 3, 4] and full["depths_run"] == [5]
@@ -323,28 +341,115 @@ def test_dry_run_at_world_1_counts_the_plain_steps_flops(dry_runs):
     toks = np.random.default_rng(0).integers(0, cfg.vocab, (B, S))
     with FlopCounterMode(display=False) as fc:
         step(params, opt, {"tokens": toks, "labels": toks})
-    rec = dry_runs["1|tiny_train|4|auto"]
+    rec = dry_runs["qwen3-4b|1|tiny_train|4|auto"]
     assert rec["depths_run"] == [4]
     assert rec["op_cost"]["flops"] == fc.get_total_flops()
     assert rec["op_cost"]["collective_bytes"] == 0
 
 
+def test_dry_run_moe_cell_counts_the_expert_exchange(dry_runs):
+    """The tiny MoE cell under a fake group of 8 on (4, 2): the step's
+    counts at 5 layers extended from 2, 3 and 4 equal every layer run;
+    the decode step counts the FSDP all-gathers of each layer's three
+    expert stacks (2 local experts x 128 x 64 bf16 each, gathered over
+    data) and the all-reduce of each layer's MoE output (8 tokens x 128
+    bf16, a partial sum over model)."""
+    full = dry_runs[f"{MOE_ARCH}|8|tiny_train|5|full"]
+    ext = dry_runs[f"{MOE_ARCH}|8|tiny_train|5|auto"]
+    assert full["status"] == ext["status"] == "ok"
+    assert ext["depths_run"] == [2, 3, 4] and full["depths_run"] == [5]
+    for k in ("flops", "bytes_accessed", "collective_bytes"):
+        assert ext["op_cost"][k] == pytest.approx(full["op_cost"][k],
+                                                  rel=1e-12), k
+    assert ext["op_cost"]["collective_counts"] == \
+        full["op_cost"]["collective_counts"]
+    dec = dry_runs[f"{MOE_ARCH}|8|tiny_decode|4|auto"]
+    by = dec["op_cost"]["collective_bytes_by_kind"]
+    L, E_l, D, F, B = 4, 2, SMALL_OVERRIDES["d_model"], \
+        MOE_OVERRIDES["moe_dff"], TINY["tiny_decode"]["global_batch"]
+    assert by["all-gather"] >= L * 3 * E_l * D * F * 2
+    assert by["all-reduce"] >= L * B * D * 2
+    assert dec["fits80G"] and dec["memory"]["peak_per_device"] > 0
+
+
+@pytest.mark.parametrize("arch", list(UNEVEN_HEADS))
+def test_dry_run_heads_that_do_not_divide_the_model_ranks(dry_runs, arch):
+    """A train cell on the production mesh (16 x 16, a fake group of 256)
+    whose heads do not divide the 16 model ranks: the backward of the
+    head merge before the output projection takes the gradient whole
+    (``sharding.merge_heads``); without that pin DTensor cannot unflatten
+    it and the step raises."""
+    rec = dry_runs[f"{arch}|256|tiny_train_16x16|2|full"]
+    assert rec["status"] == "ok" and rec["op_cost"]["flops"] > 0
+    assert rec["meta"]["mesh"] == {"data": 16, "model": 16}
+    assert rec["op_cost"]["collective_counts"]["reduce-scatter"] > 0
+
+
+def _loop_cost(arch: str, folded: bool, monkeypatch):
+    """The op cost (``launch.op_cost.CostMode``) of one recurrence's
+    forward and backward on fake tensors: hymba's ``ssm_scan`` in 8-step
+    chunks, an xlstm pair in 8-step chunks (``TIME_CHUNK`` patched), 32
+    steps, with the loops counted by trip or (``folded=False``) stepped."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch.op_cost import CostMode
+    from repro_torch.models import ssm, xlstm
+    monkeypatch.setattr(xlstm, "TIME_CHUNK", 8)
+    if not folded:
+        monkeypatch.setattr(ssm, "_one_trip", lambda t, T: False)
+        monkeypatch.setattr(xlstm, "is_fake", lambda t: False)
+    cfg = get_config(arch).smoke_config().scaled(dtype="float32")
+    with FakeTensorMode():
+        params = T.init_params(cfg, device="cpu")
+        lp = {k: v[0].detach().requires_grad_()
+              for k, v in (params["pairs"] if arch == "xlstm-350m"
+                           else params["blocks"]).items()}
+        x = torch.empty(2, 32, cfg.d_model).requires_grad_()
+        mode = CostMode()
+        with mode:
+            if arch == "xlstm-350m":
+                y = xlstm.xlstm_pair_scan(
+                    x, lp, cfg, xlstm.init_xlstm_state(cfg, 2, x.device))[0]
+            else:
+                y = ssm.ssm_scan(x, lp, cfg, time_chunk=8)[0]
+            torch.autograd.grad(y.sum(), [x] + list(lp.values()),
+                                allow_unused=True)
+    monkeypatch.undo()
+    return mode.cost
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "xlstm-350m"])
+def test_dry_run_counts_time_loops_by_trip(arch, monkeypatch):
+    """The recurrences' time loops on the dry run's fake tensors run one
+    step (xlstm: one whole chunk too) counted once per step
+    (``op_cost.trips``): the FLOPs of a forward and backward equal the
+    step-by-step count, the bytes within 10% (the per-step slices and
+    their select backward, counted once a loop) and the peak within 10%."""
+    a = _loop_cost(arch, True, monkeypatch)
+    b = _loop_cost(arch, False, monkeypatch)
+    assert a.flops == b.flops > 0
+    assert a.bytes_accessed == pytest.approx(b.bytes_accessed, rel=0.1)
+    assert a.peak_bytes == pytest.approx(b.peak_bytes, rel=0.1)
+
+
 def test_dry_run_cli_writes_records_and_skips(tmp_path):
     """``python -m repro_torch.launch.dryrun``: a child per mesh writes
-    one record per cell; long_500k and the non-dense families on a mesh
-    larger than one rank write ``skipped`` records with their reasons."""
+    one record per cell; hymba's long_500k (a decode step over a 524,288
+    key cache, sequence-sharded over model) is ``ok`` with its peak and
+    ``fits80G``, and long_500k of a full-attention family writes a
+    ``skipped`` record with its reason."""
     out = _run(f"""
         from repro_torch.launch.dryrun import main
         raise SystemExit(main(["--arch", "qwen3-4b,hymba-1.5b",
                                "--shape", "long_500k", "--mesh", "single",
                                "--out", {str(tmp_path)!r},
-                               "--device", "cpu"]))
+                               "--device", "cpu", "--jobs", "2"]))
     """)
     assert "[skip-by-design] qwen3-4b__long_500k__16x16" in out
     recs = {p: json.loads((tmp_path / p).read_text())
             for p in os.listdir(tmp_path)}
     q = recs["qwen3-4b__long_500k__16x16.json"]
     h = recs["hymba-1.5b__long_500k__16x16.json"]
-    assert q["status"] == h["status"] == "skipped"
-    assert "sub-quadratic" in q["reason"]
-    assert "dense block kinds" in h["reason"] and "ROADMAP" in h["reason"]
+    assert q["status"] == "skipped" and "sub-quadratic" in q["reason"]
+    assert h["status"] == "ok" and h["depths_run"] == [2, 3, 4]
+    assert h["meta"]["mesh"] == {"data": 16, "model": 16}
+    assert 0 < h["memory"]["peak_per_device"] and h["fits80G"]

@@ -6,10 +6,14 @@ train the qwen3-4b smoke config in float32 through the launcher's path
 (2, 2) and (4, 1) meshes; this process trains the same parameters on the
 same batches at world 1 (``make_train_step`` without a mesh) and saves a
 checkpoint the ranks restore into each mesh's layout, and restores the
-ranks' (2, 2) checkpoint at world 1.  The launcher's CLI under ``torchrun``
-resumes a world-1 checkpoint on a 2 x 2 mesh.  Nothing here imports JAX:
-the reference has no multi-rank step to compare with (its GSPMD step is
-one program), so world 1 is the oracle.
+ranks' (2, 2) checkpoint at world 1.  The same ranks then serve and train
+the other families' smoke configs (phi3.5-moe with its 4 experts over
+``model``, hymba, xlstm, whisper) on (2, 2) and (1, 4), held against
+world 1.  The launcher's CLI under ``torchrun`` resumes a world-1
+checkpoint on a 2 x 2 mesh.  The reference has no multi-rank step to
+compare with (its GSPMD step is one program), so world 1 is the oracle;
+the MoE layer alone on each mesh is also held against the reference's
+``moe_layer(dispatch="dense")`` (JAX, imported by that test only).
 """
 
 import multiprocessing as mp
@@ -47,12 +51,51 @@ LOSS_RTOL = 1e-5
 PARAM_RTOL, PARAM_ATOL = 1e-5, 1e-6
 FLIP_ATOL = 2 * (1.5e-4 + 3e-4)
 FLIP_SHARE = 1e-3
+# the other families against world 1: MoE at the reference's MoE
+# tolerance (tests/test_torch_moe.py), the rest at the dense one above
+# (tests/test_torch_family_training.py holds their gradients to 1e-5)
+FAMILY_TOL = {"phi3.5-moe-42b-a6.6b": (2e-4, 1e-6)}
+FAMILY_TAGS = ["x".join(map(str, s)) for s in child.FAMILY_MESHES]
 
 
 def _named(tree):
     out = {}
     child._named(tree, "", out)
     return out
+
+
+def _family_world_1(arch: str) -> dict:
+    """``arch``'s smoke config at world 1: prefill and greedy decode from
+    the seed-0 parameters, then ``MESH_STEPS`` plain steps."""
+    cfg = child.family_config(arch)
+    ocfg = OptConfig(warmup_steps=2, decay_steps=10)
+    params = T.init_params(cfg, device="cpu")
+    serve, _ = child.family_serve(cfg, params, child.serve_tokens(cfg),
+                                  child.family_enc(cfg))
+    opt = init_opt_state(params, ocfg)
+    step = make_train_step(cfg, ocfg)
+    losses = []
+    for b in child.family_batches(cfg):
+        params, opt, m = step(params, opt, b)
+        losses.append(float(m["loss"]))
+    return {"serve": serve, "losses": losses,
+            "params": {k: v.numpy() for k, v in _named(params).items()}}
+
+
+def _params_close(got: dict, want: dict, key, rtol: float, atol: float):
+    """Every parameter within ``rtol`` relative plus ``FLIP_ATOL`` (a
+    gradient element within rounding of 0 may step the other way), all but
+    ``FLIP_SHARE`` of the elements within ``rtol`` / ``atol``."""
+    flips, total = 0, 0
+    for n, b in want.items():
+        a = got[key(n)]
+        assert a.shape == b.shape and a.dtype == b.dtype, n
+        d = np.abs(a - b)
+        np.testing.assert_array_less(
+            d, rtol * np.abs(b) + FLIP_ATOL + 1e-30, err_msg=n)
+        flips += int(np.sum(d > rtol * np.abs(b) + atol))
+        total += d.size
+    assert flips <= FLIP_SHARE * total, (flips, total)
 
 
 @pytest.fixture(scope="module")
@@ -75,6 +118,7 @@ def runs(tmp_path_factory):
     for _ in range(1, child.SERVE[3]):
         logits, cache = T.decode_step(params, cfg, logits.argmax(-1), cache)
         serve.append(logits.numpy())
+    families = {arch: _family_world_1(arch) for arch in child.FAMILIES}
     ckpt_in = str(tmp / "ckpt_w1")
     save_checkpoint(ckpt_in, 5, {"params": params, "opt": opt},
                     extra={"step": 5})
@@ -101,7 +145,7 @@ def runs(tmp_path_factory):
     with np.load(tmp / "mesh_rank0.npz") as f:
         got = dict(f)
     return {"tmp": tmp, "cfg": cfg, "ocfg": ocfg, "losses": losses,
-            "serve": serve,
+            "serve": serve, "families": families,
             "params": {k: v.numpy() for k, v in _named(params).items()},
             "opt": opt, "got": got}
 
@@ -117,17 +161,9 @@ def test_sharded_step_loss_matches_world_1(runs, tag):
 def test_sharded_step_params_match_world_1(runs, tag):
     names = list(runs["got"]["names"])
     assert sorted(names) == sorted(runs["params"])
-    flips, total = 0, 0
-    for n in names:
-        a = runs["got"][child.key(tag, "param", n)]
-        b = runs["params"][n]
-        assert a.shape == b.shape and a.dtype == b.dtype, n
-        d = np.abs(a - b)
-        np.testing.assert_array_less(
-            d, PARAM_RTOL * np.abs(b) + FLIP_ATOL + 1e-30, err_msg=n)
-        flips += int(np.sum(d > PARAM_RTOL * np.abs(b) + PARAM_ATOL))
-        total += d.size
-    assert flips <= FLIP_SHARE * total, (flips, total)
+    _params_close(runs["got"], runs["params"],
+                  lambda n: child.key(tag, "param", n), PARAM_RTOL,
+                  PARAM_ATOL)
 
 
 @pytest.mark.parametrize("tag", MESH_TAGS)
@@ -189,9 +225,75 @@ def test_placements_follow_the_spec_rules(runs):
         "(Shard(dim=1), Shard(dim=2))"
 
 
-def test_non_dense_family_refused_on_a_mesh(runs):
-    msg = str(runs["got"][child.key("hymba", "refused")])
-    assert "dense block kinds only" in msg and "2x2" in msg
+@pytest.mark.parametrize("tag", FAMILY_TAGS)
+@pytest.mark.parametrize("arch", child.FAMILIES)
+def test_family_step_loss_matches_world_1(runs, arch, tag):
+    rtol = FAMILY_TOL.get(arch, (LOSS_RTOL,))[0]
+    got = [float(runs["got"][child.key(tag, arch, "loss", i)])
+           for i in range(child.MESH_STEPS)]
+    np.testing.assert_allclose(got, runs["families"][arch]["losses"],
+                               rtol=rtol, atol=0)
+
+
+@pytest.mark.parametrize("tag", FAMILY_TAGS)
+@pytest.mark.parametrize("arch", child.FAMILIES)
+def test_family_step_params_match_world_1(runs, arch, tag):
+    rtol, atol = FAMILY_TOL.get(arch, (PARAM_RTOL, PARAM_ATOL))
+    want = runs["families"][arch]["params"]
+    assert sorted(want) == sorted(
+        k.split("|")[3] for k in runs["got"]
+        if k.startswith(child.key(tag, arch, "param", "")))
+    _params_close(runs["got"], want,
+                  lambda n: child.key(tag, arch, "param", n), rtol, atol)
+
+
+@pytest.mark.parametrize("tag", FAMILY_TAGS)
+@pytest.mark.parametrize("arch", child.FAMILIES)
+def test_family_prefill_and_decode_match_world_1(runs, arch, tag):
+    """Prefill and greedy decode steps on each mesh from the seed-0
+    parameters: the logits within 1e-5 of world 1's, float32."""
+    for i, want in enumerate(runs["families"][arch]["serve"]):
+        np.testing.assert_allclose(
+            runs["got"][child.key(tag, arch, "serve", i)], want,
+            rtol=1e-5, atol=1e-5, err_msg=str(i))
+
+
+@pytest.mark.parametrize("tag", FAMILY_TAGS)
+def test_family_caches_follow_cache_specs(runs, tag):
+    """The prefill's mesh cache holds hymba's SSM state (batch over data,
+    whole over model) and whisper's encoder K/V (heads over model) in the
+    layouts ``cache_specs`` names."""
+    got = runs["got"]
+    assert str(got[child.key(tag, "hymba-1.5b", "cache", "h")]) == \
+        "(Shard(dim=1), Replicate())"
+    for n in ("ck", "cv"):
+        assert str(got[child.key(tag, "whisper-base", "cache", n)]) == \
+            "(Shard(dim=1), Shard(dim=3))"
+
+
+@pytest.mark.parametrize("mode", ["sf", "dense"])
+@pytest.mark.parametrize("tag", FAMILY_TAGS)
+def test_moe_layer_on_mesh_matches_the_reference(runs, tag, mode):
+    """The MoE layer alone on each mesh (experts over ``model``, each
+    rank's dispatch local, the output all-reduced), both dispatch modes,
+    from numpy inputs: within rtol 1e-5 / atol 1e-6 of the reference's
+    ``moe_layer(dispatch="dense")`` on the same inputs, and its aux loss
+    likewise."""
+    import jax  # noqa: F401  (before the reference package)
+    import jax.numpy as jnp
+    from repro.configs import get_config as ref_config
+    from repro.models import moe as RM
+    arch = child.FAMILIES[0]
+    rcfg = ref_config(arch).smoke_config().scaled(dtype="float32")
+    a = child.moe_layer_inputs(child.family_config(arch))
+    rp = {n: jnp.asarray(v[0]) for n, v in a.items() if n != "x"}
+    ry, raux = RM.moe_layer(jnp.asarray(a["x"]), rp, rcfg,
+                            dispatch="dense")
+    got = runs["got"]
+    np.testing.assert_allclose(got[child.key(tag, arch, "moe_layer", mode)],
+                               np.asarray(ry), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got[child.key(tag, arch, "moe_aux", mode)],
+                               float(raux), rtol=1e-5, atol=1e-6)
 
 
 def test_launcher_cli_resumes_on_a_2x2_mesh(tmp_path):
@@ -250,6 +352,44 @@ def test_unit_mesh_step_bitwise_the_plain_step(moments, tmp_path):
         if moments == "int8":
             assert str(o["m"]["blocks"]["wq"]["s"].placements) == \
                 "(Shard(dim=1), Replicate())"
+        for a, b in zip(tree_leaves({"p": p, "m": o["m"], "v": o["v"]}),
+                        tree_leaves({"p": pp, "m": po["m"], "v": po["v"]})):
+            a = a.full_tensor()
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", child.FAMILIES)
+def test_unit_mesh_family_step_bitwise_the_plain_step(arch, tmp_path):
+    """Each other family on a (1, 1) mesh in bf16 with remat per block
+    (the card's settings): two sharded steps give the plain steps' bits
+    in the loss, every parameter and both moments (the MoE layer's
+    expert range is every expert, its exchange the plain one)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import sharded_state
+    from repro_torch.models.config import torch_dtype
+    from repro_torch.training.pytree import tree_leaves
+    from repro_torch.training.train_loop import batch_to
+    cfg = child.family_config(arch).scaled(dtype="bfloat16", remat="block")
+    ocfg = OptConfig(warmup_steps=2, decay_steps=10)
+    dt = torch_dtype(cfg.dtype)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cpu")
+        p, o, psh, _ = sharded_state(cfg, ocfg, mesh, torch.device("cpu"))
+        step = make_train_step(cfg, ocfg, donate=True, param_shardings=psh)
+        pp = T.init_params(cfg, device="cpu")
+        po = init_opt_state(pp, ocfg)
+        plain = make_train_step(cfg, ocfg)
+        for b in child.family_batches(cfg):
+            b = batch_to(b, torch.device("cpu"), dt)
+            p, o, m = step(p, o, b)
+            pp, po, pm = plain(pp, po, b)
+        assert float(m["loss"]) == float(pm["loss"])
         for a, b in zip(tree_leaves({"p": p, "m": o["m"], "v": o["v"]}),
                         tree_leaves({"p": pp, "m": po["m"], "v": po["v"]})):
             a = a.full_tensor()

@@ -262,19 +262,16 @@ def _mesh_run(rank: int, world: int, ckpt_in: str, out_dir: str,
     """Per mesh: ``MESH_STEPS`` sharded steps from init_params's seed-0
     parameters (loss and every parameter whole), the world-1 checkpoint
     restored into the mesh's layout, the (2, 2) state saved for world 1 to
-    restore, and a non-dense family refused on the mesh."""
+    restore; then every other family on the (2, 2) and (1, 4) meshes
+    (:func:`_family_on_mesh`)."""
     import torch
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.train import sharded_state
-    from repro_torch.models import transformer as T
-    from repro_torch.models.sharding import param_specs, place, shardings
-    from repro_torch.configs import get_config
     from repro_torch.training.checkpoint import (latest_step,
                                                  load_checkpoint,
                                                  save_checkpoint)
     from repro_torch.training.optimizer import OptConfig
     from repro_torch.training.train_loop import make_train_step
-    from repro_torch.launch.mesh import mesh_sizes
     cpu = torch.device("cpu")
     cfg = mesh_config()
     ocfg = OptConfig(warmup_steps=2, decay_steps=10)
@@ -310,19 +307,132 @@ def _mesh_run(rank: int, world: int, ckpt_in: str, out_dir: str,
             save_checkpoint(os.path.join(out_dir, "ckpt_mesh"), 7,
                             {"params": params, "opt": opt},
                             extra={"step": 7})
-            # a non-dense family on a mesh with an axis larger than 1
-            hcfg = get_config("hymba-1.5b").smoke_config().scaled(
-                dtype="float32")
-            hp = T.init_params(hcfg, device=cpu)
-            hp = place(hp, shardings(mesh, param_specs(
-                hp, hcfg, mesh_sizes(mesh))))
-            try:
-                T.forward_train(hp, hcfg, tokens=torch.zeros(
-                    (2, 8), dtype=torch.int64))
-                out[key("hymba", "refused")] = np.array("")
-            except NotImplementedError as e:
-                out[key("hymba", "refused")] = np.array(str(e))
+    for shape in FAMILY_MESHES:
+        mesh = make_mesh(shape, ("data", "model"), device_type="cpu")
+        for arch in FAMILIES:
+            _family_on_mesh(arch, mesh, out)
     out["names"] = np.array(names)
+
+
+# the other families' smoke configs on these meshes: phi3.5-moe (4
+# experts over model), hymba (2 SSM heads: over model = 2, gathered on
+# model = 4), xlstm (4 heads), whisper (the encoder over FAMILY_ENC frames)
+FAMILIES = ("phi3.5-moe-42b-a6.6b", "hymba-1.5b", "xlstm-350m",
+            "whisper-base")
+FAMILY_MESHES = ((2, 2), (1, 4))
+FAMILY_ENC = 24
+# the MoE layer alone on the mesh, from numpy inputs: (batch, tokens)
+MOE_LAYER_X = (4, 8)
+
+
+def family_config(arch: str):
+    from repro_torch.configs import get_config
+    return get_config(arch).smoke_config().scaled(dtype="float32")
+
+
+def family_batches(cfg) -> list:
+    from repro_torch.training.data import make_batch
+    return [make_batch(cfg, *MESH_BATCH, step=i, enc_len=FAMILY_ENC)
+            for i in range(MESH_STEPS)]
+
+
+def family_enc(cfg):
+    """whisper's frame embeddings (B, FAMILY_ENC, D) for the serving run,
+    from a seed; None for the other families."""
+    if not cfg.enc_layers:
+        return None
+    rng = np.random.default_rng(4)
+    return (rng.standard_normal((SERVE[0], FAMILY_ENC, cfg.d_model))
+            * 0.02).astype(np.float32)
+
+
+def moe_layer_inputs(cfg) -> dict:
+    """One MoE layer's parameters (a stack of one) and its input x, from a
+    seed, as numpy arrays under the reference's names."""
+    rng = np.random.default_rng(5)
+    D, E, F = cfg.d_model, cfg.moe_experts, cfg.moe_dff
+    f32 = np.float32
+    return {"x": (rng.standard_normal(MOE_LAYER_X + (D,)) * 0.5).astype(f32),
+            "router": (rng.standard_normal((1, D, E)) / np.sqrt(D))
+            .astype(f32),
+            "w_in": (rng.standard_normal((1, E, D, F)) / np.sqrt(D))
+            .astype(f32),
+            "w_gate": (rng.standard_normal((1, E, D, F)) / np.sqrt(D))
+            .astype(f32),
+            "w_out": (rng.standard_normal((1, E, F, D)) / np.sqrt(F))
+            .astype(f32)}
+
+
+def family_serve(cfg, params, tokens, enc, run=lambda f: f(),
+                 put=lambda t: t):
+    """Prefill (s_max ``SERVE[2]``) and greedy decode steps of ``cfg``:
+    the logits of each, as numpy.  ``run`` wraps each call (a mesh made
+    ambient) and ``put`` places each input (a DTensor batch layout)."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.meshed import whole
+    kw = {} if enc is None else {"enc_embeds": put(torch.as_tensor(enc))}
+    logits, cache = run(lambda: T.prefill(
+        params, cfg, tokens=put(torch.as_tensor(tokens)), s_max=SERVE[2],
+        **kw))
+    outs = [whole(logits).numpy()]
+    for _ in range(1, SERVE[3]):
+        nxt = whole(logits).argmax(-1)
+        logits, cache = run(lambda: T.decode_step(params, cfg, put(nxt),
+                                                  cache))
+        outs.append(whole(logits).numpy())
+    return outs, cache
+
+
+def _family_on_mesh(arch: str, mesh, out: dict) -> None:
+    """``arch``'s smoke config on ``mesh``: prefill and greedy decode from
+    the seed-0 parameters, then ``MESH_STEPS`` sharded steps through the
+    launcher's path (loss and every parameter whole); for MoE also its
+    layer alone from numpy inputs, both dispatch modes."""
+    import torch
+    from repro_torch.launch.cells import _on_mesh
+    from repro_torch.launch.mesh import mesh_sizes
+    from repro_torch.launch.train import sharded_state
+    from repro_torch.models import moe as M
+    from repro_torch.models.sharding import (NamedSharding, batch_spec,
+                                             param_specs, place, shardings)
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.train_loop import make_train_step
+    cpu = torch.device("cpu")
+    tag = "x".join(map(str, mesh.shape))
+    cfg = family_config(arch)
+    ocfg = OptConfig(warmup_steps=2, decay_steps=10)
+    params, opt, psh, _ = sharded_state(cfg, ocfg, mesh, cpu)
+    bs = NamedSharding(mesh, batch_spec(mesh_sizes(mesh)))
+    serve, cache = family_serve(
+        cfg, params, serve_tokens(cfg), family_enc(cfg),
+        run=lambda f: _on_mesh(mesh, f), put=bs.distribute)
+    for i, lg in enumerate(serve):
+        out[key(tag, arch, "serve", i)] = lg
+    for n, t in cache.items():
+        if n != "pos" and not isinstance(t, dict):
+            out[key(tag, arch, "cache", n)] = np.array(str(t.placements))
+    step = make_train_step(cfg, ocfg, donate=True, param_shardings=psh)
+    for i, b in enumerate(family_batches(cfg)):
+        params, opt, m = step(params, opt, b)
+        out[key(tag, arch, "loss", i)] = m["loss"].numpy()
+    flat = {}
+    _named(params, "", flat)
+    for n, t in flat.items():
+        out[key(tag, arch, "param", n)] = t.full_tensor().numpy()
+    if cfg.is_moe:
+        a = moe_layer_inputs(cfg)
+        stack = {n: torch.as_tensor(v) for n, v in a.items() if n != "x"}
+        stack = place({"blocks": stack}, shardings(mesh, param_specs(
+            {"blocks": stack}, cfg, mesh_sizes(mesh))))["blocks"]
+        lp = {n: v[0] for n, v in stack.items()}
+        x = bs.distribute(torch.as_tensor(a["x"]))
+        for mode in ("sf", "dense"):
+            y, aux = _on_mesh(mesh, lambda: M.moe_layer(x, lp, cfg,
+                                                        dispatch=mode))
+            out[key(tag, arch, "moe_layer", mode)] = y.full_tensor().numpy()
+            out[key(tag, arch, "moe_aux", mode)] = \
+                aux.full_tensor().numpy()
 
 
 def serve_tokens(cfg):
