@@ -100,6 +100,28 @@ Phases, each printing one JSON line and asserting as it goes:
            stencil's ``ParCSR.from_dmda_stencil`` (``ksp/tutorials/ex45.c``:
            2,097,152 unknowns) against scipy, ``diagonal()``, and
            ``cg_loops`` on it.
+  priors   measured backend selection (``core/priors.py``): the
+           reference's ping-pong (2 ranks, n contiguous leaves, one bcast
+           + one reduce of float32, 1 KiB to 64 MiB in steps of 4x) and
+           halo sweep (periodic 2D star DMDAs over 4 ranks, interior
+           "skip", grids 8^2-64^2 and 1024^2, units 1-16, one bcast) on
+           ``"global"`` and ``"cuda"``, us per call (the best of
+           ``PRIORS_TRIALS`` ``call_ms`` means, launches included); at every
+           point ``select_backend(priors=)`` with that point's (or grid's)
+           table must pick the argmin.  Both sweeps are then written,
+           stamped with ``priors.current_env()``, into a temporary
+           directory and loaded through ``REPRO_SF_PRIORS`` /
+           ``default_priors()``: copies stamped with another device count
+           or card are refused, ``SFComm`` with no backend takes the
+           table's choice on each side of a crossover (or at the smallest
+           and largest sizes), bitwise both fixed backends, and a CPU
+           ``SFComm`` keeps ``"global"``.  The variable and the memo are
+           put back after, and ``default_priors()`` must be None again:
+           every other phase runs with ``REPRO_SF_PRIORS=0``, the static
+           rule its launch checks are written for, whatever artifacts the
+           checkout holds.  The line has both curves,
+           the crossovers, every choice, the kernels launched and the
+           phase's seconds beside ``nvidia-smi``.
   mg       geometric-multigrid-preconditioned CG (``ksp/tutorials/ex45.c``
            with ``-pc_type mg`` and Galerkin coarse operators): a 129^3
            star-stencil DMDA over 2x2x2 ranks (2,146,689 unknowns),
@@ -284,7 +306,11 @@ reduce, which the tuned paths launch only where a sweep picks them),
 gather, a segment reduce; ``pack_strided`` in the DDP buckets) and the
 launch phase's (``flash_attention`` on each rank's shards under
 ``local_map``, the token lookup's gather and its transpose's segment
-reduce).  A gather is ``pack`` or ``pack_blocked`` and a
+reduce).  The priors phase's sweeps are counted the same way (path
+``priors``): what they launch is recorded, not required (``pack_blocked``
+for the halo packs and ``pack_strided`` for the ping-pong's contiguous
+leaves on ``"cuda"``, as the tuner's winners and the plan name them).
+A gather is ``pack`` or ``pack_blocked`` and a
 segment reduce ``segment_reduce_sorted`` or ``segment_reduce_blocked``,
 as the tuner's winners name them (``PACK``, ``SEGRED``).  Every launch
 counter is set to 0 just before each path and read just after, each
@@ -404,6 +430,15 @@ class Sizes:
     dist_grid: int = 128          # the dist phase's Poisson grid edge
     cg_maxiter: int = 2000
     timing_iters: int = 20
+    # priors: the reference's ping-pong (2 ranks, n contiguous leaves, one
+    # bcast + one reduce of float32, n = bytes // 8) from 1 KiB to 64 MiB
+    # in steps of 4x, and its halo sweep (periodic 2D star DMDAs over 4
+    # ranks, interior "skip") on these grids and units; us per call, best
+    # of PRIORS_TRIALS means over timing_iters calls
+    priors_pingpong: tuple = tuple(1024 * 4 ** k for k in range(9))
+    priors_grids: tuple = ((8, 8), (16, 16), (32, 32), (64, 64),
+                           (1024, 1024))
+    priors_units: tuple = (1, 2, 4, 8, 16)
     # serve: qwen3-4b at its published size, bf16 (smoke=True: its smoke
     # config, for rehearsals on the CPU)
     serve_arch: str = "qwen3-4b"
@@ -2640,6 +2675,272 @@ def phase_dmda(sz: Sizes, dev) -> dict:
                  "ghost_edges": int(A.sf.nedges_total),
                  **cg_loops(A, S, bh, sz, dev)}
     return out
+
+
+# ------------------------------------------------------------------ priors
+PRIORS_BACKENDS = ("global", "cuda")
+PRIORS_TRIALS = 5           # a priors point is the best of this many means
+
+
+def pingpong_sf(n: int):
+    """The reference's ping-pong SF (``benchmarks/bench_pingpong.py``
+    ``_pingpong_sf``): rank 0 owns ``n`` roots, rank 1 holds ``n``
+    contiguous leaves, one a root."""
+    from repro_torch.core import StarForest
+    sf = StarForest(2)
+    sf.set_graph(0, n, None, np.zeros((0, 2), np.int64), nleafspace=1)
+    sf.set_graph(1, 0, None,
+                 np.stack([np.zeros(n, np.int64),
+                           np.arange(n, dtype=np.int64)], 1),
+                 nleafspace=n)
+    return sf.setup()
+
+
+def argmin_backend(times: dict) -> str:
+    """The fastest backend, ties broken as ``PriorsTable.best_backend``
+    breaks them (by name)."""
+    return min((us, bk) for bk, us in times.items())[1]
+
+
+def crossovers(curves: dict) -> list:
+    """Where the ping-pong's fastest backend changes between adjacent
+    sizes: the bracket, the winners on each side, and the byte size at
+    which the two curves, interpolated in log2 bytes as the table
+    interpolates them, cross."""
+    sizes = sorted(int(b) for b in curves["global"])
+    out = []
+    for lo, hi in zip(sizes, sizes[1:]):
+        d0 = curves["global"][str(lo)] - curves["cuda"][str(lo)]
+        d1 = curves["global"][str(hi)] - curves["cuda"][str(hi)]
+        below = argmin_backend({bk: c[str(lo)] for bk, c in curves.items()})
+        above = argmin_backend({bk: c[str(hi)] for bk, c in curves.items()})
+        if below == above:
+            continue
+        x0, x1 = math.log2(lo), math.log2(hi)
+        x = x0 + (x1 - x0) * d0 / (d0 - d1) if d0 != d1 else x0
+        out.append({"between_bytes": [lo, hi], "below": below,
+                    "above": above, "crossover_bytes": 2.0 ** x})
+    return out
+
+
+def priors_pingpong(sz: Sizes, dev) -> tuple:
+    """The ping-pong sweep on both backends: (curves, choices, the SFs by
+    size).  At every size ``select_backend`` with that size's own table
+    must pick the argmin of the two times."""
+    import torch
+    from repro_torch.core import SFComm, select_backend
+    from repro_torch.core.priors import PriorsTable
+    curves = {bk: {} for bk in PRIORS_BACKENDS}
+    choices, sfs = {}, {}
+    for nbytes in sz.priors_pingpong:
+        n = nbytes // 8            # float32 x 2 (send + bounce payload)
+        sf = sfs[nbytes] = pingpong_sf(n)
+        root = torch.arange(n, dtype=torch.float32, device=dev)
+        leaf = torch.zeros(sf.nleafspace_total, dtype=torch.float32,
+                           device=dev)
+        zeros = torch.zeros_like(root)
+        table = PriorsTable()
+        for bk in PRIORS_BACKENDS:
+            comm = SFComm(sf, backend=bk, device=dev)
+
+            def call(comm=comm):
+                return comm.reduce(comm.bcast(root, leaf, "replace"), zeros,
+                                   "sum")
+            us = min(call_ms(call, dev, sz.timing_iters)
+                     for _ in range(PRIORS_TRIALS)) * 1e3
+            curves[bk][str(nbytes)] = us
+            table.record(bk, nbytes, us)
+            del comm
+        choice = select_backend(sf, device=dev, priors=table)
+        want = argmin_backend({bk: c[str(nbytes)]
+                               for bk, c in curves.items()})
+        check(choice == want, f"priors: ping-pong {nbytes} B chose "
+              f"{choice!r}, the argmin is {want!r}")
+        choices[str(nbytes)] = choice
+        del root, leaf, zeros
+    return curves, choices, sfs
+
+
+def priors_halo(sz: Sizes, dev) -> dict:
+    """The reference's halo sweep on both backends: one bcast of ``(n, u)``
+    per grid and unit, in its artifact schema.  Each grid's own table
+    (distinct byte sizes per unit, so the lookup is exact) must send
+    ``select_backend`` to the argmin at every unit."""
+    import torch
+    from repro_torch.core import select_backend
+    from repro_torch.core.priors import PriorsTable
+    from repro_torch.meshdist import DMDA
+    g = torch.Generator(device=dev).manual_seed(27)
+    grids = {}
+    for grid in sz.priors_grids:
+        da = DMDA(grid, 4, stencil="star", width=1, periodic=True,
+                  interior="skip")
+        n, nl = da.nglobal, da.nlocal_total
+        edges = int(da.sf.nedges_total)
+        comms = {bk: da.comm(backend=bk, device=dev)
+                 for bk in PRIORS_BACKENDS}
+        rec = {"grid": list(grid), "halo_edges": edges,
+               "backends": {bk: {"unit_us": {}} for bk in PRIORS_BACKENDS}}
+        choice_of = {}
+        table = PriorsTable()
+        for u in sz.priors_units:
+            gv = torch.randn((n, u), generator=g, device=dev)
+            lv = torch.zeros((nl, u), dtype=torch.float32, device=dev)
+            times = {}
+            for bk in PRIORS_BACKENDS:
+                times[bk] = min(
+                    call_ms(lambda c=comms[bk]: c.bcast(gv, lv, "replace"),
+                            dev, sz.timing_iters)
+                    for _ in range(PRIORS_TRIALS)) * 1e3
+                rec["backends"][bk]["unit_us"][str(u)] = times[bk]
+                table.record(bk, edges * u * 4, times[bk])
+            choice = select_backend(da.sf, device=dev, unit=(u,),
+                                    priors=table)
+            check(choice == argmin_backend(times), f"priors: halo {grid} "
+                  f"unit {u} chose {choice!r} against {times}")
+            choice_of[str(u)] = choice
+        rec["backends"]["auto"] = {"choice": choice_of}
+        grids[f"{grid[0]}x{grid[1]}"] = rec
+        del da, comms
+    return grids
+
+
+def priors_auto(dev, sfs: dict) -> dict:
+    """The written table through ``default_priors()``: ``SFComm`` with no
+    backend at ping-pong sizes on each side of a crossover (or the
+    smallest and the largest) takes the table's choice, and its bcast and
+    reduce are bitwise both fixed backends'.  A CPU SFComm keeps the
+    static rule."""
+    import torch
+    from repro_torch.core import SFComm, UnitSpec, estimate_message_bytes
+    from repro_torch.core import priors
+    table = priors.default_priors()
+    check(table is not None and len(table.sources) == 2,
+          f"priors: default_priors() loaded "
+          f"{None if table is None else table.sources}")
+    unit = UnitSpec((), torch.float32)
+    pick = {nb: table.best_backend(estimate_message_bytes(sfs[nb], unit),
+                                   candidates=PRIORS_BACKENDS)
+            for nb in sorted(sfs)}
+    sizes = sorted(pick)
+    flips = [(lo, hi) for lo, hi in zip(sizes, sizes[1:])
+             if pick[lo] != pick[hi]]
+    at = list(flips[0]) if flips else [sizes[0], sizes[-1]]
+    g = torch.Generator(device=dev).manual_seed(28)
+    out = {"table_choice": {str(k): v for k, v in pick.items()},
+           "checked_bytes": at, "auto": {}}
+    for nb in at:
+        sf = sfs[nb]
+        auto = SFComm(sf, device=dev, unit=unit)
+        check(auto.backend_name == pick[nb], f"priors: SFComm at {nb} B "
+              f"took {auto.backend_name!r}, the table says {pick[nb]!r}")
+        root = torch.randn(sf.nroots_total, generator=g, device=dev)
+        leaf = torch.randn(sf.nleafspace_total, generator=g, device=dev)
+        got = (auto.bcast(root, leaf, "replace"), auto.reduce(leaf, root))
+        for bk in PRIORS_BACKENDS:
+            fixed = SFComm(sf, backend=bk, device=dev, unit=unit)
+            want = (fixed.bcast(root, leaf, "replace"),
+                    fixed.reduce(leaf, root))
+            check(all(same_raw_bits(a, b) for a, b in zip(got, want)),
+                  f"priors: SFComm({pick[nb]!r}) at {nb} B is not bitwise "
+                  f"{bk!r}")
+            del fixed
+        out["auto"][str(nb)] = {"backend": auto.backend_name,
+                                "bitwise": list(PRIORS_BACKENDS)}
+        del auto, root, leaf, got
+    if dev.type == "cuda":
+        cpu = SFComm(sfs[at[0]], device="cpu", unit=unit).backend_name
+        check(cpu == "global", f"priors: a CPU SFComm took {cpu!r} under "
+              f"the card's table")
+        out["cpu_sfcomm"] = cpu
+    return out
+
+
+def priors_refusals(payloads: dict, root: str) -> dict:
+    """Copies of the written artifacts whose stamp names another device
+    count or another card: ``PriorsTable.load`` must refuse them."""
+    from repro_torch.core import priors
+    out = {}
+    for key, other in (("device_count", lambda v: int(v) + 1),
+                       ("device_name", lambda v: f"{v} (another card)")):
+        d = os.path.join(root, key)
+        os.makedirs(d)
+        for name, obj in payloads.items():
+            meta = dict(obj["meta"], **{key: other(obj["meta"][key])})
+            with open(os.path.join(d, name), "w") as f:
+                json.dump(dict(obj, meta=meta), f)
+        out[key] = priors.PriorsTable.load(root=d) is None
+        check(out[key], f"priors: a stamp with another {key} was loaded")
+    return out
+
+
+def phase_priors(sz: Sizes, dev) -> dict:
+    """Measured backend selection (``core/priors.py``): the reference's
+    ping-pong and halo sweeps on both backends, ``select_backend`` against
+    the argmin at every point, then both sweeps written as stamped
+    artifacts into a temporary directory, loaded through
+    ``REPRO_SF_PRIORS`` and ``default_priors()`` and followed by
+    ``SFComm``; the variable and the memo are put back after, so that no
+    later phase changes its route."""
+    import tempfile
+    from repro_torch.core import priors
+    from repro_torch.kernels import ops as kops
+    t_start = time.perf_counter()
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    curves, pp_choice, sfs = priors_pingpong(sz, dev)
+    t_pp = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    grids = priors_halo(sz, dev)
+    t_halo = time.perf_counter() - t0
+    sweep_launches = {k: v for k, v in kops.launch_counts().items() if v}
+    meta = priors.current_env()
+    payloads = {
+        "BENCH_torch_pingpong.json": {
+            "bench": "pingpong", "unit": "us_per_call",
+            "sizes_bytes": list(sz.priors_pingpong), "backends": curves,
+            "meta": meta},
+        "BENCH_torch_halo.json": {
+            "bench": "halo", "unit": "us_per_call", "nranks": 4,
+            "units": list(sz.priors_units), "grids": grids, "meta": meta}}
+    saved = os.environ.get("REPRO_SF_PRIORS")
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_priors_") as d:
+            for name, obj in payloads.items():
+                with open(os.path.join(d, name), "w") as f:
+                    json.dump(obj, f)
+            os.environ["REPRO_SF_PRIORS"] = d
+            priors.invalidate_priors_cache()
+            auto = priors_auto(dev, sfs)
+            auto["refused"] = priors_refusals(payloads, d)
+    finally:
+        if saved is None:
+            os.environ.pop("REPRO_SF_PRIORS", None)
+        else:
+            os.environ["REPRO_SF_PRIORS"] = saved
+        priors.invalidate_priors_cache()
+    t_auto = time.perf_counter() - t0
+    after = priors.default_priors()
+    check(after is None, f"priors: default_priors() is {after} after the "
+          f"phase")
+    del sfs
+    return {"phase": "priors", "meta": meta,
+            "pingpong": {"us_per_call": curves, "choice": pp_choice,
+                         "crossovers": crossovers(curves)},
+            "halo": {gname: {"halo_edges": rec["halo_edges"],
+                             "unit_us": {bk: rec["backends"][bk]["unit_us"]
+                                         for bk in PRIORS_BACKENDS},
+                             "choice": rec["backends"]["auto"]["choice"]}
+                     for gname, rec in grids.items()},
+            "choice_equals_argmin": True, **auto,
+            "default_priors_after": None,
+            "sweep_launches": sweep_launches,
+            "launches": kops.launch_counts(),
+            "seconds": time.perf_counter() - t_start,
+            "pingpong_s": t_pp, "halo_s": t_halo,
+            "auto_s": t_auto,
+            "nvidia_smi": nvidia_smi() if dev.type == "cuda" else None}
 
 
 # -------------------------------------------------- mg, assembly, plex
@@ -6840,6 +7141,17 @@ def run(dev, sz: Sizes) -> list:
     if on_card:
         torch.cuda.empty_cache()
 
+    # measured backend selection: phase_priors zeroes the counters before
+    # its sweeps; whatever they launched is the path's
+    TUNING["path"] = "priors"
+    pri = phase_priors(sz, dev)
+    emit(pri)
+    by_path["priors"] = pri["launches"]
+    del pri
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
     # the composed-SF paths (multigrid, assembly, mesh distribution): the
     # counters from 0 before each
     for name, phase, needed in (("mg", phase_mg, MG_PATH),
@@ -6968,6 +7280,13 @@ def main() -> int:
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(HERE, "src"))
+    # Every path but priors runs under the static selection rule that its
+    # launch checks hold the hand kernels to: card-stamped
+    # BENCH_torch_*.json at the root would move SFComm(backend=None)
+    # exchanges to "global" wherever they measure plain torch faster.  The
+    # priors phase points the variable at its own artifacts and puts this
+    # back; the children inherit it.
+    os.environ["REPRO_SF_PRIORS"] = "0"
     from repro_torch.kernels import _build
     dev = torch.device("cuda", torch.cuda.current_device())
     smi = nvidia_smi()

@@ -6,6 +6,8 @@ Public API:
   SFComm                     user-facing facade over the backend registry
   select_backend, register_backend, available_backends
                              §4–§5 implementation selection (-sf_backend)
+  priors                     measured selection: the benchmark artifacts'
+                             (backend, message bytes) -> µs table
   UnitSpec                   §3.2 MPI_Datatype unit: payload rows are
                              (n, *unit) dof blocks on every path
   SFOps                      plain torch ops on global tensors
@@ -45,7 +47,7 @@ from .backend import (CudaBackend, DistBackend, GlobalBackend, SFBackend,
 from .device import resolve_device
 from .dynplan import (BoundDynSF, DynPlan, PlanCache,
                       star_forest_from_assignment)
-from . import patterns, redplan, sflog, simulate
+from . import patterns, priors, redplan, sflog, simulate
 
 __all__ = [
     "PairInfo", "RankGraph", "StarForest", "ragged_arange", "ragged_offsets",
@@ -63,5 +65,5 @@ __all__ = [
     "select_backend", "estimate_message_bytes", "resolve_device",
     "PlanCache",
     "DynPlan", "BoundDynSF", "star_forest_from_assignment",
-    "patterns", "redplan", "sflog", "simulate",
+    "patterns", "priors", "redplan", "sflog", "simulate",
 ]

@@ -20,10 +20,12 @@ setup time via ``-sf_backend``.  This module is that layer for the port:
                 shard, and every process gets the whole result.  The
                 counterpart of the reference's ``"shardmap"`` backend.
 
-``select_backend`` mirrors ``-sf_backend``'s default logic with the static
-heuristic: an explicit hint wins; a process group whose size equals the
-SF's rank count (more than one) selects ``"dist"``; general-pattern SFs on
-a CUDA device take the kernel path; everything else uses ``"global"``.
+``select_backend`` mirrors ``-sf_backend``'s default logic: an explicit
+hint wins; a process group whose size equals the SF's rank count (more than
+one) selects ``"dist"``; then the measured priors table
+(:mod:`repro_torch.core.priors`) picks the backend its timings favour at the
+SF's message size; without one, general-pattern SFs on a CUDA device take
+the kernel path and everything else uses ``"global"``.
 ``register_backend`` lets downstream code add implementations without
 touching this module.
 
@@ -57,6 +59,7 @@ from .ops import (PendingComm, SFOps, SortedUnpack, _apply_unique,
 from .plan import GlobalPlan, build_global_plan
 from .unit import check_plan_unit, resolve_unit
 from . import patterns as pat
+from . import priors as priors_mod
 from . import sflog
 from ..kernels import ops as kops
 
@@ -120,24 +123,36 @@ def make_backend(name: str, sf: StarForest, **kwargs) -> "SFBackend":
 
 def estimate_message_bytes(sf: StarForest, unit=None) -> float:
     """Per-exchange payload bytes for ``sf``: edges × unit row bytes
-    (scalar float32 rows when the unit is unpinned), the reference's
-    lookup key into its measured priors table (``select_backend``'s
-    ``priors=``, which waits with the benchmark port)."""
+    (scalar float32 rows when the unit is unpinned) — the lookup key into
+    the measured priors table."""
     u = resolve_unit(unit)
     row_bytes = u.nbytes if u.nbytes else 4 * max(u.size, 1)
     return float(sf.nedges_total) * row_bytes
 
 
 def select_backend(sf: StarForest, hint: Optional[str] = None, *,
-                   device=None, group=None) -> str:
+                   device=None, group=None, unit=None, priors=None) -> str:
     """Pick a backend name for ``sf`` (the ``-sf_backend`` default logic).
 
-    An explicit ``hint`` wins (validated against the registry); a
+    Order: an explicit ``hint`` wins (validated against the registry); a
     ``torch.distributed`` ``group`` whose size equals ``sf.nranks`` (more
-    than one) selects the rank decomposition ``"dist"``; otherwise a
-    general-pattern SF on a CUDA device (the default device) takes the
-    kernel path and everything else — including the allgather / permute /
-    local-only patterns — defaults to ``"global"``.
+    than one) selects the rank decomposition ``"dist"``; then the
+    *measured priors table*, the port's benchmark artifacts parsed by
+    :mod:`repro_torch.core.priors` and trusted only when their stamp
+    matches this platform, torch / CUDA version and card, picks the backend
+    the measurements favour at the SF's message size
+    (``estimate_message_bytes(sf, unit)``).  Without a choice from the
+    table the static rule decides: a general-pattern SF on a CUDA device
+    (the default device) takes the kernel path, and everything else,
+    including the allgather / permute / local-only patterns, defaults to
+    ``"global"``.
+
+    ``unit`` sharpens the message-size estimate; ``priors`` substitutes an
+    explicit :class:`repro_torch.core.priors.PriorsTable` (tests, fresh
+    calibration runs), used as given.  The default table is consulted only
+    when its stamp's platform is that of ``device`` (``"gpu"`` for a CUDA
+    device, ``"cpu"`` for the CPU), so card timings never steer an SF that
+    runs on the CPU.  ``REPRO_SF_PRIORS=0`` disables the default table.
     """
     sf.setup()
     if hint is not None:
@@ -149,6 +164,19 @@ def select_backend(sf: StarForest, hint: Optional[str] = None, *,
             and dist.get_world_size(group) == sf.nranks:
         return "dist"
     dev = torch.device("cuda" if device is None else device)
+    if sf.nedges_total:
+        table = priors
+        if table is None:
+            table = priors_mod.default_priors()
+            stamped = (table.meta or {}).get("platform") if table else None
+            if stamped != ("gpu" if dev.type == "cuda" else "cpu"):
+                table = None
+        if table is not None:
+            cands = [b for b in ("global", "cuda") if b in _REGISTRY]
+            choice = table.best_backend(estimate_message_bytes(sf, unit),
+                                        candidates=cands)
+            if choice is not None:
+                return choice
     if pat.analyze(sf).kind == pat.GENERAL and dev.type == "cuda":
         return "cuda"
     return "global"
@@ -504,7 +532,8 @@ class SFComm:
     every payload must already live there.  The backend is chosen by
     ``select_backend`` unless named explicitly — the paper's ``-sf_backend``
     override.  Payload rows are ``(*unit)`` dof blocks; pass ``unit=`` to
-    pin and validate the unit shape/dtype.  Operations return new tensors
+    pin and validate the unit shape/dtype (it also sets the message size
+    the priors table is read at).  Operations return new tensors
     and leave their arguments untouched.  ``group`` is the
     ``torch.distributed`` process group of the ``"dist"`` backend (default:
     the world group); a group whose size is the SF's rank count selects it.
@@ -522,7 +551,8 @@ class SFComm:
         self.sf = sf
         self.device = resolve_device(device)
         name = backend if backend is not None \
-            else select_backend(sf, device=self.device, group=group)
+            else select_backend(sf, device=self.device, group=group,
+                                unit=unit)
         if name == "dist":
             backend_kwargs["group"] = group
         self.backend = make_backend(name, sf, device=self.device, unit=unit,

@@ -91,7 +91,8 @@ class ParCSR:
             sf.set_graph(r, ncols_local, None, remote,
                          nleafspace=max(int(g.size), 1))
         self.sf = sf.setup()
-        # backend=None -> select_backend's static heuristic ("cuda" for the
+        # backend=None -> select_backend: the measured priors table where a
+        # compatible one exists, then the static rule ("cuda" for the
         # general pattern on a CUDA device)
         self.comm = SFComm(self.sf, backend=backend, device=self.device)
         self.lvec_offsets = ragged_offsets(

@@ -25,7 +25,9 @@ DDP step bitwise across worlds on the card; for the families' training
 hymba's graph-backed scan Function against autograd through the eager
 step loop, xlstm's chunk graphs bitwise its eager chunks, the flash
 Function at whisper's cross shape against the plain
-version, and a hymba smoke train step on the card against the CPU's.
+version, and a hymba smoke train step on the card against the CPU's;
+for measured backend selection a card-stamped priors table sending
+``SFComm`` to each backend in turn, bitwise the other.
 
 Every test is ``cuda``-marked and skips without a card; the file imports
 no JAX, so the card's machine runs it:
@@ -57,6 +59,18 @@ def dev():
         pytest.skip("needs an NVIDIA GPU; chip_smoke.py runs this slice on "
                     "the card")
     return torch.device("cuda")
+
+
+@pytest.fixture(autouse=True)
+def static_selection(monkeypatch):
+    """The static selection rule that the launch checks are written for,
+    as ``chip_smoke.py`` runs its paths, whatever ``BENCH_torch_*.json``
+    the checkout holds."""
+    from repro_torch.core import priors
+    monkeypatch.setenv("REPRO_SF_PRIORS", "0")
+    priors.invalidate_priors_cache()
+    yield
+    priors.invalidate_priors_cache()
 
 
 @pytest.fixture
@@ -798,3 +812,36 @@ def test_hymba_smoke_train_step_card_equals_cpu(dev):
         assert float(d.abs().max()) <= 5e-3
         assert float(d.norm()) <= 1e-3 * float((w.double() - b0.double())
                                                .norm())
+
+
+def test_cuda_priors_table_routes_sfcomm(dev, monkeypatch):
+    """A card-stamped priors table that favours ``"global"`` at the scalar
+    message size and ``"cuda"`` at 64-lane rows sends ``SFComm`` (no
+    ``backend``) to each in turn; each one's bcast and reduce are bitwise
+    the other fixed backend's, and a CPU SF keeps the static rule."""
+    from repro_torch.core import estimate_message_bytes
+    from repro_torch.core import priors as priors_mod
+    sf = _general_sf()
+    small = estimate_message_bytes(sf)
+    big = estimate_message_bytes(sf, unit=(64,))
+    table = priors_mod.PriorsTable(meta=priors_mod.current_env())
+    for bk, nb, us in (("global", small, 10.0), ("global", big, 300.0),
+                       ("cuda", small, 100.0), ("cuda", big, 30.0)):
+        table.record(bk, nb, us)
+    monkeypatch.setattr(priors_mod, "default_priors", lambda: table)
+    assert table.meta["platform"] == "gpu"
+    for unit, want in ((None, "global"), ((64,), "cuda")):
+        auto = SFComm(sf, device=dev, unit=unit)
+        assert auto.backend_name == want
+        other = SFComm(sf, backend={"global": "cuda", "cuda": "global"}[want],
+                       device=dev, unit=unit)
+        rows = () if unit is None else unit
+        root = _values((sf.nroots_total,) + rows, torch.float32, dev, 5)
+        leaf = _values((sf.nleafspace_total,) + rows, torch.float32, dev, 6)
+        for op in ("replace", "sum"):
+            assert chip_smoke.same_raw_bits(auto.bcast(root, leaf, op),
+                                            other.bcast(root, leaf, op))
+        for op in ("sum", "max"):
+            assert chip_smoke.same_raw_bits(auto.reduce(leaf, root, op),
+                                            other.reduce(leaf, root, op))
+    assert SFComm(sf, device="cpu", unit=(64,)).backend_name == "global"
