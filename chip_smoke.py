@@ -775,6 +775,24 @@ def cold_device_ms(fn, dev, iters: int) -> float:
     return total / iters
 
 
+def cold_graph_ms(fn, dev, iters: int) -> float:
+    """``cold_device_ms`` without torch.profiler (whose windows come back
+    without device events in the train child): CUDA-graph replays of a
+    256 MB read followed by ``fn()``, less those of the read alone, each
+    timed twice in turns (the host's time per call on the CPU)."""
+    import torch
+    if dev.type != "cuda":
+        return call_ms(fn, dev, iters)
+    scrub = torch.ones(64 << 20, dtype=torch.int32, device=dev)
+    flush = lambda: scrub.sum()
+
+    def both():
+        flush()
+        fn()
+    (cold, _), (read, _) = in_turns(both, flush, dev, iters, graph_ms)
+    return max(0.0, cold - read)
+
+
 def bound(nbytes: float, nops: float = 0.0, ops_per_s=FP32_OPS_PER_S):
     """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
     operations over the card's peak rate for their type (by default
@@ -1002,7 +1020,10 @@ def kernel_records(objs, sz: Sizes, dev) -> dict:
            lambda: sf_unpack.segment_reduce_plain(sv, st, ln, "sum"),
            lambda: torch.segment_reduce(sv, "sum", lengths=ln64),
            sv.numel() * 4 + S * (8 + rb))
-    recs["segment_reduce_sorted"].update(short_route(sv, st, ln))
+    recs["segment_reduce_sorted"].update(short_route(sv, st, ln, 1,
+                                                     "vector"))
+    recs["segment_reduce_sorted"].update(scalar_in_turns(sv, st, ln, 1, dev,
+                                                         it))
 
     wide_ms = wide_row_variants(objs["wide"], wide, g, dev, it)
 
@@ -1019,7 +1040,10 @@ def kernel_records(objs, sz: Sizes, dev) -> dict:
            gsv.numel() * 4 + gst.numel() * 12)
     check(same_bits(run_seg(), run_seg()), "segment reduce not bitwise "
           "identical run to run")
-    recs["segment_reduce_blocked"].update(short_route(gsv, gst, gln))
+    recs["segment_reduce_blocked"].update(short_route(
+        gsv, gst, gln, kops.SEG_BLOCK, "scalar"))
+    recs["segment_reduce_blocked"].update(scalar_in_turns(
+        gsv, gst, gln, kops.SEG_BLOCK, dev, it))
     recs["segment_reduce_blocked"]["dtype_shapes"] = segment_dtype_shapes(
         gsv, gst, gln, dev, it)
     recs["segment_reduce_blocked"]["long_cut_sweep"] = long_cut_sweep(dev,
@@ -1075,16 +1099,107 @@ def kernel_records(objs, sz: Sizes, dev) -> dict:
     return recs, wide_ms
 
 
-def short_route(sv, st, ln) -> dict:
-    """The longest segment and route of a main-path segment reduce, which
-    must be the short one (the one-thread-a-segment kernel, unchanged)."""
+def short_route(sv, st, ln, segs_per_cta: int, kernel: str) -> dict:
+    """The longest segment, route and short-route plan of a main-path
+    segment reduce, which must take the short route and there ``kernel``
+    (``"vector"`` or ``"scalar"``); the plan's numbers."""
     from repro_torch.kernels import sf_unpack
     from repro_torch.kernels._index import segment_meta
     lmax = segment_meta(st, ln, sv.device)[3]
     route = sf_unpack.reduce_route(lmax, sv.dtype, "sum")
     check(route == "short", f"a main-path segment reduce (Lmax {lmax}) "
           f"took the {route} route")
-    return {"lmax": lmax, "route": route, "long_seg": sf_unpack.LONG_SEG}
+    plan = short_plan_of(sv, st, segs_per_cta)
+    check(plan["route"] == kernel, f"a main-path segment reduce took the "
+          f"{plan['route']} kernel, not the {kernel} one")
+    return {"lmax": lmax, "route": route, "long_seg": sf_unpack.LONG_SEG,
+            "short_plan": plan}
+
+
+def short_plan_of(buf, st, segs_per_cta: int) -> dict:
+    """The numbers of ``sf_unpack.short_plan`` for a reduce of ``buf`` into
+    ``st.numel()`` segments (the output 16-byte aligned, as torch allocates
+    it)."""
+    from repro_torch.kernels import sf_unpack
+    plan = sf_unpack.short_plan(
+        st.numel(), max(1, math.prod(buf.shape[1:])), buf.element_size(),
+        rows=buf.shape[0], buf_ptr=buf.data_ptr(), out_ptr=0,
+        segs_per_cta=segs_per_cta, sms=sf_unpack._device_sms(buf))
+    return {k: v for k, v in dataclasses.asdict(plan).items()
+            if k not in ("S", "U", "elem", "buf_mod", "out_mod")}
+
+
+def scalar_in_turns(buf, st, ln, segs_per_cta: int, dev, it: int,
+                    graph: bool = False) -> dict:
+    """A segment reduce (``segment_reduce_sorted`` at one segment a CTA,
+    ``segment_reduce_blocked`` otherwise) against the scalar kernel on the
+    same inputs (``short_variant(route="scalar")``: the short route before
+    the vector kernel, column tiles and all), each bitwise the plain fold,
+    timed in turns by torch.profiler (``graph``: CUDA events around graph
+    replays), the scalar kernel also with L2 scrubbed."""
+    from repro_torch.kernels import sf_unpack
+    run = (lambda: sf_unpack.segment_reduce_sorted(buf, st, ln)) \
+        if segs_per_cta == 1 else (lambda: sf_unpack.segment_reduce_blocked(
+            buf, st, ln, segs_per_block=segs_per_cta))
+    prev = lambda: sf_unpack.short_variant(
+        buf, st, ln, segs_per_block=segs_per_cta, route="scalar")
+    want = sf_unpack.segment_reduce_plain(buf, st, ln, "sum")
+    check(same_raw_bits(run(), want) and same_raw_bits(prev(), want),
+          "a segment reduce or its scalar kernel differs from plain")
+    timer, cold = (graph_ms, cold_graph_ms) if graph else \
+        (device_ms, cold_device_ms)
+    (ms, ms_runs), (prev_ms, prev_runs) = in_turns(run, prev, dev, it, timer)
+    return {"ms_in_turns": ms, "ms_runs": ms_runs, "prev_ms": prev_ms,
+            "prev_ms_runs": prev_runs,
+            "prev_ms_cold_l2": cold(prev, dev, it),
+            "prev_source": "segment_reduce_kernel (the scalar kernel; "
+                           "short_variant(route=\"scalar\"))",
+            "bitwise_plain_and_scalar": True}
+
+
+def segred_record(what: str, buf, st, ln, dev, it: int, library,
+                  library_name: str, lib_tol: float = 5e-2) -> dict:
+    """Row 5 (``segment_reduce_sorted``, sum) at one shape: the route and
+    short-route plan it takes (segments over ``LONG_SEG`` rows on the long
+    route in the same call, as on the path); bitwise the plain fold and the
+    scalar kernel; device ms from CUDA-graph replays in turns with the scalar
+    kernel's (``prev_ms``), both with L2 scrubbed (``cold_graph_ms``), the
+    bound (the rows read once, (start, len), one row a segment written),
+    the plain version's and one library call's ms (CUDA events around
+    calls; ``library()`` within ``lib_tol`` of the largest plain element:
+    a yardstick, not bitwise)."""
+    import torch
+    from repro_torch.kernels import sf_unpack
+    from repro_torch.kernels._index import segment_meta
+    lmax = segment_meta(st, ln, dev)[3]
+    plain = lambda: sf_unpack.segment_reduce_plain(buf, st, ln, "sum", lmax)
+    want = plain()
+    lib = library()
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    err = max_abs(lib.to(want.dtype), want)
+    check(err <= lib_tol * scale, f"{what}: {library_name} max|d| {err}")
+    del lib
+    rec = {"what": what, "rows": int(buf.shape[0]),
+           "unit": list(buf.shape[1:]), "dtype": str(buf.dtype)[6:],
+           "segments": st.numel(), "empty_segments": int((ln == 0).sum()),
+           "lmax": lmax, "route": sf_unpack.reduce_route(lmax, buf.dtype,
+                                                         "sum"),
+           "long_segments": int((ln > sf_unpack.LONG_SEG).sum()),
+           "short_plan": short_plan_of(buf, st, 1),
+           **scalar_in_turns(buf, st, ln, 1, dev, it, graph=True),
+           "ms_by": "CUDA events (graph), in turns with prev_ms"}
+    run = lambda: sf_unpack.segment_reduce_sorted(buf, st, ln)
+    rb = buf[:1].numel() * buf.element_size()
+    rec["bound_ms"], rec["bound_by"] = bound(
+        int(ln.sum()) * rb + st.numel() * (8 + rb))
+    rec["ms"] = rec.pop("ms_in_turns")
+    rec["ms_cold_l2"] = cold_graph_ms(run, dev, it)
+    rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+    rec["plain_ms"] = call_ms(plain, dev, 2)
+    rec["library"], rec["library_max_abs"] = library_name, err
+    rec["library_ms"] = call_ms(library, dev, it)
+    rec["library_ms_by"] = rec["plain_ms_by"] = "CUDA events around calls"
+    return rec
 
 
 def segment_dtype_shapes(sv, st, ln, dev, it: int) -> list:
@@ -1129,12 +1244,13 @@ def segment_dtype_shapes(sv, st, ln, dev, it: int) -> list:
     return out
 
 
-def in_turns(run, prev, dev, it: int):
+def in_turns(run, prev, dev, it: int, timer=None):
     """(min, runs) of ``run`` and of ``prev``, each timed twice in turns:
-    run, prev, prev, run."""
-    ms = [device_ms(run, dev, it)]
-    prev_ms = [device_ms(prev, dev, it), device_ms(prev, dev, it)]
-    ms.append(device_ms(run, dev, it))
+    run, prev, prev, run (``timer``: ``device_ms`` by default)."""
+    timer = timer or device_ms
+    ms = [timer(run, dev, it)]
+    prev_ms = [timer(prev, dev, it), timer(prev, dev, it)]
+    ms.append(timer(run, dev, it))
     return (min(ms), ms), (min(prev_ms), prev_ms)
 
 
@@ -4320,6 +4436,37 @@ def recorded_gathers(log: list):
 
 
 @contextlib.contextmanager
+def recorded_segreds(log: list, part: str):
+    """Within the block, every ``kops.segment_reduce_rows`` call that
+    launches row 5 (``segment_reduce_sorted``; on the CPU, a call whose
+    fixed rule names it) appends its shape, dtype, op, whether it was
+    runtime-routed, ``part`` and its (first, length) metadata (not its
+    buffer) to ``log``, and runs as it does."""
+    from repro_torch.kernels import ops as kops, sf_unpack
+    real = kops.segment_reduce_rows
+
+    def segment_reduce_rows(sorted_vals, seg_first, seg_len, *, op="sum",
+                            key=None, dynamic=False):
+        before = sf_unpack.segment_reduce_sorted.launches
+        out = real(sorted_vals, seg_first, seg_len, op=op, key=key,
+                   dynamic=dynamic)
+        row5 = sf_unpack.segment_reduce_sorted.launches > before \
+            if sorted_vals.is_cuda else \
+            kops._segred_default(sorted_vals) == "row"
+        if row5:
+            log.append({"part": part, "shape": tuple(sorted_vals.shape),
+                        "dtype": sorted_vals.dtype, "op": op,
+                        "dynamic": dynamic, "first": seg_first,
+                        "length": seg_len})
+        return out
+    kops.segment_reduce_rows = segment_reduce_rows
+    try:
+        yield
+    finally:
+        kops.segment_reduce_rows = real
+
+
+@contextlib.contextmanager
 def no_host_sync(dev):
     """Within the block any synchronising CUDA call raises (on the card)."""
     import torch
@@ -5722,9 +5869,11 @@ def ddp_bucket_record(red, stack, dev, it: int) -> dict:
     lie nearest the budget): device ms (graph replays) of the fused
     begin/end against its bound (the grain rows read once, the reduced row
     written once) and ``torch.sum(dim=0)`` over the grain-stacked buffer,
-    and its call ms; then the segment
-    reduce alone on that buffer, column-tiled (this PR) against one CTA
-    (before), each bitwise the plain version."""
+    and its call ms; then row 5 alone on that buffer (``segred_record``:
+    the vector kernel in turns with the scalar kernel, column-tiled, as
+    ``prev_ms``; cold L2; plain; ``torch.sum(dim=0)`` again as its library
+    call) and the scalar kernel at one CTA (before the column tiles), each
+    bitwise the plain version."""
     import torch
     from repro_torch.kernels import sf_unpack
     plan = red.plan
@@ -5741,31 +5890,29 @@ def ddp_bucket_record(red, stack, dev, it: int) -> dict:
     st = torch.zeros(1, dtype=torch.int32, device=dev)
     ln = torch.full((1,), G, dtype=torch.int32, device=dev)
     want = sf_unpack.segment_reduce_plain(buf, st, ln, "sum")
-    tiled = sf_unpack.short_variant(buf, st, ln, segs_per_block=1,
-                                    col_tiles=0)
     one = sf_unpack.short_variant(buf, st, ln, segs_per_block=1,
                                   col_tiles=1)
-    check(same_raw_bits(tiled, want) and same_raw_bits(one, want),
-          "the column-tiled or one-CTA segment reduce differs from plain")
+    check(same_raw_bits(one, want),
+          "the one-CTA segment reduce differs from plain")
     got = reduce()
     check(all(same_raw_bits(r, w) for r, w in zip(
         got, torch.split(want, [f.shape[1] for f in fields], dim=1))),
         "the bucket reduce differs from the plain fold")
+    row5 = segred_record("ddp bucket", buf, st, ln, dev, it,
+                         lambda: buf.sum(dim=0, keepdim=True),
+                         "torch.sum(dim=0)", lib_tol=2e-2)
+    check(row5["short_plan"]["route"] == "vector",
+          "the DDP bucket's segment reduce did not take the vector kernel")
     return {"bucket": b.index, "leaves": len(b.leaves), "nbytes": b.nbytes,
             "grains": G, "unit": U, "dtype": str(buf.dtype)[6:],
             "reduce_device_ms": graph_ms(reduce, dev, it),
             "reduce_call_ms": call_ms(reduce, dev, it),
             "bound_ms": bnd, "bound_by": by,
             "torch_sum_dim0_ms": graph_ms(lambda: buf.sum(dim=0), dev, it),
-            "segment_reduce_tiled_ms": graph_ms(
-                lambda: sf_unpack.short_variant(
-                    buf, st, ln, segs_per_block=1, col_tiles=0), dev, it),
+            "segment_reduce": row5,
             "segment_reduce_one_cta_ms": graph_ms(
                 lambda: sf_unpack.short_variant(
-                    buf, st, ln, segs_per_block=1, col_tiles=1), dev, 2),
-            "segment_reduce_bound_ms": bound((G + 1) * U
-                                             * buf.element_size())[0],
-            "tiled_equals_one_cta_and_plain": True}
+                    buf, st, ln, segs_per_block=1, col_tiles=1), dev, 2)}
 
 
 def train_ddp(sz: Sizes, dev, acc: dict) -> dict:
@@ -6298,11 +6445,19 @@ def phase_train(sz: Sizes, dev):
              ("flash_cross", lambda: train_flash_cross(sz, dev))]
     parts += [(arch.split("-")[0], lambda arch=arch: train_family(
         arch, sz, dev, acc)) for arch in TRAIN_FAMILIES]
+    # row 5's calls on the path, timed at their own shapes at the end
+    segreds = []
+    parts.append(("segred_shapes",
+                  lambda: train_segred_shapes(segreds, sz, dev)))
     for name, part in parts:
         t1 = time.perf_counter()
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
-        res = part()
+        if name == "segred_shapes":
+            res = part()
+        else:
+            with recorded_segreds(segreds, name):
+                res = part()
         out[name] = res if isinstance(res, dict) else {"shapes": res}
         out[name]["seconds"] = time.perf_counter() - t1
         print(f"TRAIN_PART {name} " + json.dumps(out[name]),
@@ -6315,6 +6470,88 @@ def phase_train(sz: Sizes, dev):
     launches = {k: acc.get(k, 0) for k in kops.kernel_wrappers()}
     out["launches"] = launches
     return out, launches
+
+
+def train_segred_shapes(log: list, sz: Sizes, dev) -> dict:
+    """Row 5 at each distinct shape the train path launched it at
+    (``recorded_segreds``), on seeded buffers with the path's own (first,
+    length) metadata: ``segred_record`` for each runtime-routed call (the
+    token lookups' and the MoE dispatch's transposes: ``zeros().index_add_``
+    as the library call) and, at qwen3-4b's token transpose,
+    ``dynplan._transpose_sum``'s call ms and the device ms of its three
+    full-vocabulary passes beside the kernel (``new_zeros``, the combine,
+    ``where``).  The DDP buckets are listed (``ddp.bucket`` times the one
+    nearest the budget)."""
+    import torch
+    from repro_torch.core import dynplan
+    from repro_torch.kernels import sf_unpack
+    g = torch.Generator(device=dev).manual_seed(28)
+    out = {"calls": len(log), "buckets": [], "shapes": []}
+    seen = set()
+    for e in log:
+        first = torch.as_tensor(e["first"], device=dev).to(torch.int32)
+        length = torch.as_tensor(e["length"], device=dev).to(torch.int32)
+        S = first.numel()
+        key = (e["shape"], str(e["dtype"]), e["op"], e["dynamic"], S)
+        if key in seen:
+            continue
+        seen.add(key)
+        if not e["dynamic"]:
+            out["buckets"].append({"part": e["part"],
+                                   "shape": list(e["shape"]),
+                                   "dtype": str(e["dtype"])[6:],
+                                   "segments": S})
+            continue
+        check(e["op"] == "sum", f"a train-path row-5 call of op {e['op']}")
+        ln64 = length.long()
+        n = int(ln64.sum())
+        check(torch.equal(first.long(), torch.cumsum(ln64, 0) - ln64),
+              "a transpose's segments are not consecutive from row 0")
+        unit = tuple(e["shape"][1:])
+        buf = torch.randn(e["shape"], generator=g, device=dev).to(
+            e["dtype"])
+        seg_ids = torch.repeat_interleave(torch.arange(S, device=dev), ln64,
+                                          output_size=n)
+        lib = lambda: torch.zeros((S,) + unit, dtype=buf.dtype,
+                                  device=dev).index_add_(0, seg_ids, buf[:n])
+        what = (f"{e['part']} transpose: {n} rows onto {S} x "
+                f"{list(unit)} {str(buf.dtype)[6:]}")
+        # index_add_'s bf16 atomics sum in another order: at a few hundred
+        # rows a segment they part from the sequential fold by ~5% of the
+        # largest sum; a row sent to the wrong segment moves it by ~100%
+        rec = segred_record(what, buf, first, length, dev, sz.timing_iters,
+                            lib, "torch.zeros().index_add_", lib_tol=0.25)
+        rec["part"] = e["part"]
+        check(rec["short_plan"]["route"] == "vector",
+              f"{what}: the {rec['short_plan']['route']} kernel")
+        if e["part"] == "dense" and "transpose_sum_call_ms" not in out:
+            # qwen3-4b's token lookup: the whole transpose around the kernel
+            rows = buf[:n]
+            idx = seg_ids[torch.randperm(n, generator=g, device=dev)]
+            want = torch.zeros((S,) + unit, dtype=buf.dtype,
+                               device=dev).index_add_(0, idx, rows)
+            got = dynplan._transpose_sum(rows, idx, S)
+            check(max_abs(got, want) <= 0.25 * float(want.abs().max()),
+                  "_transpose_sum disagrees with index_add_")
+            seg = sf_unpack.segment_reduce_sorted(buf, first, length)
+            mask = (length > 0).reshape((-1,) + (1,) * len(unit))
+
+            def passes():
+                zeros = rows.new_zeros((S,) + unit)
+                return torch.where(mask, torch.add(zeros, seg), zeros)
+            rec["transpose_sum_call_ms"] = call_ms(
+                lambda: dynplan._transpose_sum(rows, idx, S), dev,
+                sz.timing_iters)
+            rec["transpose_extra_passes_ms"] = graph_ms(passes, dev,
+                                                        sz.timing_iters)
+            out["transpose_sum_call_ms"] = rec["transpose_sum_call_ms"]
+            del got, want, seg, rows, idx
+        out["shapes"].append(rec)
+        del buf, seg_ids
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
 
 
 def train_child(device: str, smoke: bool) -> int:
@@ -7231,6 +7468,8 @@ def run(dev, sz: Sizes) -> list:
         train["flash_backward"]["shapes"] + [train["flash_cross"]]
     for name in SEGRED:
         recs[name]["ddp_bucket_shape"] = train["ddp"]["bucket"]
+    recs["segment_reduce_sorted"]["train_shapes"] = \
+        train["segred_shapes"]["shapes"]
     del train
 
     # the launch path (the sharded step through the launcher on a (1, 1)
@@ -7308,7 +7547,10 @@ def main() -> int:
               if "wide_gather" in r["function"]],
           "sf_unpack_long_ptxas": [
               r for r in _build.ptxas_report("sf_unpack")
-              if "long_" in r["function"]]})
+              if "long_" in r["function"]],
+          "sf_unpack_short_ptxas": [
+              r for r in _build.ptxas_report("sf_unpack")
+              if "segment_reduce_" in r["function"]]})
     kernels = run(dev, Sizes())
     emit({"phase": "profiler", "windows": PROFILER_WINDOWS["taken"],
           "retaken": PROFILER_WINDOWS["retaken"]})

@@ -1,10 +1,11 @@
 // SF unpack kernels for Hopper (sm_90a): deterministic segment reduction.
 //
 // Replaces the Pallas functions of repro/kernels/sf_unpack.py:
-//   segment_reduce_sorted   (sf_unpack.py:86)  -> sf_segment_reduce, one
-//                                                 segment per CTA
-//   segment_reduce_blocked  (sf_unpack.py:154) -> sf_segment_reduce,
-//                                                 segs_per_cta segments per CTA
+//   segment_reduce_sorted   (sf_unpack.py:86)  -> sf_segment_reduce_vec /
+//                                                 sf_segment_reduce, one
+//                                                 segment per CTA at least
+//   segment_reduce_blocked  (sf_unpack.py:154) -> the same, segs_per_cta
+//                                                 segments per CTA at least
 // Both wrappers send the segments longer than their cut (LONG_SEG in
 // kernels/sf_unpack.py) to sf_segment_reduce_long.
 //
@@ -24,17 +25,55 @@
 // core/ops.py).
 //
 // Routes (the wrapper picks them from the longest segment, which
-// segment_meta reads with the metadata's bounds):
+// segment_meta reads with the metadata's bounds, and, for the short route,
+// from sf_unpack.short_plan, which alone chooses its layout and grid; the
+// launchers here take the plan's numbers as they are):
 //
-// * Short (segment_reduce_kernel): one thread owns one (segment, unit
-//   element) and walks the segment's rows in buffer order, segs_per_cta
-//   segments a CTA.  Every segment takes it while the longest is at most
-//   the cut; otherwise it skips each segment longer than the cut, which the
-//   long route writes in the same call.  When the segment groups are too
-//   few to fill the card (a DDP gradient bucket is one segment of `grains`
-//   rows, millions of elements wide), the launcher also cuts the unit into
-//   column tiles on blockIdx.y (col_tiles), as the long route does: each
-//   element keeps its thread and its fold, so the bits do not change.
+// * Short, vector (segment_reduce_vec_kernel): rows of whole 16-byte
+//   vectors (row bytes a multiple of 16) with buf and out on 16-byte
+//   boundaries.  A lane owns one 16-byte vector of one segment's row (4
+//   f32, 8 bf16, 16 int8 elements) and folds each element of it with
+//   Num<T>'s own arithmetic, so every element keeps its own sequential
+//   fold: the bits are the plain fold's.  Rows of more than 16 vectors: a
+//   warp owns a chunk of up to 32 * K vectors of one segment's row (lane l
+//   vectors l, l + 32, ... in turn, as sf_pack.cu's wide_gather_kernel);
+//   narrower rows: the warp's lanes split into groups of LS (the row's
+//   vectors rounded up to a power of two) lanes, one segment a group, so a
+//   warp folds 32 / LS segments at once.  Before folding, a lane issues the
+//   streaming loads (ld.global.cs: each row is read once) of kShortRows
+//   (R) rows of its segment, then folds them in row order; a remainder
+//   batch takes the last len % R rows.  The loads do not depend on the
+//   fold, so the order of the combines stays the buffer order.  A warp's
+//   items (segment group, chunk) are 32-bit numbers with one division an
+//   item, none an element; rows advance by 64-bit pointer steps.  A CTA of
+//   W warps walks per_cta consecutive items, its warps in turn.  An empty
+//   segment writes its identity vector with 16-byte stores (the token
+//   lookup's transpose is almost all empty segments: for it that is the
+//   whole cost).  One rule fills the card (short_plan, picked from a sweep
+//   of K, warps and items a CTA at the paths' shapes on an H100): K, the
+//   vectors a lane folds a chunk, grows (1 to 4) as the segments hold
+//   fewer rows, so that a lane moves about 4 rows' vectors a chunk, and
+//   shrinks while the items would give an SM fewer than 32 warps, so a few
+//   very wide segments (a DDP bucket: one segment of grains x 10 M bf16)
+//   are spread over thousands of warps along the row; a CTA of 4 warps
+//   walks per_cta = 4 * m consecutive items, m the least that moves ~12
+//   KB (the almost empty segments of a token transpose then share a CTA,
+//   whose launch would otherwise cost more than their stores), at most
+//   what keeps 4 CTAs an SM.  segs_per_cta (the tuner's "row" = 1 and
+//   "block:SB") is the least number of items a CTA walks, counted in
+//   segments where a segment's row is one item: m is at least
+//   ceil(ceil(SB / segments an item) / warps).  So "row" and "block:SB"
+//   name different launches wherever SB items outweigh the byte target
+//   and the card stays full.
+// * Short, scalar (segment_reduce_kernel): rows narrower than 16 bytes, not
+//   whole vectors, or off a 16-byte boundary (U = 1 rows, FieldBundle's
+//   12-byte rows, a view one element in).  One thread owns one (segment,
+//   unit element) and walks the segment's rows in buffer order,
+//   segs_per_cta segments a CTA; when the segment groups are too few to
+//   fill the card the plan cuts the unit into column tiles on blockIdx.y
+//   (width elements each): each element keeps its thread and its fold.
+// Either short kernel skips each segment longer than the cut, which the
+// long route writes in the same call.
 // * Long, order-free: integer dtypes under every op, float dtypes under
 //   max / min.  The wrapper's plan (sf_unpack.long_plan, built once per
 //   segment metadata) cuts each long segment into chunks of kLongChunkRows
@@ -71,9 +110,12 @@
 // Bound on this card.  Short and order-free routes: bytes, over the 3.35
 // TB/s of HBM3: the rows read once, the (start, len) metadata, the partial
 // rows written and read once (n_chunks * U elements each way), one row a
-// segment written.  Order-dependent route: the larger of those bytes and
-// the dependent chain of the longest segment, len * U / tile threads
-// combines of ~4 cycles each (an f32 add's latency).
+// segment written.  The vector route must keep about 25 KB of loads in
+// flight an SM to reach it (Little's law at ~1 us): R rows of 16 bytes a
+// lane give 4 KB a warp, so a few resident warps an SM suffice.
+// Order-dependent route: the larger of those bytes and the dependent chain
+// of the longest segment, len * U / tile threads combines of ~4 cycles
+// each (an f32 add's latency).
 //
 // Every entry point returns cudaGetLastError() after its launches (-1 for
 // an unknown code or a grid the card cannot take).
@@ -206,6 +248,7 @@ __device__ __forceinline__ T combine(T acc, T v) {
   return Num<T>::gt(acc, v) ? v : acc;
 }
 
+// ----------------------------------------------------- short route: scalar
 // CTA (x, y) folds segments [x * segs_per_cta, ...) over the unit's
 // columns [y * width, y * width + width).
 template <typename T, int OP>
@@ -236,74 +279,144 @@ __global__ void segment_reduce_kernel(const T* __restrict__ buf,
   }
 }
 
-// Column tiles of the short route: col_tiles > 0 is taken as it is (1 =
-// one CTA for each segment group's whole unit); 0 lets the launcher cut
-// the unit so that the grid holds kFillCtasPerSm CTAs an SM, each tile at
-// least kMinTileCols columns (a multiple of 32) and at most 65,535 tiles.
-constexpr int kFillCtasPerSm = 8;      // 8 x 256 threads: a full SM
-constexpr long long kMinTileCols = 1024;
+// ----------------------------------------------------- short route: vector
+constexpr int kShortRows = 8;      // R: sf_unpack.SHORT_ROWS
+constexpr int kShortMaxK = 4;      // sf_unpack.SHORT_MAX_K
+constexpr int kShortWarps = 4;     // sf_unpack.SHORT_WARPS: warps a CTA, at most
 
-inline int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess || sms <= 0) {
-      sms = 132;  // an H100 SXM
-    }
-  }
-  return sms;
+// The numbers of sf_unpack.ShortPlan for one vector launch.
+struct VecPlan {
+  long long UV;      // 16-byte vectors a row
+  long long S;       // segments
+  unsigned items;    // warp items: ceil(S / (32 / LS)) * chunks
+  unsigned chunks;   // chunks a segment row (1 when LS < 32)
+  unsigned per_cta;  // items a CTA walks, its warps in turn
+  int K;             // vectors a lane folds a chunk, in turn
+  int lg_lanes;      // log2 LS: lanes a segment row
+  int long_cut;      // longer segments are the long route's
+};
+
+// acc (+) x, element by element: V independent folds of T.
+template <typename T, int OP>
+__device__ __forceinline__ int4 fold16(int4 acc, int4 x) {
+  constexpr int V = 16 / (int)sizeof(T);
+  T a[V], e[V];
+  memcpy(a, &acc, 16);
+  memcpy(e, &x, 16);
+#pragma unroll
+  for (int i = 0; i < V; ++i) a[i] = combine<T, OP>(a[i], e[i]);
+  memcpy(&acc, a, 16);
+  return acc;
 }
 
-inline long long tile_width(long long groups, long long U, int col_tiles) {
-  long long tiles = col_tiles;
-  if (tiles <= 0) {
-    const long long want = (long long)sm_count() * kFillCtasPerSm;
-    tiles = groups >= want ? 1 : (want + groups - 1) / groups;
-    tiles = min(tiles, (U + kMinTileCols - 1) / kMinTileCols);
+// Warp item `it` is segment group it / chunks, chunk it % chunks.  Lane
+// group `sub` (LS lanes) takes segment group * (32 / LS) + sub; lane lv of
+// the group vectors c * LS * K + lv + LS * q, q < K, of that segment's row.
+template <typename T, int OP>
+__global__ void __launch_bounds__(32 * kShortWarps)
+    segment_reduce_vec_kernel(const int4* __restrict__ buf,
+                              int4* __restrict__ out,
+                              const int* __restrict__ seg_start,
+                              const int* __restrict__ seg_len,
+                              const VecPlan p) {
+  constexpr int V = 16 / (int)sizeof(T);
+  T idv[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) idv[i] = identity<T, OP>();
+  int4 ident;
+  memcpy(&ident, idv, 16);
+  const int lane = (int)threadIdx.x & 31;
+  const int LS = 1 << p.lg_lanes;
+  const int sub = lane >> p.lg_lanes, lv = lane & (LS - 1);
+  const unsigned W = blockDim.x >> 5;
+  const unsigned first = blockIdx.x * p.per_cta;
+  const unsigned last = min(first + p.per_cta, p.items);
+  for (unsigned it = first + (threadIdx.x >> 5); it < last; it += W) {
+    const unsigned grp = it / p.chunks;
+    const unsigned c = it - grp * p.chunks;
+    const long long s = ((long long)grp << (5 - p.lg_lanes)) + sub;
+    if (s >= p.S) continue;
+    const int len = __ldg(seg_len + s);
+    if (len > p.long_cut) continue;  // the long route writes this one
+    const long long v0 = (long long)c * LS * p.K + lv;
+    const int4* src = buf + (long long)__ldg(seg_start + s) * p.UV + v0;
+    int4* dst = out + s * p.UV + v0;
+    for (int q = 0; q < p.K && v0 + (long long)q * LS < p.UV; ++q) {
+      const int4* row = src + q * LS;
+      int4 acc = ident;
+      int k = 0;
+      for (; k + kShortRows <= len; k += kShortRows) {
+        int4 x[kShortRows];
+#pragma unroll
+        for (int r = 0; r < kShortRows; ++r) x[r] = __ldcs(row + r * p.UV);
+#pragma unroll
+        for (int r = 0; r < kShortRows; ++r) acc = fold16<T, OP>(acc, x[r]);
+        row += kShortRows * p.UV;
+      }
+      const int rem = len - k;
+      if (rem > 0) {
+        int4 x[kShortRows];
+#pragma unroll
+        for (int r = 0; r < kShortRows; ++r) {
+          if (r < rem) x[r] = __ldcs(row + r * p.UV);
+        }
+#pragma unroll
+        for (int r = 0; r < kShortRows; ++r) {
+          if (r < rem) acc = fold16<T, OP>(acc, x[r]);
+        }
+      }
+      dst[q * LS] = acc;
+    }
   }
-  tiles = max(1LL, min(tiles, U));
-  long long width = (U + tiles - 1) / tiles;
-  if (tiles > 1) width = (width + 31) / 32 * 32;
-  while ((U + width - 1) / width > 65535) width *= 2;
-  return width;
 }
 
 template <typename T>
 int launch(const void* buf, void* out, const int* seg_start,
            const int* seg_len, long long S, long long U, int op,
-           int segs_per_cta, int long_cut, int col_tiles,
-           cudaStream_t stream) {
-  const long long groups = (S + segs_per_cta - 1) / segs_per_cta;
-  const long long width = tile_width(groups, U, col_tiles);
-  const long long items = (long long)segs_per_cta * width;
-  const long long warps = (items + 31) / 32;
-  const int threads = (int)(warps >= 8 ? 256 : (warps < 1 ? 32 : warps * 32));
-  if (groups > 2147483647LL) return -1;
-  const dim3 grid((unsigned)groups, (unsigned)((U + width - 1) / width));
+           int segs_per_cta, int long_cut, long long width, int threads,
+           unsigned gx, unsigned gy, cudaStream_t stream) {
+  const dim3 grid(gx, gy);
   const T* b = (const T*)buf;
   T* o = (T*)out;
+#define SF_SHORT_AS(OPC)                                                   \
+  segment_reduce_kernel<T, OPC><<<grid, threads, 0, stream>>>(             \
+      b, o, seg_start, seg_len, S, U, segs_per_cta, long_cut, width);      \
+  break
   switch (op) {
-    case OP_SUM:
-      segment_reduce_kernel<T, OP_SUM><<<grid, threads, 0, stream>>>(
-          b, o, seg_start, seg_len, S, U, segs_per_cta, long_cut, width);
-      break;
-    case OP_PROD:
-      segment_reduce_kernel<T, OP_PROD><<<grid, threads, 0, stream>>>(
-          b, o, seg_start, seg_len, S, U, segs_per_cta, long_cut, width);
-      break;
-    case OP_MAX:
-      segment_reduce_kernel<T, OP_MAX><<<grid, threads, 0, stream>>>(
-          b, o, seg_start, seg_len, S, U, segs_per_cta, long_cut, width);
-      break;
-    case OP_MIN:
-      segment_reduce_kernel<T, OP_MIN><<<grid, threads, 0, stream>>>(
-          b, o, seg_start, seg_len, S, U, segs_per_cta, long_cut, width);
-      break;
+    case OP_SUM: SF_SHORT_AS(OP_SUM);
+    case OP_PROD: SF_SHORT_AS(OP_PROD);
+    case OP_MAX: SF_SHORT_AS(OP_MAX);
+    case OP_MIN: SF_SHORT_AS(OP_MIN);
     default:
       return -1;
   }
+#undef SF_SHORT_AS
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_vec(const void* buf, void* out, const int* seg_start,
+               const int* seg_len, const VecPlan& p, int op, int warps,
+               unsigned grid, cudaStream_t stream) {
+  if (((uintptr_t)buf & 15) || ((uintptr_t)out & 15) || p.K < 1 ||
+      p.K > kShortMaxK || warps < 1 || warps > kShortWarps ||
+      p.lg_lanes < 0 || p.lg_lanes > 5 || (p.lg_lanes < 5 && p.chunks != 1))
+    return -1;
+  const int4* b = (const int4*)buf;
+  int4* o = (int4*)out;
+#define SF_VEC_AS(OPC)                                                     \
+  segment_reduce_vec_kernel<T, OPC><<<grid, 32 * warps, 0, stream>>>(      \
+      b, o, seg_start, seg_len, p);                                        \
+  break
+  switch (op) {
+    case OP_SUM: SF_VEC_AS(OP_SUM);
+    case OP_PROD: SF_VEC_AS(OP_PROD);
+    case OP_MAX: SF_VEC_AS(OP_MAX);
+    case OP_MIN: SF_VEC_AS(OP_MIN);
+    default:
+      return -1;
+  }
+#undef SF_VEC_AS
   return (int)cudaGetLastError();
 }
 
@@ -826,17 +939,22 @@ extern "C" {
 
 // Dtype codes: 0 float32, 1 float64, 2 int32, 3 bfloat16, 4 int8, 5 uint8,
 // 6 int16, 7 int64, 8 float16.  Op codes: 0 sum, 1 prod, 2 max, 3 min.
-// Returns -1 for an unknown code.  Segments longer than long_cut are left
-// to sf_segment_reduce_long.  col_tiles: the unit's column tiles on
-// blockIdx.y, 0 = the launcher's choice (tile_width).
+// Returns -1 for an unknown code or a plan the kernel cannot take.
+// Segments longer than long_cut are left to sf_segment_reduce_long.
+
+// The short route's scalar kernel on short_plan's (gx, gy) grid of
+// `threads`-thread CTAs: segs_per_cta segments and `width` unit columns a
+// CTA.
 int sf_segment_reduce(const void* buf, void* out, const int* seg_start,
                       const int* seg_len, long long S, long long U, int dtype,
-                      int op, int segs_per_cta, int long_cut, int col_tiles,
-                      void* stream) {
+                      int op, int segs_per_cta, int long_cut, long long width,
+                      int threads, int gx, int gy, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (gx < 1 || gy < 1 || gy > 65535 || threads < 32 || threads > 1024)
+    return -1;
 #define SF_REDUCE_AS(T)                                                  \
   return launch<T>(buf, out, seg_start, seg_len, S, U, op, segs_per_cta, \
-                   long_cut, col_tiles, s)
+                   long_cut, width, threads, (unsigned)gx, (unsigned)gy, s)
   switch (dtype) {
     case 0: SF_REDUCE_AS(float);
     case 1: SF_REDUCE_AS(double);
@@ -851,6 +969,37 @@ int sf_segment_reduce(const void* buf, void* out, const int* seg_start,
       return -1;
   }
 #undef SF_REDUCE_AS
+}
+
+// The short route's vector kernel: rows of UV 16-byte vectors, buf and out
+// on 16-byte boundaries, short_plan's items / chunks / per_cta / K / log2
+// lanes, `grid` CTAs of `warps` warps.
+int sf_segment_reduce_vec(const void* buf, void* out, const int* seg_start,
+                          const int* seg_len, long long S, long long UV,
+                          int dtype, int op, int long_cut, int items,
+                          int chunks, int per_cta, int K, int lg_lanes,
+                          int warps, int grid, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (items < 1 || chunks < 1 || per_cta < 1 || grid < 1) return -1;
+  const VecPlan p = {UV, S, (unsigned)items, (unsigned)chunks,
+                     (unsigned)per_cta, K, lg_lanes, long_cut};
+#define SF_VEC_REDUCE_AS(T) \
+  return launch_vec<T>(buf, out, seg_start, seg_len, p, op, warps, \
+                       (unsigned)grid, s)
+  switch (dtype) {
+    case 0: SF_VEC_REDUCE_AS(float);
+    case 1: SF_VEC_REDUCE_AS(double);
+    case 2: SF_VEC_REDUCE_AS(int);
+    case 3: SF_VEC_REDUCE_AS(__nv_bfloat16);
+    case 4: SF_VEC_REDUCE_AS(signed char);
+    case 5: SF_VEC_REDUCE_AS(unsigned char);
+    case 6: SF_VEC_REDUCE_AS(short);
+    case 7: SF_VEC_REDUCE_AS(long long);
+    case 8: SF_VEC_REDUCE_AS(__half);
+    default:
+      return -1;
+  }
+#undef SF_VEC_REDUCE_AS
 }
 
 // The long route for the plan's n_long segments (ids long_seg, rows

@@ -12,6 +12,8 @@ card's machine ``python -m pytest -m cuda tests/test_torch_kernels.py``
 runs the card tests alone.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -695,7 +697,8 @@ def _bits(t):
                    8: torch.int64}[t.element_size()])
 
 
-from hypothesis import given, settings, strategies as hst  # noqa: E402
+from hypothesis import (example, given, settings,  # noqa: E402
+                        strategies as hst)
 
 
 @pytest.mark.parametrize("dt,op", ORDER_FREE,
@@ -781,6 +784,227 @@ def test_long_segments_match_pallas(op, dt, SB, rng):
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
     else:
         np.testing.assert_array_equal(got.numpy(), want)
+
+
+# ------------------------------------------------------------ short plan
+# The short route's layout (sf_unpack.short_plan): its walk in numpy at the
+# paths' shapes and on drawn shapes, its route choice, its constants
+# against the source, and wide units against the reference.  The card
+# twins are in test_torch_on_card.py.
+def _sf_segments(rng, roots, rows):
+    """The wide-row SF's reduce metadata: ``rows`` leaves on ``roots``
+    random roots, one segment a root that has leaves."""
+    ln = np.bincount(rng.integers(0, roots, rows))
+    ln = ln[ln > 0]
+    return np.concatenate([[0], np.cumsum(ln)[:-1]]), ln
+
+
+def _token_segments(rng, vocab, tokens):
+    """A token lookup's transpose: one segment a vocabulary row, most of
+    them empty."""
+    ln = np.bincount(rng.integers(0, vocab, tokens), minlength=vocab)
+    return np.concatenate([[0], np.cumsum(ln)[:-1]]), ln
+
+
+def _check_short_walk(plan, start, length, cut=LONG_SEG, window=None):
+    """Every output element of a segment of at most ``cut`` rows written
+    by exactly one fold, none of a longer one; each fold's reads are its
+    segment's rows start .. start + len - 1 in order; lanes and warps in
+    range.  CTAs in windows of ``window`` (all at once by default)."""
+    start, length = np.asarray(start), np.asarray(length)
+    V = plan.V
+    assert plan.U % V == 0
+    cover = np.zeros(plan.S * plan.U // V, np.int64)
+    n_ctas = int(np.prod(plan.grid))
+    step = window or n_ctas
+    for lo in range(0, n_ctas, step):
+        w = plan.walk(start, length, long_cut=cut, ctas=range(lo, lo + step))
+        assert (w["width"] == V).all() and (w["elem"] % V == 0).all()
+        assert (w["lane"] < 32).all() and (w["warp"] < plan.threads // 32
+                                           ).all()
+        assert ((w["cta"] >= lo) & (w["cta"] < lo + step)).all()
+        assert (w["elem"] // plan.U == w["seg"]).all()
+        cover += np.bincount(w["elem"] // V, minlength=cover.size)
+        fold, row = w["reads"]
+        n = length[w["seg"]]
+        assert np.array_equal(np.bincount(fold, minlength=n.size), n)
+        assert (np.diff(fold) >= 0).all()
+        k = np.arange(fold.size) - np.repeat(np.cumsum(n) - n, n)
+        assert np.array_equal(row, start[w["seg"]][fold] + k)
+    want = np.repeat((length <= cut).astype(np.int64), plan.U // V)
+    assert np.array_equal(cover, want)
+
+
+PATH_SHAPES = {
+    # (S, U, element bytes, metadata)
+    "sf_wide_f32": lambda rng: (256, 4, *_sf_segments(rng, 1 << 14,
+                                                      1 << 16)),
+    "ddp_bucket_bf16": lambda rng: (10_485_760, 2, np.array([0]),
+                                    np.array([4])),
+    "token_transpose_bf16": lambda rng: (2560, 2, *_token_segments(
+        rng, 151_936, 4096)),
+    "moe_dispatch_bf16": lambda rng: (4096, 2, *_token_segments(
+        rng, 4096, 8192)),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(PATH_SHAPES))
+def test_short_plan_walk_path_shapes(shape):
+    """The paths' four row-5 shapes (metadata only) take the vector route
+    and their walk writes each output element once, folding each
+    segment's rows in order: the wide-row SF's reduce (65,536 rows of 256
+    f32), the DDP bucket (one segment of 4 rows x 10,485,760 bf16),
+    qwen3-4b's token transpose (4,096 tokens onto 151,936 rows of 2,560
+    bf16) and phi3.5-moe's dispatch transpose (8,192 slots onto 4,096
+    tokens of 4,096 bf16)."""
+    U, eb, start, length = PATH_SHAPES[shape](np.random.default_rng(5))
+    plan = sf_unpack.short_plan(length.size, U, eb, rows=int(length.sum()),
+                                buf_ptr=0, out_ptr=0, segs_per_cta=1)
+    assert plan.route == "vector" and plan.lanes == 32
+    assert 1 <= plan.K <= sf_unpack.SHORT_MAX_K
+    assert plan.grid[0] * plan.per_cta >= plan.items > \
+        (plan.grid[0] - 1) * plan.per_cta
+    _check_short_walk(plan, start, length, window=2048)
+
+
+@settings(max_examples=40, deadline=None)
+@given(S=hst.integers(1, 70), U=hst.integers(1, 700),
+       eb=hst.sampled_from([1, 2, 4, 8]), buf_mod=hst.sampled_from(
+           [0, 0, 1, 2, 4, 8]), out_mod=hst.sampled_from([0, 0, 8]),
+       SB=hst.sampled_from([1, 3, 64]), col_tiles=hst.sampled_from(
+           [0, 0, 0, 1, 3]), sms=hst.sampled_from([1, 4, 132]),
+       seed=hst.integers(0, 2 ** 31 - 1))
+@example(S=1, U=(1 << 24) + 8, eb=2, buf_mod=0, out_mod=0, SB=1,
+         col_tiles=0, sms=132, seed=0)
+@example(S=1, U=(1 << 24) + 3, eb=4, buf_mod=0, out_mod=0, SB=1,
+         col_tiles=0, sms=132, seed=0)
+def test_short_plan_walk_drawn(S, U, eb, buf_mod, out_mod, SB, col_tiles,
+                               sms, seed):
+    """Drawn segment counts, units, element sizes, offsets, CTA groups,
+    tiles and SM counts: every output element written once, each fold's
+    rows in order, segments over a small cut (standing in for LONG_SEG)
+    and empty segments included; a single segment over 2^24 elements."""
+    rng = np.random.default_rng(seed)
+    length = rng.integers(0, 12, S)
+    length[rng.random(S) < 0.3] = 0
+    if S > 2:
+        length[1] = 30                       # over the cut below
+    start = rng.integers(0, 40, S)
+    plan = sf_unpack.short_plan(S, U, eb, rows=int((start + length).max()),
+                                buf_ptr=buf_mod, out_ptr=out_mod,
+                                segs_per_cta=SB, sms=sms,
+                                col_tiles=col_tiles)
+    _check_short_walk(plan, start, length, cut=20)
+
+
+@pytest.mark.parametrize("U,eb,buf_mod,out_mod,route", [
+    (256, 4, 0, 0, "vector"), (4, 4, 0, 0, "vector"),      # 16 B
+    (12, 4, 0, 0, "vector"), (8, 2, 0, 0, "vector"),       # 48 B, 16 B
+    (4096, 2, 0, 0, "vector"), (2, 8, 0, 0, "vector"),
+    (16, 1, 0, 0, "vector"), (1, 4, 0, 0, "scalar"),       # U = 1
+    (3, 4, 0, 0, "scalar"), (5, 2, 0, 0, "scalar"),        # 12 B, 10 B
+    (256, 4, 4, 0, "scalar"), (4096, 2, 2, 0, "scalar"),   # data[1:]
+    (256, 4, 0, 8, "scalar"), (4097, 2, 0, 0, "scalar"),   # odd width
+    (1, 16, 0, 0, "vector")])
+def test_short_plan_route(U, eb, buf_mod, out_mod, route):
+    """Vector for rows of whole 16-byte vectors on 16-byte boundaries,
+    scalar otherwise (narrower rows, odd widths, a view one element in);
+    column tiles mean the scalar route; forcing the vector route where the
+    rows do not qualify raises."""
+    plan = sf_unpack.short_plan(100, U, eb, rows=400, buf_ptr=buf_mod,
+                                out_ptr=out_mod, segs_per_cta=1)
+    assert plan.route == route
+    kw = dict(rows=400, buf_ptr=buf_mod, out_ptr=out_mod, segs_per_cta=1)
+    assert sf_unpack.short_plan(100, U, eb, route="scalar", **kw
+                                ).route == "scalar"
+    assert sf_unpack.short_plan(100, U, eb, col_tiles=1, **kw
+                                ).route == "scalar"
+    if route == "scalar":
+        with pytest.raises(ValueError, match="vector route"):
+            sf_unpack.short_plan(100, U, eb, route="vector", **kw)
+    with pytest.raises(ValueError, match="col_tiles"):
+        sf_unpack.short_plan(100, U, eb, col_tiles=2, route="vector", **kw)
+
+
+def test_short_plan_candidates_name_different_launches():
+    """The tuner's "row" and "block:SB" candidates give different vector
+    launches at the wide-row SF's and the DDP bucket's shapes (the plan
+    reads segs_per_cta as the least number of items a CTA walks), and one
+    launch where the card would not stay full."""
+    mk = lambda S, U, M, SB: sf_unpack.short_plan(
+        S, U, 4, rows=M, buf_ptr=0, out_ptr=0, segs_per_cta=SB)
+    for S, U, M in ((16_000, 256, 65_536), (1, 1 << 22, 4)):
+        row, block = mk(S, U, M, 1), mk(S, U, M, 64)
+        assert row.route == block.route == "vector"
+        assert row.per_cta < block.per_cta and row.grid != block.grid
+    few = mk(1, 4096, 4, 1)
+    assert few == dataclasses.replace(mk(1, 4096, 4, 64), segs_per_cta=1)
+
+
+def test_short_plan_rule_at_the_path_shapes():
+    """The rule's choices at the paths' shapes (the sweep's fastest within
+    its noise, PERF.md): K 1 where segments hold rows (the wide-row SF,
+    the DDP bucket), 4 where they are almost all empty (the token
+    transpose), 2 between (the MoE dispatch: two slots a token); 4 warps a
+    CTA; the almost empty segments two items a warp."""
+    plan = lambda S, U, eb, M: sf_unpack.short_plan(
+        S, U, eb, rows=M, buf_ptr=0, out_ptr=0, segs_per_cta=1)
+    got = {k: (p.K, p.threads, p.per_cta) for k, p in (
+        ("sf", plan(16_063, 256, 4, 65_536)),
+        ("ddp", plan(1, 10_485_760, 2, 4)),
+        ("token", plan(151_936, 2560, 2, 4096)),
+        ("moe", plan(4096, 4096, 2, 8192)))}
+    assert got == {"sf": (1, 128, 8), "ddp": (1, 128, 8),
+                   "token": (4, 128, 8), "moe": (2, 128, 4)}
+
+
+def test_short_plan_constants_match_the_source():
+    """SHORT_ROWS, SHORT_MAX_K and SHORT_WARPS are the R, K and warps
+    that csrc/sf_unpack.cu compiles in."""
+    import re
+    from repro_torch.kernels import _build
+    src = (_build.CSRC / "sf_unpack.cu").read_text()
+    for name, value in (("kShortRows", sf_unpack.SHORT_ROWS),
+                        ("kShortMaxK", sf_unpack.SHORT_MAX_K),
+                        ("kShortWarps", sf_unpack.SHORT_WARPS)):
+        m = re.search(rf"constexpr int {name} = (\d+);", src)
+        assert m and int(m.group(1)) == value, name
+
+
+@needs_reference
+@pytest.mark.parametrize("op", OPS)
+@pytest.mark.parametrize("U,dt", [(256, np.float32), (4096, "bfloat16")])
+def test_wide_units_match_pallas(op, U, dt, rng):
+    """Wide units (rows the vector route takes on the card: 256 f32, 4,096
+    bf16) over a few segments, empty ones among them, through the port's
+    segment_reduce_sorted against the Pallas segment reduce in interpret
+    mode at one segment a grid step (``segment_reduce_blocked`` with
+    ``segs_per_block=1``: the Pallas ``segment_reduce_sorted`` does not
+    run on this jax).  Values are small integers (powers of two for prod),
+    exact in any order, so the reference's ``jnp.sum`` matches the
+    sequential fold bitwise."""
+    lens = np.array([3, 0, 7, 1, 0, 14, 2])
+    M = int(lens.sum())
+    start = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    if op == "prod":
+        vals = rng.choice(np.float32([1, 2, 0.5, -1]), (M, U))
+    else:
+        vals = rng.integers(-8, 8, (M, U)).astype(np.float32)
+    tdt = torch.float32 if dt == np.float32 else torch.bfloat16
+    buf = torch.as_tensor(vals).to(tdt)
+    plan = sf_unpack.short_plan(lens.size, U, buf.element_size(), rows=M,
+                                buf_ptr=0, out_ptr=0, segs_per_cta=1)
+    assert plan.route == "vector"
+    Lmax = int(lens.max())
+    jbuf = jnp.asarray(vals, dtype=jnp.float32 if dt == np.float32
+                       else jnp.bfloat16)
+    padded = jnp.concatenate([jbuf, jnp.zeros((Lmax, U), jbuf.dtype)])
+    want = np.asarray(ref_seg_blocked(
+        padded, jnp.asarray(start), jnp.asarray(lens),
+        num_segments=start.size, Lmax=Lmax, segs_per_block=1, op=op,
+        interpret=True).astype(jnp.float32))
+    got = sf_unpack.segment_reduce_sorted(buf, start, lens, op=op)
+    np.testing.assert_array_equal(got.float().numpy(), want)
 
 
 # ------------------------------------------------------------------- spmv

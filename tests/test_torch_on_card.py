@@ -26,6 +26,11 @@ hymba's graph-backed scan Function against autograd through the eager
 step loop, xlstm's chunk graphs bitwise its eager chunks, the flash
 Function at whisper's cross shape against the plain
 version, and a hymba smoke train step on the card against the CPU's;
+for the short segment reduce's vector kernel every dtype and op at 16 B,
+48 B, 1 KB and 8 KB rows bitwise the plain fold and the scalar kernel
+(NaN payloads, -0 / +0, empty segments, segments up to ``LONG_SEG``), a
+misaligned view on the scalar kernel, wide rows beside the long route,
+the DDP bucket's shape and a captured replay;
 for measured backend selection a card-stamped priors table sending
 ``SFComm`` to each backend in turn, bitwise the other.
 
@@ -585,6 +590,167 @@ def test_long_route_replays_in_a_cuda_graph(dev, dtype, op):
     with torch.cuda.graph(graph):
         got = sf_unpack.segment_reduce_blocked(buf, st, ln,
                                                segs_per_block=64, op=op)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(_raw(got), _raw(want))
+
+
+# ------------------------------------------- the short route's vector kernel
+SHORT_LENGTHS = (0, 1, 2, 7, 8, 9, 15, 16, 17, 0, 3, sf_unpack.LONG_SEG - 1,
+                 sf_unpack.LONG_SEG, 0, 5)
+
+
+def _short_case(dtype, op: str, row_bytes: int, rng, dev):
+    """``(buf, st, ln)``: rows of ``row_bytes`` bytes of ``dtype`` in
+    segments of every length around the vector kernel's batches of
+    ``SHORT_ROWS`` up to ``LONG_SEG``, empty ones among them, sorted, with
+    an unsorted and overlapping tail; float max / min get NaNs with
+    distinct payloads (one in an empty segment's neighbour, two in one
+    segment) and a segment whose extremum 0 is reached by -0 and +0 in
+    turn; integers span their whole range (odd for prod)."""
+    U = row_bytes // torch.tensor([], dtype=dtype).element_size()
+    ln = np.array(SHORT_LENGTHS + tuple(rng.integers(0, 12, 20)))
+    st = np.concatenate([[0], np.cumsum(ln)[:-1]])
+    M = int(ln.sum())
+    st = np.concatenate([st, rng.integers(0, M - 20, 6)])
+    ln = np.concatenate([ln, rng.integers(0, 20, 6)])
+    if dtype.is_floating_point:
+        vals = rng.standard_normal((M, U))
+        if op == "prod":
+            vals = 1 + 0.01 * vals
+        if op in ("max", "min"):
+            zs = slice(int(st[4]), int(st[4] + ln[4]))     # 8 rows
+            sign = -1 if op == "max" else 1
+            vals[zs] = sign * (np.abs(vals[zs]) + 1)
+            vals[zs.start + 2] = -0.0
+            vals[zs.start + 5] = 0.0
+        buf = torch.as_tensor(vals, device=dev).to(dtype)
+        if op in ("max", "min"):
+            iv = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+                buf.element_size()]
+            rows = (int(st[5]) + 1, int(st[5]) + 6, int(st[12]) + 100)
+            for row, bits in zip(rows, chip_smoke.NAN_BITS[str(dtype)[6:]]):
+                buf.view(iv)[row, row % U] = chip_smoke._signed(
+                    bits, buf.element_size())
+            buf.view(iv)[int(st[5]) + 6, (int(st[5]) + 1) % U] = \
+                chip_smoke._signed(chip_smoke.NAN_BITS[str(dtype)[6:]][1],
+                                   buf.element_size())
+    else:
+        info = torch.iinfo(dtype)
+        vals = rng.integers(info.min, info.max, (M, U), endpoint=True)
+        if op == "prod":
+            vals |= 1
+        buf = torch.as_tensor(vals, device=dev).to(dtype)
+    i32 = lambda a: torch.as_tensor(a, dtype=torch.int32, device=dev)
+    return buf, i32(st), i32(ln)
+
+
+@pytest.mark.parametrize("row_bytes", [16, 48, 1024, 8192])
+@pytest.mark.parametrize("op", SEG_OPS)
+@pytest.mark.parametrize("dtype", SEG_DTYPES, ids=lambda d: str(d)[6:])
+def test_vector_route_every_dtype_op_bitwise(dev, dtype, op, row_bytes):
+    """Rows of 16 B, 48 B, 1 KB and 8 KB take the vector kernel through
+    both wrappers (one and 64 segments a CTA) and equal the plain fold and
+    the scalar kernel (``short_variant(route="scalar")``) bit for bit: NaN
+    payloads, -0 / +0, wrapped integers, empty segments and segments up to
+    LONG_SEG."""
+    rng = np.random.default_rng(row_bytes + 7)
+    buf, st, ln = _short_case(dtype, op, row_bytes, rng, dev)
+    out = torch.empty((st.numel(),) + tuple(buf.shape[1:]), dtype=dtype,
+                      device=dev)
+    assert sf_unpack.plan_of(buf, out, 1).route == "vector"
+    want = sf_unpack.segment_reduce_plain(buf, st, ln, op)
+    scalar = sf_unpack.short_variant(buf, st, ln, segs_per_block=1,
+                                     route="scalar", op=op)
+    assert torch.equal(_raw(scalar), _raw(want))
+    for got in (sf_unpack.segment_reduce_sorted(buf, st, ln, op=op),
+                sf_unpack.segment_reduce_blocked(buf, st, ln,
+                                                 segs_per_block=64, op=op),
+                sf_unpack.short_variant(buf, st, ln, segs_per_block=3,
+                                        route="vector", op=op)):
+        assert torch.equal(_raw(got), _raw(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
+def test_misaligned_view_takes_the_scalar_route(dev, dtype):
+    """A buffer one element off a 16-byte boundary (a view into a flat
+    tensor) keeps the scalar kernel; forcing the vector route raises; the
+    result is the plain fold's bits, and the aligned copy's through the
+    vector kernel."""
+    rng = np.random.default_rng(2)
+    buf, st, ln = _short_case(dtype, "sum", 1024, rng, dev)
+    flat = torch.empty(buf.numel() + 1, dtype=dtype, device=dev)
+    view = flat[1:].view(buf.shape)
+    view.copy_(buf)
+    out = torch.empty((st.numel(),) + tuple(buf.shape[1:]), dtype=dtype,
+                      device=dev)
+    assert sf_unpack.plan_of(view, out, 1).route == "scalar"
+    with pytest.raises(ValueError, match="vector route"):
+        sf_unpack.short_variant(view, st, ln, segs_per_block=1,
+                                route="vector")
+    want = sf_unpack.segment_reduce_plain(buf, st, ln, "sum")
+    assert torch.equal(_raw(sf_unpack.segment_reduce_sorted(view, st, ln)),
+                       _raw(want))
+    assert torch.equal(_raw(sf_unpack.segment_reduce_sorted(buf, st, ln)),
+                       _raw(want))
+
+
+def test_vector_route_beside_the_long_route(dev):
+    """Wide aligned rows with segments over LONG_SEG: the vector kernel
+    skips them and the long route writes them in the same call (and so
+    beside the scalar kernel, forced)."""
+    rng = np.random.default_rng(4)
+    ln = np.array([3, sf_unpack.LONG_SEG + 1, 0, 600, 9])
+    st = torch.as_tensor(np.concatenate([[0], np.cumsum(ln)[:-1]]),
+                         dtype=torch.int32, device=dev)
+    ln = torch.as_tensor(ln, dtype=torch.int32, device=dev)
+    for dtype, op in ((torch.float32, "sum"), (torch.bfloat16, "max"),
+                      (torch.int32, "prod")):
+        buf = torch.as_tensor(rng.integers(-3, 4, (int(ln.sum()), 256)),
+                              device=dev).to(dtype)
+        want = sf_unpack.segment_reduce_plain(buf, st, ln, op)
+        got = sf_unpack.segment_reduce_sorted(buf, st, ln, op=op)
+        assert torch.equal(_raw(got), _raw(want)), (dtype, op)
+        got = sf_unpack.short_variant(buf, st, ln, segs_per_block=1,
+                                      route="scalar", op=op)
+        assert torch.equal(_raw(got), _raw(want)), (dtype, op)
+
+
+def test_vector_route_ddp_bucket(dev):
+    """The DDP bucket's shape, one segment of 4 grains x 10,485,760 bf16:
+    the vector kernel equals the plain fold and the column-tiled scalar
+    kernel bit for bit."""
+    buf = torch.randn(4, 10_485_760, device=dev).to(torch.bfloat16)
+    st = torch.zeros(1, dtype=torch.int32, device=dev)
+    ln = torch.full((1,), 4, dtype=torch.int32, device=dev)
+    out = torch.empty((1, buf.shape[1]), dtype=buf.dtype, device=dev)
+    plan = sf_unpack.plan_of(buf, out, 1)
+    assert plan.route == "vector" and plan.chunks > 1000
+    want = sf_unpack.segment_reduce_plain(buf, st, ln, "sum")
+    assert torch.equal(_raw(sf_unpack.segment_reduce_sorted(buf, st, ln)),
+                       _raw(want))
+    assert torch.equal(_raw(sf_unpack.short_variant(
+        buf, st, ln, segs_per_block=1, route="scalar")), _raw(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vector_route_replays_in_a_cuda_graph(dev, dtype):
+    """A vector-route reduce captured into a CUDA graph: its replays equal
+    the eager call."""
+    buf, st, ln = _short_case(dtype, "sum", 1024,
+                              np.random.default_rng(8), dev)
+    sf_unpack.prepare(st, ln, st.device)
+    want = sf_unpack.segment_reduce_sorted(buf, st, ln)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        sf_unpack.segment_reduce_sorted(buf, st, ln)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = sf_unpack.segment_reduce_sorted(buf, st, ln)
     for _ in range(2):
         graph.replay()
         torch.cuda.synchronize()
