@@ -237,12 +237,21 @@ Phases, each printing one JSON line and asserting as it goes:
   train    (in a child process: ``chip_smoke.py --train DEVICE``, which
            prints one ``TRAIN_RESULT`` JSON line; the card's memory to
            itself) the training path, bf16, random weights from seeded
-           generators, each part freed before the next: row 8's autograd
-           Function (forward kernel, plain backward) at qwen3-4b's heads
-           (q (1024, 32, 128), causal) and hymba's (25 / 5 heads of 64,
-           window 2,048, S = 3,000), its gradients against the plain
-           version's within FLASH_BWD_REL, the backward's ms beside the
-           forward kernel's; qwen3-4b at full width and depth (36 layers,
+           generators, each part freed before the next: row 8's
+           backward kernels (``flash_attention_bwd.cu``) at qwen3-4b's
+           heads (q (1024, 32, 128), causal) and hymba's (25 / 5 heads of
+           64, window 2,048, S = 3,000), then at whisper's cross shape:
+           the Function's gradients against ``flash_attention_backward_
+           plain`` and autograd through the plain version within
+           FLASH_BWD_REL, float32 within FLASH_BWD_F32_REL, two calls
+           bitwise, the kernels' device ms in turns with the old plain
+           recompute (``prev_ms``), cold L2, the bound, SDPA's forward +
+           backward and the Function's call ms (``flash_bwd_record``);
+           every drive after them runs with ``flash_attention_plain``
+           raising on CUDA tensors and each ``FlashAttention.backward``
+           call held to one launch of the kernels
+           (``attention_backward_audit``; the launch phase too);
+           qwen3-4b at full width and depth (36 layers,
            4.41 B parameters, float32 moments, remat per block), 4 steps of
            ``make_train_step`` (the launcher's path, updated in place) on
            ``SyntheticLM`` batches of 4 x 1,024 — step ms on the host and
@@ -302,14 +311,16 @@ reduce, which the tuned paths launch only where a sweep picks them),
 (a gather, a segment reduce), the serve phase's drive
 (``flash_attention``), the moe phase's drive (``pack``, ``pack_blocked``,
 ``flash_attention``), the families phase's drives
-(``flash_attention``), the train phase's (``flash_attention``, a
-gather, a segment reduce; ``pack_strided`` in the DDP buckets) and the
-launch phase's (``flash_attention`` on each rank's shards under
-``local_map``, the token lookup's gather and its transpose's segment
-reduce).  The priors phase's sweeps are counted the same way (path
-``priors``): what they launch is recorded, not required (``pack_blocked``
-for the halo packs and ``pack_strided`` for the ping-pong's contiguous
-leaves on ``"cuda"``, as the tuner's winners and the plan name them).
+(``flash_attention``), the train phase's (``flash_attention`` and
+``flash_attention_backward``, a gather, a segment reduce;
+``pack_strided`` in the DDP buckets) and the launch phase's
+(``flash_attention`` and ``flash_attention_backward`` on each rank's
+shards under ``local_map``, the token lookup's gather and its
+transpose's segment reduce).  The priors phase's sweeps are counted the
+same way (path ``priors``): what they launch is recorded, not required
+(``pack_blocked`` for the halo packs and ``pack_strided`` for the
+ping-pong's contiguous leaves on ``"cuda"``, as the tuner's winners and
+the plan name them).
 A gather is ``pack`` or ``pack_blocked`` and a
 segment reduce ``segment_reduce_sorted`` or ``segment_reduce_blocked``,
 as the tuner's winners name them (``PACK``, ``SEGRED``).  Every launch
@@ -370,6 +381,8 @@ REPLACES = {
     "segment_reduce_blocked": "src/repro/kernels/sf_unpack.py:154",
     "spmv_ell": "src/repro/kernels/spmv_ell.py:33",
     "flash_attention": "src/repro/kernels/flash_attention.py:92",
+    # no Pallas backward: the reference differentiates _chunked_attn
+    "flash_attention_backward": "src/repro/models/layers.py:70",
 }
 SOURCES = {
     "pack": "src/repro_torch/kernels/csrc/sf_pack.cu",
@@ -380,6 +393,8 @@ SOURCES = {
     "segment_reduce_blocked": "src/repro_torch/kernels/csrc/sf_unpack.cu",
     "spmv_ell": "src/repro_torch/kernels/csrc/spmv_ell.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+    "flash_attention_backward":
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
 }
 # each path's kernels; a tuple is a tuned kind's kernels, of which the
 # path launches the ones its signatures' winners name (PACK, SEGRED)
@@ -400,7 +415,7 @@ MOE_RTOL, MOE_ATOL, MOE_AUX_RTOL = 1e-5, 1e-6, 1e-6
 # profiled serving windows: a kernel's group is the first whose name holds
 # one of its words; the rest are "other"
 KERNEL_GROUPS = (
-    ("flash_attention", ("flash_fwd",)),
+    ("flash_attention", ("flash_fwd", "flash_bwd")),
     ("sf_gathers", ("gather_rows_kernel", "rows_copy_kernel",
                     "lanes_copy_kernel", "wide_gather_kernel")),
     ("segment_reduce", ("segment_reduce",)),
@@ -802,12 +817,14 @@ def bound(nbytes: float, nops: float = 0.0, ops_per_s=FP32_OPS_PER_S):
 
 
 def flash_ptxas() -> list:
-    """Registers, spills and static shared memory of both flash sources'
-    kernels, from their ``nvcc -Xptxas=-v`` build logs, with the dynamic
-    shared memory of each wgmma instance."""
+    """Registers, spills and static shared memory of the flash sources'
+    kernels (the forward's two and the backward's), from their ``nvcc
+    -Xptxas=-v`` build logs, with the dynamic shared memory of each wgmma
+    instance."""
     from repro_torch.kernels import _build, flash_attention as fa
     out = []
-    for src in ("flash_attention_sm90", "flash_attention"):
+    for src in ("flash_attention_sm90", "flash_attention",
+                "flash_attention_bwd"):
         for r in _build.ptxas_report(src):
             r = dict(r, source=src)
             for D in fa.SM90_HEAD_DIMS:
@@ -2795,7 +2812,7 @@ def phase_dmda(sz: Sizes, dev) -> dict:
 
 # ------------------------------------------------------------------ priors
 PRIORS_BACKENDS = ("global", "cuda")
-PRIORS_TRIALS = 5           # a priors point is the best of this many means
+PRIORS_TRIALS = 3           # a priors point is the best of this many means
 
 
 def pingpong_sf(n: int):
@@ -5568,11 +5585,14 @@ def families_in_child(sz: Sizes, dev):
 
 
 # ------------------------------------------------------------------ train
-# FlashAttention's gradients (forward kernel, plain backward) against the
-# plain version's autograd gradients, bf16: per tensor ||d|| <= 1e-2 ||want||
-# (the backward recomputes the plain attention, so they agree to the bit
-# unless the recompute differs from the plain forward)
+# FlashAttention's gradients (the forward and backward kernels) against
+# flash_attention_backward_plain and against the plain version's autograd
+# gradients, bf16: per tensor ||d|| <= 1e-2 ||want||.  The kernels round P
+# and dS to bf16 as mma operands (the forward rounds P the same way) and
+# return bf16 gradients; the plain sides stay in float32 to the last cast.
+# float32 inputs: the kernels' FMAs hold 1e-4.
 FLASH_BWD_REL = 1e-2
+FLASH_BWD_F32_REL = 1e-4
 # MoE gradients through the SF dispatch against the dense dispatch: float32
 # on one layer at the reference's tests/test_models.py:162-178 tolerance;
 # bf16 through the whole model, where the two dispatches round their sums
@@ -5584,7 +5604,7 @@ MOE_BF16_GRAD_REL = 3e-2
 # one DDP step with grains=1 against make_train_step, bf16 parameters:
 # the reference's tests/test_ddp.py:359-376 (rtol 1e-6, atol 1e-6)
 DDP_STEP_RTOL, DDP_STEP_ATOL = 1e-6, 1e-6
-TRAIN_PATH = ("flash_attention", PACK, SEGRED)
+TRAIN_PATH = ("flash_attention", "flash_attention_backward", PACK, SEGRED)
 TRAIN_SMOKE = dict(train_smoke=True, train_batch=2, train_seq=32,
                    train_fixed_steps=4, ddp_layers=2, ddp_batch=4,
                    ddp_seq=16, ddp_budget=4096, moe_train_batch=2,
@@ -5639,53 +5659,191 @@ def peak_gb(dev) -> float:
         if dev.type == "cuda" else 0.0
 
 
-def train_flash_backward(sz: Sizes, dev) -> list:
-    """Row 8's autograd Function at training shapes (qwen3-4b's heads,
-    causal; hymba's 25 / 5 heads of 64 with its 2,048-key window): its
-    gradients against the plain version's autograd gradients, the forward
-    kernel's device ms (graph replays), the backward's and the plain
-    version's forward + backward (CUDA events, host included)."""
+def visible_pairs(Sq: int, Skv: int, causal: bool, window) -> int:
+    """The (query, key) pairs one query head sees (end-aligned rows)."""
+    qpos = np.arange(Sq, dtype=np.int64) + (Skv - Sq)
+    hi = np.minimum(Skv - 1, qpos) if causal else np.full(Sq, Skv - 1)
+    lo = np.maximum(0, qpos - window + 1) if window is not None \
+        else np.zeros(Sq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def old_flash_backward(q, k, v, go, causal: bool, window, scale=None):
+    """The Function's backward before the kernels (``prev_ms``): the plain
+    version recomputed in float32 under grad and differentiated."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    ins = [t.detach().requires_grad_() for t in (q, k, v)]
+    with torch.enable_grad():
+        out = fa.flash_attention_plain(*ins, causal=causal, window=window,
+                                       scale=scale)
+        return torch.autograd.grad(out, ins, go)
+
+
+def flash_shape_key(q, k, causal: bool, window, scale) -> list:
+    """One backward call's shapes and mask, as JSON: q's and k's shapes,
+    the dtype, causal, window, scale."""
+    return [list(q.shape), list(k.shape), str(q.dtype)[6:], bool(causal),
+            window, scale]
+
+
+def flash_bwd_check(what: str, q, k, v, go, causal: bool, window, dev,
+                    it: int, scale=None) -> tuple:
+    """Row 8's backward kernels checked on ``q, k, v`` and output gradient
+    ``go`` (q's shape and dtype): the gradients through
+    ``kops.flash_attention`` (the Function, one launch of the kernels)
+    against ``flash_attention_backward_plain`` and against autograd
+    through ``flash_attention_plain``, each within FLASH_BWD_REL (bf16;
+    FLASH_BWD_F32_REL for float32 inputs); bf16 inputs also in float32
+    within FLASH_BWD_F32_REL; two calls bitwise equal.  Then the kernels'
+    device ms (graph replays) and the bound (10 B (visible pairs) H D
+    FLOPs over the bf16 tensor cores against the bytes of q, k, v, o, dO,
+    dq, dk and dv).  Returns (record, the Function's output)."""
     import torch
     from repro_torch.kernels import flash_attention as fa, ops as kops
+    kw = dict(causal=causal, window=window, scale=scale)
+    tol = FLASH_BWD_F32_REL if q.dtype == torch.float32 else FLASH_BWD_REL
+    qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+    y = kops.flash_attention(qr, kr, vr, **kw)
+    check(y.grad_fn is not None and "FlashAttention"
+          in type(y.grad_fn).__name__, "kops.flash_attention took no "
+          "autograd Function for inputs that require grad")
+    before = fa.flash_attention_backward.launches
+    got = torch.autograd.grad(y, (qr, kr, vr), go)
+    check(fa.flash_attention_backward.launches == before + 1
+          or dev.type != "cuda", f"{what}: the Function's backward did not "
+          f"launch the backward kernels once")
+    o = y.detach()
+    del y, qr, kr, vr
+    want = fa.flash_attention_backward_plain(q, k, v, o, go, **kw)
+    auto = old_flash_backward(q, k, v, go, causal, window, scale)
+    rel = {n: grad_rel(a, b) for n, a, b in zip("qkv", got, want)}
+    rel_auto = {n: grad_rel(a, b) for n, a, b in zip("qkv", got, auto)}
+    check(all(r <= tol for r in (*rel.values(), *rel_auto.values())),
+          f"flash backward at {what}: ||d||/||want|| {rel} against the "
+          f"plain backward, {rel_auto} against autograd, over {tol}")
+    err = max(max_abs(a, b) for a, b in zip(got, want))
+    del want, auto
+    rec = {"what": what, "q": list(q.shape), "kv": list(k.shape),
+           "causal": causal, "window": window, "scale": scale,
+           "dtype": str(q.dtype)[6:], "rel_err": rel,
+           "rel_err_autograd": rel_auto, "tolerance_rel": tol,
+           "max_abs_err": err}
+    if q.dtype != torch.float32:
+        f32 = [t.float() for t in (q, k, v, go)]
+        o32 = fa.flash_attention(*f32[:3], **kw)
+        got32 = fa.flash_attention_backward(*f32[:3], o32, f32[3], **kw)
+        want32 = fa.flash_attention_backward_plain(*f32[:3], o32, f32[3],
+                                                   **kw)
+        rel32 = {n: grad_rel(a, b) for n, a, b in zip("qkv", got32, want32)}
+        check(all(r <= FLASH_BWD_F32_REL for r in rel32.values()),
+              f"float32 flash backward at {what}: {rel32} over "
+              f"{FLASH_BWD_F32_REL}")
+        del f32, o32, got32, want32
+        rec.update(float32_rel_err=rel32,
+                   float32_tolerance_rel=FLASH_BWD_F32_REL)
+    run = lambda: fa.flash_attention_backward(q, k, v, o, go, **kw)
+    again = [run(), run()]
+    check(all(same_raw_bits(a, b) and same_raw_bits(a, c)
+              for a, b, c in zip(got, *again)),
+          f"flash backward at {what}: two calls differ in their bits")
+    del again, got
+    B = q.shape[0] if q.dim() == 4 else 1
+    Sq, H, D = q.shape[-3:]
+    pairs = visible_pairs(Sq, k.shape[-3], causal, window)
+    nbytes = q.element_size() * (4 * q.numel() + 4 * k.numel())
+    bnd, by = bound(nbytes, 10 * B * pairs * H * D, BF16_OPS_PER_S)
+    rec.update(visible_pairs_per_head=pairs, bitwise_repeat=True,
+               ms=graph_ms(run, dev, it), bound_ms=bnd, bound_by=by)
+    return rec, o
+
+
+def flash_bwd_record(what: str, q, k, v, go, causal: bool, window, dev,
+                     it: int) -> dict:
+    """:func:`flash_bwd_check` on bf16 ``q, k, v`` and ``go``, then the
+    timings: the kernels' device ms (graph replays) in turns with the old
+    plain recompute (``prev_ms``) and with L2 scrubbed, the plain
+    version's ms, SDPA's forward + backward (the library call) and the
+    Function's forward + backward call ms."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa, ops as kops
+    kw = dict(causal=causal, window=window)
+    rec, o = flash_bwd_check(what, q, k, v, go, causal, window, dev, it)
+    run = lambda: fa.flash_attention_backward(q, k, v, o, go, **kw)
+    (ms, ms_runs), (prev, prev_runs) = in_turns(
+        run, lambda: old_flash_backward(q, k, v, go, causal, window), dev,
+        it, graph_ms)
+    few = max(it // 4, 2)
+    qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def fb():
+        yy = kops.flash_attention(qr, kr, vr, **kw)
+        torch.autograd.grad(yy, (qr, kr, vr), go)
+    batch = (lambda t: t) if q.dim() == 4 else (lambda t: t[None])
+    rec.update({
+        "ms": ms, "ms_runs": ms_runs, "prev_ms": prev,
+        "prev_ms_runs": prev_runs,
+        "ms_cold_l2": cold_graph_ms(run, dev, it),
+        "plain_ms": call_ms(lambda: fa.flash_attention_backward_plain(
+            q, k, v, o, go, **kw), dev, few),
+        "library_ms": sdpa_fb_ms(batch(q), batch(k), batch(v), batch(go),
+                                 causal, window, dev, few),
+        "library_call": "scaled_dot_product_attention forward + backward",
+        "call_ms": call_ms(fb, dev, few),
+        "forward_kernel_ms": graph_ms(
+            lambda: fa.flash_attention(q, k, v, **kw), dev, it)})
+    return rec
+
+
+def train_flash_backward(sz: Sizes, dev) -> list:
+    """Row 8's backward kernels at the heads of the aims' shapes
+    (qwen3-4b's, causal; hymba's 25 / 5 heads of 64 with its 2,048-key
+    window; one sequence each): :func:`flash_bwd_record` at each.  The
+    shapes the path itself gives the kernels are checked by
+    :func:`train_flash_path_shapes`."""
+    import torch
     out = []
     for S, H, Hkv, D, win in sz.flash_bwd_shapes:
         g = torch.Generator(device=dev).manual_seed(S + H)
-        q, k, v = (torch.randn(S, h, D, generator=g, device=dev)
-                   .bfloat16().requires_grad_() for h in (H, Hkv, Hkv))
+        q, k, v = (torch.randn(S, h, D, generator=g, device=dev).bfloat16()
+                   for h in (H, Hkv, Hkv))
         go = torch.randn(S, H, D, generator=g, device=dev).bfloat16()
-        y = kops.flash_attention(q, k, v, causal=True, window=win)
-        check(y.grad_fn is not None and "FlashAttention"
-              in type(y.grad_fn).__name__, "kops.flash_attention took no "
-              "autograd Function for inputs that require grad")
-        got = torch.autograd.grad(y, (q, k, v), go, retain_graph=True)
-        plain = fa.flash_attention_plain(q, k, v, causal=True, window=win)
-        want = torch.autograd.grad(plain, (q, k, v), go)
-        rel = {n: grad_rel(a, b) for n, a, b in zip("qkv", got, want)}
-        check(all(r <= FLASH_BWD_REL for r in rel.values()),
-              f"flash backward at {(S, H, Hkv, D, win)}: ||d||/||want|| "
-              f"{rel} over {FLASH_BWD_REL}")
-        qd, kd, vd = q.detach(), k.detach(), v.detach()
-        it = sz.timing_iters
-        fwd = graph_ms(lambda: fa.flash_attention(qd, kd, vd, causal=True,
-                                                  window=win), dev, it)
-        bwd = call_ms(lambda: torch.autograd.grad(y, (q, k, v), go,
-                                                  retain_graph=True),
-                      dev, max(it // 4, 2))
-
-        def plain_fb():
-            o = fa.flash_attention_plain(q, k, v, causal=True, window=win)
-            torch.autograd.grad(o, (q, k, v), go)
-        out.append({"q": [S, H, D], "kv_heads": Hkv, "window": win,
-                    "causal": True, "rel_err": rel,
-                    "tolerance_rel": FLASH_BWD_REL,
-                    "forward_kernel_ms": fwd, "backward_ms": bwd,
-                    "plain_forward_backward_ms": call_ms(
-                        plain_fb, dev, max(it // 4, 2)),
-                    "library_forward_backward_ms": sdpa_fb_ms(
-                        q[None], k[None], v[None], go[None], True, win, dev,
-                        max(it // 4, 2))})
-        del y, got, want, plain
+        out.append(flash_bwd_record(f"{(S, H, Hkv, D, win)} causal", q, k,
+                                    v, go, True, win, dev, sz.timing_iters))
+        del q, k, v, go
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
     return out
+
+
+def train_flash_path_shapes(audit: dict, sz: Sizes, dev) -> dict:
+    """Row 8's backward kernels at each distinct shape the train path's
+    ``FlashAttention.backward`` calls had (``attention_backward_audit``'s
+    ``shapes``: every family's self-attention, whisper's encoder and
+    cross-attention, hymba's windowed and global layers), on seeded
+    inputs of that shape and dtype: :func:`flash_bwd_check` at each."""
+    import torch
+    out = []
+    for i, e in enumerate(audit.get("shapes", [])):
+        qs, ks, dtype, causal, window, scale = e["key"]
+        g = torch.Generator(device=dev).manual_seed(29 + i)
+        dt = getattr(torch, dtype)
+        q, go = (torch.randn(qs, generator=g, device=dev).to(dt)
+                 for _ in range(2))
+        k, v = (torch.randn(ks, generator=g, device=dev).to(dt)
+                for _ in range(2))
+        rec, _ = flash_bwd_check(f"path shape {e['key']}", q, k, v, go,
+                                 causal, window, dev, sz.timing_iters,
+                                 scale)
+        rec.update(key=e["key"], path_calls=e["calls"])
+        out.append(rec)
+        del q, k, v, go
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    check(out, "the train path made no FlashAttention.backward call")
+    return {"shapes": out}
 
 
 def sdpa_fb_ms(q, k, v, go, causal: bool, window, dev, iters: int) -> float:
@@ -5714,43 +5872,20 @@ def sdpa_fb_ms(q, k, v, go, causal: bool, window, dev, iters: int) -> float:
 
 
 def train_flash_cross(sz: Sizes, dev) -> dict:
-    """Row 8's autograd Function at whisper's cross-attention shape (the
+    """Row 8's backward kernels at whisper's cross-attention shape (the
     decoder's tokens over the encoder's frames, unmasked, Sq != Skv), bf16:
-    its gradients against the plain version's within FLASH_BWD_REL, the
-    forward kernel's ms, the Function's backward, and SDPA's forward +
-    backward."""
+    :func:`flash_bwd_record`."""
     import torch
-    from repro_torch.kernels import flash_attention as fa, ops as kops
     cfg = train_config("whisper-base", sz)
     B, P, F_ = sz.whisper_train
     H, D = cfg.n_heads, cfg.hd
     g = torch.Generator(device=dev).manual_seed(448)
-    q = torch.randn(B, P, H, D, generator=g, device=dev).bfloat16() \
-        .requires_grad_()
+    q = torch.randn(B, P, H, D, generator=g, device=dev).bfloat16()
     k, v = (torch.randn(B, F_, cfg.n_kv_heads, D, generator=g, device=dev)
-            .bfloat16().requires_grad_() for _ in range(2))
+            .bfloat16() for _ in range(2))
     go = torch.randn(B, P, H, D, generator=g, device=dev).bfloat16()
-    y = kops.flash_attention(q, k, v, causal=False)
-    check(y.grad_fn is not None and "FlashAttention"
-          in type(y.grad_fn).__name__, "no autograd Function at the cross "
-          "shape")
-    got = torch.autograd.grad(y, (q, k, v), go, retain_graph=True)
-    want = torch.autograd.grad(fa.flash_attention_plain(
-        q, k, v, causal=False), (q, k, v), go)
-    rel = {n: grad_rel(a, b) for n, a, b in zip("qkv", got, want)}
-    check(all(r <= FLASH_BWD_REL for r in rel.values()),
-          f"flash backward at whisper's cross shape: {rel} over "
-          f"{FLASH_BWD_REL}")
-    it = max(sz.timing_iters // 4, 2)
-    qd, kd, vd = q.detach(), k.detach(), v.detach()
-    return {"q": [B, P, H, D], "kv": [B, F_, cfg.n_kv_heads, D],
-            "causal": False, "rel_err": rel, "tolerance_rel": FLASH_BWD_REL,
-            "forward_kernel_ms": graph_ms(lambda: fa.flash_attention(
-                qd, kd, vd, causal=False), dev, sz.timing_iters),
-            "backward_ms": call_ms(lambda: torch.autograd.grad(
-                y, (q, k, v), go, retain_graph=True), dev, it),
-            "library_forward_backward_ms": sdpa_fb_ms(q, k, v, go, False,
-                                                      None, dev, it)}
+    return flash_bwd_record("whisper cross-attention", q, k, v, go, False,
+                            None, dev, sz.timing_iters)
 
 
 def train_dense(sz: Sizes, dev, acc: dict) -> dict:
@@ -6258,6 +6393,65 @@ def timed_function(cls, dev, spans: dict):
             setattr(cls, kind, fn)
 
 
+@contextlib.contextmanager
+def attention_backward_audit(rec: dict):
+    """Within the block ``flash_attention_plain`` raises on a CUDA tensor
+    (nothing on the card's training path may take the plain attention),
+    and every ``FlashAttention.backward`` call on CUDA tensors must launch
+    the backward kernels once: ``rec["backward_calls"]`` counts the calls
+    and ``rec["backward_calls_not_one_launch"]`` those that did not.
+    ``rec["shapes"]`` lists each distinct :func:`flash_shape_key` of the
+    calls with its count, the shapes the path gives the kernels."""
+    from repro_torch.kernels import flash_attention as fa
+    rec.setdefault("backward_calls", 0)
+    rec.setdefault("backward_calls_not_one_launch", 0)
+    rec.setdefault("shapes", [])
+    real_plain = fa.flash_attention_plain
+    real_backward = fa.FlashAttention.__dict__["backward"]
+
+    def plain(q, *args, **kwargs):
+        if q.is_cuda:
+            raise RuntimeError("flash_attention_plain ran on a CUDA tensor "
+                               "on the training path")
+        return real_plain(q, *args, **kwargs)
+
+    def backward(ctx, *grads):
+        before = fa.flash_attention_backward.launches
+        res = real_backward.__func__(ctx, *grads)
+        if grads[0].is_cuda:
+            rec["backward_calls"] += 1
+            rec["backward_calls_not_one_launch"] += \
+                fa.flash_attention_backward.launches != before + 1
+        # q's shape is the output gradient's, k's that of dk or dv (the
+        # saved tensors unpack once under checkpointing)
+        k = res[1] if res[1] is not None else res[2]
+        key = flash_shape_key(grads[0], k, *ctx.mask)
+        for e in rec["shapes"]:
+            if e["key"] == key:
+                e["calls"] += 1
+                break
+        else:
+            rec["shapes"].append({"key": key, "calls": 1})
+        return res
+    fa.flash_attention_plain = plain
+    fa.FlashAttention.backward = staticmethod(backward)
+    try:
+        yield
+    finally:
+        fa.flash_attention_plain = real_plain
+        fa.FlashAttention.backward = real_backward
+
+
+def audit_check(rec: dict, where: str, dev) -> None:
+    """:func:`attention_backward_audit`'s record: on the card some
+    backward ran and each launched the kernels once."""
+    check(dev.type != "cuda" or (rec["backward_calls"] > 0 and
+                                 not rec["backward_calls_not_one_launch"]),
+          f"{where}: {rec['backward_calls_not_one_launch']} of "
+          f"{rec['backward_calls']} FlashAttention.backward calls did not "
+          f"launch the backward kernels once")
+
+
 def spans_ms(spans: list) -> float:
     """The summed ms of :func:`timed_function`'s spans (after a sync)."""
     return float(sum(s if isinstance(s, float) else s[0].elapsed_time(s[1])
@@ -6379,8 +6573,8 @@ def train_family(arch: str, sz: Sizes, dev, acc: dict) -> dict:
     stage["steps_s"] = time.perf_counter() - t1
     for k, v in counts.items():
         acc[k] = acc.get(k, 0) + v
-    want = ([] if cfg.block_kind == "xlstm" else ["flash_attention"]) \
-        + [PACK, SEGRED]
+    want = ([] if cfg.block_kind == "xlstm" else
+            ["flash_attention", "flash_attention_backward"]) + [PACK, SEGRED]
     missing = missing_kernels(tuple(want), counts)
     check(not missing or dev.type != "cuda", f"{arch}'s steps never "
           f"launched {missing}")
@@ -6445,8 +6639,11 @@ def phase_train(sz: Sizes, dev):
              ("flash_cross", lambda: train_flash_cross(sz, dev))]
     parts += [(arch.split("-")[0], lambda arch=arch: train_family(
         arch, sz, dev, acc)) for arch in TRAIN_FAMILIES]
-    # row 5's calls on the path, timed at their own shapes at the end
-    segreds = []
+    # row 8's backward checked, and row 5's calls timed, at the shapes the
+    # path gave them, at the end
+    segreds, audit = [], {}
+    parts.append(("flash_path_shapes",
+                  lambda: train_flash_path_shapes(audit, sz, dev)))
     parts.append(("segred_shapes",
                   lambda: train_segred_shapes(segreds, sz, dev)))
     for name, part in parts:
@@ -6455,8 +6652,13 @@ def phase_train(sz: Sizes, dev):
             torch.cuda.reset_peak_memory_stats(dev)
         if name == "segred_shapes":
             res = part()
-        else:
+        elif name.startswith("flash_"):
+            # the checks compute the plain attention on the card
             with recorded_segreds(segreds, name):
+                res = part()
+        else:
+            with recorded_segreds(segreds, name), \
+                    attention_backward_audit(audit):
                 res = part()
         out[name] = res if isinstance(res, dict) else {"shapes": res}
         out[name]["seconds"] = time.perf_counter() - t1
@@ -6465,6 +6667,8 @@ def phase_train(sz: Sizes, dev):
         gc.collect()
         if dev.type == "cuda":
             torch.cuda.empty_cache()
+    audit_check(audit, "the train phase", dev)
+    out["attention_backward_audit"] = audit
     out["seconds"] = time.perf_counter() - t0
     from repro_torch.kernels import ops as kops
     launches = {k: acc.get(k, 0) for k in kops.kernel_wrappers()}
@@ -6592,8 +6796,9 @@ def train_in_child(sz: Sizes, dev):
 # ----------------------------------------------------------------- launch
 # rows 1, 2, 5 and 8: the token lookup and the MoE dispatch's gathers
 # (hidden-state rows, the weight column), their transposes in the
-# backward, attention
-LAUNCH_PATH = ("flash_attention", "pack", "pack_blocked", SEGRED)
+# backward, attention and its backward
+LAUNCH_PATH = ("flash_attention", "flash_attention_backward", "pack",
+               "pack_blocked", SEGRED)
 LAUNCH_SMOKE = dict(launch_smoke=True, launch_batch=2, launch_seq=32,
                     launch_steps=2, launch_check_layers=2,
                     launch_cells=("qwen3-4b", "hymba-1.5b"),
@@ -6877,7 +7082,7 @@ def launch_family(arch: str, sz: Sizes, dev, mesh, acc: dict) -> dict:
         steps.append({"loss": loss, "host_ms": host, "device_ms": devms})
     for k, v in counts.items():
         acc[k] = acc.get(k, 0) + v
-    want = ["pack", SEGRED] + (["flash_attention"]
+    want = ["pack", SEGRED] + (["flash_attention", "flash_attention_backward"]
                                if cfg.block_kind != "xlstm" else []) + (
         ["pack_blocked"] if cfg.is_moe else [])
     missing = missing_kernels(tuple(want), counts)
@@ -7065,10 +7270,10 @@ def phase_launch(sz: Sizes, dev):
     from repro_torch.kernels import ops as kops
     from repro_torch.launch.mesh import make_mesh
     t0 = time.perf_counter()
-    out, acc = {"phase": "launch"}, {}
+    out, acc, audit = {"phase": "launch"}, {}, {}
     production = launch_production_start(sz, dev)
     try:
-        with world1_group(dev):
+        with world1_group(dev), attention_backward_audit(audit):
             mesh = make_mesh((1, 1), ("data", "model"),
                              device_type=dev.type)
             parts = [("full", lambda: launch_full(sz, dev, mesh, acc)),
@@ -7089,6 +7294,8 @@ def phase_launch(sz: Sizes, dev):
         out["production"] = launch_production(sz, dev, production)
     finally:
         stop_group(production[0])
+    audit_check(audit, "the launch phase", dev)
+    out["attention_backward_audit"] = audit
     out["seconds"] = time.perf_counter() - t0
     launches = {k: acc.get(k, 0) for k in kops.kernel_wrappers()}
     out["launches"] = launches
@@ -7464,8 +7671,25 @@ def run(dev, sz: Sizes) -> list:
     missing = missing_kernels(TRAIN_PATH, by_path["train"])
     check(not missing or not on_card, f"the train path never launched "
           f"{missing}")
-    recs["flash_attention"]["backward"] = \
-        train["flash_backward"]["shapes"] + [train["flash_cross"]]
+    bwd = train["flash_backward"]["shapes"] + [train["flash_cross"]]
+    path_bwd = train["flash_path_shapes"]
+    recs["flash_attention_backward"] = {     # the row: qwen3-4b's heads
+        "name": "flash_attention_backward", "route": "cuda",
+        "source": SOURCES["flash_attention_backward"],
+        "replaces": REPLACES["flash_attention_backward"], "launches": 0,
+        **{k: bwd[0][k] for k in ("ms", "ms_cold_l2", "plain_ms",
+                                  "bound_ms", "bound_by", "library_ms",
+                                  "library_call", "call_ms", "prev_ms")},
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in bwd + path_bwd["shapes"]),
+        "kernels": ["flash_bwd_dq", "flash_bwd_dkdv",
+                    "flash_bwd_dkdv_reduce"], "shapes": bwd,
+        "path_shapes": path_bwd["shapes"],
+        "audit": {"train": train["attention_backward_audit"]},
+        "ptxas": [{k: r[k] for k in ("function", "registers",
+                                     "spill_stores", "smem_bytes")}
+                  for r in flash_ptxas() if r["source"] ==
+                  "flash_attention_bwd"]}
     for name in SEGRED:
         recs[name]["ddp_bucket_shape"] = train["ddp"]["bucket"]
     recs["segment_reduce_sorted"]["train_shapes"] = \
@@ -7481,6 +7705,14 @@ def run(dev, sz: Sizes) -> list:
         torch.cuda.empty_cache()
     launch, by_path["launch"] = launch_in_child(sz, dev)
     emit(launch)
+    recs["flash_attention_backward"]["audit"]["launch"] = \
+        launch["attention_backward_audit"]
+    checked = [r["key"] for r in path_bwd["shapes"]]
+    unchecked = [e["key"] for e in launch["attention_backward_audit"]
+                 ["shapes"] if e["key"] not in checked]
+    check(not unchecked or not on_card, f"the launch path's flash "
+          f"backward ran at shapes the train phase did not check: "
+          f"{unchecked}")
     missing = missing_kernels(LAUNCH_PATH, by_path["launch"])
     check(not missing or not on_card, f"the launch path never launched "
           f"{missing}")

@@ -4,8 +4,9 @@ Every ``csrc/*.cu`` file has a plain C interface.  At first use, each is
 compiled by ``nvcc`` for Hopper (``sm_90a``) into its own shared library
 under ``build/repro_torch/`` at the repository root, one ``nvcc`` per source
 and all of them started together, then loaded with ``ctypes``.  A library's
-file name carries a hash of its source and flags, so an edited source is
-rebuilt and an unchanged one is reused.
+file name carries a hash of its source, the ``csrc/*.cuh`` headers it
+includes and the flags, so an edited source or header is rebuilt and an
+unchanged one is reused.
 
 A build or load failure raises; nothing falls back to the plain versions.
 Kernels launch on ``torch.cuda.current_stream()``; every C entry point
@@ -33,7 +34,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "build_all", "launch", "stream_of",
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("sf_pack", "sf_unpack", "spmv_ell", "flash_attention",
-           "flash_attention_sm90")
+           "flash_attention_sm90", "flash_attention_bwd")
 # -Xptxas=-v: registers, spills and shared memory of every kernel go into
 # the build log beside each library (ptxas_report reads them)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -75,6 +76,8 @@ _SIGNATURES = {
     "flash_attention_sm90_fwd": ("flash_attention_sm90",
                                  [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                   _I, _I, _I, _F, _I, _I, _P]),
+    "flash_attention_bwd": ("flash_attention_bwd",
+                            [_P] * 14 + [_I] * 11 + [_F, _I, _P]),
 }
 
 _LOCK = threading.Lock()
@@ -95,8 +98,11 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()
+    src = (CSRC / f"{name}.cu").read_bytes()
+    # the headers a source includes by quotes (csrc/*.cuh) are part of it
+    heads = b"".join((CSRC / h.decode()).read_bytes() for h in
+                     sorted(set(re.findall(rb'#include "([^"]+)"', src))))
+    digest = hashlib.sha1(src + heads
                           + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 

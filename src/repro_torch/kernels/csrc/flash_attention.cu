@@ -48,6 +48,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_fragments.cuh"
+
 namespace {
 
 struct Params {
@@ -74,39 +76,6 @@ __device__ __forceinline__ void kv_range(const Params& p, int r0, int r1,
 __device__ __forceinline__ bool visible(const Params& p, int qpos, int kpos) {
   return kpos < p.Skv && (!p.causal || kpos <= qpos) &&
          (!p.has_window || kpos > qpos - p.window);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// d += a * b for one m16n8k16 tile (a row-major 16x16, b col-major 16x8).
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four transposed 8x8 b16 matrices out of shared memory; lane l gives the
-// address of row (l & 7) of matrix (l >> 3).
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t& r0, uint32_t& r1,
-                                                  uint32_t& r2, uint32_t& r3,
-                                                  const __nv_bfloat16* p) {
-  const unsigned addr = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(addr));
 }
 
 // ------------------------------------------------------------------ bf16

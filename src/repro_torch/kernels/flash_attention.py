@@ -1,7 +1,7 @@
-"""Flash attention forward — the Hopper port of
-``repro/kernels/flash_attention.py``.
+"""Flash attention — the Hopper port of
+``repro/kernels/flash_attention.py``, and a backward of its own.
 
-GQA softmax attention, forward only: ``q (Sq, H, D)``, ``k, v (Skv, Hkv,
+GQA softmax attention: ``q (Sq, H, D)``, ``k, v (Skv, Hkv,
 D)`` with ``Hkv | H``; query row i sits at absolute position ``Skv - Sq +
 i`` (end-aligned, so one kernel serves prefill and prefix-cache queries);
 ``causal`` keeps keys at or before the query's position, ``window`` keeps
@@ -29,11 +29,19 @@ wrapper has no backward, so an input that requires grad raises there.
 
 Training goes through :class:`FlashAttention` (``kernels.ops.
 flash_attention`` takes it when grad mode is on and an input requires a
-gradient): its forward is the wrapper on detached inputs, its backward
-recomputes the same masked attention with :func:`flash_attention_plain`
-and differentiates that.  The reference trains through its plain
-``_chunked_attn`` and has no backward kernel, so the gradient is the
-reference's own; a hand-written backward kernel is open kernel work.
+gradient): its forward is the wrapper on detached inputs, its backward is
+:func:`flash_attention_backward`, the operator
+``torch.ops.repro_torch.flash_attention_backward``.  On a CUDA tensor that
+launches ``csrc/flash_attention_bwd.cu``'s two deterministic kernels,
+``flash_bwd_dq`` (query tiles outer: the log-sum-exp, rowsum(dO * O) and
+dq) then ``flash_bwd_dkdv`` (KV tiles outer: each query head's dk and dv,
+summed over the query heads of each KV head in head order by
+``flash_bwd_dkdv_reduce`` under GQA), on the walk of :func:`bwd_plan`, and
+counts one launch of the set in ``flash_attention_backward.launches``; on a
+CPU
+tensor it is :func:`flash_attention_backward_plain`, the same equations
+in float32 PyTorch.  The reference trains through its plain
+``_chunked_attn`` and has no backward kernel.
 """
 
 from __future__ import annotations
@@ -41,8 +49,9 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
@@ -50,7 +59,9 @@ from . import _build
 from ._index import require_cuda_tensor
 
 __all__ = ["flash_attention", "flash_attention_plain", "FlashAttention",
-           "HEAD_DIMS", "flash_flops",
+           "flash_attention_backward", "flash_attention_backward_plain",
+           "HEAD_DIMS", "flash_flops", "flash_bwd_flops", "bwd_plan",
+           "BwdPlan",
            "SM90", "SM90_HEAD_DIMS", "ROUTES", "route", "tile_plan",
            "TilePlan", "sm90_smem_bytes", "launch_kernel"]
 
@@ -102,7 +113,52 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out if batched else out[0]
 
 
-def _check(q, k, v):
+def flash_attention_backward_plain(q, k, v, o, do, *, causal: bool = True,
+                                   window=None, scale=None) -> tuple:
+    """(dq, dk, dv) of :func:`flash_attention_plain` at output ``o`` and
+    output gradient ``do``, written out in float32 as the kernels compute
+    them: the log-sum-exp of the masked scores, delta = rowsum(do * o),
+    P = exp(s - LSE), dP = do v^T, dS = P (dP - delta), dq = scale dS k,
+    dk = scale dS^T q, dv = P^T do, GQA grouped as the forward groups it.
+    A row that sees no key has P = 0.  Each gradient has its input's dtype
+    and is contiguous."""
+    batched = q.dim() == 4
+    if not batched:
+        q, k, v, o, do = q[None], k[None], v[None], o[None], do[None]
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
+    qg = q.float().reshape(B, Sq, Hkv, rep, D)
+    dog = do.float().reshape(B, Sq, Hkv, rep, D)
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bqkrd,bskd->bkrqs", qg, kf) * scale
+    qpos = torch.arange(Sq, device=q.device)[:, None] + (Skv - Sq)
+    kpos = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones(Sq, Skv, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    s = s.masked_fill(~mask, float("-inf"))
+    lse = torch.logsumexp(s, dim=-1, keepdim=True)
+    # a row that sees no key: LSE -inf, P 0 (not exp(-inf + inf))
+    p = torch.exp(s - torch.where(torch.isfinite(lse), lse,
+                                  torch.zeros_like(lse)))
+    delta = (dog * o.float().reshape(B, Sq, Hkv, rep, D)).sum(-1)
+    dp = torch.einsum("bqkrd,bskd->bkrqs", dog, vf)
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    dq = torch.einsum("bkrqs,bskd->bqkrd", ds, kf) * scale
+    dk = torch.einsum("bkrqs,bqkrd->bskd", ds, qg) * scale
+    dv = torch.einsum("bkrqs,bqkrd->bskd", p, dog)
+    out = (dq.reshape(B, Sq, H, D).to(q.dtype), dk.to(k.dtype),
+           dv.to(v.dtype))
+    return tuple((t if batched else t[0]).contiguous() for t in out)
+
+
+def _check(q, k, v, grads: bool = False):
+    """Shapes, dtypes and devices of a call (``grads``: of the backward,
+    whose inputs may require grad)."""
     if q.dim() not in (3, 4) or k.dim() != q.dim() or v.dim() != q.dim():
         raise ValueError(f"flash_attention takes q (Sq, H, D) and k, v "
                          f"(Skv, Hkv, D), optionally with a leading batch "
@@ -123,6 +179,8 @@ def _check(q, k, v):
                         f"of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
+    if grads:
+        return
     if q.requires_grad or k.requires_grad or v.requires_grad:
         raise RuntimeError("the flash_attention wrapper has no backward "
                            "kernel: call it on tensors that do not require "
@@ -231,6 +289,147 @@ def tile_plan(B: int, Sq: int, Skv: int, H: int, Hkv: int, D: int,
     return TilePlan(br, SM90_BC, order, work, kv)
 
 
+# --------------------------------------------------- the backward's schedule
+# A mirror of csrc/flash_attention_bwd.cu's kv_tiles, q_tiles and
+# tile_masked, at 64 query rows and 64 keys a tile (the same _kv_tiles and
+# _tile_masked as the sm90 kernel's); a change to one side changes the
+# other.
+BWD_TILE = SM90_BC
+
+
+def _q_tiles(Sq, Skv, causal, has_window, win, j):
+    """Q tiles [t0, t1) with a row that may see some key of KV tile j."""
+    off = Skv - Sq
+    k0 = j * BWD_TILE
+    k1 = min(Skv, k0 + BWD_TILE)
+    lo, hi = 0, Sq
+    if causal:
+        lo = max(lo, k0 - off)
+    if has_window:
+        hi = min(hi, k1 - 1 - off + win)
+    if hi <= lo:
+        return 0, 0
+    return lo // BWD_TILE, -(-hi // BWD_TILE)
+
+
+@functools.lru_cache(maxsize=256)
+def _kv_order(Sq, Skv, causal, has_window, win) -> tuple:
+    """The KV tiles longest first (most q tiles; later tiles first among
+    equals)."""
+    n = [t1 - t0 for t0, t1 in (_q_tiles(Sq, Skv, causal, has_window, win, j)
+                                for j in range(-(-Skv // BWD_TILE)))]
+    return tuple(sorted(range(len(n)), key=lambda j: (-n[j], -j)))
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """The backward kernels' schedule for one call.  ``dq_grid`` and
+    ``dkdv_grid`` are (q tiles, H, B) and (KV tiles, H, B): CTA (x, h, b)
+    of the dq kernel owns q tile ``q_order[x]`` of query head h and walks
+    ``dq_walk[q tile]``, its (KV tile, masked) pairs in order; CTA (x, h, b)
+    of the dkdv kernel owns KV tile ``kv_order[x]`` for query head h and
+    walks ``dkdv_walk[KV tile]``, its (q tile, masked) pairs in order.
+    ``masked`` is whether the kernel applies the element mask there.  When
+    ``H > Hkv`` (``reduce``) the dkdv CTAs write each query head's share
+    in float32 and ``flash_bwd_dkdv_reduce`` sums the ``H / Hkv`` shares
+    of each KV head in head order."""
+    B: int
+    Sq: int
+    Skv: int
+    H: int
+    Hkv: int
+    causal: bool
+    window: Optional[int]
+    tile: int
+    q_order: tuple
+    kv_order: tuple
+    dq_walk: dict
+    dkdv_walk: dict
+
+    @property
+    def dq_grid(self) -> tuple:
+        return (len(self.q_order), self.H, self.B)
+
+    @property
+    def dkdv_grid(self) -> tuple:
+        return (len(self.kv_order), self.H, self.B)
+
+    @property
+    def reduce(self) -> bool:
+        return self.H > self.Hkv
+
+    def walk(self) -> dict:
+        """The (query head, row, key) pairs each kernel takes into its sums,
+        counted in numpy: ``{"dq": n, "dkdv": n}``, each (H, Sq, KV tiles x
+        tile) int32, the columns past Skv the keys of a ragged last tile.
+        An unmasked tile takes every pair of its in-range rows and all its
+        keys; a masked one the visible pairs.  The dkdv kernel gives rows
+        past Sq an LSE of +inf, so they take no part.  The walk is right
+        when both equal the visible mask on every head and are 0 past
+        Skv."""
+        T, Sq, Skv = self.tile, self.Sq, self.Skv
+        ncol = -(-Skv // T) * T
+        qpos = np.arange(Sq)[:, None] + (Skv - Sq)
+        kpos = np.arange(ncol)[None, :]
+        vis = (kpos < Skv) & np.ones((Sq, 1), bool)
+        if self.causal:
+            vis = vis & (kpos <= qpos)
+        if self.window is not None:
+            vis = vis & (kpos > qpos - self.window)
+        out = {}
+        for name in ("dq", "dkdv"):
+            n = np.zeros((self.H, Sq, ncol), np.int32)
+            if name == "dq":
+                items = [(h, qt, j, m) for h in range(self.H)
+                         for qt in self.q_order
+                         for j, m in self.dq_walk[qt]]
+            else:
+                items = [(h, qt, j, m) for h in range(self.H)
+                         for j in self.kv_order
+                         for qt, m in self.dkdv_walk[j]]
+            for h, qt, j, m in items:
+                rows = slice(qt * T, min(qt * T + T, Sq))
+                cols = slice(j * T, j * T + T)
+                n[h, rows, cols] += vis[rows, cols] if m else 1
+            out[name] = n
+        return out
+
+
+def bwd_plan(B: int, Sq: int, Skv: int, H: int, Hkv: int, D: int,
+             causal: bool = True, window=None) -> BwdPlan:
+    """The backward kernels' grids, orders and per-CTA walks for these
+    shapes (pure Python; the CPU tests walk it).  Causal's uneven tiles go
+    longest first, as :func:`tile_plan`'s do.  ``D`` does not change the
+    schedule; it is checked against the kernels' head sizes."""
+    if D not in HEAD_DIMS:
+        raise ValueError(f"the backward takes head sizes {HEAD_DIMS}, got "
+                         f"{D}")
+    if Hkv <= 0 or H % Hkv:
+        raise ValueError(f"{H} query heads are not a multiple of {Hkv}")
+    has_window, win = _window_arg(window, Sq, Skv)
+    causal = bool(causal)
+    T = BWD_TILE
+    q_order = _q_order(Sq, Skv, causal, has_window, win, T)
+    kv_order = _kv_order(Sq, Skv, causal, has_window, win)
+    dq_walk = {}
+    for qt in q_order:
+        r0, r1 = qt * T, min(qt * T + T, Sq)
+        j0, j1 = _kv_tiles(Sq, Skv, causal, has_window, win, r0, r1)
+        dq_walk[qt] = tuple(
+            (j, _tile_masked(Sq, Skv, causal, has_window, win, r0, r1, j))
+            for j in range(j0, j1))
+    dkdv_walk = {}
+    for j in kv_order:
+        t0, t1 = _q_tiles(Sq, Skv, causal, has_window, win, j)
+        dkdv_walk[j] = tuple(
+            (qt, _tile_masked(Sq, Skv, causal, has_window, win, qt * T,
+                              min(qt * T + T, Sq), j))
+            for qt in range(t0, t1))
+    return BwdPlan(B, Sq, Skv, H, Hkv, causal,
+                   None if not has_window else win, T, q_order, kv_order,
+                   dq_walk, dkdv_walk)
+
+
 def sm90_smem_bytes(D: int, br: int) -> int:
     """Dynamic shared memory of one CTA of the sm90 kernel (csrc
     Smem<D, br / 64>): q, STAGES x (k, v) and o tiles in bf16, 2 + 4 STAGES
@@ -242,20 +441,44 @@ def sm90_smem_bytes(D: int, br: int) -> int:
 _ORDERS: dict = {}
 
 
-def _order_tensor(key, device) -> torch.Tensor:
-    """The q-tile order as int32 on ``device``, made once per shape."""
-    t = _ORDERS.get((key, device))
+def _order_tensor(key, device, order=_q_order) -> torch.Tensor:
+    """``order(*key)`` (the q-tile order by default) as int32 on
+    ``device``, made once per shape."""
+    t = _ORDERS.get((order, key, device))
     if t is None:
         if len(_ORDERS) >= 256:
             _ORDERS.clear()
-        t = torch.tensor(_q_order(*key), dtype=torch.int32, device=device)
-        _ORDERS[(key, device)] = t
+        t = torch.tensor(order(*key), dtype=torch.int32, device=device)
+        _ORDERS[(order, key, device)] = t
     return t
 
 
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _kernel_shapes(named) -> tuple:
+    """(B, Sq, Skv, H, Hkv, D) of a kernel call on ``named``, (tensor,
+    name) pairs led by q and k, after checking that each tensor is a CUDA
+    tensor the kernels can take: contiguous, on a 16-byte boundary, of a
+    head size and lengths they handle."""
+    for t, what in named:
+        require_cuda_tensor(t, what)
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what} must start on a 16-byte boundary")
+        if not t.is_contiguous():
+            raise ValueError(f"{what} must be contiguous (the kernels "
+                             f"take no strides)")
+    q, k = named[0][0], named[1][0]
+    B = int(q.shape[0]) if q.dim() == 4 else 1
+    Sq, H, D = (int(s) for s in q.shape[-3:])
+    Skv, Hkv = int(k.shape[-3]), int(k.shape[-2])
+    if D not in HEAD_DIMS:
+        raise ValueError(f"the kernel takes head sizes {HEAD_DIMS}, got {D}")
+    if max(Sq, Skv) >= 2 ** 30:
+        raise ValueError("sequence too long for the kernel's int32 positions")
+    return B, Sq, Skv, H, Hkv, D
 
 
 def launch_kernel(kernel: str, q, k, v, *, causal: bool = True, window=None,
@@ -268,21 +491,7 @@ def launch_kernel(kernel: str, q, k, v, *, causal: bool = True, window=None,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale)
-    for t, what in ((q, "q"), (k, "k"), (v, "v")):
-        require_cuda_tensor(t, what)
-        if t.data_ptr() % 16:
-            raise ValueError(f"{what} must start on a 16-byte boundary")
-        if not t.is_contiguous():
-            raise ValueError(f"{what} must be contiguous (the kernels "
-                             f"take no strides)")
-    batched = q.dim() == 4
-    B = int(q.shape[0]) if batched else 1
-    Sq, H, D = (int(s) for s in q.shape[-3:])
-    Skv, Hkv = int(k.shape[-3]), int(k.shape[-2])
-    if D not in HEAD_DIMS:
-        raise ValueError(f"the kernel takes head sizes {HEAD_DIMS}, got {D}")
-    if max(Sq, Skv) >= 2 ** 30:
-        raise ValueError("sequence too long for the kernel's int32 positions")
+    B, Sq, Skv, H, Hkv, D = _kernel_shapes(((q, "q"), (k, "k"), (v, "v")))
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
@@ -355,31 +564,129 @@ flash_attention.launches = 0
 flash_attention.launches_sm90 = 0
 
 
+def _check_backward(q, k, v, o, do):
+    _check(q, k, v, grads=True)
+    for t, what in ((o, "o"), (do, "do")):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{what} {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device} is not like q {tuple(q.shape)} "
+                             f"{q.dtype} on {q.device}")
+
+
+def launch_backward(q, k, v, o, do, *, causal: bool = True, window=None,
+                    scale=None) -> tuple:
+    """(dq, dk, dv) of attention at output ``o`` and output gradient ``do``
+    through ``csrc/flash_attention_bwd.cu`` (``flash_bwd_dq``, then
+    ``flash_bwd_dkdv`` and, when H > Hkv, ``flash_bwd_dkdv_reduce``) on
+    :func:`bwd_plan`'s orders, counting one launch of the set.  CPU
+    tensors take :func:`flash_attention_backward_plain`; a CUDA tensor
+    launches the kernels or raises."""
+    _check_backward(q, k, v, o, do)
+    if q.device.type == "cpu":
+        return flash_attention_backward_plain(q, k, v, o, do, causal=causal,
+                                              window=window, scale=scale)
+    B, Sq, Skv, H, Hkv, D = _kernel_shapes(
+        ((q, "q"), (k, "k"), (v, "v"), (o, "o"), (do, "do")))
+    if q.numel() == 0 or k.numel() == 0:
+        # no query or no key: every gradient is 0
+        return tuple(torch.zeros_like(t) for t in (q, k, v))
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    lse, delta = (torch.empty(B * H * Sq, dtype=torch.float32,
+                              device=q.device) for _ in range(2))
+    # each query head's share of dk and dv, summed in head order by the
+    # reduce kernel when a KV head serves several
+    parts = [torch.empty(B * Skv * H * D, dtype=torch.float32,
+                         device=q.device) for _ in range(2 * (H > Hkv))]
+    part_ptrs = [t.data_ptr() for t in parts] or [None, None]
+    has_window, win = _window_arg(window, Sq, Skv)
+    causal = bool(causal)
+    sc = 1.0 / math.sqrt(D) if scale is None else float(scale)
+    q_order = _order_tensor((Sq, Skv, causal, has_window, win, BWD_TILE),
+                            q.device)
+    kv_order = _order_tensor((Sq, Skv, causal, has_window, win), q.device,
+                             _kv_order)
+    _build.launch("flash_attention_bwd", q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), o.data_ptr(), do.data_ptr(), dq.data_ptr(),
+                  dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
+                  delta.data_ptr(), *part_ptrs, q_order.data_ptr(),
+                  kv_order.data_ptr(),
+                  q_order.numel(), kv_order.numel(), B, Sq, Skv, H, Hkv, D,
+                  int(causal), has_window, win, sc, _DTYPE_CODES[q.dtype],
+                  _build.stream_of(q))
+    flash_attention_backward.launches += 1
+    return dq, dk, dv
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             do: torch.Tensor, *, causal: bool = True,
+                             window=None, scale=None) -> tuple:
+    """(dq, dk, dv) of :func:`flash_attention` at its output ``o`` and the
+    output gradient ``do`` (q's shape and dtype): the operator
+    ``torch.ops.repro_torch.flash_attention_backward``, so that the dry
+    run's ``FakeTensorMode`` allocates its outputs and ``FlopCounterMode``
+    counts it (:func:`flash_bwd_flops`).  Its launches (the kernels of one
+    call, one count) are counted in ``flash_attention_backward.launches``."""
+    return torch.ops.repro_torch.flash_attention_backward(
+        q, k, v, o, do, bool(causal),
+        None if window is None else int(window),
+        None if scale is None else float(scale))
+
+
+@torch.library.custom_op("repro_torch::flash_attention_backward",
+                         mutates_args=())
+def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  o: torch.Tensor, do: torch.Tensor, causal: bool,
+                  window: Optional[int], scale: Optional[float]
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return launch_backward(q, k, v, o, do, causal=causal, window=window,
+                           scale=scale)
+
+
+@_flash_bwd_op.register_fake
+def _flash_bwd_fake(q, k, v, o, do, causal, window, scale):
+    _check_backward(q, k, v, o, do)
+    return tuple(torch.empty_like(t) for t in (q, k, v))
+
+
+def flash_bwd_flops(q_shape, k_shape) -> int:
+    """The backward operator's FLOPs as its plain version computes them:
+    q k^T again and four products (do v^T, dS k, dS^T q, P^T do) over every
+    (query, key) pair, 10 B Sq Skv H D."""
+    return 10 * flash_flops(q_shape, k_shape) // 4
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_backward)
+def _flash_bwd_flop_formula(q_shape, k_shape, *args, **kwargs) -> int:
+    return flash_bwd_flops(q_shape, k_shape)
+
+
+flash_attention_backward.launches = 0
+
+
 class FlashAttention(torch.autograd.Function):
     """Differentiable attention: the forward kernel (:func:`flash_attention`
-    on detached inputs, so it counts its launch) and a backward that
-    recomputes the plain version under grad and returns its gradients.
+    on detached inputs, so it counts its launch) and the backward kernels
+    (:func:`flash_attention_backward` at the saved output).
     ``FlashAttention.apply(q, k, v, causal, window, scale)``."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
-        ctx.save_for_backward(q, k, v)
+        o = flash_attention(q.detach(), k.detach(), v.detach(),
+                            causal=causal, window=window, scale=scale)
+        ctx.save_for_backward(q, k, v, o)
         ctx.mask = (causal, window, scale)
-        return flash_attention(q.detach(), k.detach(), v.detach(),
-                               causal=causal, window=window, scale=scale)
+        return o
 
     @staticmethod
     def backward(ctx, grad_out):
         causal, window, scale = ctx.mask
-        need = ctx.needs_input_grad[:3]
-        ins = [t.detach().requires_grad_(n)
-               for t, n in zip(ctx.saved_tensors, need)]
-        with torch.enable_grad():
-            out = flash_attention_plain(*ins, causal=causal, window=window,
-                                        scale=scale)
-            wrt = [t for t, n in zip(ins, need) if n]
-            got = iter(torch.autograd.grad(out, wrt, grad_out))
-        # contiguous: a DTensor view of a sharded gradient (the sharded
-        # step's projections) needs a contiguous local tensor
-        return tuple(next(got).contiguous() if n else None
-                     for n in need) + (None, None, None)
+        q, k, v, o = (t.detach() for t in ctx.saved_tensors)
+        # contiguous gradients, as the kernels write them: a DTensor view
+        # of a sharded gradient (the sharded step's projections) needs a
+        # contiguous local tensor
+        got = flash_attention_backward(q, k, v, o, grad_out.contiguous(),
+                                       causal=causal, window=window,
+                                       scale=scale)
+        return tuple(g if n else None for g, n in
+                     zip(got, ctx.needs_input_grad[:3])) + (None, None, None)

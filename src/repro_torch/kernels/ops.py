@@ -47,7 +47,8 @@ check the bounds on the device.  The direct entry points ``sf_pack``,
 ``_chunked_attn`` function, computed by the hand-written kernel;
 ``models/layers.py::attention`` calls it): the kernel's wrapper, or, when
 grad mode is on and an input requires a gradient, the differentiable
-``flash_attention.FlashAttention`` around it.
+``flash_attention.FlashAttention`` around it, whose backward is the
+``flash_attention_backward`` kernels.
 """
 
 from __future__ import annotations
@@ -317,7 +318,8 @@ def kernel_wrappers() -> dict:
             "pack_strided": pack_strided, "bcast_fused": bcast_fused,
             "segment_reduce_sorted": segment_reduce_sorted,
             "segment_reduce_blocked": segment_reduce_blocked,
-            "spmv_ell": spmv_ell, "flash_attention": _fa.flash_attention}
+            "spmv_ell": spmv_ell, "flash_attention": _fa.flash_attention,
+            "flash_attention_backward": _fa.flash_attention_backward}
 
 
 def reset_launch_counts() -> None:

@@ -1038,7 +1038,7 @@ def test_cpu_path_counts_no_launch(rng):
     assert sorted(kops.kernel_wrappers()) == sorted(
         ["pack", "pack_blocked", "pack_strided", "bcast_fused",
          "segment_reduce_sorted", "segment_reduce_blocked", "spmv_ell",
-         "flash_attention"])
+         "flash_attention", "flash_attention_backward"])
 
 
 def test_prepared_index_cache_follows_source():

@@ -18,8 +18,11 @@ overlapping and unsorted segments beside the long ones) and on wide rows,
 bitwise with NaN payloads, a segment of 41 chunks, the plan on the card
 against the CPU's, and a long-route reduce captured into a CUDA graph;
 for the training slice the flash Function's gradients against the plain
-version's, the column-tiled short segment reduce bitwise its one-CTA
-launch and the plain version at a DDP bucket's shape, the DynPlan
+version's, row 8's backward kernels against their plain version at every
+dtype and head size (one-hot keys, bitwise repeats) and a train step with
+the plain attention raising on the card, the column-tiled short segment
+reduce bitwise its one-CTA launch and the plain version at a DDP bucket's
+shape, the DynPlan
 gather's transpose repeatable bit for bit and equal to the CPU's, and the
 DDP step bitwise across worlds on the card; for the families' training
 hymba's graph-backed scan Function against autograd through the eager
@@ -827,6 +830,9 @@ def test_cuda_dist_refuses_a_group_that_cannot_carry_the_card(dev, tmp_path):
                                               (300, 5, 1, 64, 100),
                                               (130, 4, 4, 32, None)])
 def test_flash_function_gradients_equal_plain(dev, S, H, Hkv, D, window):
+    """The Function's gradients (forward kernel, then the backward kernels,
+    launched once) within FLASH_BWD_REL of the plain backward and of
+    autograd through the plain version."""
     from repro_torch.kernels import flash_attention as fa
     g = torch.Generator(device=dev).manual_seed(S)
     q, k, v = (torch.randn(S, h, D, generator=g, device=dev).bfloat16()
@@ -835,13 +841,117 @@ def test_flash_function_gradients_equal_plain(dev, S, H, Hkv, D, window):
     before = fa.flash_attention.launches
     y = kops.flash_attention(q, k, v, causal=True, window=window)
     assert fa.flash_attention.launches == before + 1
+    before = fa.flash_attention_backward.launches
     got = torch.autograd.grad(y, (q, k, v), go)
-    want = torch.autograd.grad(fa.flash_attention_plain(
+    assert fa.flash_attention_backward.launches == before + 1
+    plain = fa.flash_attention_backward_plain(
+        q.detach(), k.detach(), v.detach(), y.detach(), go, causal=True,
+        window=window)
+    auto = torch.autograd.grad(fa.flash_attention_plain(
         q, k, v, causal=True, window=window), (q, k, v), go)
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
+    for a, b, c in zip(got, plain, auto):
+        assert a.is_contiguous() and a.dtype == torch.bfloat16
+        assert chip_smoke.grad_rel(a, b) <= chip_smoke.FLASH_BWD_REL
+        assert chip_smoke.grad_rel(a, c) <= chip_smoke.FLASH_BWD_REL
     with pytest.raises(RuntimeError, match="require grad"):
         fa.flash_attention(q, k, v)
+
+
+BWD_CASES = [  # B, Sq, Skv, H, Hkv, causal, window
+    (1, 300, 300, 8, 2, True, None), (2, 100, 333, 4, 4, True, None),
+    (1, 130, 70, 4, 1, True, None), (1, 200, 200, 6, 3, True, 50),
+    (2, 77, 150, 4, 2, False, None), (1, 64, 129, 2, 1, False, 40)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_cuda_flash_backward_matches_plain(dev, case, D, dtype):
+    """Both backward kernels against flash_attention_backward_plain at
+    every dtype and head size (FLASH_BWD_REL for bf16, FLASH_BWD_F32_REL
+    for float32), rows that see no key giving 0, and a second call bitwise
+    the first."""
+    from repro_torch.kernels import flash_attention as fa
+    B, Sq, Skv, H, Hkv, causal, window = case
+    rng = np.random.default_rng(Sq + Skv + D)
+
+    def rand(*shape):
+        return torch.as_tensor(rng.standard_normal(shape), device=dev,
+                               dtype=torch.float32).to(dtype)
+    q, k, v = rand(B, Sq, H, D), rand(B, Skv, Hkv, D), rand(B, Skv, Hkv, D)
+    do = rand(B, Sq, H, D)
+    kw = dict(causal=causal, window=window)
+    o = fa.flash_attention(q, k, v, **kw)
+    before = fa.flash_attention_backward.launches
+    got = fa.flash_attention_backward(q, k, v, o, do, **kw)
+    again = fa.flash_attention_backward(q, k, v, o, do, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_backward.launches == before + 2
+    want = fa.flash_attention_backward_plain(q, k, v, o, do, **kw)
+    tol = chip_smoke.FLASH_BWD_REL if dtype == torch.bfloat16 \
+        else chip_smoke.FLASH_BWD_F32_REL
+    for name, a, b, c in zip("qkv", got, want, again):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        assert bool(torch.isfinite(a).all()), name
+        assert chip_smoke.grad_rel(a, b) <= tol, (name,
+                                                  chip_smoke.grad_rel(a, b))
+        assert chip_smoke.same_raw_bits(a, c), name
+    if causal and Sq > Skv:
+        assert bool((got[0][:, : Sq - Skv] == 0).all())
+
+
+def test_cuda_flash_backward_one_hot_keys(dev):
+    """Each row puts all its weight on one key (a logit of 64 against 0 or
+    -64 at scale 1): P is one-hot, so dv[j] is the sum of dO over the rows
+    that chose key j and dq, dk vanish.  A P or dS fragment that reached
+    the wrong row or key shows at once."""
+    from repro_torch.kernels import flash_attention as fa
+    D, Skv, Sq = 64, 128, 200
+    rng = np.random.default_rng(5)
+    pi = rng.integers(0, Skv, Sq)
+    k = np.zeros((Skv, 1, D), np.float32)
+    k[np.arange(Skv), 0, np.arange(Skv) % D] = np.where(
+        np.arange(Skv) < D, 8.0, -8.0)
+    q = np.zeros((Sq, 1, D), np.float32)
+    q[np.arange(Sq), 0, pi % D] = np.where(pi < D, 8.0, -8.0)
+    v = rng.standard_normal((Skv, 1, D)).astype(np.float32)
+    do = rng.standard_normal((Sq, 1, D)).astype(np.float32)
+    tq, tk, tv, tdo = (torch.as_tensor(a, device=dev).bfloat16()
+                       for a in (q, k, v, do))
+    o = fa.flash_attention(tq, tk, tv, causal=False, scale=1.0)
+    dq, dk, dv = fa.flash_attention_backward(tq, tk, tv, o, tdo,
+                                             causal=False, scale=1.0)
+    want_dv = np.zeros((Skv, 1, D), np.float32)
+    np.add.at(want_dv, pi, tdo.float().cpu().numpy())
+    assert np.allclose(dv.float().cpu().numpy(), want_dv, rtol=2e-2,
+                       atol=2e-2)
+    assert float(dq.float().abs().max()) < 1e-2
+    assert float(dk.float().abs().max()) < 1e-2
+
+
+def test_cuda_train_step_takes_no_plain_attention(dev):
+    """A bf16 training step of qwen3-4b's smoke config on the card with
+    ``flash_attention_plain`` raising on CUDA tensors: every layer's
+    attention backward launches the kernels once."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.training.data import make_batch
+    from repro_torch.training.optimizer import OptConfig, init_opt_state
+    from repro_torch.training.train_loop import make_train_step
+    from repro_torch.kernels import flash_attention as fa
+    cfg = get_config("qwen3-4b").smoke_config().scaled(remat="block")
+    ocfg = OptConfig(lr=1e-3, warmup_steps=1)
+    p0 = T.init_params(cfg, device=dev)
+    step = make_train_step(cfg, ocfg)
+    audit = {}
+    before = fa.flash_attention_backward.launches
+    with chip_smoke.attention_backward_audit(audit):
+        _, _, m = step(p0, init_opt_state(p0, ocfg), make_batch(cfg, 2, 64))
+    assert np.isfinite(float(m["loss"]))
+    assert audit["backward_calls"] == cfg.n_layers
+    assert audit["backward_calls_not_one_launch"] == 0
+    assert sum(e["calls"] for e in audit["shapes"]) == cfg.n_layers
+    assert fa.flash_attention_backward.launches - before == cfg.n_layers
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
