@@ -199,7 +199,7 @@ Phases, each printing one JSON line and asserting as it goes:
            ``torch.cuda.set_sync_debug_mode("error")``; (c) kimi-k2's
            384-expert layer with its shared expert at full width in bf16,
            kernels against plain gathers bitwise; (d) phi3.5-moe at full
-           width, 16 of its 32 layers in bf16: one engine stream at batch 1
+           width, 8 of its 32 layers in bf16: one engine stream at batch 1
            against direct greedy decoding (float32, 2 layers), then the
            serve phase's trace through ``ServeEngine(batch=8,
            s_max=2048)`` + ``loadgen.drive``: metrics, the plan cache's hit
@@ -216,7 +216,7 @@ Phases, each printing one JSON line and asserting as it goes:
            the twelfth slice, bf16, random weights from seeded generators,
            each freed before the next: hymba-1.5b at its published width
            and depth (32 layers) through ``ServeEngine(batch=8,
-           s_max=4096)`` + ``loadgen.drive`` on 16 requests (prompts
+           s_max=4096)`` + ``loadgen.drive`` on 8 requests (prompts
            64-3,000 tokens, past the sliding layers' 2,048-key window;
            16-64 new tokens), prefill(2,500) against prefill + decode_step,
            a batch-1 engine stream against direct greedy decoding (float32,
@@ -244,9 +244,13 @@ Phases, each printing one JSON line and asserting as it goes:
            the Function's gradients against ``flash_attention_backward_
            plain`` and autograd through the plain version within
            FLASH_BWD_REL, float32 within FLASH_BWD_F32_REL, two calls
-           bitwise, the kernels' device ms in turns with the old plain
-           recompute (``prev_ms``), cold L2, the bound, SDPA's forward +
-           backward and the Function's call ms (``flash_bwd_record``);
+           bitwise, the forward's o bitwise with and without its saved
+           log-sum-exp and that LSE within FLASH_LSE_ATOL of the plain
+           version's, the kernels' device ms in turns with the mma.sync
+           route's kernels on the same bf16 inputs (``prev_ms``), cold
+           L2, the bound, SDPA's forward + backward, SDPA's backward
+           kernels alone and the Function's call ms
+           (``flash_bwd_record``);
            every drive after them runs with ``flash_attention_plain``
            raising on CUDA tensors and each ``FlashAttention.backward``
            call held to one launch of the kernels
@@ -256,7 +260,7 @@ Phases, each printing one JSON line and asserting as it goes:
            ``make_train_step`` (the launcher's path, updated in place) on
            ``SyntheticLM`` batches of 4 x 1,024 — step ms on the host and
            between CUDA events, tokens/s, peak memory, a profiled step by
-           kernel group — then 8 steps on one batch at lr 1e-4, whose loss
+           kernel group — then 6 steps on one batch at lr 1e-4, whose loss
            must fall; the DDP step over the allreduce SF (qwen3-4b at full
            width, 4 of 36 layers, 4 grains, 25 MiB buckets): worlds 1 and 4
            bitwise, bucketed = per-tensor bitwise, grains = 1 against
@@ -464,14 +468,14 @@ class Sizes:
     serve_prompt: tuple = (64, 1024)
     serve_new: tuple = (16, 64)
     check_prompt: int = 200       # prefill-vs-decode check prompt length
-    # moe: phi3.5-moe at full width in bf16, 16 of its 32 layers (41.6 GB
+    # moe: phi3.5-moe at full width in bf16, 8 of its 32 layers (about 21 GB
     # of blocks; 32 layers, 84 GB, do not fit in 80 GB), kimi-k2's 384-expert
     # layer alone, and DynPlan at dispatch scale (moe_smoke=True: the
     # smoke configs, for rehearsals on the CPU)
     moe_arch: str = "phi3.5-moe-42b-a6.6b"
     moe_wide_arch: str = "kimi-k2-1t-a32b"
     moe_smoke: bool = False
-    moe_layers: int = 16
+    moe_layers: int = 8
     moe_prefill: int = 1024       # the layer checks' prefill tokens
     moe_decode_batch: int = 8
     dyn_roots: int = 1 << 16      # DynPlan checks: expert slots
@@ -485,7 +489,7 @@ class Sizes:
     families_smoke: bool = False
     hymba_batch: int = 8
     hymba_s_max: int = 4096
-    hymba_requests: int = 16
+    hymba_requests: int = 8
     hymba_prompt: tuple = (64, 3000)  # the sliding layers' 2,048 keys bite
     hymba_new: tuple = (16, 64)
     hymba_check_prompt: int = 2500
@@ -512,7 +516,7 @@ class Sizes:
     train_batch: int = 4
     train_seq: int = 1024
     train_steps: int = 4
-    train_fixed_steps: int = 8
+    train_fixed_steps: int = 6
     ddp_layers: int = 4               # 1.18 B parameters
     ddp_grains: int = 4
     ddp_budget: int = 25 << 20        # torch DDP's default bucket size
@@ -532,9 +536,9 @@ class Sizes:
     # launch-bound), whisper-base on 8 x (1,500 frames, 448 tokens); bf16,
     # float32 moments, remat per block.  Steps: (counted, on one batch).
     hymba_train: tuple = (2, 3072)
-    hymba_train_steps: tuple = (4, 6)
+    hymba_train_steps: tuple = (2, 4)
     xlstm_train: tuple = (4, 256)
-    xlstm_train_steps: tuple = (2, 4)
+    xlstm_train_steps: tuple = (2, 3)
     whisper_train: tuple = (8, 448, 1500)   # batch, tokens, frames
     whisper_train_steps: tuple = (4, 6)
     scan_check: tuple = (2, 600)      # hymba's scan Function, one layer
@@ -569,7 +573,7 @@ class Sizes:
     launch_families: tuple = ("phi3.5-moe-42b-a6.6b", "hymba-1.5b",
                               "xlstm-350m", "whisper-base")
     launch_family_check_layers: int = 2
-    launch_family_steps: int = 3
+    launch_family_steps: int = 2
 
 
 def emit(obj) -> None:
@@ -2812,7 +2816,7 @@ def phase_dmda(sz: Sizes, dev) -> dict:
 
 # ------------------------------------------------------------------ priors
 PRIORS_BACKENDS = ("global", "cuda")
-PRIORS_TRIALS = 3           # a priors point is the best of this many means
+PRIORS_TRIALS = 2           # a priors point is the best of this many means
 
 
 def pingpong_sf(n: int):
@@ -5593,6 +5597,9 @@ def families_in_child(sz: Sizes, dev):
 # float32 inputs: the kernels' FMAs hold 1e-4.
 FLASH_BWD_REL = 1e-2
 FLASH_BWD_F32_REL = 1e-4
+# the training forward's saved base-2 log-sum-exp against the plain
+# version's: float32 statistics, 1e-5 absolute
+FLASH_LSE_ATOL = 1e-5
 # MoE gradients through the SF dispatch against the dense dispatch: float32
 # on one layer at the reference's tests/test_models.py:162-178 tolerance;
 # bf16 through the whole model, where the two dispatches round their sums
@@ -5669,8 +5676,9 @@ def visible_pairs(Sq: int, Skv: int, causal: bool, window) -> int:
 
 
 def old_flash_backward(q, k, v, go, causal: bool, window, scale=None):
-    """The Function's backward before the kernels (``prev_ms``): the plain
-    version recomputed in float32 under grad and differentiated."""
+    """Autograd through the plain version (``flash_bwd_check``'s second
+    reference): recomputed in float32 under grad and differentiated, the
+    Function's backward before the backward kernels."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     ins = [t.detach().requires_grad_() for t in (q, k, v)]
@@ -5695,10 +5703,14 @@ def flash_bwd_check(what: str, q, k, v, go, causal: bool, window, dev,
     against ``flash_attention_backward_plain`` and against autograd
     through ``flash_attention_plain``, each within FLASH_BWD_REL (bf16;
     FLASH_BWD_F32_REL for float32 inputs); bf16 inputs also in float32
-    within FLASH_BWD_F32_REL; two calls bitwise equal.  Then the kernels'
-    device ms (graph replays) and the bound (10 B (visible pairs) H D
-    FLOPs over the bf16 tensor cores against the bytes of q, k, v, o, dO,
-    dq, dk and dv).  Returns (record, the Function's output)."""
+    within FLASH_BWD_F32_REL; two calls bitwise equal.  Where the backward
+    takes the sm90 route (bf16, head size 64 or 128) the forward's saved
+    log-sum-exp too: o with the LSE written bitwise o without it (the
+    serving path's call), the LSE within FLASH_LSE_ATOL of the plain
+    version's.  Then the kernels' device ms (graph replays, on the saved
+    LSE) and the bound (10 B (visible pairs) H D FLOPs over the bf16
+    tensor cores against the bytes of q, k, v, o, dO, dq, dk and dv).
+    Returns (record, the Function's output, the LSE or None)."""
     import torch
     from repro_torch.kernels import flash_attention as fa, ops as kops
     kw = dict(causal=causal, window=window, scale=scale)
@@ -5742,7 +5754,29 @@ def flash_bwd_check(what: str, q, k, v, go, causal: bool, window, dev,
         del f32, o32, got32, want32
         rec.update(float32_rel_err=rel32,
                    float32_tolerance_rel=FLASH_BWD_F32_REL)
-    run = lambda: fa.flash_attention_backward(q, k, v, o, go, **kw)
+    lse = None
+    rec["route"] = fa.bwd_route(q.dtype, q.shape[-1])
+    if rec["route"] == "sm90":
+        o_lse, lse = fa.flash_attention_lse(q, k, v, **kw)
+        _, want_lse = fa.flash_attention_plain(q, k, v, with_lse=True, **kw)
+        seen = torch.isfinite(want_lse)
+        lse_err = float((lse[seen] - want_lse[seen]).abs().max()) \
+            if bool(seen.any()) else 0.0
+        check(same_raw_bits(o_lse, o) and same_raw_bits(
+            o_lse, fa.flash_attention(q, k, v, **kw)), f"flash forward at "
+            f"{what}: o with the LSE written differs from o without it")
+        check(bool(torch.equal(torch.isfinite(lse), seen))
+              and lse_err <= FLASH_LSE_ATOL, f"flash forward at {what}: the "
+              f"LSE is {lse_err} from the plain version's (at most "
+              f"{FLASH_LSE_ATOL}) or -inf elsewhere")
+        rec.update(lse_max_abs_err=lse_err, lse_tolerance_abs=FLASH_LSE_ATOL,
+                   o_bitwise_with_lse=True,
+                   tiles=list(fa.bwd_tiles(
+                       *bwd_dims(q, k), q.shape[-1],
+                       fa._sm_count(dev.index) if dev.type == "cuda"
+                       else fa.H100_SMS)))
+        del o_lse, want_lse, seen
+    run = lambda: fa.flash_attention_backward(q, k, v, o, go, lse=lse, **kw)
     again = [run(), run()]
     check(all(same_raw_bits(a, b) and same_raw_bits(a, c)
               for a, b, c in zip(got, *again)),
@@ -5753,26 +5787,41 @@ def flash_bwd_check(what: str, q, k, v, go, causal: bool, window, dev,
     pairs = visible_pairs(Sq, k.shape[-3], causal, window)
     nbytes = q.element_size() * (4 * q.numel() + 4 * k.numel())
     bnd, by = bound(nbytes, 10 * B * pairs * H * D, BF16_OPS_PER_S)
-    rec.update(visible_pairs_per_head=pairs, bitwise_repeat=True,
-               ms=graph_ms(run, dev, it), bound_ms=bnd, bound_by=by)
-    return rec, o
+    if rec["route"] == "sm90" and dev.type == "cuda":
+        # the sm90 kernels in turns with the mma.sync route's on the same
+        # inputs
+        (ms, ms_runs), (prev, prev_runs) = in_turns(
+            run, lambda: fa._launch_backward_mma(q, k, v, o, go, **kw), dev,
+            it, graph_ms)
+        rec.update(ms_runs=ms_runs, prev_ms_runs=prev_runs,
+                   prev_kernels="the mma.sync route: flash_bwd_dq + "
+                   "flash_bwd_dkdv (+ flash_bwd_dkdv_reduce under GQA)")
+    else:
+        ms, prev = graph_ms(run, dev, it), None
+    rec.update(visible_pairs_per_head=pairs, bitwise_repeat=True, ms=ms,
+               prev_ms=prev, bound_ms=bnd, bound_by=by,
+               share_of_bound=bnd / ms if ms else None)
+    return rec, o, lse
+
+
+def bwd_dims(q, k) -> tuple:
+    """(B, Sq, Skv, H, Hkv) of a flash call."""
+    B = q.shape[0] if q.dim() == 4 else 1
+    return (B, q.shape[-3], k.shape[-3], q.shape[-2], k.shape[-2])
 
 
 def flash_bwd_record(what: str, q, k, v, go, causal: bool, window, dev,
                      it: int) -> dict:
-    """:func:`flash_bwd_check` on bf16 ``q, k, v`` and ``go``, then the
-    timings: the kernels' device ms (graph replays) in turns with the old
-    plain recompute (``prev_ms``) and with L2 scrubbed, the plain
-    version's ms, SDPA's forward + backward (the library call) and the
-    Function's forward + backward call ms."""
+    """:func:`flash_bwd_check` on bf16 ``q, k, v`` and ``go`` (which times
+    the kernels in turns with the mma.sync route's, ``prev_ms``), then the
+    kernels' device ms with L2 scrubbed, the plain version's ms, SDPA's
+    forward + backward (the library call), SDPA's backward kernels alone
+    and the Function's forward + backward call ms."""
     import torch
     from repro_torch.kernels import flash_attention as fa, ops as kops
     kw = dict(causal=causal, window=window)
-    rec, o = flash_bwd_check(what, q, k, v, go, causal, window, dev, it)
-    run = lambda: fa.flash_attention_backward(q, k, v, o, go, **kw)
-    (ms, ms_runs), (prev, prev_runs) = in_turns(
-        run, lambda: old_flash_backward(q, k, v, go, causal, window), dev,
-        it, graph_ms)
+    rec, o, lse = flash_bwd_check(what, q, k, v, go, causal, window, dev, it)
+    run = lambda: fa.flash_attention_backward(q, k, v, o, go, lse=lse, **kw)
     few = max(it // 4, 2)
     qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
 
@@ -5781,14 +5830,14 @@ def flash_bwd_record(what: str, q, k, v, go, causal: bool, window, dev,
         torch.autograd.grad(yy, (qr, kr, vr), go)
     batch = (lambda t: t) if q.dim() == 4 else (lambda t: t[None])
     rec.update({
-        "ms": ms, "ms_runs": ms_runs, "prev_ms": prev,
-        "prev_ms_runs": prev_runs,
         "ms_cold_l2": cold_graph_ms(run, dev, it),
         "plain_ms": call_ms(lambda: fa.flash_attention_backward_plain(
             q, k, v, o, go, **kw), dev, few),
         "library_ms": sdpa_fb_ms(batch(q), batch(k), batch(v), batch(go),
                                  causal, window, dev, few),
         "library_call": "scaled_dot_product_attention forward + backward",
+        "library_bwd_kernels_ms": sdpa_bwd_kernels_ms(
+            batch(q), batch(k), batch(v), batch(go), causal, window, dev),
         "call_ms": call_ms(fb, dev, few),
         "forward_kernel_ms": graph_ms(
             lambda: fa.flash_attention(q, k, v, **kw), dev, it)})
@@ -5822,7 +5871,10 @@ def train_flash_path_shapes(audit: dict, sz: Sizes, dev) -> dict:
     ``FlashAttention.backward`` calls had (``attention_backward_audit``'s
     ``shapes``: every family's self-attention, whisper's encoder and
     cross-attention, hymba's windowed and global layers), on seeded
-    inputs of that shape and dtype: :func:`flash_bwd_check` at each."""
+    inputs of that shape and dtype: :func:`flash_bwd_check` at each (for
+    bf16 its device ms in turns with the mma.sync route's kernels and its
+    share of bound), and SDPA's backward kernels alone at the bf16
+    shapes."""
     import torch
     out = []
     for i, e in enumerate(audit.get("shapes", [])):
@@ -5833,10 +5885,15 @@ def train_flash_path_shapes(audit: dict, sz: Sizes, dev) -> dict:
                  for _ in range(2))
         k, v = (torch.randn(ks, generator=g, device=dev).to(dt)
                 for _ in range(2))
-        rec, _ = flash_bwd_check(f"path shape {e['key']}", q, k, v, go,
-                                 causal, window, dev, sz.timing_iters,
-                                 scale)
+        rec, _, _ = flash_bwd_check(f"path shape {e['key']}", q, k, v, go,
+                                    causal, window, dev, sz.timing_iters,
+                                    scale)
         rec.update(key=e["key"], path_calls=e["calls"])
+        if dt == torch.bfloat16:
+            batch = (lambda t: t) if q.dim() == 4 else (lambda t: t[None])
+            rec["library_bwd_kernels_ms"] = sdpa_bwd_kernels_ms(
+                batch(q), batch(k), batch(v), batch(go), causal, window, dev,
+                scale)
         out.append(rec)
         del q, k, v, go
         gc.collect()
@@ -5844,6 +5901,41 @@ def train_flash_path_shapes(audit: dict, sz: Sizes, dev) -> dict:
             torch.cuda.empty_cache()
     check(out, "the train path made no FlashAttention.backward call")
     return {"shapes": out}
+
+
+def sdpa_bwd_kernels_ms(q, k, v, go, causal: bool, window, dev,
+                        scale=None, calls: int = 5) -> float:
+    """Device ms of the kernels under one backward of SDPA on (B, S, H, D)
+    q, k, v (masks and GQA as :func:`sdpa_fb_ms`), profiled over ``calls``
+    backwards of one forward (warm): the kernel-to-kernel yardstick of the
+    flash backward's kernels."""
+    import torch
+    import torch.nn.functional as F
+    Sq, Skv = q.shape[1], k.shape[1]
+    mask = None
+    if window is not None:
+        qpos = torch.arange(Sq, device=dev)[:, None] + (Skv - Sq)
+        kpos = torch.arange(Skv, device=dev)[None, :]
+        mask = (kpos > qpos - window) & ((kpos <= qpos) if causal else True)
+    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_()
+                  for x in (q, k, v))
+    got = go.transpose(1, 2)
+    o = F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+        enable_gqa=True, scale=scale)
+
+    def bwd():
+        for _ in range(calls):
+            torch.autograd.grad(o, (qt, kt, vt), got, retain_graph=True)
+    bwd()
+    if dev.type != "cuda":
+        return call_ms(bwd, dev, 1) / calls
+    # each backward launches each of its kernels once; torch.profiler on
+    # the card may drop a call's events at a window's edge, so the mean is
+    # over the calls it recorded (the most often recorded kernel's count)
+    by_name, counts, _ = _profile(bwd, dev)
+    check(by_name, "torch.profiler recorded no kernel of SDPA's backward")
+    return sum(by_name.values()) / max(counts.values())
 
 
 def sdpa_fb_ms(q, k, v, go, causal: bool, window, dev, iters: int) -> float:
@@ -7682,8 +7774,11 @@ def run(dev, sz: Sizes) -> list:
                                   "library_call", "call_ms", "prev_ms")},
         "max_abs_err": max(r["max_abs_err"]
                            for r in bwd + path_bwd["shapes"]),
-        "kernels": ["flash_bwd_dq", "flash_bwd_dkdv",
-                    "flash_bwd_dkdv_reduce"], "shapes": bwd,
+        "kernels": ["flash_bwd_dq_sm90", "flash_bwd_dkdv_sm90",
+                    "flash_bwd_dkdv_reduce"],
+        "kernels_float32_and_d16_32": ["flash_bwd_dq", "flash_bwd_dkdv",
+                                       "flash_bwd_dkdv_reduce"],
+        "shapes": bwd,
         "path_shapes": path_bwd["shapes"],
         "audit": {"train": train["attention_backward_audit"]},
         "ptxas": [{k: r[k] for k in ("function", "registers",

@@ -70,7 +70,7 @@ VARIANTS = {  # name -> (BC, STAGES); the first is the committed one
     "bc128_s2": (128, 2)}
 
 
-def build(nvcc, flags, src):
+def build(nvcc, flags, src, csrc):
     os.makedirs(OUT, exist_ok=True)
     procs = {}
     for name, (bc, stages) in VARIANTS.items():
@@ -78,7 +78,8 @@ def build(nvcc, flags, src):
         with open(path, "w") as f:
             f.write(variant_source(src, bc, stages))
         procs[name] = subprocess.Popen(
-            [nvcc, *flags, "-o", os.path.join(OUT, f"{name}.so"), path],
+            [nvcc, *flags, "-I", csrc, "-o", os.path.join(OUT, f"{name}.so"),
+             path],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     funcs = {}
     for name, proc in procs.items():
@@ -107,7 +108,7 @@ def main() -> int:
     import chip_smoke as cs
     from repro_torch.kernels import _build, flash_attention as fa
     src = open(os.path.join(_build.CSRC, "flash_attention_sm90.cu")).read()
-    funcs = build(_build._nvcc(), _build.NVCC_FLAGS, src)
+    funcs = build(_build._nvcc(), _build.NVCC_FLAGS, src, str(_build.CSRC))
     argtypes = _build._SIGNATURES["flash_attention_sm90_fwd"][1]
     for f in funcs.values():
         f.argtypes, f.restype = argtypes, ctypes.c_int
@@ -122,7 +123,7 @@ def main() -> int:
         o = torch.empty_like(q)
         order = fa._order_tensor((Sq, Skv, True, 0, 0, br), dev)
         rc = f(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-               order.data_ptr(), 1, Sq, Skv, H, Hkv, D, 1, 0, 0,
+               None, order.data_ptr(), 1, Sq, Skv, H, Hkv, D, 1, 0, 0,
                1.0 / D ** 0.5, br, order.numel(), _build.stream_of(q))
         cs.check(rc == 0, f"launch failed: {rc}")
         return o

@@ -20,7 +20,76 @@
 // row that sees no key has P = 0, so its q gradient and its share of dk
 // and dv are 0.
 //
-// Design: FlashAttention-2's backward, made deterministic.
+// Two routes (kernels/flash_attention.py: bwd_route, bwd_plan).
+//
+// The sm90 route: bf16 at head sizes 64 and 128, every shape the training
+// path gives the kernels but its float32 copy (FlashAttention's forward
+// takes flash_attention_sm90.cu there).  FlashAttention-3's backward made
+// deterministic:
+//  * The forward saves each row's base-2 log-sum-exp of scale log2(e)
+//    q k^T (flash_attention_sm90.cu writes m + log2(l) beside o when
+//    asked), so P = exp2(s scale log2(e) - LSE) needs no statistics sweep.
+//  * flash_bwd_dq_sm90 (query tiles outer): a CTA owns 64 or 128 query
+//    rows of one head (one warpgroup per 64), q and dO resident; it
+//    computes delta = rowsum(dO * O) for its rows (and writes it for dkdv)
+//    and walks its visible 64-key tiles once: S = q k^T, dP = dO v^T,
+//    dq += dS k.  Three products, where the mma.sync route's dq runs four
+//    (q k^T twice).
+//  * flash_bwd_dkdv_sm90 (KV tiles outer): a CTA, one warpgroup, owns 64
+//    keys of one KV head, K and V resident, and walks the rep query heads
+//    of that KV head in ascending order and each one's visible 64-row q
+//    tiles in ascending order: S^T = k q^T, dP^T = v dO^T, dv += P^T dO,
+//    dk += dS^T q, dk and dv summed in float32 registers across the heads
+//    and written once in bf16: GQA needs no float32 (B, Skv, H, D) shares
+//    and no reduce (the mma.sync route writes 134 MB of them at
+//    qwen3-4b's step shape).  Where one CTA per KV head would leave SMs
+//    idle (qwen3-4b at B = 1: 128 CTAs), the plan keeps the mma.sync
+//    route's split instead: one CTA per query head, its share in float32,
+//    flash_bwd_dkdv_reduce summing the shares in head order.
+//  * Every product is wgmma.mma_async m64nNk16 bf16 -> f32 on warpgroup
+//    tiles: q k^T and dO v^T (and their transposes) with both operands
+//    read through 128-byte-swizzled matrix descriptors, K-major; P^T and
+//    dS (dS^T) rounded to bf16 pairs in registers as the A operand (the
+//    m64nN accumulator layout is the A-fragment layout, as the forward's
+//    P v), against k, dO or q read MN-major (the transpose bit).  Tiles
+//    come by TMA (cp.async.bulk.tensor, zero-filled past Sq or Skv) into
+//    two-slot mbarrier rings; the dkdv loader's lanes also stage each q
+//    tile's LSE and delta (rows past Sq: LSE +inf, so P = 0).  The
+//    mbarrier, TMA and wgmma helpers are the forward's, shared through
+//    wgmma_tma.cuh.
+//  * No producer warp: the first warp of the CTA issues the loads (its
+//    lane 0 the TMA copies), each one step ahead, into the slot the step
+//    before has released.  A ninth warp would put three warps on one of
+//    the SM's four register files and hold every thread to 168 registers
+//    (setmaxnreg did not move ptxas's allocation in this build); dk and dv
+//    alone are 128 float32 registers a thread at D = 128.  Without it a
+//    dkdv thread has 236 registers at D = 128 (two CTAs an SM) and at most
+//    168 at D = 64 (three), with no spills at D = 128, and the SM's tensor
+//    cores take one CTA's products while another computes its softmax.
+//    Tile widths and CTAs an SM were chosen on the H100 (PERF.md): dq 128
+//    rows unless that leaves fewer than half the SMs busy; dkdv 64 keys
+//    (128 keys over two warpgroups, a producer warp, a two-warpgroup split
+//    by role, deeper rings and two dq CTAs an SM were slower or no faster).
+//  * Determinism: every output element is written by exactly one CTA
+//    (dq: its q tile's CTA; dk, dv: its KV tile's CTA, or the reduce), and
+//    every sum is taken in one fixed order (KV tiles ascending for dq;
+//    query heads, then q tiles ascending for dk and dv; the wgmma's own
+//    order inside a tile) that depends on neither the grid nor the SM
+//    count.  No atomics: two calls give the same bits.
+//  * Tiles that no row of the block can see are never visited; the element
+//    mask is applied only on the 64 x 64 slices where some pair is not
+//    visible (the forward's kv_tiles and tile_masked; bwd_plan mirrors the
+//    walk and its masks in Python).
+//  Bound on this card: the larger of 10 B (visible pairs) H D FLOPs (the
+//  five products of the least backward: q k^T, dO v^T, dS k, dS^T q,
+//  P^T dO) over 989 TFLOP/s of bf16 tensor cores, and the bytes of q, k,
+//  v, o, dO, dq, dk and dv over 3.35 TB/s: 0.0869 ms at qwen3-4b's step
+//  shape (4, 1,024, 32 / 8 heads of 128, causal), operations.  This route
+//  runs seven products (q k^T and dO v^T in both kernels), so it can reach
+//  at best 5/7 of the bound.
+//
+// The mma.sync route: float32, and bf16 at head sizes 16 and 32.
+// FlashAttention-2's backward, made deterministic.
 //  * flash_bwd_dq (query tiles outer): one CTA owns 64 query rows of one
 //    head.  Sweep 1 walks the visible K tiles and computes each row's max
 //    and sum of exp2(scale log2(e) q k^T), so its base-2 log-sum-exp (LSE,
@@ -34,50 +103,27 @@
 //    dk += scale dS^T q in float32 registers.  With H = Hkv it writes dk
 //    and dv; under GQA it writes the head's share in float32 (B, Skv, H, D)
 //    and flash_bwd_dkdv_reduce sums the rep = H / Hkv shares of each KV
-//    head in head order.  One CTA per query head rather than per KV head:
-//    at qwen3-4b's 8 KV heads the latter is 128 CTAs, under one wave of
-//    the 132 SMs, each walking four heads' tiles in turn.
-//  * Every output element is written by exactly one CTA, and every sum is
-//    taken in one fixed order (tiles ascending, heads ascending, the mma's
-//    own order inside a tile) that depends on neither the grid nor the SM
-//    count: there are no atomics, and two calls give the same bits.
+//    head in head order.
+//  * Determinism as above: one writer per element, one fixed order of
+//    sums, no atomics.
 //  * bf16: four warps, each owning 16 rows (dq) or 16 keys (dkdv); every
 //    product runs on the tensor cores as mma.sync.m16n8k16 bf16 -> f32,
 //    with P and dS rounded to bf16 as A operands, as the forward rounds P.
 //    dq keeps its q and dO fragments in registers and streams K and V
-//    tiles through two shared-memory stages by cp.async (the next tile in
-//    flight while this one is used); dkdv keeps its K and V tiles and
-//    streams each query tile's q and dO rows, LSE and delta the same way
-//    (dynamic shared memory: 68 KB for dq, 103 KB for dkdv at D = 128).
-//    Operands come out of shared memory by ldmatrix.  dq scores all 64
-//    keys of a tile at once in sweep 1 and 16 at a time in sweep 2, beside
-//    its D-wide float32 accumulators (no spills at D = 128).
+//    tiles through two shared-memory stages by cp.async; dkdv keeps its K
+//    and V tiles and streams each query tile's q and dO rows, LSE and delta
+//    the same way.  Operands come out of shared memory by ldmatrix.
 //  * float32: eight warps of FMAs with float32 operands, as the forward's
 //    float32 kernel: lanes take keys (dq) or query rows (dkdv) for the dot
 //    products and head columns for the accumulators, and the update
 //    broadcasts each P or dS value with a shuffle.
-//  * Tiles that no row of the block can see are never visited, and the
-//    element mask is applied only on tiles that some pair of the block
-//    cannot see: the forward's _kv_tiles and _tile_masked
-//    (flash_attention.py keeps the Python mirror, bwd_plan).  The q-tile
-//    and KV-tile orders come from the plan, longest first.  Query rows past
-//    Sq carry LSE = +inf in dkdv, so their P is 0 without a mask.
+//  * The walk is the sm90 route's at 64 query rows and 64 keys a tile;
+//    query rows past Sq carry LSE = +inf in dkdv, so their P is 0.  This
+//    design runs eight products (q k^T twice in dq), so it can reach at
+//    best 5/8 of the bound.
 //
-// Bound on this card: the larger of 10 B (visible pairs) H D FLOPs (the
-// five products of the least backward: q k^T, dO v^T, dS k, dS^T q,
-// P^T dO) over 989 TFLOP/s of bf16 tensor cores, and the bytes of q, k, v,
-// o, dO, dq, dk and dv over 3.35 TB/s.  At qwen3-4b's q (1024, 32, 128),
-// 8 KV heads, causal, B = 1 (524,800 visible pairs a head) that is
-// 0.0217 ms (operations); at hymba's (3000, 25, 64), 5 KV heads, window
-// 2,048 (4,047,872 pairs) 0.0655 ms; at whisper's cross shape (8 x 448 x
-// 1,500, 8 heads of 64, unmasked) 0.0278 ms.  This design runs eight
-// products (q k^T twice in dq, then dO v^T and dS k; q k^T, dO v^T, P^T dO
-// and dS^T q in dkdv), so it can reach at best 5/8 of the bound.  What is
-// left for later: wgmma and TMA, larger tiles over more warps, and saving
-// the LSE in the forward.
-//
-// The entry point returns cudaGetLastError() after each launch, -1 for an
-// unsupported dtype or head size.
+// Each entry point returns cudaGetLastError() after each launch, -1 for an
+// unsupported dtype, head size or tile, -2 if a tensor map cannot be made.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -85,6 +131,7 @@
 #include <stdint.h>
 
 #include "mma_fragments.cuh"
+#include "wgmma_tma.cuh"
 
 namespace {
 
@@ -114,8 +161,9 @@ struct Params {
 
 // KV tiles [j0, j1) that some query row in [r0, r1) may see
 // (flash_attention.py: _kv_tiles).
-__device__ __forceinline__ void kv_tiles(const Params& p, int r0, int r1,
-                                         int& j0, int& j1) {
+template <class P>
+__device__ __forceinline__ void kv_tiles(const P& p, int r0, int r1, int& j0,
+                                         int& j1) {
   const long long off = (long long)p.Skv - p.Sq;
   long long lo = 0, hi = p.Skv;
   if (p.causal) hi = min(hi, off + r1);
@@ -130,7 +178,8 @@ __device__ __forceinline__ void kv_tiles(const Params& p, int r0, int r1,
 
 // Q tiles [t0, t1) with a row that may see some key of KV tile j
 // (flash_attention.py: _q_tiles).
-__device__ __forceinline__ void q_tiles(const Params& p, int j, int& t0,
+template <class P>
+__device__ __forceinline__ void q_tiles(const P& p, int j, int& t0,
                                         int& t1) {
   const long long off = (long long)p.Skv - p.Sq;
   const long long k0 = (long long)j * BC;
@@ -148,7 +197,8 @@ __device__ __forceinline__ void q_tiles(const Params& p, int j, int& t0,
 
 // Whether some (row in [r0, r1), key in tile j) pair is not visible
 // (flash_attention.py: _tile_masked).
-__device__ __forceinline__ bool tile_masked(const Params& p, int r0, int r1,
+template <class P>
+__device__ __forceinline__ bool tile_masked(const P& p, int r0, int r1,
                                             int j) {
   const long long off = (long long)p.Skv - p.Sq;
   const long long k0 = (long long)j * BC, k1 = k0 + BC - 1;
@@ -156,7 +206,8 @@ __device__ __forceinline__ bool tile_masked(const Params& p, int r0, int r1,
          (p.has_window && k0 <= off + r1 - 1 - p.window);
 }
 
-__device__ __forceinline__ bool visible(const Params& p, int qpos, int kpos) {
+template <class P>
+__device__ __forceinline__ bool visible(const P& p, int qpos, int kpos) {
   return kpos < p.Skv && (!p.causal || kpos <= qpos) &&
          (!p.has_window || kpos > qpos - p.window);
 }
@@ -939,6 +990,429 @@ __global__ void __launch_bounds__(256)
   store4((T*)p.dv + i * 4, sv);
 }
 
+// ================================================================= sm90
+// The bf16 route at head sizes 64 and 128: wgmma on warpgroup tiles, TMA
+// rings, the forward's saved LSE (the note at the top).
+constexpr int RING = 2;  // ring depth: K/V tiles (dq), q/dO tiles (dkdv)
+
+struct P90 {
+  const __nv_bfloat16* o;
+  const __nv_bfloat16* dout;
+  __nv_bfloat16* dq;
+  __nv_bfloat16* dk;
+  __nv_bfloat16* dv;
+  const float* lse;  // (B, H, Sq): the forward's base-2 log-sum-exp
+  float* delta;      // (B, H, Sq): rowsum(dO * O), written by dq
+  float* dk_part;    // (B, Skv, H, D) float32 shares when split, else null
+  float* dv_part;
+  const int* q_order;   // dq's q tiles, longest first
+  const int* kv_order;  // dkdv's KV tiles, longest first
+  int B, Sq, Skv, H, Hkv;
+  int causal, has_window, window;
+  float scale;
+  float scale_log2;  // scale * log2(e): the softmax runs in base 2
+  int split;         // dkdv: one CTA per query head, shares + reduce
+};
+
+__device__ __forceinline__ int ring_slot(uint32_t n) { return n % RING; }
+__device__ __forceinline__ uint32_t ring_parity(uint32_t n) {
+  return (n / RING) & 1;
+}
+
+// The dynamic shared memory from its first 1024-byte boundary (the
+// 128-byte swizzle repeats every 8 rows of 128 bytes).
+template <class S>
+__device__ __forceinline__ S& aligned_smem(uint8_t* raw) {
+  return *reinterpret_cast<S*>(raw +
+                               ((1024 - (smem_u32(raw) & 1023)) & 1023));
+}
+
+// dO . O over eight bf16 values of each, in float32
+__device__ __forceinline__ float dot8(uint4 a, uint4 b) {
+  const uint32_t x[4] = {a.x, a.y, a.z, a.w}, y[4] = {b.x, b.y, b.z, b.w};
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = unpack_bf16(x[i]), v = unpack_bf16(y[i]);
+    s += u.x * v.x + u.y * v.y;
+  }
+  return s;
+}
+
+// A tile of R rows x D columns is D / 64 boxes of R x 64, one after the
+// other, each on a 1024-byte boundary.
+template <int D, int NC>
+struct DqSmem90 {
+  __nv_bfloat16 q[NC * 64 * D];
+  __nv_bfloat16 d[NC * 64 * D];  // dO
+  __nv_bfloat16 k[RING][BC * D];
+  __nv_bfloat16 v[RING][BC * D];
+  float dl[NC][64];  // delta of each warpgroup's rows
+  uint64_t full[RING], empty[RING], qd_full;
+};
+
+// dq: CTA x owns NC x 64 query rows of one head (q tile q_order[x / (B H)],
+// then b and h), q and dO resident, and walks its visible KV tiles of BC
+// keys in ascending order through a ring of K and V slots.  Each of NC
+// warpgroups takes 64 rows: S = q k^T and dP = dO v^T (wgmma, both
+// operands from shared memory), P = exp2(S scale log2(e) - LSE),
+// dS = P (dP - delta), dq += dS k (wgmma, dS from registers, k MN-major).
+// The first warp also loads (its lane 0 issues the TMA copies): starting
+// tile j, it loads tile j + 1 into the slot tile j - 1 has released.
+template <int D, int NC>
+__global__ void __launch_bounds__(NC * 128, 1)
+    flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                             const __grid_constant__ CUtensorMap tm_do,
+                             const __grid_constant__ CUtensorMap tm_k,
+                             const __grid_constant__ CUtensorMap tm_v,
+                             const P90 p) {
+  constexpr int BQ = NC * 64;  // query rows of the CTA
+  extern __shared__ uint8_t smem_raw[];
+  DqSmem90<D, NC>& sm = aligned_smem<DqSmem90<D, NC>>(smem_raw);
+  // the warpgroup and warp, warp-uniform to the compiler (shuffled from
+  // lane 0)
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int w = __shfl_sync(0xffffffffu, threadIdx.x / 32 % 4, 0);
+  const int t = threadIdx.x % 128, lane = t % 32, g = lane / 4, c4 = lane % 4;
+  const bool loader = wg == 0 && w == 0;
+  const int bh = p.B * p.H, rem = blockIdx.x % bh;
+  const int r0 = p.q_order[blockIdx.x / bh] * BQ;
+  const int h = rem % p.H, b = rem / p.H, hk = h / (p.H / p.Hkv);
+  int j0, j1;
+  kv_tiles(p, r0, min(r0 + BQ, p.Sq), j0, j1);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < RING; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], NC * 128);
+    }
+    mbar_init(&sm.qd_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // K and V tile j into its slot, once the tile before it there is done
+  auto load = [&](int j) {
+    const uint32_t n = j - j0;
+    const int st = ring_slot(n);
+    if (lane == 0) {
+      mbar_wait(&sm.empty[st], ring_parity(n) ^ 1);
+      mbar_expect_tx(&sm.full[st], 2 * BC * D * 2);
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load(sm.k[st] + c * BC * 64, &tm_k, c * 64, hk, j * BC, b,
+                 &sm.full[st]);
+        tma_load(sm.v[st] + c * BC * 64, &tm_v, c * 64, hk, j * BC, b,
+                 &sm.full[st]);
+      }
+    }
+    __syncwarp();
+  };
+  if (loader) {
+    if (lane == 0) {
+      mbar_expect_tx(&sm.qd_full, 2 * BQ * D * 2);
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load(sm.q + c * BQ * 64, &tm_q, c * 64, h, r0, b, &sm.qd_full);
+        tma_load(sm.d + c * BQ * 64, &tm_do, c * 64, h, r0, b, &sm.qd_full);
+      }
+    }
+    if (j0 < j1) load(j0);
+  }
+  const int rw0 = r0 + wg * 64, rw1 = min(rw0 + 64, p.Sq);
+  const long long so = ((long long)b * p.H + h) * p.Sq;
+  const long long qs = (long long)p.H * D;
+  {
+    // delta = rowsum(dO * O) in float32, two threads a row (written for
+    // dkdv); the loads overlap the first tiles' copies
+    const int row = rw0 + t / 2;
+    float x = 0.f;
+    if (row < p.Sq) {
+      const long long at = ((long long)b * p.Sq + row) * qs +
+                           (long long)h * D + (t & 1) * (D / 2);
+      const uint4* pd = reinterpret_cast<const uint4*>(p.dout + at);
+      const uint4* po = reinterpret_cast<const uint4*>(p.o + at);
+#pragma unroll
+      for (int c = 0; c < D / 16; ++c) x += dot8(pd[c], po[c]);
+    }
+    x += __shfl_xor_sync(0xffffffffu, x, 1);
+    if ((t & 1) == 0) {
+      sm.dl[wg][t / 2] = x;
+      if (row < p.Sq) p.delta[so + row] = x;
+    }
+  }
+  named_bar(1 + wg, 128);
+  // this thread's two rows (the wgmma accumulator layout: warp w holds
+  // rows 16w..16w+15 of the warpgroup's 64, lane l rows l/4 and l/4 + 8)
+  const int ra = w * 16 + g;
+  float lse[2], dl[2];
+  int qpos[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = rw0 + ra + 8 * r;
+    lse[r] = row < p.Sq ? p.lse[so + row] : INFINITY;  // past Sq: P = 0
+    dl[r] = sm.dl[wg][ra + 8 * r];
+    qpos[r] = p.Skv - p.Sq + row;
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  uint32_t sa[BC / 16][4];
+  const uint32_t q_base = smem_u32(sm.q) + wg * 64 * 128;
+  const uint32_t d_base = smem_u32(sm.d) + wg * 64 * 128;
+  mbar_wait(&sm.qd_full, 0);
+  uint32_t n = 0;
+  for (int j = j0; j < j1; ++j, ++n) {
+    const int st = ring_slot(n);
+    if (loader && j + 1 < j1) load(j + 1);  // into tile j - 1's slot
+    const uint32_t k_base = smem_u32(sm.k[st]);
+    const uint32_t v_base = smem_u32(sm.v[st]);
+    float s[BC / 2], dp[BC / 2];
+    mbar_wait(&sm.full[st], ring_parity(n));
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(
+          s, desc_b128(q_base + (kk / 4) * BQ * 128 + (kk % 4) * 32, 16, 1024),
+          desc_b128(k_base + (kk / 4) * BC * 128 + (kk % 4) * 32, 16, 1024),
+          kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(
+          dp,
+          desc_b128(d_base + (kk / 4) * BQ * 128 + (kk % 4) * 32, 16, 1024),
+          desc_b128(v_base + (kk / 4) * BC * 128 + (kk % 4) * 32, 16, 1024),
+          kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(s);
+    reg_fence(dp);
+    const bool masked = tile_masked(p, rw0, rw1, j);
+#pragma unroll
+    for (int i = 0; i < BC / 2; ++i) {
+      // s[i]: row ra (i % 4 < 2) or ra + 8, key j*BC + 8*(i/4) + 2*c4 + i%2
+      const int r = (i >> 1) & 1;
+      const int kpos = j * BC + (i / 4) * 8 + 2 * c4 + (i & 1);
+      const float pe = !masked || visible(p, qpos[r], kpos)
+                           ? exp2f(s[i] * p.scale_log2 - lse[r])
+                           : 0.f;
+      s[i] = pe * (dp[i] - dl[r]);  // dS
+    }
+    // the accumulator's keys 16kk..16kk+15 are the A fragment of step kk
+#pragma unroll
+    for (int i = 0; i < BC / 2; i += 2)
+      sa[i / 8][(i % 8) / 2] = pack_bf16(s[i], s[i + 1]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BC / 16; ++kk)
+      wgmma_rs_d<D>(acc, sa[kk],
+                    desc_b128(k_base + kk * 16 * 128, BC * 128, 1024), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(acc);
+    reg_fence(sa);
+    mbar_arrive(&sm.empty[st]);
+  }
+  __nv_bfloat16* dqb = p.dq + (long long)b * p.Sq * qs + (long long)h * D;
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int row = rw0 + ra + ((i >> 1) & 1) * 8;
+    const int col = (i / 4) * 8 + 2 * c4;
+    if (row < p.Sq)
+      *reinterpret_cast<uint32_t*>(dqb + row * qs + col) =
+          pack_bf16(acc[i] * p.scale, acc[i + 1] * p.scale);
+  }
+}
+
+template <int D>
+struct DkdvSmem90 {
+  __nv_bfloat16 k[BC * D];
+  __nv_bfloat16 v[BC * D];
+  __nv_bfloat16 q[RING][BR * D];
+  __nv_bfloat16 d[RING][BR * D];  // dO
+  float lse[RING][BR], delta[RING][BR];
+  uint64_t full[RING], empty[RING], kv_full;
+};
+
+// dkdv: CTA x, one warpgroup, owns the BC keys of one KV head (KV tile
+// kv_order[x / (B heads)], then b and the head), K and V resident, and
+// walks the rep = H / Hkv query heads of its KV head in ascending order
+// and each one's visible q tiles of BR rows in ascending order (split: one
+// query head, its share in float32) through a ring of q and dO slots:
+// S^T = k q^T and dP^T = v dO^T (wgmma from shared memory), P^T,
+// dv += P^T dO (P^T from registers, dO MN-major), dS^T = P^T (dP^T -
+// delta) while that product runs, then dk += dS^T q.  dk and dv stay in
+// float32 registers and are written once.  The first warp also loads:
+// starting a q tile, it loads the next one into the slot the one before
+// has released (its lane 0 issues the TMA copies, its lanes stage the
+// tile's LSE and delta).
+// Two CTAs an SM at D = 128 (236 registers a thread), three at D = 64:
+// the SM's tensor cores take one CTA's products while another's
+// warpgroup computes its softmax
+template <int D>
+__global__ void __launch_bounds__(128, D == 64 ? 3 : 2)
+    flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap tm_k,
+                               const __grid_constant__ CUtensorMap tm_v,
+                               const __grid_constant__ CUtensorMap tm_q,
+                               const __grid_constant__ CUtensorMap tm_do,
+                               const P90 p) {
+  extern __shared__ uint8_t smem_raw[];
+  DkdvSmem90<D>& sm = aligned_smem<DkdvSmem90<D>>(smem_raw);
+  // the warp, warp-uniform to the compiler (shuffled from lane 0)
+  const int w = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
+  const int t = threadIdx.x, lane = t % 32, g = lane / 4, c4 = lane % 4;
+  const bool loader = w == 0;
+  const int heads = p.split ? p.H : p.Hkv, rep = p.H / p.Hkv;
+  const int bh = p.B * heads, rem = blockIdx.x % bh;
+  const int j = p.kv_order[blockIdx.x / bh];
+  const int hh = rem % heads, b = rem / heads;
+  const int hk = p.split ? hh / rep : hh;
+  const int h0 = p.split ? hh : hh * rep, nh = p.split ? 1 : rep;
+  const int kv0 = j * BC;
+  int t0, t1;
+  q_tiles(p, j, t0, t1);
+  const int nq = t1 - t0, steps = nh * nq;  // (query head, q tile) steps
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < RING; ++s) {
+      // the TMA's arrival and the 32 lanes that store LSE and delta
+      mbar_init(&sm.full[s], 33);
+      mbar_init(&sm.empty[s], 128);
+    }
+    mbar_init(&sm.kv_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // step n's q and dO, LSE and delta into its slot, once the step before
+  // it there is done; rows past Sq get LSE +inf, so P = 0 (their q and dO
+  // are zeros)
+  auto load = [&](int n) {
+    const int st = ring_slot(n), h = h0 + n / nq, r0 = (t0 + n % nq) * BR;
+    const long long so = ((long long)b * p.H + h) * p.Sq;
+    mbar_wait(&sm.empty[st], ring_parity(n) ^ 1);
+    if (lane == 0) {
+      mbar_expect_tx(&sm.full[st], 2 * BR * D * 2);
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load(sm.q[st] + c * BR * 64, &tm_q, c * 64, h, r0, b,
+                 &sm.full[st]);
+        tma_load(sm.d[st] + c * BR * 64, &tm_do, c * 64, h, r0, b,
+                 &sm.full[st]);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int r = lane + 32 * e;
+      const bool in = r0 + r < p.Sq;
+      sm.lse[st][r] = in ? p.lse[so + r0 + r] : INFINITY;
+      sm.delta[st][r] = in ? p.delta[so + r0 + r] : 0.f;
+    }
+    mbar_arrive(&sm.full[st]);
+  };
+  if (loader) {
+    if (lane == 0) {
+      mbar_expect_tx(&sm.kv_full, 2 * BC * D * 2);
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load(sm.k + c * BC * 64, &tm_k, c * 64, hk, kv0, b, &sm.kv_full);
+        tma_load(sm.v + c * BC * 64, &tm_v, c * 64, hk, kv0, b, &sm.kv_full);
+      }
+    }
+    __syncwarp();
+    if (steps > 0) load(0);
+  }
+  const int key0 = kv0 + w * 16 + g;  // this thread's keys: key0, key0 + 8
+  const int off = p.Skv - p.Sq;
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  uint32_t pa[BR / 16][4], sa[BR / 16][4];
+  const uint32_t k_base = smem_u32(sm.k), v_base = smem_u32(sm.v);
+  mbar_wait(&sm.kv_full, 0);
+  for (int n = 0; n < steps; ++n) {
+    const int st = ring_slot(n), r0 = (t0 + n % nq) * BR;
+    if (loader && n + 1 < steps) load(n + 1);  // into step n - 1's slot
+    const bool masked = tile_masked(p, r0, min(r0 + BR, p.Sq), j);
+    const uint32_t q_base = smem_u32(sm.q[st]);
+    const uint32_t d_base = smem_u32(sm.d[st]);
+    float s[BR / 2], dp[BR / 2];
+    mbar_wait(&sm.full[st], ring_parity(n));
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(
+          s, desc_b128(k_base + (kk / 4) * BC * 128 + (kk % 4) * 32, 16, 1024),
+          desc_b128(q_base + (kk / 4) * BR * 128 + (kk % 4) * 32, 16, 1024),
+          kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(
+          dp,
+          desc_b128(v_base + (kk / 4) * BC * 128 + (kk % 4) * 32, 16, 1024),
+          desc_b128(d_base + (kk / 4) * BR * 128 + (kk % 4) * 32, 16, 1024),
+          kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(s);
+    reg_fence(dp);
+    // P^T: s[i] is key key0 (i % 4 < 2) or key0 + 8 against query row
+    // r0 + 8*(i/4) + 2*c4 + i%2
+#pragma unroll
+    for (int i = 0; i < BR / 2; ++i) {
+      const int col = (i / 4) * 8 + 2 * c4 + (i & 1);
+      const bool vis =
+          !masked || visible(p, off + r0 + col, key0 + 8 * ((i >> 1) & 1));
+      s[i] = vis ? exp2f(s[i] * p.scale_log2 - sm.lse[st][col]) : 0.f;
+    }
+    // the accumulator's rows 16kk..16kk+15 are the A fragment of step kk
+#pragma unroll
+    for (int i = 0; i < BR / 2; i += 2)
+      pa[i / 8][(i % 8) / 2] = pack_bf16(s[i], s[i + 1]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BR / 16; ++kk)
+      wgmma_rs_d<D>(dv, pa[kk],
+                    desc_b128(d_base + kk * 16 * 128, BR * 128, 1024), 1);
+    wgmma_commit();
+    // dS^T while dv's product runs
+#pragma unroll
+    for (int i = 0; i < BR / 2; ++i) {
+      const int col = (i / 4) * 8 + 2 * c4 + (i & 1);
+      dp[i] = s[i] * (dp[i] - sm.delta[st][col]);
+    }
+#pragma unroll
+    for (int i = 0; i < BR / 2; i += 2)
+      sa[i / 8][(i % 8) / 2] = pack_bf16(dp[i], dp[i + 1]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BR / 16; ++kk)
+      wgmma_rs_d<D>(dk, sa[kk],
+                    desc_b128(q_base + kk * 16 * 128, BR * 128, 1024), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(dk);
+    reg_fence(dv);
+    reg_fence(pa);
+    reg_fence(sa);
+    mbar_arrive(&sm.empty[st]);
+  }
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int key = key0 + ((i >> 1) & 1) * 8;
+    const int col = (i / 4) * 8 + 2 * c4;
+    if (key >= p.Skv) continue;
+    const float k0 = dk[i] * p.scale, k1 = dk[i + 1] * p.scale;
+    if (p.split) {
+      const long long at = (((long long)b * p.Skv + key) * p.H + h0) * D + col;
+      *reinterpret_cast<float2*>(p.dk_part + at) = make_float2(k0, k1);
+      *reinterpret_cast<float2*>(p.dv_part + at) =
+          make_float2(dv[i], dv[i + 1]);
+    } else {
+      const long long at =
+          (((long long)b * p.Skv + key) * p.Hkv + hk) * D + col;
+      *reinterpret_cast<uint32_t*>(p.dk + at) = pack_bf16(k0, k1);
+      *reinterpret_cast<uint32_t*>(p.dv + at) = pack_bf16(dv[i], dv[i + 1]);
+    }
+  }
+}
+
 // One launch with `bytes` of dynamic shared memory (the attribute set once
 // per instance); returns cudaGetLastError().
 template <typename K>
@@ -985,6 +1459,75 @@ int launch_d(const Params& p, int B, int n_qt, int n_kt, int dtype,
   return (int)cudaGetLastError();
 }
 
+// The sm90 route's launches: dq (NC = dq_rows / 64), dkdv, then, when
+// split, the reduce of the float32 shares.
+template <class K>
+int launch_tma(K kern, int grid, int threads, int bytes, bool& ready,
+               const CUtensorMap& a, const CUtensorMap& b,
+               const CUtensorMap& c, const CUtensorMap& d, const P90& p,
+               cudaStream_t s) {
+  if (!ready) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return (int)e;
+    ready = true;
+  }
+  if (grid > 0) kern<<<grid, threads, bytes, s>>>(a, b, c, d, p);
+  return (int)cudaGetLastError();
+}
+
+template <int D, int NC>
+int launch_dq90(const P90& p, const void* q, const void* k, const void* v,
+                int n_qt, cudaStream_t s) {
+  CUtensorMap tq, tdo, tk, tv;
+  if (!make_map(&tq, q, p.B, p.Sq, p.H, D, NC * 64) ||
+      !make_map(&tdo, p.dout, p.B, p.Sq, p.H, D, NC * 64) ||
+      !make_map(&tk, k, p.B, p.Skv, p.Hkv, D, BC) ||
+      !make_map(&tv, v, p.B, p.Skv, p.Hkv, D, BC))
+    return -2;
+  static bool ready = false;
+  return launch_tma(flash_bwd_dq_sm90_kernel<D, NC>, n_qt * p.B * p.H,
+                    NC * 128, (int)sizeof(DqSmem90<D, NC>) + 1024,
+                    ready, tq, tdo, tk, tv, p, s);
+}
+
+template <int D>
+int launch_dkdv90(const P90& p, const void* q, const void* k, const void* v,
+                  int n_kt, cudaStream_t s) {
+  CUtensorMap tk, tv, tq, tdo;
+  if (!make_map(&tk, k, p.B, p.Skv, p.Hkv, D, BC) ||
+      !make_map(&tv, v, p.B, p.Skv, p.Hkv, D, BC) ||
+      !make_map(&tq, q, p.B, p.Sq, p.H, D, BR) ||
+      !make_map(&tdo, p.dout, p.B, p.Sq, p.H, D, BR))
+    return -2;
+  static bool ready = false;
+  return launch_tma(flash_bwd_dkdv_sm90_kernel<D>,
+                    n_kt * p.B * (p.split ? p.H : p.Hkv), 128,
+                    (int)sizeof(DkdvSmem90<D>) + 1024, ready, tk, tv, tq,
+                    tdo, p, s);
+}
+
+template <int D>
+int launch_d90(const P90& p, const void* q, const void* k, const void* v,
+               int n_qt, int n_kt, int dq_rows, cudaStream_t s) {
+  int rc = dq_rows == 64 ? launch_dq90<D, 1>(p, q, k, v, n_qt, s)
+                         : launch_dq90<D, 2>(p, q, k, v, n_qt, s);
+  if (rc) return rc;
+  rc = launch_dkdv90<D>(p, q, k, v, n_kt, s);
+  if (rc || !p.split) return rc;
+  Params r{};  // the reduce's fields
+  r.dk = p.dk;
+  r.dv = p.dv;
+  r.dk_part = p.dk_part;
+  r.dv_part = p.dv_part;
+  r.H = p.H;
+  r.Hkv = p.Hkv;
+  const long long n4 = (long long)p.B * p.Skv * p.Hkv * D / 4;
+  flash_bwd_dkdv_reduce_kernel<__nv_bfloat16>
+      <<<(int)((n4 + 255) / 256), 256, 0, s>>>(r, D, n4);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1020,6 +1563,37 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
     case 128: return launch_d<128>(p, B, n_qt, n_kt, dtype, s);
     default: return -1;
   }
+}
+
+// The bf16 route at head sizes 64 and 128: q, o, dout, dq (B, Sq, H, D);
+// k, v, dk, dv (B, Skv, Hkv, D), contiguous bf16; lse the forward's
+// float32 (B, H, Sq) base-2 log-sum-exp; delta float32 scratch of
+// B * H * Sq; split: dk_part, dv_part float32 scratch of B * Skv * H * D
+// (else null); q_order: n_qt int32 tiles of dq_rows rows, kv_order: n_kt
+// int32 tiles of 64 keys, on the device, longest first
+// (flash_attention.bwd_plan); dq_rows in {64, 128}.  Launches
+// flash_bwd_dq_sm90, then flash_bwd_dkdv_sm90 and (split)
+// flash_bwd_dkdv_reduce on `stream`.
+int flash_attention_bwd_sm90(const void* q, const void* k, const void* v,
+                             const void* o, const void* dout, void* dq,
+                             void* dk, void* dv, const void* lse, void* delta,
+                             void* dk_part, void* dv_part,
+                             const void* q_order, const void* kv_order,
+                             int n_qt, int n_kt, int B, int Sq, int Skv,
+                             int H, int Hkv, int D, int causal,
+                             int has_window, int window, float scale,
+                             int dq_rows, int split, void* stream) {
+  if ((D != 64 && D != 128) || (dq_rows != 64 && dq_rows != 128)) return -1;
+  if ((split != 0) != (dk_part != nullptr) || (split && H == Hkv)) return -1;
+  const P90 p{(const __nv_bfloat16*)o, (const __nv_bfloat16*)dout,
+              (__nv_bfloat16*)dq, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv,
+              (const float*)lse, (float*)delta, (float*)dk_part,
+              (float*)dv_part, (const int*)q_order, (const int*)kv_order,
+              B, Sq, Skv, H, Hkv, causal, has_window, window, scale,
+              scale * 1.4426950408889634f, split};
+  cudaStream_t s = (cudaStream_t)stream;
+  return D == 64 ? launch_d90<64>(p, q, k, v, n_qt, n_kt, dq_rows, s)
+                 : launch_d90<128>(p, q, k, v, n_qt, n_kt, dq_rows, s);
 }
 
 }  // extern "C"

@@ -29,19 +29,26 @@ wrapper has no backward, so an input that requires grad raises there.
 
 Training goes through :class:`FlashAttention` (``kernels.ops.
 flash_attention`` takes it when grad mode is on and an input requires a
-gradient): its forward is the wrapper on detached inputs, its backward is
-:func:`flash_attention_backward`, the operator
+gradient): its forward is the kernel on detached inputs and, where the
+backward takes the sm90 route, also writes each row's base-2 log-sum-exp
+(:func:`flash_attention_lse`, the operator
+``torch.ops.repro_torch.flash_attention_lse``; the serving path asks for
+none); its backward is :func:`flash_attention_backward`, the operator
 ``torch.ops.repro_torch.flash_attention_backward``.  On a CUDA tensor that
-launches ``csrc/flash_attention_bwd.cu``'s two deterministic kernels,
-``flash_bwd_dq`` (query tiles outer: the log-sum-exp, rowsum(dO * O) and
-dq) then ``flash_bwd_dkdv`` (KV tiles outer: each query head's dk and dv,
-summed over the query heads of each KV head in head order by
-``flash_bwd_dkdv_reduce`` under GQA), on the walk of :func:`bwd_plan`, and
-counts one launch of the set in ``flash_attention_backward.launches``; on a
-CPU
-tensor it is :func:`flash_attention_backward_plain`, the same equations
-in float32 PyTorch.  The reference trains through its plain
-``_chunked_attn`` and has no backward kernel.
+launches ``csrc/flash_attention_bwd.cu``'s deterministic kernels on the
+walk of :func:`bwd_plan` and counts one launch of the set in
+``flash_attention_backward.launches``: for bf16 at head sizes 64 and 128
+(:func:`bwd_route` ``"sm90"``) ``flash_bwd_dq_sm90`` (query tiles outer,
+reading the saved log-sum-exp: rowsum(dO * O) and dq) then
+``flash_bwd_dkdv_sm90`` (KV tiles outer: dk and dv of each KV head summed
+over its query heads in registers), both on wgmma and TMA; otherwise the
+mma.sync kernels ``flash_bwd_dq`` and ``flash_bwd_dkdv`` (the log-sum-exp
+recomputed; under GQA each query head's share summed by
+``flash_bwd_dkdv_reduce``, as the sm90 route does too where its plan
+splits the KV heads).  On a CPU tensor it is
+:func:`flash_attention_backward_plain`, the same equations in float32
+PyTorch.  The reference trains through its plain ``_chunked_attn`` and has
+no backward kernel.
 """
 
 from __future__ import annotations
@@ -59,14 +66,16 @@ from . import _build
 from ._index import require_cuda_tensor
 
 __all__ = ["flash_attention", "flash_attention_plain", "FlashAttention",
-           "flash_attention_backward", "flash_attention_backward_plain",
-           "HEAD_DIMS", "flash_flops", "flash_bwd_flops", "bwd_plan",
-           "BwdPlan",
+           "flash_attention_lse", "flash_attention_backward",
+           "flash_attention_backward_plain", "HEAD_DIMS", "flash_flops",
+           "flash_bwd_flops", "bwd_plan", "BwdPlan", "bwd_route",
+           "bwd_tiles",
            "SM90", "SM90_HEAD_DIMS", "ROUTES", "route", "tile_plan",
            "TilePlan", "sm90_smem_bytes", "launch_kernel"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 3}
 HEAD_DIMS = (16, 32, 64, 128)
+LOG2E = 1.4426950408889634
 SM90_HEAD_DIMS = (64, 128)
 SM90 = "flash_attention_sm90"
 ROUTES = (SM90, "flash_attention")
@@ -85,10 +94,13 @@ def route(dtype: torch.dtype, D: int) -> str:
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True, window=None,
-                          scale=None) -> torch.Tensor:
+                          *, causal: bool = True, window=None, scale=None,
+                          with_lse: bool = False):
     """Softmax attention written out in float32, GQA by grouping the query
-    heads of each KV head (no repeated K/V)."""
+    heads of each KV head (no repeated K/V).  ``with_lse``: also each row's
+    base-2 log-sum-exp of the masked scores, log2(e) logsumexp(scale q k^T)
+    (-inf for a row that sees no key), float32 (B, H, Sq) (or (H, Sq)
+    without a batch dimension), as the training forward saves it."""
     batched = q.dim() == 4
     if not batched:
         q, k, v = q[None], k[None], v[None]
@@ -110,7 +122,10 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.nan_to_num(torch.softmax(s, dim=-1), nan=0.0)
     out = torch.einsum("bkrqs,bskd->bqkrd", p, v.float())
     out = out.reshape(B, Sq, H, D).to(q.dtype)
-    return out if batched else out[0]
+    if not with_lse:
+        return out if batched else out[0]
+    lse = (torch.logsumexp(s, dim=-1) * LOG2E).reshape(B, H, Sq)
+    return (out, lse) if batched else (out[0], lse[0])
 
 
 def flash_attention_backward_plain(q, k, v, o, do, *, causal: bool = True,
@@ -291,10 +306,16 @@ def tile_plan(B: int, Sq: int, Skv: int, H: int, Hkv: int, D: int,
 
 # --------------------------------------------------- the backward's schedule
 # A mirror of csrc/flash_attention_bwd.cu's kv_tiles, q_tiles and
-# tile_masked, at 64 query rows and 64 keys a tile (the same _kv_tiles and
-# _tile_masked as the sm90 kernel's); a change to one side changes the
-# other.
+# tile_masked (the same _kv_tiles and _tile_masked as the sm90 forward's,
+# over 64-key tiles) and of both routes' grids and walks; a change to one
+# side changes the other.
 BWD_TILE = SM90_BC
+
+
+def bwd_route(dtype: torch.dtype, D: int) -> str:
+    """The backward's route: ``"sm90"`` (wgmma, TMA, the forward's saved
+    LSE) where the forward takes :data:`SM90`, else ``"mma"``."""
+    return "sm90" if route(dtype, D) == SM90 else "mma"
 
 
 def _q_tiles(Sq, Skv, causal, has_window, win, j):
@@ -321,18 +342,41 @@ def _kv_order(Sq, Skv, causal, has_window, win) -> tuple:
     return tuple(sorted(range(len(n)), key=lambda j: (-n[j], -j)))
 
 
+def bwd_tiles(B: int, Sq: int, Skv: int, H: int, Hkv: int, D: int,
+              sms: int = H100_SMS) -> tuple:
+    """(dq_rows, split) of the sm90 route.  dq CTAs of 128 query rows (two
+    warpgroups) unless that leaves fewer than half the SMs busy
+    (:func:`tile_height`, the forward's rule).  dkdv CTAs (one warpgroup,
+    64 keys) of one KV head, or of one query head (``split``: float32
+    shares summed by the reduce kernel) when a KV head serves several and
+    one CTA per KV head would leave SMs idle (qwen3-4b at B = 1: 8 KV heads
+    x 16 tiles = 128 CTAs).  PERF.md has the readings behind both."""
+    dq_rows = tile_height(B, Sq, H, sms)
+    split = H > Hkv and B * Hkv * -(-Skv // BWD_TILE) < sms
+    return dq_rows, split
+
+
 @dataclasses.dataclass(frozen=True)
 class BwdPlan:
-    """The backward kernels' schedule for one call.  ``dq_grid`` and
-    ``dkdv_grid`` are (q tiles, H, B) and (KV tiles, H, B): CTA (x, h, b)
-    of the dq kernel owns q tile ``q_order[x]`` of query head h and walks
-    ``dq_walk[q tile]``, its (KV tile, masked) pairs in order; CTA (x, h, b)
-    of the dkdv kernel owns KV tile ``kv_order[x]`` for query head h and
-    walks ``dkdv_walk[KV tile]``, its (q tile, masked) pairs in order.
-    ``masked`` is whether the kernel applies the element mask there.  When
-    ``H > Hkv`` (``reduce``) the dkdv CTAs write each query head's share
-    in float32 and ``flash_bwd_dkdv_reduce`` sums the ``H / Hkv`` shares
-    of each KV head in head order."""
+    """The backward kernels' schedule for one call.
+
+    ``dq_grid`` is (q tiles, H, B): the dq CTA of (x, h, b) owns the
+    ``dq_rows`` rows of q tile ``q_order[x]`` of query head h and walks
+    ``dq_walk[q tile]``, its (KV tile, masks) pairs in order, a mask for
+    each 64-row slice (a warpgroup).  ``dkdv_grid`` is (KV tiles, heads,
+    B): the dkdv CTA of (x, head, b) owns the 64 keys of KV tile
+    ``kv_order[x]`` of one KV head (``heads`` = Hkv, walking that KV head's
+    H / Hkv query heads in ascending order) or, when ``split``, of one
+    query head (``heads`` = H), and walks ``dkdv_walk[KV tile]``, its
+    (q tile, masked) pairs in order.  A mask is whether the kernel applies
+    the element mask there.  The sm90 kernels take the grid as one
+    dimension, tiles slowest (longest first across every head); the
+    mma.sync route's kernels (``route`` ``"mma"``: float32 and bf16 head
+    sizes 16 and 32) as three, with ``dq_rows = 64`` and ``split`` whenever
+    H > Hkv.  ``reduce``: the dkdv CTAs write each query head's share in
+    float32 and ``flash_bwd_dkdv_reduce`` sums the H / Hkv shares of each
+    KV head in head order."""
+    route: str
     B: int
     Sq: int
     Skv: int
@@ -340,11 +384,13 @@ class BwdPlan:
     Hkv: int
     causal: bool
     window: Optional[int]
-    tile: int
+    dq_rows: int
+    split: bool
     q_order: tuple
     kv_order: tuple
     dq_walk: dict
     dkdv_walk: dict
+    tile: int = BWD_TILE
 
     @property
     def dq_grid(self) -> tuple:
@@ -352,21 +398,22 @@ class BwdPlan:
 
     @property
     def dkdv_grid(self) -> tuple:
-        return (len(self.kv_order), self.H, self.B)
+        return (len(self.kv_order), self.H if self.split else self.Hkv,
+                self.B)
 
     @property
     def reduce(self) -> bool:
-        return self.H > self.Hkv
+        return self.split
 
     def walk(self) -> dict:
         """The (query head, row, key) pairs each kernel takes into its sums,
         counted in numpy: ``{"dq": n, "dkdv": n}``, each (H, Sq, KV tiles x
-        tile) int32, the columns past Skv the keys of a ragged last tile.
-        An unmasked tile takes every pair of its in-range rows and all its
-        keys; a masked one the visible pairs.  The dkdv kernel gives rows
-        past Sq an LSE of +inf, so they take no part.  The walk is right
-        when both equal the visible mask on every head and are 0 past
-        Skv."""
+        64) int32, the columns past Skv the keys of a ragged last tile.
+        An unmasked slice takes every pair of its in-range rows and all
+        its keys; a masked one the visible pairs.  The dkdv kernel
+        gives rows past Sq an LSE of +inf, so they take no part.  The walk
+        is right when both equal the visible mask on every head and are 0
+        past Skv."""
         T, Sq, Skv = self.tile, self.Sq, self.Skv
         ncol = -(-Skv // T) * T
         qpos = np.arange(Sq)[:, None] + (Skv - Sq)
@@ -376,31 +423,40 @@ class BwdPlan:
             vis = vis & (kpos <= qpos)
         if self.window is not None:
             vis = vis & (kpos > qpos - self.window)
+        rep = self.H // self.Hkv
         out = {}
         for name in ("dq", "dkdv"):
             n = np.zeros((self.H, Sq, ncol), np.int32)
+            # (query head, first row, first key, masked) of each 64 x 64
+            # slice a kernel takes
             if name == "dq":
-                items = [(h, qt, j, m) for h in range(self.H)
-                         for qt in self.q_order
-                         for j, m in self.dq_walk[qt]]
+                items = [(h, qt * self.dq_rows + T * i, j * T, m)
+                         for h in range(self.H) for qt in self.q_order
+                         for j, masks in self.dq_walk[qt]
+                         for i, m in enumerate(masks)]
             else:
-                items = [(h, qt, j, m) for h in range(self.H)
-                         for j in self.kv_order
+                heads = [[h] for h in range(self.H)] if self.split else \
+                    [list(range(hk * rep, hk * rep + rep))
+                     for hk in range(self.Hkv)]
+                items = [(h, qt * T, j * T, m)
+                         for hs in heads for j in self.kv_order for h in hs
                          for qt, m in self.dkdv_walk[j]]
-            for h, qt, j, m in items:
-                rows = slice(qt * T, min(qt * T + T, Sq))
-                cols = slice(j * T, j * T + T)
+            for h, r0, k0, m in items:
+                rows = slice(r0, min(r0 + T, Sq))
+                cols = slice(k0, k0 + T)
                 n[h, rows, cols] += vis[rows, cols] if m else 1
             out[name] = n
         return out
 
 
 def bwd_plan(B: int, Sq: int, Skv: int, H: int, Hkv: int, D: int,
-             causal: bool = True, window=None) -> BwdPlan:
+             causal: bool = True, window=None, dtype=torch.bfloat16,
+             sms: int = H100_SMS, tiles: Optional[tuple] = None) -> BwdPlan:
     """The backward kernels' grids, orders and per-CTA walks for these
-    shapes (pure Python; the CPU tests walk it).  Causal's uneven tiles go
-    longest first, as :func:`tile_plan`'s do.  ``D`` does not change the
-    schedule; it is checked against the kernels' head sizes."""
+    shapes and dtype (pure Python; the CPU tests walk it): the sm90 route's
+    for bf16 at head sizes 64 and 128 (:func:`bwd_tiles`, or ``tiles`` =
+    (dq_rows, split) given), the mma.sync route's otherwise.  Causal's uneven
+    tiles go longest first, as :func:`tile_plan`'s do."""
     if D not in HEAD_DIMS:
         raise ValueError(f"the backward takes head sizes {HEAD_DIMS}, got "
                          f"{D}")
@@ -409,14 +465,23 @@ def bwd_plan(B: int, Sq: int, Skv: int, H: int, Hkv: int, D: int,
     has_window, win = _window_arg(window, Sq, Skv)
     causal = bool(causal)
     T = BWD_TILE
-    q_order = _q_order(Sq, Skv, causal, has_window, win, T)
+    rt = bwd_route(dtype, D)
+    if rt == "mma":
+        dq_rows, split = T, H > Hkv
+    else:
+        dq_rows, split = tiles or bwd_tiles(B, Sq, Skv, H, Hkv, D, sms)
+        if dq_rows not in (64, 128) or (split and H == Hkv):
+            raise ValueError(f"no sm90 backward with tiles {tiles}")
+    q_order = _q_order(Sq, Skv, causal, has_window, win, dq_rows)
     kv_order = _kv_order(Sq, Skv, causal, has_window, win)
     dq_walk = {}
     for qt in q_order:
-        r0, r1 = qt * T, min(qt * T + T, Sq)
+        r0, r1 = qt * dq_rows, min(qt * dq_rows + dq_rows, Sq)
         j0, j1 = _kv_tiles(Sq, Skv, causal, has_window, win, r0, r1)
         dq_walk[qt] = tuple(
-            (j, _tile_masked(Sq, Skv, causal, has_window, win, r0, r1, j))
+            (j, tuple(_tile_masked(Sq, Skv, causal, has_window, win, a,
+                                   min(a + T, Sq), j)
+                      for a in range(r0, r0 + dq_rows, T)))
             for j in range(j0, j1))
     dkdv_walk = {}
     for j in kv_order:
@@ -425,9 +490,9 @@ def bwd_plan(B: int, Sq: int, Skv: int, H: int, Hkv: int, D: int,
             (qt, _tile_masked(Sq, Skv, causal, has_window, win, qt * T,
                               min(qt * T + T, Sq), j))
             for qt in range(t0, t1))
-    return BwdPlan(B, Sq, Skv, H, Hkv, causal,
-                   None if not has_window else win, T, q_order, kv_order,
-                   dq_walk, dkdv_walk)
+    return BwdPlan(rt, B, Sq, Skv, H, Hkv, causal,
+                   None if not has_window else win, dq_rows, split,
+                   q_order, kv_order, dq_walk, dkdv_walk)
 
 
 def sm90_smem_bytes(D: int, br: int) -> int:
@@ -482,19 +547,28 @@ def _kernel_shapes(named) -> tuple:
 
 
 def launch_kernel(kernel: str, q, k, v, *, causal: bool = True, window=None,
-                  scale=None) -> torch.Tensor:
+                  scale=None, with_lse: bool = False):
     """:func:`flash_attention` through ``kernel`` (one of ``ROUTES``)
     instead of :func:`route`'s choice; ``chip_smoke.py`` times the first
-    kernel with it on the wgmma kernel's bf16 inputs.  CPU tensors take the
-    plain version."""
+    kernel with it on the wgmma kernel's bf16 inputs.  ``with_lse``: return
+    (o, LSE), the LSE float32 (B, H, Sq) (or (H, Sq)) written by the
+    ``SM90`` kernel beside o.  CPU tensors take the plain version."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     scale=scale)
+                                     scale=scale, with_lse=with_lse)
     B, Sq, Skv, H, Hkv, D = _kernel_shapes(((q, "q"), (k, "k"), (v, "v")))
     o = torch.empty_like(q)
+    lse = None
+    if with_lse:
+        if kernel != SM90:
+            raise ValueError(f"only {SM90} writes the log-sum-exp")
+        lse = torch.empty(q.shape[:-3] + (H, Sq), dtype=torch.float32,
+                          device=q.device)
+        if Skv == 0:
+            lse.fill_(-math.inf)
     if o.numel() == 0:
-        return o
+        return (o, lse) if with_lse else o
     has_window, win = _window_arg(window, Sq, Skv)
     sc = 1.0 / math.sqrt(D) if scale is None else float(scale)
     common = (B, Sq, Skv, H, Hkv, D, int(bool(causal)), has_window, win, sc)
@@ -506,8 +580,10 @@ def launch_kernel(kernel: str, q, k, v, *, causal: bool = True, window=None,
         key = (Sq, Skv, bool(causal), has_window, win, br)
         order = _order_tensor(key, q.device)
         _build.launch("flash_attention_sm90_fwd", q.data_ptr(), k.data_ptr(),
-                      v.data_ptr(), o.data_ptr(), order.data_ptr(), *common,
-                      br, order.numel(), _build.stream_of(q))
+                      v.data_ptr(), o.data_ptr(),
+                      None if lse is None else lse.data_ptr(),
+                      order.data_ptr(), *common, br, order.numel(),
+                      _build.stream_of(q))
         flash_attention.launches_sm90 += 1
     elif kernel == "flash_attention":
         _build.launch("flash_attention_fwd", q.data_ptr(), k.data_ptr(),
@@ -516,7 +592,7 @@ def launch_kernel(kernel: str, q, k, v, *, causal: bool = True, window=None,
     else:
         raise ValueError(f"unknown flash kernel {kernel!r}; one of {ROUTES}")
     flash_attention.launches += 1
-    return o
+    return (o, lse) if with_lse else o
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -546,6 +622,38 @@ def _flash_fake(q, k, v, causal, window, scale):
     return torch.empty_like(q)
 
 
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window=None,
+                        scale=None) -> tuple:
+    """(o, LSE): :func:`flash_attention` and each row's base-2 log-sum-exp
+    of ``scale log2(e) q k^T`` over its visible keys (-inf for a row that
+    sees none), float32 (B, H, Sq) (or (H, Sq)).  The training forward
+    (:class:`FlashAttention`) asks for it to hand to the backward; the
+    ``SM90`` kernel writes it beside o, which is the same as without it.
+    The call is the operator ``torch.ops.repro_torch.flash_attention_lse``
+    (a fake and :func:`flash_flops`, as the forward's).  CUDA tensors must
+    take the ``SM90`` route (bf16, head size 64 or 128)."""
+    return torch.ops.repro_torch.flash_attention_lse(
+        q, k, v, bool(causal), None if window is None else int(window),
+        None if scale is None else float(scale))
+
+
+@torch.library.custom_op("repro_torch::flash_attention_lse", mutates_args=())
+def _flash_lse_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool, window: Optional[int],
+                  scale: Optional[float]) -> Tuple[torch.Tensor, torch.Tensor]:
+    return launch_kernel(route(q.dtype, q.shape[-1]), q, k, v, causal=causal,
+                         window=window, scale=scale, with_lse=True)
+
+
+@_flash_lse_op.register_fake
+def _flash_lse_fake(q, k, v, causal, window, scale):
+    _check(q, k, v)
+    return (torch.empty_like(q),
+            q.new_empty(q.shape[:-3] + (q.shape[-2], q.shape[-3]),
+                        dtype=torch.float32))
+
+
 def flash_flops(q_shape, k_shape) -> int:
     """The operator's FLOPs as the plain version computes them: q k^T and
     p v over every (query, key) pair, 4 B Sq Skv H D (the kernel skips the
@@ -555,7 +663,8 @@ def flash_flops(q_shape, k_shape) -> int:
     return 4 * B * Sq * k_shape[-3] * H * D
 
 
-@register_flop_formula(torch.ops.repro_torch.flash_attention)
+@register_flop_formula([torch.ops.repro_torch.flash_attention,
+                        torch.ops.repro_torch.flash_attention_lse])
 def _flash_flop_formula(q_shape, k_shape, v_shape, *args, **kwargs) -> int:
     return flash_flops(q_shape, k_shape)
 
@@ -573,15 +682,30 @@ def _check_backward(q, k, v, o, do):
                              f"{q.dtype} on {q.device}")
 
 
+def _check_lse(q, lse):
+    want = q.shape[:-3] + (q.shape[-2], q.shape[-3])
+    if lse.shape != want or lse.dtype != torch.float32 \
+            or lse.device != q.device:
+        raise ValueError(f"lse {tuple(lse.shape)} {lse.dtype} on "
+                         f"{lse.device} is not float32 {tuple(want)} on "
+                         f"{q.device}")
+
+
 def launch_backward(q, k, v, o, do, *, causal: bool = True, window=None,
-                    scale=None) -> tuple:
+                    scale=None, lse=None) -> tuple:
     """(dq, dk, dv) of attention at output ``o`` and output gradient ``do``
-    through ``csrc/flash_attention_bwd.cu`` (``flash_bwd_dq``, then
-    ``flash_bwd_dkdv`` and, when H > Hkv, ``flash_bwd_dkdv_reduce``) on
-    :func:`bwd_plan`'s orders, counting one launch of the set.  CPU
-    tensors take :func:`flash_attention_backward_plain`; a CUDA tensor
-    launches the kernels or raises."""
+    through ``csrc/flash_attention_bwd.cu`` on :func:`bwd_plan`'s grids and
+    orders, counting one launch of the set.  bf16 at head sizes 64 and 128
+    takes the sm90 route (``flash_bwd_dq_sm90``, ``flash_bwd_dkdv_sm90``
+    and, when the plan splits, ``flash_bwd_dkdv_reduce``), reading ``lse``,
+    the forward's saved log-sum-exp (:func:`flash_attention_lse`; without
+    it the forward kernel is run once more to write it); the rest the
+    mma.sync route's kernels, which compute their own.  CPU tensors take
+    :func:`flash_attention_backward_plain`; a CUDA tensor launches the
+    kernels or raises."""
     _check_backward(q, k, v, o, do)
+    if lse is not None:
+        _check_lse(q, lse)
     if q.device.type == "cpu":
         return flash_attention_backward_plain(q, k, v, o, do, causal=causal,
                                               window=window, scale=scale)
@@ -590,6 +714,57 @@ def launch_backward(q, k, v, o, do, *, causal: bool = True, window=None,
     if q.numel() == 0 or k.numel() == 0:
         # no query or no key: every gradient is 0
         return tuple(torch.zeros_like(t) for t in (q, k, v))
+    kw = dict(causal=causal, window=window, scale=scale)
+    if bwd_route(q.dtype, D) == "sm90":
+        if lse is None:
+            lse = launch_kernel(SM90, q, k, v, with_lse=True, **kw)[1]
+        got = _launch_backward_sm90(q, k, v, o, do, lse, **kw)
+    else:
+        got = _launch_backward_mma(q, k, v, o, do, **kw)
+    flash_attention_backward.launches += 1
+    return got
+
+
+def _launch_backward_sm90(q, k, v, o, do, lse, *, causal=True, window=None,
+                          scale=None, tiles=None) -> tuple:
+    """The sm90 route's launches (not counted): ``tiles`` = (dq_rows,
+    split) in place of :func:`bwd_tiles`' (the tests' other choices)."""
+    B, Sq, Skv, H, Hkv, D = _kernel_shapes(
+        ((q, "q"), (k, "k"), (v, "v"), (o, "o"), (do, "do"),
+         (lse, "lse")))
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    has_window, win = _window_arg(window, Sq, Skv)
+    causal = bool(causal)
+    sc = 1.0 / math.sqrt(D) if scale is None else float(scale)
+    dq_rows, split = tiles or bwd_tiles(B, Sq, Skv, H, Hkv, D,
+                                        _sm_count(q.device.index))
+    delta = torch.empty(B * H * Sq, dtype=torch.float32, device=q.device)
+    # each query head's share of dk and dv when the plan splits the KV heads
+    parts = [torch.empty(B * Skv * H * D, dtype=torch.float32,
+                         device=q.device) for _ in range(2 * bool(split))]
+    part_ptrs = [t.data_ptr() for t in parts] or [None, None]
+    q_order = _order_tensor((Sq, Skv, causal, has_window, win, dq_rows),
+                            q.device)
+    kv_order = _order_tensor((Sq, Skv, causal, has_window, win), q.device,
+                             _kv_order)
+    _build.launch("flash_attention_bwd_sm90", q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), o.data_ptr(), do.data_ptr(), dq.data_ptr(),
+                  dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
+                  delta.data_ptr(), *part_ptrs, q_order.data_ptr(),
+                  kv_order.data_ptr(), q_order.numel(), kv_order.numel(), B,
+                  Sq, Skv, H, Hkv, D, int(causal), has_window, win, sc,
+                  dq_rows, int(bool(split)), _build.stream_of(q))
+    return dq, dk, dv
+
+
+def _launch_backward_mma(q, k, v, o, do, *, causal=True, window=None,
+                         scale=None) -> tuple:
+    """The mma.sync route's kernels (``flash_bwd_dq``, ``flash_bwd_dkdv``,
+    under GQA ``flash_bwd_dkdv_reduce``; not counted): the route of
+    float32 and of bf16 head sizes 16 and 32, and ``chip_smoke.py``'s
+    ``prev_ms`` at the sm90 route's shapes."""
+    B, Sq, Skv, H, Hkv, D = _kernel_shapes(
+        ((q, "q"), (k, "k"), (v, "v"), (o, "o"), (do, "do")))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     lse, delta = (torch.empty(B * H * Sq, dtype=torch.float32,
                               device=q.device) for _ in range(2))
@@ -613,16 +788,18 @@ def launch_backward(q, k, v, o, do, *, causal: bool = True, window=None,
                   q_order.numel(), kv_order.numel(), B, Sq, Skv, H, Hkv, D,
                   int(causal), has_window, win, sc, _DTYPE_CODES[q.dtype],
                   _build.stream_of(q))
-    flash_attention_backward.launches += 1
     return dq, dk, dv
 
 
 def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, o: torch.Tensor,
                              do: torch.Tensor, *, causal: bool = True,
-                             window=None, scale=None) -> tuple:
+                             window=None, scale=None,
+                             lse: Optional[torch.Tensor] = None) -> tuple:
     """(dq, dk, dv) of :func:`flash_attention` at its output ``o`` and the
-    output gradient ``do`` (q's shape and dtype): the operator
+    output gradient ``do`` (q's shape and dtype); ``lse``: the forward's
+    log-sum-exp (:func:`flash_attention_lse`), which the sm90 route reads.
+    The call is the operator
     ``torch.ops.repro_torch.flash_attention_backward``, so that the dry
     run's ``FakeTensorMode`` allocates its outputs and ``FlopCounterMode``
     counts it (:func:`flash_bwd_flops`).  Its launches (the kernels of one
@@ -630,22 +807,25 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     return torch.ops.repro_torch.flash_attention_backward(
         q, k, v, o, do, bool(causal),
         None if window is None else int(window),
-        None if scale is None else float(scale))
+        None if scale is None else float(scale), lse)
 
 
 @torch.library.custom_op("repro_torch::flash_attention_backward",
                          mutates_args=())
 def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   o: torch.Tensor, do: torch.Tensor, causal: bool,
-                  window: Optional[int], scale: Optional[float]
+                  window: Optional[int], scale: Optional[float],
+                  lse: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     return launch_backward(q, k, v, o, do, causal=causal, window=window,
-                           scale=scale)
+                           scale=scale, lse=lse)
 
 
 @_flash_bwd_op.register_fake
-def _flash_bwd_fake(q, k, v, o, do, causal, window, scale):
+def _flash_bwd_fake(q, k, v, o, do, causal, window, scale, lse=None):
     _check_backward(q, k, v, o, do)
+    if lse is not None:
+        _check_lse(q, lse)
     return tuple(torch.empty_like(t) for t in (q, k, v))
 
 
@@ -665,28 +845,37 @@ flash_attention_backward.launches = 0
 
 
 class FlashAttention(torch.autograd.Function):
-    """Differentiable attention: the forward kernel (:func:`flash_attention`
-    on detached inputs, so it counts its launch) and the backward kernels
-    (:func:`flash_attention_backward` at the saved output).
+    """Differentiable attention: the forward kernel (on detached inputs, so
+    it counts its launch; :func:`flash_attention_lse` where the backward
+    takes the sm90 route, which saves the log-sum-exp beside the output,
+    else :func:`flash_attention`) and the backward kernels
+    (:func:`flash_attention_backward` at the saved output and LSE).
     ``FlashAttention.apply(q, k, v, causal, window, scale)``."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
-        o = flash_attention(q.detach(), k.detach(), v.detach(),
-                            causal=causal, window=window, scale=scale)
-        ctx.save_for_backward(q, k, v, o)
+        ins = (q.detach(), k.detach(), v.detach())
+        kw = dict(causal=causal, window=window, scale=scale)
+        if bwd_route(q.dtype, q.shape[-1]) == "sm90":
+            # the backward reads the forward's log-sum-exp
+            o, lse = flash_attention_lse(*ins, **kw)
+            ctx.save_for_backward(q, k, v, o, lse)
+        else:
+            o = flash_attention(*ins, **kw)
+            ctx.save_for_backward(q, k, v, o)
         ctx.mask = (causal, window, scale)
         return o
 
     @staticmethod
     def backward(ctx, grad_out):
         causal, window, scale = ctx.mask
-        q, k, v, o = (t.detach() for t in ctx.saved_tensors)
+        q, k, v, o, *lse = (t.detach() for t in ctx.saved_tensors)
         # contiguous gradients, as the kernels write them: a DTensor view
         # of a sharded gradient (the sharded step's projections) needs a
         # contiguous local tensor
         got = flash_attention_backward(q, k, v, o, grad_out.contiguous(),
                                        causal=causal, window=window,
-                                       scale=scale)
+                                       scale=scale,
+                                       lse=lse[0] if lse else None)
         return tuple(g if n else None for g, n in
                      zip(got, ctx.needs_input_grad[:3])) + (None, None, None)

@@ -166,13 +166,26 @@ def test_backward_operator_fake_and_flops():
 
 
 # ---------------------------------------------------------------- the plan
-def check_bwd_plan(B, Sq, Skv, H, Hkv, D, causal, window):
-    plan = FA.bwd_plan(B, Sq, Skv, H, Hkv, D, causal, window)
+def check_bwd_plan(B, Sq, Skv, H, Hkv, D, causal, window,
+                   dtype=torch.bfloat16, tiles=None):
+    """The plan of the route ``dtype`` and D take (bf16 at head sizes 64
+    and 128: the sm90 route, one dkdv CTA per KV head unless it splits;
+    else the mma.sync route's, one per query head)."""
+    plan = FA.bwd_plan(B, Sq, Skv, H, Hkv, D, causal, window, dtype=dtype,
+                       tiles=tiles)
     T = plan.tile
-    nqt, nkt = -(-Sq // T), -(-Skv // T)
     assert T == 64
-    assert plan.dq_grid == (nqt, H, B) and plan.dkdv_grid == (nkt, H, B)
-    assert plan.reduce == (H > Hkv)
+    if dtype == torch.bfloat16 and D in (64, 128):
+        assert plan.route == "sm90"
+        assert (plan.dq_rows, plan.split) == (
+            tiles or FA.bwd_tiles(B, Sq, Skv, H, Hkv, D))
+    else:
+        assert plan.route == "mma"
+        assert (plan.dq_rows, plan.split) == (T, H > Hkv)
+    nqt, nkt = -(-Sq // plan.dq_rows), -(-Skv // T)
+    assert plan.dq_grid == (nqt, H, B)
+    assert plan.dkdv_grid == (nkt, H if plan.split else Hkv, B)
+    assert plan.reduce == plan.split and (H > Hkv or not plan.split)
     assert sorted(plan.q_order) == list(range(nqt))
     assert sorted(plan.kv_order) == list(range(nkt))
     # longest first
@@ -210,10 +223,20 @@ def test_bwd_plan_walks_the_visible_pairs(case):
 
 
 def test_bwd_plan_causal_goes_longest_first():
-    plan = FA.bwd_plan(1, 1024, 1024, 32, 8, 128, True, None)
+    plan = FA.bwd_plan(1, 1024, 1024, 32, 8, 128, True, None,
+                       dtype=torch.float32)
     assert plan.q_order == tuple(range(15, -1, -1))
     assert plan.kv_order == tuple(range(16))
-    assert [m for _, m in plan.dq_walk[3]] == [False] * 3 + [True]
+    assert [m for _, (m,) in plan.dq_walk[3]] == [False] * 3 + [True]
+    assert [m for _, m in plan.dkdv_walk[12]] == [True] + [False] * 3
+    # the sm90 route: 128-row dq tiles, a mask for each 64-row half
+    plan = FA.bwd_plan(1, 1024, 1024, 32, 8, 128, True, None)
+    assert (plan.dq_rows, plan.split) == (128, True)
+    assert plan.q_order == tuple(range(7, -1, -1))
+    assert plan.kv_order == tuple(range(16))
+    assert [m for _, m in plan.dq_walk[1]] == [(False, False)] * 2 + [
+        (True, False), (True, True)]
+    assert [m for _, m in plan.dkdv_walk[12]] == [True] + [False] * 3
 
 
 def test_bwd_plan_rejects_what_the_kernels_do_not_take():
@@ -228,10 +251,17 @@ def test_bwd_plan_rejects_what_the_kernels_do_not_take():
        heads=st.sampled_from([(1, 1), (4, 1), (4, 2), (6, 3), (4, 4)]),
        D=st.sampled_from(FA.HEAD_DIMS), causal=st.booleans(),
        window=st.one_of(st.none(), st.integers(-40, 400)),
-       B=st.integers(1, 2))
-def test_bwd_plan_sweep(Sq, Skv, heads, D, causal, window, B):
+       B=st.integers(1, 2),
+       dtype=st.sampled_from([torch.bfloat16, torch.float32]),
+       tiles=st.one_of(st.none(), st.tuples(st.sampled_from([64, 128]),
+                                            st.booleans())))
+def test_bwd_plan_sweep(Sq, Skv, heads, D, causal, window, B, dtype, tiles):
+    """Both routes, the sm90 route at every tile choice too."""
     H, Hkv = heads
-    check_bwd_plan(B, Sq, Skv, H, Hkv, D, causal, window)
+    if tiles is not None and (dtype != torch.bfloat16 or D < 64
+                              or (tiles[1] and H == Hkv)):
+        tiles = None
+    check_bwd_plan(B, Sq, Skv, H, Hkv, D, causal, window, dtype, tiles)
 
 
 SHARED_HELPERS = ("pack_bf16", "ld32", "mma_bf16", "ldmatrix_x4_trans")

@@ -929,6 +929,85 @@ def test_cuda_flash_backward_one_hot_keys(dev):
     assert float(dk.float().abs().max()) < 1e-2
 
 
+SM90_PATH_SHAPES = [  # B, Sq, Skv, H, Hkv, D, causal, window
+    (4, 1024, 1024, 32, 8, 128, True, None),    # qwen3-4b's step
+    (1, 1024, 1024, 32, 8, 128, True, None),    # the DDP grain (split)
+    (2, 3072, 3072, 25, 5, 64, True, 2048),     # hymba, windowed layers
+    (2, 3072, 3072, 25, 5, 64, True, None),     # hymba, global layers
+    (8, 1500, 1500, 8, 8, 64, False, None),     # whisper's encoder
+    (8, 448, 1500, 8, 8, 64, False, None),      # its cross-attention
+    (8, 448, 448, 8, 8, 64, True, None)]        # its decoder
+
+
+@pytest.mark.parametrize("case", SM90_PATH_SHAPES)
+def test_cuda_flash_sm90_backward_at_path_shapes(dev, case):
+    """The sm90 route on the forward's saved LSE at the train path's
+    shapes: within FLASH_BWD_REL of the plain backward, two calls
+    bitwise; the forward's o bitwise with and without the LSE, the LSE
+    within FLASH_LSE_ATOL of the plain version's; and, where the plan
+    keeps one dkdv CTA per KV head, no float32 share buffers (the call's
+    peak stays under what the two (B, Skv, H, D) shares alone take)."""
+    from repro_torch.kernels import flash_attention as fa
+    B, Sq, Skv, H, Hkv, D, causal, window = case
+    g = torch.Generator(device=dev).manual_seed(Sq + H)
+    q, do = (torch.randn(B, Sq, H, D, generator=g, device=dev).bfloat16()
+             for _ in range(2))
+    k, v = (torch.randn(B, Skv, Hkv, D, generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    kw = dict(causal=causal, window=window)
+    o, lse = fa.flash_attention_lse(q, k, v, **kw)
+    assert chip_smoke.same_raw_bits(o, fa.flash_attention(q, k, v, **kw))
+    _, want_lse = fa.flash_attention_plain(q, k, v, with_lse=True, **kw)
+    seen = torch.isfinite(want_lse)
+    assert torch.equal(torch.isfinite(lse), seen)
+    assert float((lse[seen] - want_lse[seen]).abs().max()) <= \
+        chip_smoke.FLASH_LSE_ATOL
+    del want_lse, seen
+    split = fa.bwd_tiles(B, Sq, Skv, H, Hkv, D, fa._sm_count(dev.index))[1]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = fa.flash_attention_backward.launches
+    got = fa.flash_attention_backward(q, k, v, o, do, lse=lse, **kw)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    assert fa.flash_attention_backward.launches == before + 1
+    if not split:
+        assert peak < 2 * B * Skv * H * D * 4
+    again = fa.flash_attention_backward(q, k, v, o, do, lse=lse, **kw)
+    want = fa.flash_attention_backward_plain(q, k, v, o, do, **kw)
+    for a, b, c in zip(got, want, again):
+        assert a.dtype == torch.bfloat16 and a.is_contiguous()
+        assert chip_smoke.grad_rel(a, b) <= chip_smoke.FLASH_BWD_REL
+        assert chip_smoke.same_raw_bits(a, c)
+
+
+@pytest.mark.parametrize("tiles", [(64, False), (128, False), (64, True),
+                                   (128, True)])
+@pytest.mark.parametrize("D", [64, 128])
+def test_cuda_flash_sm90_backward_every_tile_choice(dev, D, tiles):
+    """Each (dq rows, split) the plan may take, and the plan's
+    own choice, against the plain backward on ragged lengths with a window
+    and rows that see no key."""
+    from repro_torch.kernels import flash_attention as fa
+    B, Sq, Skv, H, Hkv = 2, 300, 200, 6, 2
+    kw = dict(causal=True, window=150)
+    g = torch.Generator(device=dev).manual_seed(D)
+    q, do = (torch.randn(B, Sq, H, D, generator=g, device=dev).bfloat16()
+             for _ in range(2))
+    k, v = (torch.randn(B, Skv, Hkv, D, generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    o, lse = fa.flash_attention_lse(q, k, v, **kw)
+    got = fa._launch_backward_sm90(q, k, v, o, do, lse, tiles=tiles, **kw)
+    plan = fa._launch_backward_sm90(q, k, v, o, do, lse, **kw)
+    want = fa.flash_attention_backward_plain(q, k, v, o, do, **kw)
+    for a, b, c in zip(got, want, plan):
+        assert chip_smoke.grad_rel(a, b) <= chip_smoke.FLASH_BWD_REL
+        assert bool(torch.isfinite(a).all())
+    # rows 0..99 see no key (Sq > Skv, causal): their dq is 0
+    assert bool((got[0][:, : Sq - Skv] == 0).all())
+
+
 def test_cuda_train_step_takes_no_plain_attention(dev):
     """A bf16 training step of qwen3-4b's smoke config on the card with
     ``flash_attention_plain`` raising on CUDA tensors: every layer's
