@@ -62,6 +62,7 @@ Phases, each printing one JSON line and asserting as it goes:
            1/4/8, windows, Sq < Skv, Sq > Skv with fully masked rows exactly 0,
            ragged tails, a batch; for the wgmma kernel's ring also S = 4096
            with a window of 1000, Skv off the tile, Sq = 1 against 2048 keys
+           (the split-KV route: at most ``SPLIT_ROWS`` query rows a KV head)
            and a batch of 3), each case with the route it took, within
            FLASH_TOL, which scales with each query row; three faulty outputs
            made in plain torch (late rows 0, the diagonal KV tile skipped,
@@ -230,8 +231,25 @@ Phases, each printing one JSON line and asserting as it goes:
            prefill 8 x 512 and 32 decode steps; llava-next-34b at full
            width, 16 of 60 layers: prefill from ``embed[tokens]`` bitwise
            the prefill from tokens, then from 2,880 visual embeddings.
-           Row 8 at hymba's and whisper's shapes beside SDPA
-           (``family_shapes`` on the kernels line).  The counted drives
+           Row 8 at hymba's and whisper's shapes (encoder, cross-attention
+           at its 4-token prefill and at decode, the decoder's prefill
+           self-attention) and at a GQA decode step
+           (Sq = 1, 32 / 8 heads of 128, 4,096 keys), each on the route the
+           rule gives it (the split-KV kernels for short queries, the wgmma
+           kernel's head-size-64 tiles for the others): against the plain
+           version (the split route also against its plain split-and-
+           combine version) within FLASH_TOL, two calls bitwise, o bitwise
+           with and without the LSE and the LSE within FLASH_LSE_ATOL,
+           device ms in turns with the kernel the route replaces
+           (``prev_ms``: the parent's head-size-64 wgmma build, 64-key
+           tiles and 2 slots, made by ``flash_variants.variant_source``
+           and built by nvcc in the background from the env phase on; the
+           wgmma kernel at 128), the wgmma kernel now on the split shapes
+           (``sm90_ms``), beside SDPA (``family_shapes`` on the kernels
+           line; the decode shape is the ``flash_attention_split`` row).
+           Whisper's drive must take the split route at every call the
+           rule sends there (``launch_counts()["flash_attention_split"]``).
+           The counted drives
            (hymba's engine, whisper's prefill and decode, xlstm's,
            llava's prefill) are the families path.
   train    (in a child process: ``chip_smoke.py --train DEVICE``, which
@@ -385,6 +403,8 @@ REPLACES = {
     "segment_reduce_blocked": "src/repro/kernels/sf_unpack.py:154",
     "spmv_ell": "src/repro/kernels/spmv_ell.py:33",
     "flash_attention": "src/repro/kernels/flash_attention.py:92",
+    # row 8's short-query route: split KV and the combine
+    "flash_attention_split": "src/repro/kernels/flash_attention.py:92",
     # no Pallas backward: the reference differentiates _chunked_attn
     "flash_attention_backward": "src/repro/models/layers.py:70",
 }
@@ -397,6 +417,7 @@ SOURCES = {
     "segment_reduce_blocked": "src/repro_torch/kernels/csrc/sf_unpack.cu",
     "spmv_ell": "src/repro_torch/kernels/csrc/spmv_ell.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+    "flash_attention_split": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "flash_attention_backward":
         "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
 }
@@ -412,7 +433,7 @@ ASSEMBLY_PATH = (PACK, SEGRED)
 PLEX_PATH = (PACK,)
 MOE_PATH = ("pack", "pack_blocked", "flash_attention")
 DIST_PATH = (PACK, SEGRED)
-FAMILIES_PATH = ("flash_attention",)
+FAMILIES_PATH = ("flash_attention", "flash_attention_split")
 # MoE layer, dispatch="sf" against dispatch="dense", float32: the
 # reference's tests/test_models.py:127-159
 MOE_RTOL, MOE_ATOL, MOE_AUX_RTOL = 1e-5, 1e-6, 1e-6
@@ -500,6 +521,7 @@ class Sizes:
     whisper_prompt: int = 4
     whisper_s_max: int = 448          # whisper's decoder context
     whisper_steps: int = 64
+    gqa_decode_keys: int = 4096       # row 8's GQA short-query shape
     xlstm_batch: int = 8
     xlstm_prefill: int = 512
     xlstm_steps: int = 32
@@ -2068,7 +2090,8 @@ def flash_controls(q, k, v, want, tile: int = 64) -> dict:
     the previous tile's K and V.  flash_check must reject each."""
     import torch
     from repro_torch.kernels import flash_attention as fa
-    S, kv_tile = q.shape[0], fa.SM90_BC
+    S = q.shape[0]
+    kv_tile = fa.sm90_bc(q.shape[-1], fa.tile_height(1, S, q.shape[-2]))
     zeroed = want.clone()
     zeroed[S // 4:] = 0
     # each query row sees only the keys before its own 64-row tile
@@ -2125,12 +2148,14 @@ def flash_sweep(dev) -> dict:
     cases, worst, routes = [], {}, {}
 
     def run_case(q, k, v, what, causal=True, window=None):
-        before = fa.flash_attention.launches_sm90
+        before = (fa.flash_attention.launches_sm90,
+                  fa.flash_attention.launches_split)
         got = fa.flash_attention(q, k, v, causal=causal, window=window)
         took = "plain" if dev.type != "cuda" else fa.SM90 \
-            if fa.flash_attention.launches_sm90 > before \
+            if fa.flash_attention.launches_sm90 > before[0] else fa.SPLIT \
+            if fa.flash_attention.launches_split > before[1] \
             else "flash_attention"
-        check(took == fa.route(q.dtype, q.shape[-1]) or dev.type != "cuda",
+        check(took == fa.call_route(q, k) or dev.type != "cuda",
               f"{what}: took {took}")
         want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
         err = flash_check(got, want, what)
@@ -2199,7 +2224,7 @@ def flash_record(dev, S: int, it: int, H: int, Hkv: int, D: int,
     ms = [device_ms(run, dev, it)]
     prev_ms = [device_ms(prev, dev, it), device_ms(prev, dev, it)]
     ms.append(device_ms(run, dev, it))
-    rec = {"S": S, "route": fa.route(q.dtype, D),
+    rec = {"S": S, "route": fa.call_route(q, k),
            "max_abs_err": err, "rel_l2": gap["rel_l2"],
            "row_rel_max": gap["row_rel_max"], "controls": controls,
            "ms": min(ms), "ms_runs": ms,
@@ -2816,7 +2841,7 @@ def phase_dmda(sz: Sizes, dev) -> dict:
 
 # ------------------------------------------------------------------ priors
 PRIORS_BACKENDS = ("global", "cuda")
-PRIORS_TRIALS = 2           # a priors point is the best of this many means
+PRIORS_TRIALS = 1           # a priors point is the best of this many means
 
 
 def pingpong_sf(n: int):
@@ -5026,7 +5051,8 @@ FAMILIES_SMOKE = dict(
     hymba_new=(2, 6), hymba_check_prompt=24, hymba_short_scan=10,
     hymba_stream_prompt=24,
     whisper_batch=2, whisper_frames=24, whisper_s_max=32, whisper_steps=4,
-    xlstm_batch=2, xlstm_prefill=16, xlstm_steps=3, xlstm_check=20,
+    gqa_decode_keys=100, xlstm_batch=2, xlstm_prefill=16, xlstm_steps=3,
+    xlstm_check=20,
     llava_layers=2, llava_tokens=16, timing_iters=2)
 
 
@@ -5044,13 +5070,99 @@ def tree_bytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
+# The parent's D = 64 wgmma forward: the committed
+# csrc/flash_attention_sm90.cu with Tiles<64> at the parent's 64-key tiles,
+# 2 slots and no turns (flash_variants.variant_source), built beside the
+# kernels by main() and loaded by the families child, whose row 8 shapes
+# time it in turns as ``prev_ms``.
+PARENT_D64_TILES = (64, 2, False)
+PARENT_D64_BUILD: dict = {}     # {"proc": the background nvcc}
+
+
+def parent_d64_paths() -> tuple:
+    """(source, library) of the parent's D = 64 build under
+    build/flash_variants/, named by the source's and flags' hash."""
+    import hashlib
+    import flash_variants
+    from repro_torch.kernels import _build
+    src = flash_variants.variant_source(
+        (_build.CSRC / "flash_attention_sm90.cu").read_text(), 64,
+        PARENT_D64_TILES)
+    heads = (_build.CSRC / "wgmma_tma.cuh").read_text()
+    tag = hashlib.sha1((src + heads + " ".join(_build.NVCC_FLAGS))
+                       .encode()).hexdigest()[:12]
+    out = os.path.join(HERE, "build", "flash_variants", f"parent_d64-{tag}")
+    return src, out + ".so"
+
+
+def start_parent_d64_build():
+    """nvcc on the parent's D = 64 build, started in the background (None
+    if the library is there): :func:`finish_parent_d64_build` waits."""
+    from repro_torch.kernels import _build
+    src, lib = parent_d64_paths()
+    if os.path.exists(lib):
+        return None
+    os.makedirs(os.path.dirname(lib), exist_ok=True)
+    cu = lib[:-3] + ".cu"
+    with open(cu, "w") as f:
+        f.write(src)
+    return subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
+         lib[:-3] + f".{os.getpid()}.tmp.so", cu],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def finish_parent_d64_build(proc) -> None:
+    if proc is None:
+        return
+    log, _ = proc.communicate()
+    check(proc.returncode == 0, f"the parent's D = 64 build failed:\n{log}")
+    lib = parent_d64_paths()[1]
+    os.replace(lib[:-3] + f".{os.getpid()}.tmp.so", lib)
+
+
+def parent_d64_flash():
+    """The parent's D = 64 forward as a function of (q, k, v, causal,
+    window) -> o on the card (its entry point is the committed one's)."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import _build, flash_attention as fa
+    f = ctypes.CDLL(parent_d64_paths()[1]).flash_attention_sm90_fwd
+    f.argtypes = _build._SIGNATURES["flash_attention_sm90_fwd"][1]
+    f.restype = ctypes.c_int
+    bc = PARENT_D64_TILES[0]
+
+    def run(q, k, v, causal, window):
+        B, Sq, H, D = q.shape
+        Skv, Hkv = k.shape[1:3]
+        check(D == 64, f"the parent's D = 64 build at D = {D}")
+        o = torch.empty_like(q)
+        has_window, win = fa._window_arg(window, Sq, Skv)
+        br = fa.tile_height(B, Sq, H, fa._sm_count(q.device.index))
+        order = fa._order_tensor((Sq, Skv, bool(causal), has_window, win,
+                                  br, bc), q.device)
+        rc = f(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None,
+               order.data_ptr(), B, Sq, Skv, H, Hkv, D, int(causal),
+               has_window, win, 1.0 / math.sqrt(D), br, order.numel(),
+               _build.stream_of(q))
+        check(rc == 0, f"the parent's D = 64 kernel failed: {rc}")
+        return o
+    return run
+
+
 def family_flash(dev, what: str, B: int, Sq: int, Skv: int, H: int,
                  Hkv: int, D: int, causal: bool, window, it: int) -> dict:
-    """Row 8 at a family's shape, bf16: the kernel against its plain
-    version within FLASH_TOL, device ms (CUDA-graph replays between CUDA
-    events: torch.profiler drops events in this process's late windows)
-    beside the bound and SDPA on the same inputs (with the boolean mask
-    where one is needed)."""
+    """Row 8 at a family's shape, bf16, on the route :func:`route` gives
+    it: the call against its plain version within FLASH_TOL (on the split
+    route also against its plain split-and-combine version), two calls
+    bitwise, o bitwise with and without the LSE and the LSE within
+    FLASH_LSE_ATOL of the plain one; device ms (CUDA-graph replays between
+    CUDA events: torch.profiler drops events in this process's late
+    windows) in turns with the kernel the route replaces (``prev_ms``: the
+    parent's D = 64 build at head size 64, the wgmma kernel at 128), and on
+    the split route the wgmma kernel now (``sm90_ms``), beside the bound
+    and SDPA on the same inputs (with the boolean mask where one is
+    needed)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -5058,10 +5170,38 @@ def family_flash(dev, what: str, B: int, Sq: int, Skv: int, H: int,
     q = torch.randn(B, Sq, H, D, generator=g, device=dev).bfloat16()
     k = torch.randn(B, Skv, Hkv, D, generator=g, device=dev).bfloat16()
     v = torch.randn(B, Skv, Hkv, D, generator=g, device=dev).bfloat16()
-    run = lambda: fa.flash_attention(q, k, v, causal=causal, window=window)
-    plain = lambda: fa.flash_attention_plain(q, k, v, causal=causal,
-                                             window=window)
-    err = flash_check(run(), plain(), f"flash at {what}")
+    kw = dict(causal=causal, window=window)
+    route = fa.call_route(q, k)
+    run = lambda: fa.flash_attention(q, k, v, **kw)
+    plain = lambda: fa.flash_attention_plain(q, k, v, **kw)
+    got = run()
+    check(same_raw_bits(got, run()), f"flash at {what}: two calls differ")
+    want, want_lse = fa.flash_attention_plain(q, k, v, with_lse=True, **kw)
+    err = flash_check(got, want, f"flash at {what}")
+    o, lse = fa.flash_attention_lse(q, k, v, **kw)
+    check(same_raw_bits(o, got), f"flash at {what}: o differs with the LSE")
+    seen = torch.isfinite(want_lse)
+    check(torch.equal(torch.isfinite(lse), seen), f"flash at {what}: the "
+          f"LSE is not -inf exactly where a row sees no key")
+    lse_err = float((lse[seen] - want_lse[seen]).abs().max()) \
+        if seen.any() else 0.0
+    check(lse_err <= FLASH_LSE_ATOL, f"flash at {what}: LSE {lse_err}")
+    del want, want_lse, o, lse
+    on_card = dev.type == "cuda"
+    if route == fa.SPLIT:
+        flash_check(got, fa.flash_attention_split_plain(
+            q, k, v, sms=fa._sm_count(dev.index) if on_card else fa.H100_SMS,
+            **kw), f"split plain at {what}")
+    prev_kernel = ("parent's D = 64 wgmma build" if D == 64
+                   else fa.SM90) if on_card else "plain (CPU)"
+    if not on_card:
+        prev = plain
+    elif D == 64:
+        parent = parent_d64_flash()
+        prev = lambda: parent(q, k, v, causal, window)
+    else:
+        prev = lambda: fa.launch_kernel(fa.SM90, q, k, v, **kw)
+    flash_check(prev(), plain(), f"{prev_kernel} at {what}")
     mask = None
     if causal or window is not None:
         qpos = torch.arange(Sq, device=dev)[:, None] + (Skv - Sq)
@@ -5077,12 +5217,26 @@ def family_flash(dev, what: str, B: int, Sq: int, Skv: int, H: int,
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
     nops = 4.0 * visible_pairs(Sq, Skv, causal, window) * H * D * B
     bms, by = bound(nbytes, nops, BF16_OPS_PER_S)
+    (ms, ms_runs), (prev_ms, prev_runs) = in_turns(run, prev, dev, it,
+                                                   graph_ms)
     rec = {"what": what, "B": B, "Sq": Sq, "Skv": Skv, "H": H, "Hkv": Hkv,
-           "D": D, "causal": causal, "window": window,
-           "route": fa.route(q.dtype, D), "max_abs_err": err,
-           "ms": graph_ms(run, dev, it), "plain_ms": graph_ms(plain, dev, it),
+           "D": D, "causal": causal, "window": window, "route": route,
+           "rows_per_kv_head": Sq * H // Hkv, "max_abs_err": err,
+           "lse_max_abs_err": lse_err, "bitwise_repeat": True,
+           "ms": ms, "ms_runs": ms_runs, "prev_ms": prev_ms,
+           "prev_ms_runs": prev_runs, "prev_kernel": prev_kernel,
+           "plain_ms": graph_ms(plain, dev, it),
            "library_ms": graph_ms(library, dev, it),
            "bound_ms": bms, "bound_by": by}
+    if route == fa.SPLIT:
+        plan = fa.split_plan(B, Sq, Skv, H, Hkv, D, causal, window,
+                             fa._sm_count(dev.index) if on_card
+                             else fa.H100_SMS)
+        rec["split_plan"] = {"n_split": plan.n_split, "mt": plan.mt,
+                             "grid": list(plan.grid)}
+        if on_card:
+            rec["sm90_ms"] = graph_ms(
+                lambda: fa.launch_kernel(fa.SM90, q, k, v, **kw), dev, it)
     rec["share_of_bound"] = bms / rec["ms"]
     return rec
 
@@ -5409,6 +5563,18 @@ def families_whisper(sz: Sizes, dev, rng, acc: dict) -> dict:
         + cfg.n_layers * sz.whisper_steps
     check(counts["flash_attention"] == calls or dev.type != "cuda",
           f"whisper flash launches {counts['flash_attention']} != {calls}")
+    # the decoder's prefill calls (self-attention over P keys, cross-
+    # attention over F_, P rows each) and the cross-attention at each
+    # decode step (1 row) take the split route where the rule sends them
+    from repro_torch.kernels import flash_attention as fa
+    rep = cfg.n_heads // cfg.n_kv_heads
+    split = cfg.n_layers * sum(
+        n * (fa.route(torch.bfloat16, cfg.hd, rows, keys) == fa.SPLIT)
+        for n, rows, keys in ((1, P * rep, P), (1, P * rep, F_),
+                              (sz.whisper_steps, rep, F_)))
+    check(counts["flash_attention_split"] == split or dev.type != "cuda",
+          f"whisper's split-KV launches {counts['flash_attention_split']} "
+          f"!= {split}")
     out["launches"] = counts
     out["prefill_and_decode_s"] = secs
     out["prefill_call_ms"] = call_ms(lambda: T.prefill(
@@ -5426,8 +5592,15 @@ def families_whisper(sz: Sizes, dev, rng, acc: dict) -> dict:
         family_flash(dev, "whisper cross-attention, prefill", B, P, F_,
                      cfg.n_heads, cfg.n_kv_heads, cfg.hd, False, None,
                      sz.timing_iters),
+        family_flash(dev, "whisper decoder self-attention, prefill", B, P,
+                     P, cfg.n_heads, cfg.n_kv_heads, cfg.hd, True, None,
+                     sz.timing_iters),
         family_flash(dev, "whisper cross-attention, decode", B, 1, F_,
                      cfg.n_heads, cfg.n_kv_heads, cfg.hd, False, None,
+                     sz.timing_iters),
+        # a short query under GQA: a decode step at qwen3-4b's heads
+        family_flash(dev, "GQA decode, 32 / 8 heads of 128", 1, 1,
+                     sz.gqa_decode_keys, 32, 8, 128, True, None,
                      sz.timing_iters)]
     del params, cache
     return out
@@ -5547,7 +5720,7 @@ def phase_families(sz: Sizes, dev):
             torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t0
     from repro_torch.kernels import ops as kops
-    launches = {k: acc.get(k, 0) for k in kops.kernel_wrappers()}
+    launches = {k: acc.get(k, 0) for k in kops.launch_counts()}
     out["launches"] = launches
     return out, launches
 
@@ -5576,6 +5749,8 @@ def families_in_child(sz: Sizes, dev):
     :func:`families_child` in a process of its own (its models, CUDA graphs
     and profiler windows leave this process as they found it); fails if
     the child does."""
+    if dev.type == "cuda":
+        finish_parent_d64_build(PARENT_D64_BUILD.pop("proc", None))
     cmd = [sys.executable, os.path.abspath(__file__), "--families",
            dev.type] + (["smoke"] if sz.families_smoke else [])
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
@@ -5873,8 +6048,8 @@ def train_flash_path_shapes(audit: dict, sz: Sizes, dev) -> dict:
     cross-attention, hymba's windowed and global layers), on seeded
     inputs of that shape and dtype: :func:`flash_bwd_check` at each (for
     bf16 its device ms in turns with the mma.sync route's kernels and its
-    share of bound), and SDPA's backward kernels alone at the bf16
-    shapes."""
+    share of bound), and SDPA's backward kernels alone at each shape, in
+    its dtype."""
     import torch
     out = []
     for i, e in enumerate(audit.get("shapes", [])):
@@ -5889,11 +6064,11 @@ def train_flash_path_shapes(audit: dict, sz: Sizes, dev) -> dict:
                                     causal, window, dev, sz.timing_iters,
                                     scale)
         rec.update(key=e["key"], path_calls=e["calls"])
-        if dt == torch.bfloat16:
-            batch = (lambda t: t) if q.dim() == 4 else (lambda t: t[None])
-            rec["library_bwd_kernels_ms"] = sdpa_bwd_kernels_ms(
-                batch(q), batch(k), batch(v), batch(go), causal, window, dev,
-                scale)
+        # SDPA's backward kernels in the call's dtype (float32 too)
+        batch = (lambda t: t) if q.dim() == 4 else (lambda t: t[None])
+        rec["library_bwd_kernels_ms"] = sdpa_bwd_kernels_ms(
+            batch(q), batch(k), batch(v), batch(go), causal, window, dev,
+            scale)
         out.append(rec)
         del q, k, v, go
         gc.collect()
@@ -6763,7 +6938,7 @@ def phase_train(sz: Sizes, dev):
     out["attention_backward_audit"] = audit
     out["seconds"] = time.perf_counter() - t0
     from repro_torch.kernels import ops as kops
-    launches = {k: acc.get(k, 0) for k in kops.kernel_wrappers()}
+    launches = {k: acc.get(k, 0) for k in kops.launch_counts()}
     out["launches"] = launches
     return out, launches
 
@@ -7389,7 +7564,7 @@ def phase_launch(sz: Sizes, dev):
     audit_check(audit, "the launch phase", dev)
     out["attention_backward_audit"] = audit
     out["seconds"] = time.perf_counter() - t0
-    launches = {k: acc.get(k, 0) for k in kops.kernel_wrappers()}
+    launches = {k: acc.get(k, 0) for k in kops.launch_counts()}
     out["launches"] = launches
     return out, launches
 
@@ -7749,6 +7924,27 @@ def run(dev, sz: Sizes) -> list:
           f"{missing}")
     recs["flash_attention"]["family_shapes"] = \
         fam["hymba"]["flash"] + fam["whisper"]["flash"]
+    # the split route's row: whisper's cross-attention at decode
+    split_shapes = [r for r in fam["whisper"]["flash"]
+                    if r["route"] == "flash_attention_split"]
+    check(split_shapes or not on_card, "no family shape took the split "
+          "route")
+    row = next((r for r in split_shapes if r["what"] ==
+                "whisper cross-attention, decode"), None) or \
+        (split_shapes or fam["whisper"]["flash"])[0]
+    recs["flash_attention_split"] = {
+        "name": "flash_attention_split", "route": "cuda",
+        "source": SOURCES["flash_attention_split"],
+        "replaces": REPLACES["flash_attention_split"], "launches": 0,
+        **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms", "prev_ms",
+                               "prev_kernel", "lse_max_abs_err")},
+        "kernels": ["flash_split_kernel", "flash_split_combine_kernel"],
+        "shape": {k: row[k] for k in ("B", "Sq", "Skv", "H", "Hkv", "D")},
+        "split_shapes": split_shapes,
+        "ptxas": [{k: r[k] for k in ("function", "registers",
+                                     "spill_stores", "smem_bytes")}
+                  for r in flash_ptxas() if "split" in r["function"]]}
     del fam
 
     # the training path (flash backward, qwen3-4b trained, the DDP step,
@@ -7821,7 +8017,8 @@ def run(dev, sz: Sizes) -> list:
           "cases": long_sweep(dev, np.random.default_rng(7)),
           "seconds": time.perf_counter() - t0})
     for name, rec in recs.items():
-        rec["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
+        rec["launches_by_path"] = {p: c.get(name, 0)
+                                   for p, c in by_path.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())
         check(rec["launches"] or not on_card, f"{name} launched on no path")
     return [recs[k] for k in REPLACES]
@@ -7857,6 +8054,9 @@ def main() -> int:
     dev = torch.device("cuda", torch.cuda.current_device())
     smi = nvidia_smi()
     build_s = _build.build_all()
+    # the parent's D = 64 forward (the families phase's prev_ms), built
+    # while the first phases run
+    PARENT_D64_BUILD["proc"] = start_parent_d64_build()
     emit({"phase": "env", "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
           "nvidia_smi": smi, "kernel_build_s": build_s,
@@ -7878,7 +8078,14 @@ def main() -> int:
           "sf_unpack_short_ptxas": [
               r for r in _build.ptxas_report("sf_unpack")
               if "segment_reduce_" in r["function"]]})
-    kernels = run(dev, Sizes())
+    try:
+        kernels = run(dev, Sizes())
+    finally:
+        # the background build, if no phase waited for it
+        proc = PARENT_D64_BUILD.pop("proc", None)
+        if proc is not None:
+            proc.kill()
+            proc.wait()
     emit({"phase": "profiler", "windows": PROFILER_WINDOWS["taken"],
           "retaken": PROFILER_WINDOWS["retaken"]})
     emit({"kernels": kernels})

@@ -76,6 +76,9 @@ _SIGNATURES = {
     "flash_attention_sm90_fwd": ("flash_attention_sm90",
                                  [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                   _I, _I, _I, _I, _F, _I, _I, _P]),
+    "flash_attention_split_fwd": ("flash_attention",
+                                  [_P] * 7 + [_I] * 9 + [_F] + [_I] * 5
+                                  + [_P]),
     "flash_attention_bwd": ("flash_attention_bwd",
                             [_P] * 14 + [_I] * 11 + [_F, _I, _P]),
     "flash_attention_bwd_sm90": ("flash_attention_bwd",

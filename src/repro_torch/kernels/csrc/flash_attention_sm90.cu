@@ -70,14 +70,25 @@
 // o is the same either way.  The mbarrier, TMA and wgmma helpers are
 // shared with the backward through wgmma_tma.cuh.
 //
-// Tile width.  NC = 2 launches at 65536 / 384 threads = 168 registers a
-// thread, and ptxas holds the consumers to that although setmaxnreg hands
-// them 240: the pipelined walk keeps S (BC / 2 floats), P (BC / 4 words)
-// and O (D / 2 floats) live at once.  At D = 128 a 128-key tile spills and
-// serialises its wgmmas, a 64-key tile does not, and on the H100 the
-// 64-key tile with a 2-slot ring was the fastest at the serving buckets
-// (flash_variants.py times the alternatives; PERF.md has the readings).
-// So BC = 64, STAGES = 2.
+// Tile width, per head size and tile height (Tiles<D, NC>).  NC = 2
+// launches at 65536 / 384
+// threads = 168 registers a thread, and ptxas holds the consumers to that
+// although setmaxnreg hands them 240: the pipelined walk keeps S (BC / 2
+// floats), P (BC / 4 words) and O (D / 2 floats) live at once.  At D = 128
+// a 128-key tile spills and serialises its wgmmas, a 64-key tile does not,
+// and on the H100 the 64-key tile with a 2-slot ring was the fastest at
+// the serving buckets: D = 128 keeps BC = 64, STAGES = 2.  At D = 64 a
+// 64-key tile gives each consumer only 4 + 4 k16 steps per tile while the
+// softmax's cost per tile does not shrink with D, and the registers allow
+// BC = 128 (S 64 floats, P 32 words, O 32 floats): D = 64 at 128-row
+// tiles takes BC = 128, a 3-slot ring (16 KB each of K and V a slot), and
+// ping-pongs its two consumer warpgroups on named barriers (PINGPONG: one
+// warpgroup issues its wgmmas while the other runs its softmax, strictly
+// in turns).  64-row tiles (NC = 1) serve only calls of at most one wave
+// of tiles (tile_height), where the 128-key tile's doubled S, softmax and
+// TMA box per tile made a short call slower: D = 64 keeps BC = 64,
+// STAGES = 2 there.  flash_variants.py times the alternatives; PERF.md
+// has the readings.
 //
 // kv_tiles, tile_masked and the work order are mirrored by tile_plan() in
 // kernels/flash_attention.py; a change to one side changes the other.
@@ -94,8 +105,32 @@
 
 namespace {
 
-constexpr int BC = 64;     // keys per K/V tile
-constexpr int STAGES = 2;  // K/V ring depth
+// keys per K/V tile, K/V ring depth, and whether the two consumer
+// warpgroups take the tensor cores in turns (NC = 2 only), by head size
+// and consumer warpgroups; tile_plan() and sm90_smem_bytes() in
+// kernels/flash_attention.py mirror BC and STAGES
+template <int D, int NC>
+struct Tiles;
+template <>
+struct Tiles<128, 1> {
+  static constexpr int BC = 64, STAGES = 2;
+  static constexpr bool PINGPONG = false;
+};
+template <>
+struct Tiles<128, 2> {
+  static constexpr int BC = 64, STAGES = 2;
+  static constexpr bool PINGPONG = false;
+};
+template <>
+struct Tiles<64, 1> {
+  static constexpr int BC = 64, STAGES = 2;
+  static constexpr bool PINGPONG = false;
+};
+template <>
+struct Tiles<64, 2> {
+  static constexpr int BC = 128, STAGES = 3;
+  static constexpr bool PINGPONG = true;
+};
 
 struct Params {
   const int* order;  // q tiles, longest first (tile_plan)
@@ -109,7 +144,8 @@ struct Params {
 // Shared memory: every tile starts on a 1024-byte boundary (the 128-byte
 // swizzle repeats every 8 rows of 128 bytes).  A tile of R rows x D
 // columns is D / 64 boxes of R x 64, one after the other.
-template <int D, int NC>
+template <int D, int NC, int BC = Tiles<D, NC>::BC,
+          int STAGES = Tiles<D, NC>::STAGES>
 struct Smem {
   __nv_bfloat16 q[NC * 64 * D];
   __nv_bfloat16 k[STAGES][BC * D];
@@ -130,7 +166,8 @@ __device__ __forceinline__ void tile_of(const Params& p, int idx, int br,
   b = rem / p.H;
 }
 
-// KV tiles [j0, j1) that some query row in [r0, r1) may see.
+// KV tiles [j0, j1) of BC keys that some query row in [r0, r1) may see.
+template <int BC>
 __device__ __forceinline__ void kv_tiles(const Params& p, int r0, int r1,
                                          int& j0, int& j1) {
   const long long off = (long long)p.Skv - p.Sq;
@@ -145,7 +182,9 @@ __device__ __forceinline__ void kv_tiles(const Params& p, int r0, int r1,
   j1 = (int)((hi + BC - 1) / BC);
 }
 
-// Whether some (row in [r0, r1), key in tile j) pair is not visible.
+// Whether some (row in [r0, r1), key in tile j of BC keys) pair is not
+// visible.
+template <int BC>
 __device__ __forceinline__ bool tile_masked(const Params& p, int r0, int r1,
                                             int j) {
   const long long off = (long long)p.Skv - p.Sq;
@@ -175,15 +214,27 @@ __device__ __forceinline__ int work_item(int r) {
 }
 
 // Ring slot and phase parity of the n-th K (or V) tile a CTA handles.
+template <int STAGES>
 __device__ __forceinline__ int slot(uint32_t n) { return n % STAGES; }
+template <int STAGES>
 __device__ __forceinline__ uint32_t parity(uint32_t n) {
   return (n / STAGES) & 1;
+}
+
+// s = a * b over a 64 x BC tile, a and b K-major in shared memory
+template <int BC>
+__device__ __forceinline__ void wgmma_ss_bc(float (&d)[BC / 2], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  if constexpr (BC == 128)
+    wgmma_ss_n128(d, da, db, scale_d);
+  else
+    wgmma_ss_n64(d, da, db, scale_d);
 }
 
 // The consumer's softmax step on one S tile, in place: s becomes the
 // tile's probabilities exp2(scale * s - mu), m / l are updated and the
 // factor that rescales the running output is returned per row.
-template <bool kMasked>
+template <bool kMasked, int BC>
 __device__ __forceinline__ void softmax_tile(const Params& p, float (&s)[BC / 2],
                                              float (&m)[2], float (&l)[2],
                                              float (&corr)[2], int j, int c4,
@@ -226,7 +277,10 @@ __global__ void __launch_bounds__((NC + 1) * 128, 1)
                           const __grid_constant__ CUtensorMap tm_v,
                           const __grid_constant__ CUtensorMap tm_o,
                           const Params p) {
-  constexpr int BR = NC * 64;
+  constexpr int BR = NC * 64, BC = Tiles<D, NC>::BC;
+  constexpr int STAGES = Tiles<D, NC>::STAGES;
+  // the two consumer warpgroups take the tensor cores in turns
+  constexpr bool kTurns = Tiles<D, NC>::PINGPONG && NC == 2;
   extern __shared__ uint8_t smem_raw[];
   Smem<D, NC>& sm = *reinterpret_cast<Smem<D, NC>*>(
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
@@ -256,7 +310,7 @@ __global__ void __launch_bounds__((NC + 1) * 128, 1)
     for (int idx = work_item(0); idx < p.n_work; idx = work_item(++it)) {
       int b, h, r0, j0, j1;
       tile_of(p, idx, BR, b, h, r0);
-      kv_tiles(p, r0, min(r0 + BR, p.Sq), j0, j1);
+      kv_tiles<BC>(p, r0, min(r0 + BR, p.Sq), j0, j1);
       mbar_wait(&sm.q_empty, (it & 1) ^ 1);  // the last tile's q is done
       mbar_expect_tx(&sm.q_full, BR * D * 2);
 #pragma unroll
@@ -264,14 +318,14 @@ __global__ void __launch_bounds__((NC + 1) * 128, 1)
         tma_load(sm.q + c * BR * 64, &tm_q, c * 64, h, r0, b, &sm.q_full);
       const int hk = h / rep;
       for (int j = j0; j < j1; ++j, ++n) {
-        const int st = slot(n);
-        mbar_wait(&sm.empty_k[st], parity(n) ^ 1);
+        const int st = slot<STAGES>(n);
+        mbar_wait(&sm.empty_k[st], parity<STAGES>(n) ^ 1);
         mbar_expect_tx(&sm.full_k[st], BC * D * 2);
 #pragma unroll
         for (int c = 0; c < D / 64; ++c)
           tma_load(sm.k[st] + c * BC * 64, &tm_k, c * 64, hk, j * BC, b,
                    &sm.full_k[st]);
-        mbar_wait(&sm.empty_v[st], parity(n) ^ 1);
+        mbar_wait(&sm.empty_v[st], parity<STAGES>(n) ^ 1);
         mbar_expect_tx(&sm.full_v[st], BC * D * 2);
 #pragma unroll
         for (int c = 0; c < D / 64; ++c)
@@ -294,7 +348,7 @@ __global__ void __launch_bounds__((NC + 1) * 128, 1)
     const uint32_t k_base = smem_u32(sm.k[st]);
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n64(
+      wgmma_ss_bc<BC>(
           s, desc_b128(q_base + (kk / 4) * BR * 128 + (kk % 4) * 32, 16, 1024),
           desc_b128(k_base + (kk / 4) * BC * 128 + (kk % 4) * 32, 16, 1024),
           kk > 0);
@@ -315,12 +369,25 @@ __global__ void __launch_bounds__((NC + 1) * 128, 1)
     wgmma_commit();
   };
 
+  // Turns (kTurns): a warpgroup issues its wgmmas only after the other one
+  // has issued its own, on named barriers 3 + wg of 256 threads (one
+  // warpgroup waits, the other arrives).  Both walk the same KV tiles of
+  // every work item, so they issue equally often: warpgroup 1 lets 0 go
+  // first, and 0 takes 1's last turn back before it exits.
+  const auto take_turn = [&]() {
+    if constexpr (kTurns) named_bar(3 + wg, 256);
+  };
+  const auto pass_turn = [&]() {
+    if constexpr (kTurns) named_bar_arrive(4 - wg, 256);
+  };
+  if (wg == 1) pass_turn();
+
   uint32_t n = 0, it = 0;  // K/V tiles consumed, work items
   for (int idx = work_item(0); idx < p.n_work; idx = work_item(++it)) {
     int b, h, r0, j0, j1;
     tile_of(p, idx, BR, b, h, r0);
     const int r1 = min(r0 + BR, p.Sq);
-    kv_tiles(p, r0, r1, j0, j1);
+    kv_tiles<BC>(p, r0, r1, j0, j1);
     // this thread's two rows (the wgmma accumulator layout: warp w holds
     // rows 16w..16w+15 of the warpgroup's 64, lane l rows l/4 and l/4 + 8)
     const long long qpos_a = off + r0 + wg * 64 + w * 16 + g;
@@ -340,10 +407,10 @@ __global__ void __launch_bounds__((NC + 1) * 128, 1)
       float s[BC / 2], corr[2];
       uint32_t pa[BC / 16][4];
       auto softmax = [&](int j) {
-        if (tile_masked(p, r0, r1, j))
-          softmax_tile<true>(p, s, m, l, corr, j, c4, qpos_a, qpos_b);
+        if (tile_masked<BC>(p, r0, r1, j))
+          softmax_tile<true, BC>(p, s, m, l, corr, j, c4, qpos_a, qpos_b);
         else
-          softmax_tile<false>(p, s, m, l, corr, j, c4, qpos_a, qpos_b);
+          softmax_tile<false, BC>(p, s, m, l, corr, j, c4, qpos_a, qpos_b);
       };
       auto to_p = [&]() {
 #pragma unroll
@@ -353,38 +420,44 @@ __global__ void __launch_bounds__((NC + 1) * 128, 1)
           pa[i / 8][(i % 8) / 2] = pack_bf16(s[i], s[i + 1]);
       };
 
-      mbar_wait(&sm.full_k[slot(n)], parity(n));
+      mbar_wait(&sm.full_k[slot<STAGES>(n)], parity<STAGES>(n));
+      take_turn();
       wgmma_fence();
-      issue_s(s, slot(n));
+      issue_s(s, slot<STAGES>(n));
+      pass_turn();
       wgmma_wait<0>();
       reg_fence(s);
-      mbar_arrive(&sm.empty_k[slot(n)]);
+      mbar_arrive(&sm.empty_k[slot<STAGES>(n)]);
       softmax(j0);
       to_p();
       for (int j = j0 + 1; j < j1; ++j) {
         const uint32_t prev = n++;
-        mbar_wait(&sm.full_k[slot(n)], parity(n));
-        mbar_wait(&sm.full_v[slot(prev)], parity(prev));
+        mbar_wait(&sm.full_k[slot<STAGES>(n)], parity<STAGES>(n));
+        mbar_wait(&sm.full_v[slot<STAGES>(prev)], parity<STAGES>(prev));
+        take_turn();
         wgmma_fence();
-        issue_s(s, slot(n));
-        issue_pv(o, pa, slot(prev));
+        issue_s(s, slot<STAGES>(n));
+        issue_pv(o, pa, slot<STAGES>(prev));
+        pass_turn();
         wgmma_wait<1>();  // S of tile j is done
         reg_fence(s);
-        mbar_arrive(&sm.empty_k[slot(n)]);
+        mbar_arrive(&sm.empty_k[slot<STAGES>(n)]);
         softmax(j);
         wgmma_wait<0>();  // P V of tile j - 1 is done
         reg_fence(o);
         reg_fence(pa);
-        mbar_arrive(&sm.empty_v[slot(prev)]);
+        mbar_arrive(&sm.empty_v[slot<STAGES>(prev)]);
         to_p();
       }
-      mbar_wait(&sm.full_v[slot(n)], parity(n));
+      mbar_wait(&sm.full_v[slot<STAGES>(n)], parity<STAGES>(n));
+      take_turn();
       wgmma_fence();
-      issue_pv(o, pa, slot(n));
+      issue_pv(o, pa, slot<STAGES>(n));
+      pass_turn();
       wgmma_wait<0>();
       reg_fence(o);
       reg_fence(pa);
-      mbar_arrive(&sm.empty_v[slot(n)]);
+      mbar_arrive(&sm.empty_v[slot<STAGES>(n)]);
       ++n;
     }
     mbar_arrive(&sm.q_empty);
@@ -429,6 +502,7 @@ __global__ void __launch_bounds__((NC + 1) * 128, 1)
       bulk_commit();
     }
   }
+  if (wg == 0) take_turn();
   if (t == 0) bulk_wait_all();
 }
 
@@ -438,8 +512,8 @@ int launch(const Params& p, const void* q, const void* k, const void* v,
            void* o, cudaStream_t s) {
   CUtensorMap tq, tk, tv, to;
   if (!make_map(&tq, q, p.B, p.Sq, p.H, D, NC * 64) ||
-      !make_map(&tk, k, p.B, p.Skv, p.Hkv, D, BC) ||
-      !make_map(&tv, v, p.B, p.Skv, p.Hkv, D, BC) ||
+      !make_map(&tk, k, p.B, p.Skv, p.Hkv, D, Tiles<D, NC>::BC) ||
+      !make_map(&tv, v, p.B, p.Skv, p.Hkv, D, Tiles<D, NC>::BC) ||
       !make_map(&to, o, p.B, p.Sq, p.H, D, 64))
     return -2;
   const auto kern = flash_fwd_sm90_kernel<D, NC>;

@@ -1,6 +1,6 @@
 // bf16 fragment helpers of the mma.sync flash kernels (flash_attention.cu,
-// flash_attention_bwd.cu): packing, 32-bit loads, the m16n8k16 product and
-// the transposed ldmatrix.  Included by both sources; an edit rebuilds
+// flash_attention_bwd.cu): packing, 32-bit loads, the m16n8k16 product,
+// the transposed ldmatrix and 16-byte cp.async copies.  Included by both sources; an edit rebuilds
 // both (kernels/_build.py hashes a source's quoted includes).
 
 #pragma once
@@ -41,6 +41,20 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t& r0, uint32_t& r1,
       "[%4];\n"
       : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
       : "r"(addr));
+}
+
+// 16 bytes from global to shared memory, asynchronously; zeros when not
+// `valid` (src must still be a mapped address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned addr = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :
+               : "r"(addr), "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n");
 }
 
 }  // namespace

@@ -11,26 +11,37 @@ A query row that sees no key returns 0, as ``ref.flash_attention_ref`` does
 (the Pallas kernel returns the mean of v there).  A leading batch dimension,
 ``(B, Sq, H, D)``, is accepted as well and goes into the kernel's grid.
 
-Two kernels, chosen by a fixed rule (:func:`route`):
+Three routes, chosen by a fixed rule (:func:`route`):
 
   * bf16 with head size 64 or 128 (every serving config) goes to
     ``csrc/flash_attention_sm90.cu``: TMA loads into a ring of K/V stages,
     a producer warpgroup and one or two consumer warpgroups on ``wgmma``,
-    a persistent grid walking the tiles of :func:`tile_plan` longest first;
+    a persistent grid walking the tiles of :func:`tile_plan` longest first,
+    with tiles of :func:`sm90_bc` keys (128 at head size 64 and 128-row
+    tiles, else 64);
+  * unless a KV head has at most :data:`SPLIT_ROWS` query rows (Sq x H /
+    Hkv) over more than :data:`SPLIT_BC` keys (whisper's cross-attention
+    at decode and at its 4-token prefill); then the split-KV route (``flash_attention_split_fwd`` in
+    ``csrc/flash_attention.cu``): the KV tiles cut into the ranges of
+    :func:`split_plan`, a CTA per (range, KV head) on ``mma.sync`` with a
+    ``cp.async`` ring, each range's partial output folded in range order
+    by a second kernel;
   * everything else (float32, bf16 head sizes 16 and 32) goes to
     ``csrc/flash_attention.cu``: ``mma.sync`` for bf16, fp32 FMAs for
     float32.
 
 Each source's note gives its bound and design.  ``flash_attention.launches``
-counts the launches of both, ``flash_attention.launches_sm90`` those of the
-first.  The wrapper takes the plain version only for tensors on the CPU;
-for a CUDA tensor it launches one of the two kernels or raises.  The
-wrapper has no backward, so an input that requires grad raises there.
+counts the calls of all three (one a call), ``flash_attention.launches_sm90``
+those of the first and ``flash_attention.launches_split`` those of the
+second.  The wrapper takes the plain version only for tensors on the CPU;
+for a CUDA tensor it launches a route's kernels or raises.  The wrapper has
+no backward, so an input that requires grad raises there.
 
 Training goes through :class:`FlashAttention` (``kernels.ops.
 flash_attention`` takes it when grad mode is on and an input requires a
 gradient): its forward is the kernel on detached inputs and, where the
 backward takes the sm90 route, also writes each row's base-2 log-sum-exp
+(either forward route writes it)
 (:func:`flash_attention_lse`, the operator
 ``torch.ops.repro_torch.flash_attention_lse``; the serving path asks for
 none); its backward is :func:`flash_attention_backward`, the operator
@@ -70,27 +81,61 @@ __all__ = ["flash_attention", "flash_attention_plain", "FlashAttention",
            "flash_attention_backward_plain", "HEAD_DIMS", "flash_flops",
            "flash_bwd_flops", "bwd_plan", "BwdPlan", "bwd_route",
            "bwd_tiles",
-           "SM90", "SM90_HEAD_DIMS", "ROUTES", "route", "tile_plan",
-           "TilePlan", "sm90_smem_bytes", "launch_kernel"]
+           "SM90", "SM90_HEAD_DIMS", "SPLIT", "SPLIT_ROWS", "ROUTES",
+           "route", "tile_plan", "TilePlan", "sm90_bc", "sm90_smem_bytes",
+           "split_plan", "SplitPlan", "flash_attention_split_plain",
+           "launch_kernel"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 3}
 HEAD_DIMS = (16, 32, 64, 128)
 LOG2E = 1.4426950408889634
 SM90_HEAD_DIMS = (64, 128)
 SM90 = "flash_attention_sm90"
-ROUTES = (SM90, "flash_attention")
+SPLIT = "flash_attention_split"
+ROUTES = (SM90, SPLIT, "flash_attention")
 H100_SMS = 132
-# the sm90 kernel's fixed shapes (csrc/flash_attention_sm90.cu: BC, STAGES)
-SM90_BC = 64
-SM90_STAGES = 2
+# the sm90 kernel's (keys per K/V tile, ring depth) at each (head size,
+# tile height) (csrc/flash_attention_sm90.cu: Tiles<D, br / 64>::BC, STAGES)
+SM90_TILES = {(64, 64): (64, 2), (64, 128): (128, 3), (128, 64): (64, 2),
+              (128, 128): (64, 2)}
+# the split route: KV tiles of 128 keys (csrc/flash_attention.cu
+# split::BC); a call whose KV heads have at most SPLIT_ROWS query rows each,
+# over more than one such tile, takes it, its grid as many CTAs as fit
+# SPLIT_WAVES waves of the SMs (PERF.md: flash_variants.py's readings, in
+# turns with the sm90 kernel, at Sq x H / Hkv = 1 to 64 over 4 to 4,096
+# keys)
+SPLIT_BC = 128
+SPLIT_ROWS = 16
+SPLIT_WAVES = 1
 
 
-def route(dtype: torch.dtype, D: int) -> str:
+def sm90_bc(D: int, br: int) -> int:
+    """Keys per K/V tile of the sm90 forward at head size ``D`` and tile
+    height ``br`` (:func:`tile_height`)."""
+    return SM90_TILES[(D, br)][0]
+
+
+def route(dtype: torch.dtype, D: int, rows: Optional[int] = None,
+          keys: Optional[int] = None) -> str:
     """The kernel a CUDA call takes: bf16 with head size 64 or 128 goes to
-    ``flash_attention_sm90`` (wgmma, TMA), everything else to
-    ``flash_attention`` (mma.sync bf16, float32 FMAs)."""
-    return SM90 if dtype == torch.bfloat16 and D in SM90_HEAD_DIMS \
-        else "flash_attention"
+    ``flash_attention_sm90`` (wgmma, TMA) or, when ``rows`` (the query
+    rows of a KV head, Sq x H / Hkv) is at most :data:`SPLIT_ROWS` and the
+    ``keys`` (Skv) fill more than one of its tiles of :data:`SPLIT_BC`,
+    to ``flash_attention_split`` (split KV, mma.sync; on one tile the two
+    measured even); everything else to ``flash_attention`` (mma.sync
+    bf16, float32 FMAs)."""
+    if dtype != torch.bfloat16 or D not in SM90_HEAD_DIMS:
+        return "flash_attention"
+    short = rows is not None and keys is not None and rows <= SPLIT_ROWS \
+        and keys > SPLIT_BC
+    return SPLIT if short else SM90
+
+
+def call_route(q: torch.Tensor, k: torch.Tensor) -> str:
+    """:func:`route` of a call on q (.., Sq, H, D) and k (.., Skv, Hkv,
+    D)."""
+    Sq, H, D = q.shape[-3:]
+    return route(q.dtype, D, Sq * (H // max(1, k.shape[-2])), k.shape[-3])
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -213,9 +258,12 @@ def _window_arg(window, Sq: int, Skv: int):
 
 # ------------------------------------------------------- the sm90 schedule
 # A mirror of csrc/flash_attention_sm90.cu's kv_tiles, tile_masked and
-# tile_of; a change to one side changes the other.
-def _kv_tiles(Sq, Skv, causal, has_window, win, r0, r1):
-    """KV tiles [j0, j1) that some query row in [r0, r1) may see."""
+# tile_of; a change to one side changes the other.  ``bc`` is the keys of a
+# KV tile: the forward's sm90_bc(D, br), the split route's SPLIT_BC, the
+# backward's 64.
+def _kv_tiles(Sq, Skv, causal, has_window, win, r0, r1, bc):
+    """KV tiles [j0, j1) of ``bc`` keys that some query row in [r0, r1)
+    may see."""
     off = Skv - Sq
     lo, hi = 0, Skv
     if causal:
@@ -224,13 +272,14 @@ def _kv_tiles(Sq, Skv, causal, has_window, win, r0, r1):
         lo = max(lo, off + r0 - win + 1)
     if hi <= lo:
         return 0, 0
-    return lo // SM90_BC, -(-hi // SM90_BC)
+    return lo // bc, -(-hi // bc)
 
 
-def _tile_masked(Sq, Skv, causal, has_window, win, r0, r1, j):
-    """Whether some (row in [r0, r1), key in tile j) pair is not visible."""
+def _tile_masked(Sq, Skv, causal, has_window, win, r0, r1, j, bc):
+    """Whether some (row in [r0, r1), key in tile j of ``bc`` keys) pair is
+    not visible."""
     off = Skv - Sq
-    k0, k1 = j * SM90_BC, j * SM90_BC + SM90_BC - 1
+    k0, k1 = j * bc, j * bc + bc - 1
     return bool(k1 >= Skv or (causal and k1 > off + r0)
                 or (has_window and k0 <= off + r1 - 1 - win))
 
@@ -245,13 +294,13 @@ def tile_height(B: int, Sq: int, H: int, sms: int = H100_SMS) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def _q_order(Sq, Skv, causal, has_window, win, br) -> tuple:
-    """The q tiles longest first (most KV tiles; later rows first among
-    equals)."""
+def _q_order(Sq, Skv, causal, has_window, win, br, bc) -> tuple:
+    """The q tiles of ``br`` rows longest first (most KV tiles of ``bc``
+    keys; later rows first among equals)."""
     n = []
     for qt in range(-(-Sq // br)):
         j0, j1 = _kv_tiles(Sq, Skv, causal, has_window, win, qt * br,
-                           min(qt * br + br, Sq))
+                           min(qt * br + br, Sq), bc)
         n.append(j1 - j0)
     return tuple(sorted(range(len(n)), key=lambda t: (-n[t], -t)))
 
@@ -285,31 +334,33 @@ def tile_plan(B: int, Sq: int, Skv: int, H: int, Hkv: int, D: int,
               causal: bool = True, window=None,
               sms: int = H100_SMS) -> TilePlan:
     """The sm90 kernel's tile height, work order and per-tile KV walk for
-    these shapes (pure Python; the CPU tests check it).  ``D`` does not
-    change the schedule; it is checked against the kernel's head sizes."""
+    these shapes (pure Python; the CPU tests check it).  ``D`` and the
+    tile height set the KV tile's keys (:func:`sm90_bc`); ``D`` is checked
+    against the kernel's head sizes."""
     if D not in SM90_HEAD_DIMS:
         raise ValueError(f"{SM90} takes head sizes {SM90_HEAD_DIMS}, got {D}")
     if H % Hkv:
         raise ValueError(f"{H} query heads are not a multiple of {Hkv}")
     has_window, win = _window_arg(window, Sq, Skv)
     br = tile_height(B, Sq, H, sms)
-    order = _q_order(Sq, Skv, bool(causal), has_window, win, br)
+    bc = sm90_bc(D, br)
+    order = _q_order(Sq, Skv, bool(causal), has_window, win, br, bc)
     work = [(b, h, qt) for qt in order for b in range(B) for h in range(H)]
     kv = {}
     for qt in order:
         r0, r1 = qt * br, min(qt * br + br, Sq)
-        j0, j1 = _kv_tiles(Sq, Skv, causal, has_window, win, r0, r1)
+        j0, j1 = _kv_tiles(Sq, Skv, causal, has_window, win, r0, r1, bc)
         kv[qt] = [(j, _tile_masked(Sq, Skv, causal, has_window, win, r0, r1,
-                                   j)) for j in range(j0, j1)]
-    return TilePlan(br, SM90_BC, order, work, kv)
+                                   j, bc)) for j in range(j0, j1)]
+    return TilePlan(br, bc, order, work, kv)
 
 
 # --------------------------------------------------- the backward's schedule
 # A mirror of csrc/flash_attention_bwd.cu's kv_tiles, q_tiles and
 # tile_masked (the same _kv_tiles and _tile_masked as the sm90 forward's,
-# over 64-key tiles) and of both routes' grids and walks; a change to one
-# side changes the other.
-BWD_TILE = SM90_BC
+# over 64-key tiles at every head size) and of both routes' grids and
+# walks; a change to one side changes the other.
+BWD_TILE = 64
 
 
 def bwd_route(dtype: torch.dtype, D: int) -> str:
@@ -472,15 +523,15 @@ def bwd_plan(B: int, Sq: int, Skv: int, H: int, Hkv: int, D: int,
         dq_rows, split = tiles or bwd_tiles(B, Sq, Skv, H, Hkv, D, sms)
         if dq_rows not in (64, 128) or (split and H == Hkv):
             raise ValueError(f"no sm90 backward with tiles {tiles}")
-    q_order = _q_order(Sq, Skv, causal, has_window, win, dq_rows)
+    q_order = _q_order(Sq, Skv, causal, has_window, win, dq_rows, T)
     kv_order = _kv_order(Sq, Skv, causal, has_window, win)
     dq_walk = {}
     for qt in q_order:
         r0, r1 = qt * dq_rows, min(qt * dq_rows + dq_rows, Sq)
-        j0, j1 = _kv_tiles(Sq, Skv, causal, has_window, win, r0, r1)
+        j0, j1 = _kv_tiles(Sq, Skv, causal, has_window, win, r0, r1, T)
         dq_walk[qt] = tuple(
             (j, tuple(_tile_masked(Sq, Skv, causal, has_window, win, a,
-                                   min(a + T, Sq), j)
+                                   min(a + T, Sq), j, T)
                       for a in range(r0, r0 + dq_rows, T)))
             for j in range(j0, j1))
     dkdv_walk = {}
@@ -488,7 +539,7 @@ def bwd_plan(B: int, Sq: int, Skv: int, H: int, Hkv: int, D: int,
         t0, t1 = _q_tiles(Sq, Skv, causal, has_window, win, j)
         dkdv_walk[j] = tuple(
             (qt, _tile_masked(Sq, Skv, causal, has_window, win, qt * T,
-                              min(qt * T + T, Sq), j))
+                              min(qt * T + T, Sq), j, T))
             for qt in range(t0, t1))
     return BwdPlan(rt, B, Sq, Skv, H, Hkv, causal,
                    None if not has_window else win, dq_rows, split,
@@ -497,10 +548,174 @@ def bwd_plan(B: int, Sq: int, Skv: int, H: int, Hkv: int, D: int,
 
 def sm90_smem_bytes(D: int, br: int) -> int:
     """Dynamic shared memory of one CTA of the sm90 kernel (csrc
-    Smem<D, br / 64>): q, STAGES x (k, v) and o tiles in bf16, 2 + 4 STAGES
-    mbarriers, and 1024 bytes of alignment slack."""
-    return 2 * (2 * br * D + 2 * SM90_STAGES * SM90_BC * D) \
-        + 8 * (2 + 4 * SM90_STAGES) + 1024
+    Smem<D, br / 64>): q, STAGES x (k, v) tiles of :func:`sm90_bc` keys
+    and o tiles in bf16, 2 + 4 STAGES mbarriers, and 1024 bytes of
+    alignment slack."""
+    bc, stages = SM90_TILES[(D, br)]
+    return 2 * (2 * br * D + 2 * stages * bc * D) + 8 * (2 + 4 * stages) \
+        + 1024
+
+
+# ----------------------------------------------------- the split-KV route
+# A mirror of csrc/flash_attention.cu's split kernels (their rows, ranges
+# and split::tile_masked); a change to one side changes the other.
+@dataclasses.dataclass(frozen=True)
+class SplitPlan:
+    """The split-KV route's plan for one call.  A KV head's ``rows`` query
+    rows (Sq x H / Hkv; row m is query row m // rep of query head hk rep +
+    m % rep) go to CTAs of ``mt`` m16 tiles (``16 mt`` rows, in
+    ``row_blocks`` blocks); the KV tiles [j0, j0 + n_tiles) of ``bc`` keys
+    that some query row may see are cut into ``n_split`` contiguous
+    :attr:`ranges`, one a CTA: the grid is (n_split, Hkv, B x row_blocks).
+    The combine folds each row's ranges in the order 0, 1, .., n_split - 1.
+    :meth:`masked` says whether the kernel applies the element mask on a
+    tile."""
+    B: int
+    Sq: int
+    Skv: int
+    H: int
+    Hkv: int
+    causal: bool
+    window: Optional[int]
+    rows: int
+    mt: int
+    row_blocks: int
+    j0: int
+    n_tiles: int
+    n_split: int
+    bc: int = SPLIT_BC
+
+    @property
+    def grid(self) -> tuple:
+        return (self.n_split, self.Hkv, self.B * self.row_blocks)
+
+    @property
+    def ranges(self) -> tuple:
+        """[t0, t1) of each range, in the combine's order (csrc t0, t1)."""
+        n, ns = self.n_tiles, self.n_split
+        return tuple((self.j0 + s * n // ns, self.j0 + (s + 1) * n // ns)
+                     for s in range(ns))
+
+    def masked(self, t: int) -> bool:
+        has_window, win = _window_arg(self.window, self.Sq, self.Skv)
+        return _tile_masked(self.Sq, self.Skv, self.causal, has_window, win,
+                            0, self.Sq, t, self.bc)
+
+    def walk(self) -> np.ndarray:
+        """(n_split, Sq, KV tiles x bc) int32: the (row, key) pairs each
+        range takes into its sums, counted in numpy (every query head of a
+        query row takes the same ones); columns past Skv are the keys of a
+        ragged last tile.  An unmasked tile takes all its keys, a masked
+        one the visible ones.  The plan is right when the sum over the
+        ranges equals the visible mask and each range's keys lie in its
+        own tiles."""
+        bc, Sq, Skv = self.bc, self.Sq, self.Skv
+        ncol = max(-(-Skv // bc), self.j0 + self.n_tiles) * bc
+        qpos = np.arange(Sq)[:, None] + (Skv - Sq)
+        kpos = np.arange(ncol)[None, :]
+        vis = (kpos < Skv) & np.ones((Sq, 1), bool)
+        if self.causal:
+            vis = vis & (kpos <= qpos)
+        if self.window is not None:
+            vis = vis & (kpos > qpos - self.window)
+        n = np.zeros((self.n_split, Sq, ncol), np.int32)
+        for s, (t0, t1) in enumerate(self.ranges):
+            for t in range(t0, t1):
+                cols = slice(t * bc, t * bc + bc)
+                n[s, :, cols] += vis[:, cols] if self.masked(t) else 1
+        return n
+
+
+def split_plan(B: int, Sq: int, Skv: int, H: int, Hkv: int, D: int,
+               causal: bool = True, window=None, sms: int = H100_SMS,
+               waves: int = SPLIT_WAVES, bc: int = SPLIT_BC) -> SplitPlan:
+    """The split-KV route's plan for these shapes (pure Python; the CPU
+    tests walk it): m16 tiles a CTA from the rows of a KV head (1 up to
+    16 rows, else 4 and as many blocks of 64 as the rows need), and the most ranges whose CTAs fit ``waves`` waves of ``sms``
+    SMs (one at least, at most one a KV tile of ``bc`` keys: the kernel's
+    ``split::BC``)."""
+    if D not in SM90_HEAD_DIMS:
+        raise ValueError(f"{SPLIT} takes head sizes {SM90_HEAD_DIMS}, got "
+                         f"{D}")
+    if Hkv <= 0 or H % Hkv:
+        raise ValueError(f"{H} query heads are not a multiple of {Hkv}")
+    has_window, win = _window_arg(window, Sq, Skv)
+    causal = bool(causal)
+    rows = Sq * (H // Hkv)
+    mt = 1 if rows <= 16 else 4
+    row_blocks = max(1, -(-rows // (16 * mt)))
+    j0, j1 = _kv_tiles(Sq, Skv, causal, has_window, win, 0, Sq, bc)
+    ctas = max(1, B * Hkv * row_blocks)
+    n_split = max(1, min(j1 - j0, waves * sms // ctas))
+    return SplitPlan(B, Sq, Skv, H, Hkv, causal,
+                     None if not has_window else win, rows, mt, row_blocks,
+                     j0, j1 - j0, n_split, bc)
+
+
+def flash_attention_split_plain(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, *, causal: bool = True,
+                                window=None, scale=None,
+                                with_lse: bool = False,
+                                sms: int = H100_SMS):
+    """The split route's arithmetic written out in float32 PyTorch, the
+    plain version of ``flash_attention_split_fwd``: the masked scores of
+    :func:`flash_attention_plain` in base 2, cut at :func:`split_plan`'s
+    ranges; each range's max m, sum l and unnormalised output; then the
+    ranges folded in order, o = sum 2^(m - M) o_r / sum 2^(m - M) l_r with
+    M the largest m (0, and an LSE of -inf, for a row that sees no key).
+    ``with_lse`` as :func:`flash_attention_plain`'s.  Bf16 at head sizes
+    64 and 128, the route's inputs; no card path takes it."""
+    batched = q.dim() == 4
+    if not batched:
+        q, k, v = q[None], k[None], v[None]
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    plan = split_plan(B, Sq, Skv, H, Hkv, D, causal, window, sms)
+    scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
+    qg = q.float().reshape(B, Sq, Hkv, rep, D)
+    s = torch.einsum("bqkrd,bskd->bkrqs", qg, k.float()) * (scale * LOG2E)
+    qpos = torch.arange(Sq, device=q.device)[:, None] + (Skv - Sq)
+    kpos = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones(Sq, Skv, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    s = s.masked_fill(~mask, float("-inf"))
+    parts = []
+    for t0, t1 in plan.ranges:
+        k0, k1 = t0 * plan.bc, min(t1 * plan.bc, Skv)
+        if k1 <= k0:
+            m = s.new_full(s.shape[:-1], float("-inf"))
+            parts.append((m, torch.zeros_like(m),
+                          s.new_zeros(s.shape[:-1] + (D,))))
+            continue
+        sr = s[..., k0:k1]
+        m = sr.amax(-1)
+        p = torch.exp2(sr - torch.where(m == float("-inf"),
+                                        torch.zeros_like(m), m)[..., None])
+        parts.append((m, p.sum(-1),
+                      torch.einsum("bkrqs,bskd->bkrqd", p,
+                                   v.float()[:, k0:k1])))
+    top = torch.stack([m for m, _, _ in parts]).amax(0)
+    seen = top > float("-inf")
+    base = torch.where(seen, top, torch.zeros_like(top))
+    l_sum = torch.zeros_like(top)
+    o_sum = torch.zeros_like(parts[0][2])
+    for m, l_r, o_r in parts:          # in range order
+        f = torch.exp2(m - base)
+        l_sum = l_sum + f * l_r
+        o_sum = o_sum + f[..., None] * o_r
+    inv = torch.where(l_sum > 0, 1.0 / l_sum.clamp_min(1e-30),
+                      torch.zeros_like(l_sum))
+    out = (o_sum * inv[..., None]).permute(0, 3, 1, 2, 4) \
+        .reshape(B, Sq, H, D).to(q.dtype)
+    if not with_lse:
+        return out if batched else out[0]
+    lse = torch.where(seen, top + torch.log2(l_sum.clamp_min(1e-30)),
+                      torch.full_like(top, float("-inf"))).reshape(B, H, Sq)
+    return (out, lse) if batched else (out[0], lse[0])
 
 
 _ORDERS: dict = {}
@@ -550,9 +765,10 @@ def launch_kernel(kernel: str, q, k, v, *, causal: bool = True, window=None,
                   scale=None, with_lse: bool = False):
     """:func:`flash_attention` through ``kernel`` (one of ``ROUTES``)
     instead of :func:`route`'s choice; ``chip_smoke.py`` times the first
-    kernel with it on the wgmma kernel's bf16 inputs.  ``with_lse``: return
-    (o, LSE), the LSE float32 (B, H, Sq) (or (H, Sq)) written by the
-    ``SM90`` kernel beside o.  CPU tensors take the plain version."""
+    kernel with it on the wgmma kernel's bf16 inputs, and the wgmma kernel
+    on the split route's.  ``with_lse``: return (o, LSE), the LSE float32
+    (B, H, Sq) (or (H, Sq)) written by the ``SM90`` or ``SPLIT`` kernels
+    beside o.  CPU tensors take the plain version."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
@@ -561,8 +777,9 @@ def launch_kernel(kernel: str, q, k, v, *, causal: bool = True, window=None,
     o = torch.empty_like(q)
     lse = None
     if with_lse:
-        if kernel != SM90:
-            raise ValueError(f"only {SM90} writes the log-sum-exp")
+        if kernel not in (SM90, SPLIT):
+            raise ValueError(f"only {SM90} and {SPLIT} write the "
+                             f"log-sum-exp")
         lse = torch.empty(q.shape[:-3] + (H, Sq), dtype=torch.float32,
                           device=q.device)
         if Skv == 0:
@@ -577,7 +794,7 @@ def launch_kernel(kernel: str, q, k, v, *, causal: bool = True, window=None,
             raise ValueError(f"{SM90} takes bf16 head sizes "
                              f"{SM90_HEAD_DIMS}, got {q.dtype} {D}")
         br = tile_height(B, Sq, H, _sm_count(q.device.index))
-        key = (Sq, Skv, bool(causal), has_window, win, br)
+        key = (Sq, Skv, bool(causal), has_window, win, br, sm90_bc(D, br))
         order = _order_tensor(key, q.device)
         _build.launch("flash_attention_sm90_fwd", q.data_ptr(), k.data_ptr(),
                       v.data_ptr(), o.data_ptr(),
@@ -585,6 +802,26 @@ def launch_kernel(kernel: str, q, k, v, *, causal: bool = True, window=None,
                       order.data_ptr(), *common, br, order.numel(),
                       _build.stream_of(q))
         flash_attention.launches_sm90 += 1
+    elif kernel == SPLIT:
+        if q.dtype != torch.bfloat16 or D not in SM90_HEAD_DIMS:
+            raise ValueError(f"{SPLIT} takes bf16 head sizes "
+                             f"{SM90_HEAD_DIMS}, got {q.dtype} {D}")
+        plan = split_plan(B, Sq, Skv, H, Hkv, D, causal, window,
+                          _sm_count(q.device.index))
+        # each range's unnormalised o, max and sum of every row (none for
+        # one range: the split kernel writes o itself)
+        n = B * Hkv * plan.row_blocks * plan.n_split * 16 * plan.mt \
+            if plan.n_split > 1 else 0
+        part_o = torch.empty(n * D, dtype=torch.float32, device=q.device)
+        part_ml = torch.empty(2 * n, dtype=torch.float32, device=q.device)
+        _build.launch("flash_attention_split_fwd", q.data_ptr(),
+                      k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                      None if lse is None else lse.data_ptr(),
+                      part_o.data_ptr() or None, part_ml.data_ptr() or None,
+                      *common,
+                      plan.j0, plan.n_tiles, plan.n_split, plan.mt,
+                      plan.row_blocks, _build.stream_of(q))
+        flash_attention.launches_split += 1
     elif kernel == "flash_attention":
         _build.launch("flash_attention_fwd", q.data_ptr(), k.data_ptr(),
                       v.data_ptr(), o.data_ptr(), *common,
@@ -612,7 +849,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool, window: Optional[int],
               scale: Optional[float]) -> torch.Tensor:
-    return launch_kernel(route(q.dtype, q.shape[-1]), q, k, v, causal=causal,
+    return launch_kernel(call_route(q, k), q, k, v, causal=causal,
                          window=window, scale=scale)
 
 
@@ -629,10 +866,11 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     of ``scale log2(e) q k^T`` over its visible keys (-inf for a row that
     sees none), float32 (B, H, Sq) (or (H, Sq)).  The training forward
     (:class:`FlashAttention`) asks for it to hand to the backward; the
-    ``SM90`` kernel writes it beside o, which is the same as without it.
-    The call is the operator ``torch.ops.repro_torch.flash_attention_lse``
-    (a fake and :func:`flash_flops`, as the forward's).  CUDA tensors must
-    take the ``SM90`` route (bf16, head size 64 or 128)."""
+    ``SM90`` or ``SPLIT`` kernels write it beside o, which is the same as
+    without it.  The call is the operator
+    ``torch.ops.repro_torch.flash_attention_lse`` (a fake and
+    :func:`flash_flops`, as the forward's).  CUDA tensors must take one of
+    those two routes (bf16, head size 64 or 128)."""
     return torch.ops.repro_torch.flash_attention_lse(
         q, k, v, bool(causal), None if window is None else int(window),
         None if scale is None else float(scale))
@@ -642,7 +880,7 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _flash_lse_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool, window: Optional[int],
                   scale: Optional[float]) -> Tuple[torch.Tensor, torch.Tensor]:
-    return launch_kernel(route(q.dtype, q.shape[-1]), q, k, v, causal=causal,
+    return launch_kernel(call_route(q, k), q, k, v, causal=causal,
                          window=window, scale=scale, with_lse=True)
 
 
@@ -671,6 +909,7 @@ def _flash_flop_formula(q_shape, k_shape, v_shape, *args, **kwargs) -> int:
 
 flash_attention.launches = 0
 flash_attention.launches_sm90 = 0
+flash_attention.launches_split = 0
 
 
 def _check_backward(q, k, v, o, do):
@@ -743,8 +982,8 @@ def _launch_backward_sm90(q, k, v, o, do, lse, *, causal=True, window=None,
     parts = [torch.empty(B * Skv * H * D, dtype=torch.float32,
                          device=q.device) for _ in range(2 * bool(split))]
     part_ptrs = [t.data_ptr() for t in parts] or [None, None]
-    q_order = _order_tensor((Sq, Skv, causal, has_window, win, dq_rows),
-                            q.device)
+    q_order = _order_tensor((Sq, Skv, causal, has_window, win, dq_rows,
+                             BWD_TILE), q.device)
     kv_order = _order_tensor((Sq, Skv, causal, has_window, win), q.device,
                              _kv_order)
     _build.launch("flash_attention_bwd_sm90", q.data_ptr(), k.data_ptr(),
@@ -776,8 +1015,8 @@ def _launch_backward_mma(q, k, v, o, do, *, causal=True, window=None,
     has_window, win = _window_arg(window, Sq, Skv)
     causal = bool(causal)
     sc = 1.0 / math.sqrt(D) if scale is None else float(scale)
-    q_order = _order_tensor((Sq, Skv, causal, has_window, win, BWD_TILE),
-                            q.device)
+    q_order = _order_tensor((Sq, Skv, causal, has_window, win, BWD_TILE,
+                             BWD_TILE), q.device)
     kv_order = _order_tensor((Sq, Skv, causal, has_window, win), q.device,
                              _kv_order)
     _build.launch("flash_attention_bwd", q.data_ptr(), k.data_ptr(),

@@ -326,23 +326,33 @@ def reset_launch_counts() -> None:
     for f in kernel_wrappers().values():
         f.launches = 0
     _fa.flash_attention.launches_sm90 = 0   # the wgmma route's share
+    _fa.flash_attention.launches_split = 0  # the split-KV route's
     pack_strided.routes = {r: 0 for r in pack_strided.routes}
 
 
+# the split-KV route's calls of row 8's forward (each also counts once as
+# "flash_attention"): the one entry of launch_counts() that is a route of a
+# wrapper, not a wrapper
+SPLIT_COUNT = "flash_attention_split"
+
+
 def launch_counts() -> dict:
-    return {n: f.launches for n, f in kernel_wrappers().items()}
+    counts = {n: f.launches for n, f in kernel_wrappers().items()}
+    counts[SPLIT_COUNT] = _fa.flash_attention.launches_split
+    return counts
 
 
 def _saved_counts() -> tuple:
     return (launch_counts(), _fa.flash_attention.launches_sm90,
-            dict(pack_strided.routes))
+            _fa.flash_attention.launches_split, dict(pack_strided.routes))
 
 
 def _restore_counts(saved: tuple) -> None:
-    counts, sm90, routes = saved
+    counts, sm90, split, routes = saved
     for name, f in kernel_wrappers().items():
         f.launches = counts[name]
     _fa.flash_attention.launches_sm90 = sm90
+    _fa.flash_attention.launches_split = split
     pack_strided.routes = routes
 
 
@@ -354,4 +364,7 @@ def add_launches(counts: dict, times: int) -> None:
     nothing."""
     wrappers = kernel_wrappers()
     for name, c in counts.items():
-        wrappers[name].launches += c * times
+        if name == SPLIT_COUNT:
+            _fa.flash_attention.launches_split += c * times
+        else:
+            wrappers[name].launches += c * times

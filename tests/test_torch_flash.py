@@ -57,7 +57,7 @@ def check_plan(B, Sq, Skv, H, Hkv, D, causal, window, sms=FA.H100_SMS):
     plan = FA.tile_plan(B, Sq, Skv, H, Hkv, D, causal, window, sms=sms)
     br, bc = plan.br, plan.bc
     nqt = -(-Sq // br)
-    assert br in (64, 128) and bc == FA.SM90_BC
+    assert br in (64, 128) and bc == FA.sm90_bc(D, br)
     assert br == (128 if B * H * -(-Sq // 128) >= sms // 2 else 64)
     # every output tile exactly once
     assert len(plan.work) == B * H * nqt
@@ -187,7 +187,15 @@ def test_route_rule():
             want = FA.SM90 if dt == torch.bfloat16 and D in (64, 128) \
                 else "flash_attention"
             assert FA.route(dt, D) == want
-    assert set(FA.ROUTES) == {FA.SM90, "flash_attention"}
+            # a KV head's query rows: the split route up to SPLIT_ROWS over
+            # more than one of its key tiles
+            for rows in (1, FA.SPLIT_ROWS, FA.SPLIT_ROWS + 1, 4096):
+                for keys in (1, FA.SPLIT_BC, FA.SPLIT_BC + 1, 4096):
+                    short = want == FA.SM90 and rows <= FA.SPLIT_ROWS \
+                        and keys > FA.SPLIT_BC
+                    assert FA.route(dt, D, rows, keys) == \
+                        (FA.SPLIT if short else want)
+    assert set(FA.ROUTES) == {FA.SM90, FA.SPLIT, "flash_attention"}
 
 
 def test_cpu_call_is_plain_and_counts_nothing():
@@ -199,6 +207,7 @@ def test_cpu_call_is_plain_and_counts_nothing():
     assert torch.equal(got, FA.flash_attention_plain(q, k, k, window=9))
     assert FA.flash_attention.launches == 0
     assert FA.flash_attention.launches_sm90 == 0
+    assert FA.flash_attention.launches_split == 0
 
 
 # ----------------------------------------------------------------------- card
@@ -231,11 +240,15 @@ def test_cuda_flash_routes_match_plain(card, D, case):
         return torch.as_tensor(rng.standard_normal(shape),
                                device=dev).bfloat16()
     q, k, v = rand(B, Sq, H, D), rand(B, Skv, Hkv, D), rand(B, Skv, Hkv, D)
-    before = FA.flash_attention.launches_sm90
+    before = (FA.flash_attention.launches_sm90,
+              FA.flash_attention.launches_split)
     got = FA.flash_attention(q, k, v, causal=causal, window=window)
     want = FA.flash_attention_plain(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert FA.flash_attention.launches_sm90 - before == (D in (64, 128))
+    took = FA.call_route(q, k)
+    assert (FA.flash_attention.launches_sm90 - before[0],
+            FA.flash_attention.launches_split - before[1]) == \
+        (took == FA.SM90, took == FA.SPLIT)
     smoke.flash_check(got, want, f"D{D} {case}")
     if causal and Sq > Skv:
         assert bool((got[:, : Sq - Skv] == 0).all())
@@ -272,6 +285,6 @@ def test_cuda_flash_sm90_faster_than_first_kernel(card):
     q = torch.randn(1024, 32, 128, generator=g, device=dev).bfloat16()
     k = torch.randn(1024, 8, 128, generator=g, device=dev).bfloat16()
     ms = {r: smoke.call_ms(lambda r=r: FA.launch_kernel(r, q, k, k), dev, 20)
-          for r in FA.ROUTES}
+          for r in (FA.SM90, "flash_attention")}
     assert ms[FA.SM90] < ms["flash_attention"], ms
     assert math.isfinite(ms[FA.SM90])

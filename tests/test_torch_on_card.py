@@ -29,6 +29,9 @@ hymba's graph-backed scan Function against autograd through the eager
 step loop, xlstm's chunk graphs bitwise its eager chunks, the flash
 Function at whisper's cross shape against the plain
 version, and a hymba smoke train step on the card against the CPU's;
+for row 8's forward the split-KV kernels (short queries) and the
+head-size-64 wgmma tiles against the plain versions, bitwise repeats, the
+LSE, the route at the cut and its launch counts;
 for the short segment reduce's vector kernel every dtype and op at 16 B,
 48 B, 1 KB and 8 KB rows bitwise the plain fold and the scalar kernel
 (NaN payloads, -0 / +0, empty segments, segments up to ``LONG_SEG``), a
@@ -927,6 +930,124 @@ def test_cuda_flash_backward_one_hot_keys(dev):
                        atol=2e-2)
     assert float(dq.float().abs().max()) < 1e-2
     assert float(dk.float().abs().max()) < 1e-2
+
+
+# ---------------------------------------- row 8's forward: split KV, D = 64
+SPLIT_CARD_CASES = [  # B, Sq, Skv, H, Hkv, D, causal, window
+    (8, 1, 1500, 8, 8, 64, False, None),    # whisper's cross at decode
+    (8, 4, 1500, 8, 8, 64, False, None),    # at its 4-token prefill
+    (1, 1, 4096, 32, 8, 128, True, None),   # GQA decode over 4,096 keys
+    (2, 4, 1500, 8, 2, 128, True, 300),     # 16 rows, causal and window
+    (1, 8, 1500, 4, 1, 64, False, None),    # 32 rows: 4 m16 tiles, 2 idle
+    (1, 16, 1500, 32, 8, 128, False, None),  # 64 rows: four
+    (1, 40, 300, 8, 2, 64, True, 100),      # 160 rows: three row blocks
+    (1, 4, 2, 8, 2, 64, True, None),        # rows 0, 1 see no key
+    (2, 2, 1500, 4, 4, 64, True, 0),        # no row sees a key
+]
+
+
+@pytest.mark.parametrize("case", SPLIT_CARD_CASES)
+def test_cuda_flash_split_kernels_match_plain(dev, case):
+    """The split-KV kernel and its combine (``launch_kernel(SPLIT)``)
+    against the plain version and against the plain split-and-combine
+    version within FLASH_TOL, two calls bitwise, o bitwise with and
+    without the LSE, the LSE within FLASH_LSE_ATOL of the plain one (-inf
+    exactly where a row sees no key, whose o is 0), one count a call."""
+    from repro_torch.kernels import flash_attention as fa
+    B, Sq, Skv, H, Hkv, D, causal, window = case
+    g = torch.Generator(device=dev).manual_seed(13 * Sq + Skv + D)
+    q = torch.randn(B, Sq, H, D, generator=g, device=dev).bfloat16()
+    k, v = (torch.randn(B, Skv, Hkv, D, generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    kw = dict(causal=causal, window=window)
+    before = (fa.flash_attention.launches, fa.flash_attention.launches_sm90,
+              fa.flash_attention.launches_split)
+    got = fa.launch_kernel(fa.SPLIT, q, k, v, **kw)
+    again = fa.launch_kernel(fa.SPLIT, q, k, v, **kw)
+    o, lse = fa.launch_kernel(fa.SPLIT, q, k, v, with_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches, fa.flash_attention.launches_sm90,
+            fa.flash_attention.launches_split) == \
+        (before[0] + 3, before[1], before[2] + 3)
+    assert chip_smoke.same_raw_bits(got, again)
+    assert chip_smoke.same_raw_bits(got, o)
+    want, want_lse = fa.flash_attention_plain(q, k, v, with_lse=True, **kw)
+    chip_smoke.flash_check(got, want, f"split {case}")
+    chip_smoke.flash_check(got, fa.flash_attention_split_plain(
+        q, k, v, sms=fa._sm_count(dev.index), **kw), f"split plain {case}")
+    seen = torch.isfinite(want_lse)
+    assert torch.equal(torch.isfinite(lse), seen)
+    assert bool(torch.isneginf(lse[~seen]).all())
+    if seen.any():
+        assert float((lse[seen] - want_lse[seen]).abs().max()) <= \
+            chip_smoke.FLASH_LSE_ATOL
+    assert bool((got.transpose(1, 2)[~seen] == 0).all())
+
+
+@pytest.mark.parametrize("case", SPLIT_CARD_CASES[:4])
+def test_cuda_flash_routes_short_queries_by_the_cut(dev, case):
+    """``flash_attention`` (the operator the models call) takes the split
+    route where a KV head has at most SPLIT_ROWS query rows over more than
+    one 128-key tile, and the wgmma kernel otherwise: one call counts once
+    in ``launches`` and once in its route's counter, and gives the route's
+    bits."""
+    from repro_torch.kernels import flash_attention as fa
+    B, Sq, Skv, H, Hkv, D, causal, window = case
+    g = torch.Generator(device=dev).manual_seed(Sq + Skv)
+    q = torch.randn(B, Sq, H, D, generator=g, device=dev).bfloat16()
+    k, v = (torch.randn(B, Skv, Hkv, D, generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    kw = dict(causal=causal, window=window)
+    took = fa.call_route(q, k)
+    assert took == (fa.SPLIT if Sq * H // Hkv <= fa.SPLIT_ROWS
+                    and Skv > fa.SPLIT_BC else fa.SM90)
+    before = (fa.flash_attention.launches, fa.flash_attention.launches_sm90,
+              fa.flash_attention.launches_split)
+    got = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches, fa.flash_attention.launches_sm90,
+            fa.flash_attention.launches_split) == \
+        (before[0] + 1, before[1] + (took == fa.SM90),
+         before[2] + (took == fa.SPLIT))
+    assert chip_smoke.same_raw_bits(got, fa.launch_kernel(took, q, k, v,
+                                                          **kw))
+
+
+D64_CARD_CASES = [  # B, Sq, Skv, H, Hkv, causal, window
+    (1, 700, 700, 25, 5, True, 300),     # 128-row tiles, windowed
+    (1, 700, 700, 25, 5, True, None),
+    (2, 300, 300, 8, 8, False, None),    # 64-row tiles (64-key tiles)
+    (1, 129, 1000, 4, 2, True, None),    # ragged, Sq < Skv
+    (1, 300, 130, 8, 2, True, 50),       # rows that see no key
+]
+
+
+@pytest.mark.parametrize("case", D64_CARD_CASES)
+def test_cuda_flash_d64_tiles_match_plain(dev, case):
+    """The wgmma kernel at head size 64 (at 128-row tiles 128-key tiles, a
+    3-slot ring, the two consumer warpgroups in turns) against the plain
+    version within FLASH_TOL, two calls bitwise, o bitwise with and
+    without the LSE, the LSE within FLASH_LSE_ATOL."""
+    from repro_torch.kernels import flash_attention as fa
+    B, Sq, Skv, H, Hkv, causal, window = case
+    g = torch.Generator(device=dev).manual_seed(Sq + H)
+    q = torch.randn(B, Sq, H, 64, generator=g, device=dev).bfloat16()
+    k, v = (torch.randn(B, Skv, Hkv, 64, generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    kw = dict(causal=causal, window=window)
+    assert fa.call_route(q, k) == fa.SM90
+    got = fa.flash_attention(q, k, v, **kw)
+    assert chip_smoke.same_raw_bits(got, fa.flash_attention(q, k, v, **kw))
+    o, lse = fa.flash_attention_lse(q, k, v, **kw)
+    assert chip_smoke.same_raw_bits(got, o)
+    want, want_lse = fa.flash_attention_plain(q, k, v, with_lse=True, **kw)
+    chip_smoke.flash_check(got, want, f"D64 {case}")
+    seen = torch.isfinite(want_lse)
+    assert torch.equal(torch.isfinite(lse), seen)
+    assert float((lse[seen] - want_lse[seen]).abs().max()) <= \
+        chip_smoke.FLASH_LSE_ATOL
+    if causal and Sq > Skv:
+        assert bool((got[:, : Sq - Skv] == 0).all())
 
 
 SM90_PATH_SHAPES = [  # B, Sq, Skv, H, Hkv, D, causal, window
