@@ -58,9 +58,9 @@ Phases, each printing one JSON line and asserting as it goes:
            plan can pick must be taken.
            ``flash_attention`` at the serving prefill's shape for every bucket
            the trace uses (bf16, Sq = Skv, 32 query / 8 KV heads of 128,
-           causal) and over a sweep (float32 / bf16, head sizes 16-128, GQA
-           1/4/8, windows, Sq < Skv, Sq > Skv with fully masked rows exactly 0,
-           ragged tails, a batch; for the wgmma kernel's ring also S = 4096
+           causal) and over a sweep (float32 / bf16, head sizes 16, 32,
+           64, 112 and 128, GQA 1/4/8, windows, Sq < Skv, Sq > Skv with
+           fully masked rows exactly 0, ragged tails, a batch; for the wgmma kernel's ring also S = 4096
            with a window of 1000, Skv off the tile, Sq = 1 against 2048 keys
            (the split-KV route: at most ``SPLIT_ROWS`` query rows a KV head)
            and a batch of 3), each case with the route it took, within
@@ -197,20 +197,35 @@ Phases, each printing one JSON line and asserting as it goes:
            at decode (8, 1), prefill (1, 1024) and a starved prefill (cf
            0.3, which must drop picks), SF with kernels against SF with
            plain gathers bitwise, both SF lowerings under
-           ``torch.cuda.set_sync_debug_mode("error")``; (c) kimi-k2's
-           384-expert layer with its shared expert at full width in bf16,
-           kernels against plain gathers bitwise; (d) phi3.5-moe at full
-           width, 8 of its 32 layers in bf16: one engine stream at batch 1
-           against direct greedy decoding (float32, 2 layers), then the
-           serve phase's trace through ``ServeEngine(batch=8,
+           ``torch.cuda.set_sync_debug_mode("error")``; (c) phi3.5-moe at
+           full width, 8 of its 32 layers in bf16: one engine stream at
+           batch 1 against direct greedy decoding (float32, 2 layers), then
+           the serve phase's trace through ``ServeEngine(batch=8,
            s_max=2048)`` + ``loadgen.drive``: metrics, the plan cache's hit
            rate, launches, profiled windows of a prefill and of five
-           decode steps with device ms by kernel group.  Every gather of
-           (b)-(d) is timed on its own inputs beside ``index_select`` and
-           its bound, ``pack``'s also beside its first kernel (``prev_ms``)
-           and each chunk size (``moe_shapes`` of the ``pack`` /
-           ``pack_blocked`` rows), and both dispatch lowerings at both
-           serving shapes (``fuse_switch``).
+           decode steps with device ms by kernel group; (d) kimi-k2 served
+           after phi3.5-moe is freed: at full width (d_model 7,168, 64 / 8
+           heads of 112, 384 experts top-8 and the shared expert, vocab
+           163,840), 1 of its 61 layers in bf16 (38.9 GB): one engine
+           stream at batch 1 against direct greedy decoding on a narrow
+           kimi config that keeps its heads of 112 (float32, 2 layers),
+           its layer 0's MoE kernels against plain gathers bitwise at
+           decode and prefill (the 384-way fan), row 8 at each prefill
+           bucket of the trace and at 1,024 tokens (bf16 q (S, 64, 112)
+           over 8 KV heads, causal, the 2,048-key window the path passes:
+           the wgmma kernel on its 128-wide tiles against the plain
+           version, bitwise repeats, the LSE, device ms in turns with the
+           mma.sync kernel at 112, SDPA, cold L2 at 1,024), then the serve
+           phase's trace through ``ServeEngine(batch=8, s_max=2048)``,
+           every flash launch on the wgmma route and at a checked shape,
+           and profiled windows as (c)'s.  Each part records the device
+           memory that earlier ones leave allocated.
+           Every gather of (b)-(d) is timed on its own inputs beside
+           ``index_select`` and its bound, ``pack``'s also beside its first
+           kernel (``prev_ms``) and each chunk size (``moe_shapes`` of the
+           ``pack`` / ``pack_blocked`` rows), and both dispatch lowerings
+           at phi3.5-moe's serving shapes (``fuse_switch``).  The drives of
+           (c) and (d) are the moe path.
 
   families (in a child process: ``chip_smoke.py --families DEVICE``, which
            prints one ``FAMILIES_RESULT`` JSON line) the model families of
@@ -257,8 +272,9 @@ Phases, each printing one JSON line and asserting as it goes:
            itself) the training path, bf16, random weights from seeded
            generators, each part freed before the next: row 8's
            backward kernels (``flash_attention_bwd.cu``) at qwen3-4b's
-           heads (q (1024, 32, 128), causal) and hymba's (25 / 5 heads of
-           64, window 2,048, S = 3,000), then at whisper's cross shape:
+           heads (q (1024, 32, 128), causal), hymba's (25 / 5 heads of
+           64, window 2,048, S = 3,000) and kimi-k2's (64 / 8 heads of
+           112, causal: the mma.sync route), then at whisper's cross shape:
            the Function's gradients against ``flash_attention_backward_
            plain`` and autograd through the plain version within
            FLASH_BWD_REL, float32 within FLASH_BWD_F32_REL, two calls
@@ -490,13 +506,16 @@ class Sizes:
     serve_new: tuple = (16, 64)
     check_prompt: int = 200       # prefill-vs-decode check prompt length
     # moe: phi3.5-moe at full width in bf16, 8 of its 32 layers (about 21 GB
-    # of blocks; 32 layers, 84 GB, do not fit in 80 GB), kimi-k2's 384-expert
-    # layer alone, and DynPlan at dispatch scale (moe_smoke=True: the
-    # smoke configs, for rehearsals on the CPU)
+    # of blocks; 32 layers, 84 GB, do not fit in 80 GB), kimi-k2 at full
+    # width in bf16, kimi_layers of its 61 (38.9 GB of weights at 1; 2
+    # layers, 73 GB, leave too little beside the capacity-padded expert
+    # buffers), and DynPlan at dispatch scale (moe_smoke=True: the smoke
+    # configs, kimi-k2's at its head size 112, for rehearsals on the CPU)
     moe_arch: str = "phi3.5-moe-42b-a6.6b"
     moe_wide_arch: str = "kimi-k2-1t-a32b"
     moe_smoke: bool = False
     moe_layers: int = 8
+    kimi_layers: int = 1
     moe_prefill: int = 1024       # the layer checks' prefill tokens
     moe_decode_batch: int = 8
     dyn_roots: int = 1 << 16      # DynPlan checks: expert slots
@@ -551,7 +570,8 @@ class Sizes:
     moe_train_steps: int = 3
     moe_grad_tokens: tuple = (2, 256)  # the float32 layer's gradient check
     flash_bwd_shapes: tuple = ((1024, 32, 8, 128, None),
-                               (3000, 25, 5, 64, 2048))
+                               (3000, 25, 5, 64, 2048),
+                               (1024, 64, 8, 112, None))
     # train families: hymba-1.5b at full width and depth on 2 x 3,072
     # tokens (the sliding layers' 2,048-key window masks), xlstm-350m at
     # full size on 4 x 256 (two 128-step chunks: its eager cell loop is
@@ -853,11 +873,11 @@ def flash_ptxas() -> list:
                 "flash_attention_bwd"):
         for r in _build.ptxas_report(src):
             r = dict(r, source=src)
-            for D in fa.SM90_HEAD_DIMS:
-                for nc in (1, 2):
-                    if src == fa.SM90 and f"ILi{D}ELi{nc}E" in r["function"]:
-                        r.update(D=D, rows=64 * nc, dynamic_smem_bytes=fa
-                                 .sm90_smem_bytes(D, 64 * nc))
+            # the instances are by tile width (head size 112 runs on 128)
+            for D, br in fa.SM90_TILES:
+                if src == fa.SM90 and f"ILi{D}ELi{br // 64}E" in r["function"]:
+                    r.update(D=D, rows=br, dynamic_smem_bytes=fa
+                             .sm90_smem_bytes(D, br))
             out.append(r)
     return out
 
@@ -2128,8 +2148,9 @@ def flash_controls(q, k, v, want, tile: int = 64) -> dict:
 def flash_sweep(dev) -> dict:
     """flash_attention against its plain version over dtypes, head sizes,
     GQA ratios 1/4/8, windows, Sq < Skv, Sq > Skv (fully masked rows must
-    be exactly 0), ragged tails and a batched call, then the ring-stress
-    shapes of the wgmma kernel in bf16 at head sizes 64 and 128.  Each case
+    be exactly 0), ragged tails and a batched call, at head sizes 16, 32,
+    64, 112 and 128, then the ring-stress shapes of the wgmma kernel in
+    bf16 at head sizes 64, 112 and 128.  Each case
     records the kernel it took (read from the launch counters and held to
     ``route``).  Returns the cases, the count per route and the largest
     error per dtype."""
@@ -2172,7 +2193,7 @@ def flash_sweep(dev) -> dict:
         def rand(*shape):
             return torch.as_tensor(rng.standard_normal(shape),
                                    device=dev).to(dt)
-        for D in (16, 32, 64, 128):
+        for D in fa.HEAD_DIMS:
             for Sq, Skv, H, Hkv, causal, window in shapes:
                 run_case(rand(Sq, H, D), rand(Skv, Hkv, D), rand(Skv, Hkv, D),
                          f"{str(dt)[6:]} D{D} {Sq}x{Skv} H{H}/{Hkv} "
@@ -4844,24 +4865,23 @@ def moe_layer_checks(sz: Sizes, dev) -> dict:
     return out
 
 
-def moe_wide(sz: Sizes, dev) -> dict:
-    """(c) kimi-k2, one MoE layer with its shared expert at full width in
-    bf16 (the 384-way fan): kernels against plain gathers bitwise at
-    decode and prefill, each gather timed."""
+def moe_wide(cfg, p, sz: Sizes, dev) -> dict:
+    """kimi-k2's MoE layer with its shared expert at full width in bf16
+    (the 384-way fan), on the served model's layer-0 leaves ``p``: kernels
+    against plain gathers bitwise at decode and prefill, each gather
+    timed."""
     import torch
     from repro_torch.models import moe as M
-    cfg = moe_config(sz, sz.moe_wide_arch)
     g = torch.Generator(device=dev).manual_seed(31)
-    t0 = time.perf_counter()
-    p = {k: v[0] for k, v in M.init_moe(cfg, 1, generator=g,
-                                        device=dev).items()}
-    sync(dev)
+    moe_leaves = [v for k, v in p.items() if k == "router" or
+                  k.startswith(("w_in", "w_gate", "w_out", "shared_"))]
     out = {"arch": cfg.name, "dtype": cfg.dtype, "d_model": cfg.d_model,
            "experts": cfg.moe_experts, "topk": cfg.moe_topk,
            "d_ff": cfg.moe_dff, "shared_ff": cfg.moe_shared_ff,
+           "leaves": "the served model's layer 0",
            "param_bytes": sum(v.numel() * v.element_size()
-                              for v in p.values()),
-           "init_s": time.perf_counter() - t0, "cases": {}, "gathers": []}
+                              for v in moe_leaves),
+           "cases": {}, "gathers": []}
     for name, shape in (("decode", (sz.moe_decode_batch, 1)),
                         ("prefill", (1, sz.moe_prefill))):
         x = torch.randn(shape + (cfg.d_model,), generator=g,
@@ -4875,7 +4895,6 @@ def moe_wide(sz: Sizes, dev) -> dict:
                               "routing": routing_stats(x, p, cfg),
                               "kernels_equal_plain_gathers": True}
         out["gathers"] += moe_gathers("kimi bf16", x, p, cfg, dev, 10)
-    del p
     return out
 
 
@@ -4919,49 +4938,20 @@ def moe_engine_check(cfg, sz: Sizes, dev, rng) -> dict:
     return {"layers": 2, "dtype": "float32", "batch": 1, "tokens": len(want)}
 
 
-def moe_serve(sz: Sizes, dev) -> dict:
-    """(d) phi3.5-moe served in bf16 at full width, ``moe_layers`` layers,
-    random weights from a seeded generator: the batch-1 engine check, the
-    gathers timed at the serving shapes (layer 0), then the serve phase's
-    trace through ``ServeEngine(batch=8, s_max=2048)`` + ``loadgen.drive``
-    with the launch counters from 0, and profiled windows of one prefill
-    and of five decode steps."""
+def moe_drive(cfg, params, sz: Sizes, dev, rng) -> dict:
+    """The serve phase's trace through ``ServeEngine(batch=8, s_max=2048)``
+    + ``loadgen.drive`` on a MoE model, the launch counters from 0 just
+    before the drive and read just after it (``launches``): every request
+    done, one flash launch a layer and a prefill, every one on the wgmma
+    route; the plan cache's hit rate, peak memory; then where the time
+    goes: a prefill of the largest bucket alone, and five decode steps of
+    all slots after 8 requests were admitted, each profiled."""
     import torch
     from repro_torch.kernels import flash_attention as fa, ops as kops
     from repro_torch.models import moe as M
     from repro_torch.models import transformer as T
     from repro_torch.serving import Request, ServeEngine, drive, \
         trace_fingerprint
-    rng = np.random.default_rng(6)
-    base = moe_config(sz)
-    cfg = base.scaled(n_layers=min(sz.moe_layers, base.n_layers))
-    out = {"arch": cfg.name, "dtype": cfg.dtype, "layers": cfg.n_layers,
-           "of_layers": base.n_layers, "d_model": cfg.d_model}
-    out["engine_equals_direct_greedy"] = moe_engine_check(cfg, sz, dev, rng)
-    gc.collect()
-    t0 = time.perf_counter()
-    g = torch.Generator(device=dev).manual_seed(0)
-    params = T.init_params(cfg, generator=g, device=dev)
-    sync(dev)
-    leaves = [params["embed"], params["final_norm"],
-              *params["blocks"].values()] + \
-        ([] if cfg.tie_embeddings else [params["lm_head"]])
-    out.update({"params": sum(t.numel() for t in leaves),
-                "param_bytes": sum(t.numel() * t.element_size()
-                                   for t in leaves),
-                "init_s": time.perf_counter() - t0})
-    # the gathers at the serving shapes, on layer 0's leaves
-    bp = T.layer(params["blocks"], 0)
-    gathers = []
-    for shape in ((sz.serve_batch, 1), (1, sz.moe_prefill)):
-        x = torch.randn(shape + (cfg.d_model,), generator=g,
-                        device=dev).to(torch.bfloat16)
-        gathers += moe_gathers("phi bf16", x, bp, cfg, dev,
-                               sz.timing_iters)
-        out.setdefault("fuse_switch", []).append(
-            fuse_switch(x, bp, cfg, dev, sz.timing_iters))
-    out["gathers"] = gathers
-
     trace = serve_trace(sz, cfg)
     eng = ServeEngine(cfg, params, batch=sz.serve_batch, s_max=sz.serve_s_max,
                       device=dev)
@@ -4979,24 +4969,23 @@ def moe_serve(sz: Sizes, dev) -> dict:
     sm90 = fa.flash_attention.launches_sm90
     reqs = [r for _, r in trace]
     check(all(r.done and len(r.out) == r.max_new for r in reqs),
-          "a MoE request did not finish with its budget of tokens")
+          f"a {cfg.name} request did not finish with its budget of tokens")
     check(counts["flash_attention"] == cfg.n_layers * len(reqs) or
-          dev.type != "cuda", f"moe flash launches "
+          dev.type != "cuda", f"{cfg.name} flash launches "
           f"{counts['flash_attention']} != {cfg.n_layers} x {len(reqs)}")
     check(sm90 == counts["flash_attention"], f"only {sm90} of "
-          f"{counts['flash_attention']} moe flash launches took the wgmma "
-          f"route")
-    out.update({"trace_fingerprint": trace_fingerprint(trace),
-                "requests": len(reqs),
-                "prompt_tokens": sum(r.prompt_len for r in reqs),
-                "drive_wall_s": wall, "metrics": metrics,
-                "plan_cache": M.plan_cache().stats(),
-                "launches": counts, "flash_launches_sm90": sm90,
-                "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9
-                if dev.type == "cuda" else None})
+          f"{counts['flash_attention']} {cfg.name} flash launches took the "
+          f"wgmma route")
+    out = {"trace_fingerprint": trace_fingerprint(trace),
+           "requests": len(reqs),
+           "prompt_tokens": sum(r.prompt_len for r in reqs),
+           "drive_wall_s": wall, "metrics": metrics,
+           "plan_cache": M.plan_cache().stats(),
+           "launches": counts, "flash_launches_sm90": sm90,
+           "flash_head_size": cfg.hd,
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9
+           if dev.type == "cuda" else None}
 
-    # where the time goes: a prefill of the largest bucket alone, and five
-    # decode steps of all slots after 8 requests were admitted
     for i in range(sz.serve_batch):
         eng.submit(Request(300 + i, rng.integers(
             0, cfg.vocab, sum(sz.serve_prompt) // 2).tolist(), max_new=64))
@@ -5020,26 +5009,155 @@ def moe_serve(sz: Sizes, dev) -> dict:
             "device_idle_share": 1.0 - busy / wall_ms if busy else None,
             "by_group_ms": grouped_kernels(by_name),
             "top_kernels_ms": {k[:60]: v for k, v in top}}
-    del eng, params, bp
+    del eng
+    return out
+
+
+def moe_params(cfg, seed: int, dev) -> tuple:
+    """(params, record) of ``cfg`` from a seeded generator: its parameter
+    count, bytes and init seconds."""
+    import torch
+    from repro_torch.models import transformer as T
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    params = T.init_params(cfg, generator=g, device=dev)
+    sync(dev)
+    leaves = [params["embed"], params["final_norm"],
+              *params["blocks"].values()] + \
+        ([] if cfg.tie_embeddings else [params["lm_head"]])
+    return params, {"params": sum(t.numel() for t in leaves),
+                    "param_bytes": sum(t.numel() * t.element_size()
+                                       for t in leaves),
+                    "init_s": time.perf_counter() - t0}
+
+
+def moe_serve(sz: Sizes, dev) -> dict:
+    """(c) phi3.5-moe served in bf16 at full width, ``moe_layers`` layers,
+    random weights from a seeded generator: the batch-1 engine check, the
+    gathers timed at the serving shapes (layer 0), then :func:`moe_drive`."""
+    import torch
+    from repro_torch.models import transformer as T
+    rng = np.random.default_rng(6)
+    base = moe_config(sz)
+    cfg = base.scaled(n_layers=min(sz.moe_layers, base.n_layers))
+    out = {"arch": cfg.name, "dtype": cfg.dtype, "layers": cfg.n_layers,
+           "of_layers": base.n_layers, "d_model": cfg.d_model}
+    out["engine_equals_direct_greedy"] = moe_engine_check(cfg, sz, dev, rng)
+    gc.collect()
+    params, rec = moe_params(cfg, 0, dev)
+    out.update(rec)
+    # the gathers at the serving shapes, on layer 0's leaves
+    bp = T.layer(params["blocks"], 0)
+    g = torch.Generator(device=dev).manual_seed(0)
+    gathers = []
+    for shape in ((sz.serve_batch, 1), (1, sz.moe_prefill)):
+        x = torch.randn(shape + (cfg.d_model,), generator=g,
+                        device=dev).to(torch.bfloat16)
+        gathers += moe_gathers("phi bf16", x, bp, cfg, dev,
+                               sz.timing_iters)
+        out.setdefault("fuse_switch", []).append(
+            fuse_switch(x, bp, cfg, dev, sz.timing_iters))
+    out["gathers"] = gathers
+    del bp
+    out.update(moe_drive(cfg, params, sz, dev, rng))
+    del params
+    gc.collect()
+    return out
+
+
+def kimi_narrow_config(base, sz: Sizes):
+    """kimi-k2 for the float32 engine check: its heads (64 / 8 of 112),
+    its 384 experts top-8 with the shared expert and its vocabulary, at
+    d_model 1,024 and expert widths of 256 (two float32 layers at full
+    width would take 136 GB; with ``moe_smoke`` the smoke config ``base``
+    itself, already at head size 112)."""
+    if sz.moe_smoke:
+        return base
+    return base.scaled(d_model=1024, moe_dff=256, moe_shared_ff=256)
+
+
+def moe_kimi_serve(sz: Sizes, dev) -> dict:
+    """(d) kimi-k2 served in bf16 at full width, ``kimi_layers`` of its 61
+    layers, random weights from a seeded generator: the batch-1 engine
+    check on :func:`kimi_narrow_config`, :func:`moe_wide` on the served
+    model's layer-0 MoE leaves (``wide_layer``), row 8 at every prefill
+    bucket of the trace and at ``moe_prefill`` tokens (``flash_buckets``,
+    ``flash`` the latter: :func:`family_flash`, the wgmma kernel at head
+    size 112 in turns with the mma.sync kernel at 112, cold L2 at
+    ``moe_prefill``, SDPA), then :func:`moe_drive`, whose every attention
+    call must have a shape and mask checked here."""
+    from repro_torch.models import transformer as T
+    rng = np.random.default_rng(7)
+    base = moe_config(sz, sz.moe_wide_arch)
+    if sz.moe_smoke:
+        base = base.scaled(head_dim=112)
+    cfg = base.scaled(n_layers=min(sz.kimi_layers, base.n_layers))
+    check(cfg.hd == 112, f"kimi-k2's head size is {cfg.hd}, not 112")
+    out = {"arch": cfg.name, "dtype": cfg.dtype, "layers": cfg.n_layers,
+           "of_layers": base.n_layers, "d_model": cfg.d_model,
+           "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.hd],
+           "experts": [cfg.moe_experts, cfg.moe_topk], "vocab": cfg.vocab}
+    narrow = kimi_narrow_config(base, sz)
+    out["engine_equals_direct_greedy"] = dict(
+        moe_engine_check(narrow, sz, dev, rng), d_model=narrow.d_model,
+        moe_dff=narrow.moe_dff, heads=[narrow.n_heads, narrow.n_kv_heads,
+                                       narrow.hd])
+    gc.collect()
+    params, rec = moe_params(cfg, 0, dev)
+    out.update(rec)
+    t0 = time.perf_counter()
+    bp = T.layer(params["blocks"], 0)
+    out["wide_layer"] = moe_wide(cfg, bp, sz, dev)
+    out["wide_layer"]["seconds"] = time.perf_counter() - t0
+    del bp
+    # the prefill's attention: causal, the window layer_windows gives it
+    S, win = sz.moe_prefill, T.layer_windows(cfg, sz.serve_s_max)[0]
+    out["flash_buckets"] = [family_flash(
+        dev, f"kimi-k2 prefill {s}", 1, s, s, cfg.n_heads, cfg.n_kv_heads,
+        cfg.hd, True, win, sz.timing_iters, prev_route="flash_attention",
+        cold=s == S) for s in sorted(set(serve_buckets(
+            serve_trace(sz, cfg), sz)) | {S})]
+    out["flash"] = next(r for r in out["flash_buckets"] if r["Sq"] == S)
+    checked = {(1, r["Sq"], r["Skv"], r["H"], r["Hkv"], r["D"], True, win)
+               for r in out["flash_buckets"]}
+    seen = set()
+    with attention_calls(seen):
+        out.update(moe_drive(cfg, params, sz, dev, rng))
+    out["flash_call_shapes"] = sorted(seen)
+    check(seen <= checked, f"kimi-k2's drive ran attention at "
+          f"{sorted(seen - checked)}, which no bucket check held against "
+          f"the plain version")
+    del params
     gc.collect()
     return out
 
 
 def phase_moe(sz: Sizes, dev) -> dict:
-    """The MoE slice: (a) DynPlan, (b) phi's layer in float32, (c) kimi's
-    layer, (d) phi served; only (d)'s drive is the counted path."""
+    """The MoE slice: (a) DynPlan, (b) phi's layer in float32, (c)
+    phi3.5-moe served, (d) kimi-k2 served (with its 384-expert layer's
+    checks); (c)'s and (d)'s drives are the counted path, their launches
+    summed."""
     import torch
     t0 = time.perf_counter()
     out = {"phase": "moe"}
     for key, part in (("dynplan", moe_dynplan), ("layer", moe_layer_checks),
-                      ("wide_layer", moe_wide), ("serve", moe_serve)):
+                      ("serve", moe_serve), ("kimi_serve", moe_kimi_serve)):
+        # what earlier parts and phases leave allocated: each serving
+        # drive's peak adds to it
+        resident = torch.cuda.memory_allocated(dev) / 1e9 \
+            if dev.type == "cuda" else None
         t1 = time.perf_counter()
         out[key] = part(sz, dev)
+        out[key]["resident_before_gb"] = resident
         out[key]["seconds"] = time.perf_counter() - t1
         gc.collect()
         if dev.type == "cuda":
             torch.cuda.empty_cache()
-    out["launches"] = out["serve"].pop("launches")
+    out["wide_layer"] = out["kimi_serve"].pop("wide_layer")
+    by_drive = {k: out[k].pop("launches") for k in ("serve", "kimi_serve")}
+    out["launches"] = {k: sum(c.get(k, 0) for c in by_drive.values())
+                       for k in set().union(*by_drive.values())}
+    out["launches_by_drive"] = by_drive
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -5151,7 +5269,8 @@ def parent_d64_flash():
 
 
 def family_flash(dev, what: str, B: int, Sq: int, Skv: int, H: int,
-                 Hkv: int, D: int, causal: bool, window, it: int) -> dict:
+                 Hkv: int, D: int, causal: bool, window, it: int,
+                 prev_route: str = None, cold: bool = False) -> dict:
     """Row 8 at a family's shape, bf16, on the route :func:`route` gives
     it: the call against its plain version within FLASH_TOL (on the split
     route also against its plain split-and-combine version), two calls
@@ -5159,10 +5278,13 @@ def family_flash(dev, what: str, B: int, Sq: int, Skv: int, H: int,
     FLASH_LSE_ATOL of the plain one; device ms (CUDA-graph replays between
     CUDA events: torch.profiler drops events in this process's late
     windows) in turns with the kernel the route replaces (``prev_ms``: the
-    parent's D = 64 build at head size 64, the wgmma kernel at 128), and on
-    the split route the wgmma kernel now (``sm90_ms``), beside the bound
-    and SDPA on the same inputs (with the boolean mask where one is
-    needed)."""
+    parent's D = 64 build at head size 64, the wgmma kernel at 128, or the
+    kernel of ``prev_route``, checked against the plain version too), and
+    on the split route the wgmma kernel now (``sm90_ms``), beside the bound
+    and SDPA on the same inputs (``is_causal`` for a plain causal mask at
+    Sq = Skv, a boolean mask for the others); ``cold``: also the
+    kernel's device ms with L2 scrubbed (``ms_cold_l2``); on the wgmma
+    route its tile height (``tile_rows``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -5192,18 +5314,26 @@ def family_flash(dev, what: str, B: int, Sq: int, Skv: int, H: int,
         flash_check(got, fa.flash_attention_split_plain(
             q, k, v, sms=fa._sm_count(dev.index) if on_card else fa.H100_SMS,
             **kw), f"split plain at {what}")
-    prev_kernel = ("parent's D = 64 wgmma build" if D == 64
-                   else fa.SM90) if on_card else "plain (CPU)"
+    prev_kernel = prev_route or ("parent's D = 64 wgmma build" if D == 64
+                                 else fa.SM90) if on_card else "plain (CPU)"
     if not on_card:
         prev = plain
+    elif prev_route:
+        prev = lambda: fa.launch_kernel(prev_route, q, k, v, **kw)
     elif D == 64:
         parent = parent_d64_flash()
         prev = lambda: parent(q, k, v, causal, window)
     else:
         prev = lambda: fa.launch_kernel(fa.SM90, q, k, v, **kw)
     flash_check(prev(), plain(), f"{prev_kernel} at {what}")
+    # SDPA's own causal mask where it is the plain one (its is_causal is
+    # aligned top-left, the same as end-aligned only at Sq = Skv; a window
+    # of at least Skv keys masks nothing more): the flash backend takes
+    # it, a boolean mask the slower ones
+    plain_causal = causal and (window is None or window >= Skv) and \
+        Sq == Skv
     mask = None
-    if causal or window is not None:
+    if (causal or window is not None) and not plain_causal:
         qpos = torch.arange(Sq, device=dev)[:, None] + (Skv - Sq)
         kpos = torch.arange(Skv, device=dev)[None, :]
         mask = torch.ones(Sq, Skv, dtype=torch.bool, device=dev)
@@ -5213,7 +5343,7 @@ def family_flash(dev, what: str, B: int, Sq: int, Skv: int, H: int,
             mask &= kpos > qpos - window
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     library = lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        qt, kt, vt, attn_mask=mask, is_causal=plain_causal, enable_gqa=True)
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
     nops = 4.0 * visible_pairs(Sq, Skv, causal, window) * H * D * B
     bms, by = bound(nbytes, nops, BF16_OPS_PER_S)
@@ -5228,6 +5358,11 @@ def family_flash(dev, what: str, B: int, Sq: int, Skv: int, H: int,
            "plain_ms": graph_ms(plain, dev, it),
            "library_ms": graph_ms(library, dev, it),
            "bound_ms": bms, "bound_by": by}
+    if cold:
+        rec["ms_cold_l2"] = cold_graph_ms(run, dev, it)
+    if route == fa.SM90:
+        rec["tile_rows"] = fa.tile_height(B, Sq, H, fa._sm_count(dev.index)
+                                          if on_card else fa.H100_SMS)
     if route == fa.SPLIT:
         plan = fa.split_plan(B, Sq, Skv, H, Hkv, D, causal, window,
                              fa._sm_count(dev.index) if on_card
@@ -5239,6 +5374,26 @@ def family_flash(dev, what: str, B: int, Sq: int, Skv: int, H: int,
                 lambda: fa.launch_kernel(fa.SM90, q, k, v, **kw), dev, it)
     rec["share_of_bound"] = bms / rec["ms"]
     return rec
+
+
+@contextlib.contextmanager
+def attention_calls(log: set):
+    """Within the block, every prefill attention core call adds its (B,
+    Sq, Skv, H, Hkv, D, causal, window) to ``log``."""
+    from repro_torch.kernels import ops as kops
+    real = kops.flash_attention
+
+    def core(q, k, v, **kw):
+        Sq, H, D = (int(n) for n in q.shape[-3:])
+        Skv, Hkv = int(k.shape[-3]), int(k.shape[-2])
+        log.add((int(q.shape[0]) if q.dim() == 4 else 1, Sq, Skv, H, Hkv,
+                 D, kw.get("causal", True), kw.get("window")))
+        return real(q, k, v, **kw)
+    kops.flash_attention = core
+    try:
+        yield
+    finally:
+        kops.flash_attention = real
 
 
 @contextlib.contextmanager
@@ -5446,7 +5601,8 @@ def families_hymba(sz: Sizes, dev, rng, acc: dict) -> dict:
                 if dev.type == "cuda" else None,
                 "ssm_graphs_after_drive": ssm_graphs()})
     # where the time goes: the longest prompt's prefill alone, and five
-    # decode steps of all slots
+    # decode steps of all slots (read from the raw kernel events: the SSM
+    # scan's graph replays make key_averages() slow to build)
     for i in range(sz.hymba_batch):
         eng.submit(Request(300 + i, rng.integers(
             0, cfg.vocab, sum(sz.hymba_prompt) // 2).tolist(), max_new=64))
@@ -5455,9 +5611,10 @@ def families_hymba(sz: Sizes, dev, rng, acc: dict) -> dict:
                           device=dev)
     t1 = time.perf_counter()
     out[f"profiled_prefill_{longest}"] = profiled_groups(
-        lambda: T.prefill(params, cfg, tokens=big, s_max=sz.hymba_s_max), dev)
+        lambda: T.prefill(params, cfg, tokens=big, s_max=sz.hymba_s_max), dev,
+        profiled_kernels)
     out["profiled_5_decode_steps"] = profiled_groups(
-        lambda: [eng.step() for _ in range(5)], dev)
+        lambda: [eng.step() for _ in range(5)], dev, profiled_kernels)
     stages["profiled_windows"] = time.perf_counter() - t1
     del eng, params
     gc.collect()
@@ -5792,7 +5949,8 @@ TRAIN_SMOKE = dict(train_smoke=True, train_batch=2, train_seq=32,
                    ddp_seq=16, ddp_budget=4096, moe_train_batch=2,
                    moe_train_seq=32, moe_grad_tokens=(2, 24),
                    flash_bwd_shapes=((64, 4, 2, 64, None),
-                                     (96, 5, 1, 64, 48)),
+                                     (96, 5, 1, 64, 48),
+                                     (80, 8, 1, 112, None)),
                    hymba_train=(2, 40), hymba_train_steps=(2, 3),
                    xlstm_train=(2, 20), xlstm_train_steps=(2, 3),
                    whisper_train=(2, 12, 24), whisper_train_steps=(2, 3),
@@ -7910,6 +8068,10 @@ def run(dev, sz: Sizes) -> list:
     for part in ("layer", "wide_layer", "serve"):
         for gr in moe[part]["gathers"]:
             recs[gr["kernel"]].setdefault("moe_shapes", []).append(gr)
+    # row 8 at kimi-k2's prefill shape: head size 112 on the wgmma kernel
+    recs["flash_attention"]["kimi_shape"] = moe["kimi_serve"]["flash"]
+    recs["flash_attention"]["kimi_buckets"] = \
+        moe["kimi_serve"]["flash_buckets"]
     del moe
     gc.collect()
     if on_card:

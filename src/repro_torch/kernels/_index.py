@@ -31,8 +31,39 @@ def _key_source(obj):
     return obj if isinstance(obj, (torch.Tensor, np.ndarray)) else None
 
 
+class _Source:
+    """The place of a source tensor (``flat``: its flat view) in a cached
+    value: an entry holding its own source would keep it alive, and the
+    weak reference that drops the entry would never fire."""
+    __slots__ = ("i", "flat")
+
+    def __init__(self, i: int, flat: bool):
+        self.i, self.flat = i, flat
+
+
+def _unalias(value, objs) -> tuple:
+    """(``value`` with each tensor that is a source, or a source's flat
+    view, replaced by a :class:`_Source`; whether any was)."""
+    if not isinstance(value, tuple):
+        return value, False
+    out, found = [], False
+    for v in value:
+        for i, o in enumerate(objs):
+            if isinstance(v, torch.Tensor) and isinstance(o, torch.Tensor) \
+                    and (v is o or v.dim() == 1 and o.is_contiguous()
+                         and v.numel() == o.numel() and v.dtype == o.dtype
+                         and v.device == o.device
+                         and v.data_ptr() == o.data_ptr()):
+                v, found = _Source(i, v is not o), True
+                break
+        out.append(v)
+    return tuple(out), found
+
+
 def cached(sources: tuple, device: torch.device, tag: str, build):
-    """``build()`` memoized on the identity and version of ``sources``."""
+    """``build()`` memoized on the identity and version of ``sources``;
+    the entry holds no strong reference to a source (a value that
+    returns one gets it back from the caller's ``sources``)."""
     objs = [_key_source(s) for s in sources]
     if any(o is None for o in objs):
         return build()
@@ -40,9 +71,12 @@ def cached(sources: tuple, device: torch.device, tag: str, build):
     versions = tuple(getattr(o, "_version", 0) for o in objs)
     hit = _CACHE.get(key)
     if hit is not None:
-        refs, vers, value = hit
+        refs, vers, value, aliased = hit
         if vers == versions and all(r() is o for r, o in zip(refs, objs)):
-            return value
+            if not aliased:
+                return value
+            return tuple((objs[v.i].reshape(-1) if v.flat else objs[v.i])
+                         if isinstance(v, _Source) else v for v in value)
     value = build()
 
     def _drop(_ref, key=key, cache=_CACHE):
@@ -51,7 +85,7 @@ def cached(sources: tuple, device: torch.device, tag: str, build):
         cache.pop(key, None)
 
     _CACHE[key] = (tuple(weakref.ref(o, _drop) for o in objs), versions,
-                   value)
+                   *_unalias(value, objs))
     return value
 
 
@@ -95,8 +129,9 @@ def segment_meta(seg_start, seg_len, device: torch.device
     int32 tensors on ``device``; raises on a negative start or length.
     For int32 tensors the four bounds come back in one host read."""
     def build():
-        st = _as_int32(seg_start, device, "seg_start").reshape(-1)
-        ln = _as_int32(seg_len, device, "seg_len").reshape(-1)
+        st, ln = (t if t.dim() == 1 else t.reshape(-1) for t in (
+            _as_int32(seg_start, device, "seg_start"),
+            _as_int32(seg_len, device, "seg_len")))
         if st.shape != ln.shape:
             raise ValueError(f"seg_start has {st.numel()} entries, seg_len "
                              f"{ln.numel()}")

@@ -28,7 +28,10 @@
 //    mma.sync.m16n8k16 bf16 -> f32: S = q k^T from q fragments and k rows
 //    read straight out of shared memory; the probabilities are rounded to
 //    bf16 and reused in registers as the A operand of P V, whose B operand
-//    ldmatrix.trans reads from the row-major V tile.  Tiles that no row of
+//    ldmatrix.trans reads from the row-major V tile.  Head sizes 16, 32, 64,
+//    112 and 128: D / 16 k-steps of q k^T, D / 8 n-tiles of P V (7 and 14
+//    at kimi-k2's 112), rows of D + 8 in shared memory (240 bytes at 112:
+//    16-byte aligned, eight rows on distinct banks).  Tiles that no row of
 //    the block can see are never visited: under causal the walk stops at
 //    the diagonal tile, under a window it starts at the window's first tile.
 //    Row padding (ragged Sq and Skv) is masked here, not by padded copies.
@@ -756,8 +759,8 @@ void launch_d(const Params& p, int B, int dtype, cudaStream_t s) {
 extern "C" {
 
 // q (B, Sq, H, D), k/v (B, Skv, Hkv, D), o like q, all contiguous; dtype
-// codes 0 float32, 3 bfloat16; D in {16, 32, 64, 128}; has_window = 0 means
-// no window.  Returns -1 for an unsupported dtype or head size.
+// codes 0 float32, 3 bfloat16; D in {16, 32, 64, 112, 128}; has_window = 0
+// means no window.  Returns -1 for an unsupported dtype or head size.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         int B, int Sq, int Skv, int H, int Hkv, int D,
                         int causal, int has_window, int window, float scale,
@@ -770,6 +773,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
     case 16: launch_d<16>(p, B, dtype, s); break;
     case 32: launch_d<32>(p, B, dtype, s); break;
     case 64: launch_d<64>(p, B, dtype, s); break;
+    case 112: launch_d<112>(p, B, dtype, s); break;
     case 128: launch_d<128>(p, B, dtype, s); break;
     default: return -1;
   }
@@ -777,7 +781,8 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
 }
 
 // The split-KV route: q (B, Sq, H, D), k/v (B, Skv, Hkv, D), o like q, all
-// contiguous bf16, D in {64, 128}; lse: float32 (B, H, Sq) or null;
+// contiguous bf16, D in {64, 128} (kernels/flash_attention.py keeps head
+// size 112 on the wgmma kernel); lse: float32 (B, H, Sq) or null;
 // part_o / part_ml: float32 scratch of B x Hkv x row_blocks x n_split x
 // (16 mt) rows of D and of 2 (unused, and may be null, when n_split = 1:
 // the split kernel then writes o and the LSE, and no combine runs); KV tiles [j0, j0 + n_tiles) of 128 keys cut

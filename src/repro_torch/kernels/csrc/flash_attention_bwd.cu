@@ -23,9 +23,9 @@
 // Two routes (kernels/flash_attention.py: bwd_route, bwd_plan).
 //
 // The sm90 route: bf16 at head sizes 64 and 128, every shape the training
-// path gives the kernels but its float32 copy (FlashAttention's forward
-// takes flash_attention_sm90.cu there).  FlashAttention-3's backward made
-// deterministic:
+// path gives the kernels but its float32 copy and kimi-k2's head size 112
+// (FlashAttention's forward takes flash_attention_sm90.cu there).
+// FlashAttention-3's backward made deterministic:
 //  * The forward saves each row's base-2 log-sum-exp of scale log2(e)
 //    q k^T (flash_attention_sm90.cu writes m + log2(l) beside o when
 //    asked), so P = exp2(s scale log2(e) - LSE) needs no statistics sweep.
@@ -88,7 +88,10 @@
 //  runs seven products (q k^T and dO v^T in both kernels), so it can reach
 //  at best 5/7 of the bound.
 //
-// The mma.sync route: float32, and bf16 at head sizes 16 and 32.
+// The mma.sync route: float32, and bf16 at head sizes 16, 32 and 112
+// (kimi-k2's: its forward takes the wgmma kernel on 128-wide tiles, but
+// the sm90 kernels here keep 64 and 128; D / 16 = 7 k-steps, the odd last
+// one of a rows_dot a single m16n8k16, and D / 8 = 14 n-tiles).
 // FlashAttention-2's backward, made deterministic.
 //  * flash_bwd_dq (query tiles outer): one CTA owns 64 query rows of one
 //    head.  Sweep 1 walks the visible K tiles and computes each row's max
@@ -286,10 +289,11 @@ __device__ __forceinline__ void rows_dot(float (*c)[4],
         ldmatrix_x4(b0, b1, b2, b3, r + kk * 16);
         mma_bf16(c[nn], a[kk], b0, b1);
         mma_bf16(c[nn], a[kk + 1], b2, b3);
-      } else {  // D = 16: one step
-        b0 = ld32(tile + (n0 + nn * 8 + (lane >> 2)) * LD + 2 * (lane & 3));
-        b1 = ld32(tile + (n0 + nn * 8 + (lane >> 2)) * LD + 2 * (lane & 3) +
-                  8);
+      } else {  // an odd last step (D = 16, 112): one k16 step
+        const __nv_bfloat16* b =
+            tile + (n0 + nn * 8 + (lane >> 2)) * LD + kk * 16 + 2 * (lane & 3);
+        b0 = ld32(b);
+        b1 = ld32(b + 8);
         mma_bf16(c[nn], a[kk], b0, b1);
       }
     }
@@ -1526,7 +1530,7 @@ extern "C" {
 // B * Skv * H * D when H > Hkv, else null; q_order: n_qt int32 q tiles,
 // kv_order: n_kt int32 KV tiles, on the device, longest first
 // (flash_attention.bwd_plan); D in
-// {16, 32, 64, 128}; has_window = 0 means no window.  Launches
+// {16, 32, 64, 112, 128}; has_window = 0 means no window.  Launches
 // flash_bwd_dq, then flash_bwd_dkdv, then (H > Hkv) flash_bwd_dkdv_reduce,
 // on `stream`.
 int flash_attention_bwd(const void* q, const void* k, const void* v,
@@ -1548,6 +1552,7 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
     case 16: return launch_d<16>(p, B, n_qt, n_kt, dtype, s);
     case 32: return launch_d<32>(p, B, n_qt, n_kt, dtype, s);
     case 64: return launch_d<64>(p, B, n_qt, n_kt, dtype, s);
+    case 112: return launch_d<112>(p, B, n_qt, n_kt, dtype, s);
     case 128: return launch_d<128>(p, B, n_qt, n_kt, dtype, s);
     default: return -1;
   }

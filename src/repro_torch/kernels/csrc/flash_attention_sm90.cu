@@ -1,4 +1,5 @@
-// Flash attention forward for Hopper (sm_90a), bf16, head sizes 64 and 128:
+// Flash attention forward for Hopper (sm_90a), bf16, head sizes 64, 112 and
+// 128:
 // TMA loads into a ring of K/V stages, warp-specialised producer and
 // consumer warpgroups, both products on wgmma, a persistent schedule.
 //
@@ -69,6 +70,17 @@
 // key), to float32 (B, H, Sq) for the backward (flash_attention_bwd.cu);
 // o is the same either way.  The mbarrier, TMA and wgmma helpers are
 // shared with the backward through wgmma_tma.cuh.
+//
+// Head size 112 (kimi-k2's) runs on the D = 128 tiles: the tensor maps
+// carry the true head size as their inner extent, so each row's second
+// 64-column box reads columns 64-127 of which TMA fills 112-127 with zeros
+// (FLOAT_OOB_FILL_NONE) and still counts the whole box's bytes on the
+// barrier; the zero columns add nothing to q k^T, give o columns 112-127
+// of zeros, and the TMA store of o drops them.  The scale (1/sqrt(112))
+// comes from the wrapper, the LSE is the same.  Cost: 12.5% of the tensor
+// cores' work on zeros, no extra bytes moved.  A Tiles<112> of a 64- and a
+// 48-column box would save that work but needs a second swizzle pattern
+// for the partial box and other wgmma shapes (n112 for P V).
 //
 // Tile width, per head size and tile height (Tiles<D, NC>).  NC = 2
 // launches at 65536 / 384
@@ -507,14 +519,17 @@ __global__ void __launch_bounds__((NC + 1) * 128, 1)
 }
 
 // ------------------------------------------------------------------- host
+// D: the tile width (the kernel's instance); dg: the tensors' head size,
+// at most D (the maps' inner extent: columns dg..D-1 read as zero and are
+// not stored)
 template <int D, int NC>
 int launch(const Params& p, const void* q, const void* k, const void* v,
-           void* o, cudaStream_t s) {
+           void* o, int dg, cudaStream_t s) {
   CUtensorMap tq, tk, tv, to;
-  if (!make_map(&tq, q, p.B, p.Sq, p.H, D, NC * 64) ||
-      !make_map(&tk, k, p.B, p.Skv, p.Hkv, D, Tiles<D, NC>::BC) ||
-      !make_map(&tv, v, p.B, p.Skv, p.Hkv, D, Tiles<D, NC>::BC) ||
-      !make_map(&to, o, p.B, p.Sq, p.H, D, 64))
+  if (!make_map(&tq, q, p.B, p.Sq, p.H, dg, NC * 64) ||
+      !make_map(&tk, k, p.B, p.Skv, p.Hkv, dg, Tiles<D, NC>::BC) ||
+      !make_map(&tv, v, p.B, p.Skv, p.Hkv, dg, Tiles<D, NC>::BC) ||
+      !make_map(&to, o, p.B, p.Sq, p.H, dg, 64))
     return -2;
   const auto kern = flash_fwd_sm90_kernel<D, NC>;
   constexpr int threads = (NC + 1) * 128;
@@ -543,25 +558,26 @@ extern "C" {
 
 // q (B, Sq, H, D), k/v (B, Skv, Hkv, D), o like q, all contiguous bf16;
 // lse: float32 (B, H, Sq) for each row's base-2 log-sum-exp, or null (the
-// serving path) for none; D in {64, 128}; br (query rows per CTA) in
-// {64, 128}; order: n_qt int32 q-tile indices on the device, longest
-// first; has_window = 0 means no window.
+// serving path) for none; D in {64, 112, 128} (112 on the 128-wide
+// tiles); br (query rows per CTA) in {64, 128}; order: n_qt int32 q-tile
+// indices on the device, longest first; has_window = 0 means no window.
 int flash_attention_sm90_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, const void* order, int B,
                              int Sq, int Skv, int H, int Hkv, int D,
                              int causal, int has_window, int window,
                              float scale, int br, int n_qt, void* stream) {
-  if ((D != 64 && D != 128) || (br != 64 && br != 128)) return -1;
+  if ((D != 64 && D != 112 && D != 128) || (br != 64 && br != 128))
+    return -1;
   const Params p{(const int*)order, (float*)lse, B, Sq, Skv, H, Hkv,
                  causal, has_window, window, scale * 1.4426950408889634f,
                  B * H * n_qt};
   if (p.n_work == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (D == 64)
-    return br == 64 ? launch<64, 1>(p, q, k, v, o, s)
-                    : launch<64, 2>(p, q, k, v, o, s);
-  return br == 64 ? launch<128, 1>(p, q, k, v, o, s)
-                  : launch<128, 2>(p, q, k, v, o, s);
+    return br == 64 ? launch<64, 1>(p, q, k, v, o, D, s)
+                    : launch<64, 2>(p, q, k, v, o, D, s);
+  return br == 64 ? launch<128, 1>(p, q, k, v, o, D, s)
+                  : launch<128, 2>(p, q, k, v, o, D, s);
 }
 
 }  // extern "C"

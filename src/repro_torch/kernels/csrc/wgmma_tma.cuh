@@ -292,7 +292,9 @@ EncodeTiled encoder() {
 
 // A contiguous bf16 (B, S, heads, D) tensor as the 4-D map (D, heads, S, B)
 // with boxes of 64 columns x 1 head x `rows` rows, 128-byte swizzle;
-// reads outside it are zero.
+// reads outside it are zero and stores outside it are dropped.  D is the
+// tensor's head size, apart from the kernel's tile width: at D = 112 the
+// box at column 64 covers columns 64-127, of which 112-127 lie outside.
 bool make_map(CUtensorMap* map, const void* base, int B, int S, int heads,
               int D, int rows) {
   const EncodeTiled enc = encoder();

@@ -13,22 +13,32 @@ A query row that sees no key returns 0, as ``ref.flash_attention_ref`` does
 
 Three routes, chosen by a fixed rule (:func:`route`):
 
-  * bf16 with head size 64 or 128 (every serving config) goes to
+  * bf16 with head size 64, 112 or 128 (every attention config of the
+    repo: 64 hymba and whisper, 112 kimi-k2, 128 the rest) goes to
     ``csrc/flash_attention_sm90.cu``: TMA loads into a ring of K/V stages,
     a producer warpgroup and one or two consumer warpgroups on ``wgmma``,
     a persistent grid walking the tiles of :func:`tile_plan` longest first,
     with tiles of :func:`sm90_bc` keys (128 at head size 64 and 128-row
-    tiles, else 64);
-  * unless a KV head has at most :data:`SPLIT_ROWS` query rows (Sq x H /
-    Hkv) over more than :data:`SPLIT_BC` keys (whisper's cross-attention
-    at decode and at its 4-token prefill); then the split-KV route (``flash_attention_split_fwd`` in
-    ``csrc/flash_attention.cu``): the KV tiles cut into the ranges of
-    :func:`split_plan`, a CTA per (range, KV head) on ``mma.sync`` with a
-    ``cp.async`` ring, each range's partial output folded in range order
-    by a second kernel;
+    tiles, else 64); head size 112 runs on the 128-wide tiles
+    (:func:`sm90_width`: TMA reads columns 112-127 as zeros and drops
+    them on the store);
+  * unless, at head size 64 or 128, a KV head has at most
+    :data:`SPLIT_ROWS` query rows (Sq x H / Hkv) over more than
+    :data:`SPLIT_BC` keys (whisper's cross-attention at decode and at its
+    4-token prefill); then the split-KV route
+    (``flash_attention_split_fwd`` in ``csrc/flash_attention.cu``): the KV
+    tiles cut into the ranges of :func:`split_plan`, a CTA per (range, KV
+    head) on ``mma.sync`` with a ``cp.async`` ring, each range's partial
+    output folded in range order
+    by a second kernel.  Head size 112 stays on the wgmma kernel at every
+    row count (no path gives kimi-k2's attention such a call: its decode
+    attention is the plain ``decode_core``);
   * everything else (float32, bf16 head sizes 16 and 32) goes to
     ``csrc/flash_attention.cu``: ``mma.sync`` for bf16, fp32 FMAs for
-    float32.
+    float32, at head sizes 16, 32, 64, 112 and 128 (:data:`HEAD_DIMS`).
+
+A head size outside :data:`HEAD_DIMS` raises, on the card and in the
+operators' fakes (the dry run) alike.
 
 Each source's note gives its bound and design.  ``flash_attention.launches``
 counts the calls of all three (one a call), ``flash_attention.launches_sm90``
@@ -53,10 +63,10 @@ walk of :func:`bwd_plan` and counts one launch of the set in
 reading the saved log-sum-exp: rowsum(dO * O) and dq) then
 ``flash_bwd_dkdv_sm90`` (KV tiles outer: dk and dv of each KV head summed
 over its query heads in registers), both on wgmma and TMA; otherwise the
-mma.sync kernels ``flash_bwd_dq`` and ``flash_bwd_dkdv`` (the log-sum-exp
-recomputed; under GQA each query head's share summed by
-``flash_bwd_dkdv_reduce``, as the sm90 route does too where its plan
-splits the KV heads).  On a CPU tensor it is
+mma.sync kernels ``flash_bwd_dq`` and ``flash_bwd_dkdv`` (float32, and
+bf16 at head sizes 16, 32 and 112; the log-sum-exp recomputed; under GQA
+each query head's share summed by ``flash_bwd_dkdv_reduce``, as the
+sm90 route does too where its plan splits the KV heads).  On a CPU tensor it is
 :func:`flash_attention_backward_plain`, the same equations in float32
 PyTorch.  The reference trains through its plain ``_chunked_attn`` and has
 no backward kernel.
@@ -80,22 +90,29 @@ __all__ = ["flash_attention", "flash_attention_plain", "FlashAttention",
            "flash_attention_lse", "flash_attention_backward",
            "flash_attention_backward_plain", "HEAD_DIMS", "flash_flops",
            "flash_bwd_flops", "bwd_plan", "BwdPlan", "bwd_route",
-           "bwd_tiles",
-           "SM90", "SM90_HEAD_DIMS", "SPLIT", "SPLIT_ROWS", "ROUTES",
-           "route", "tile_plan", "TilePlan", "sm90_bc", "sm90_smem_bytes",
+           "bwd_tiles", "SM90", "SM90_HEAD_DIMS", "SPLIT",
+           "SPLIT_HEAD_DIMS", "SM90_BWD_HEAD_DIMS", "SPLIT_ROWS", "ROUTES",
+           "route", "tile_plan", "TilePlan", "sm90_bc", "sm90_width",
+           "sm90_smem_bytes",
            "split_plan", "SplitPlan", "flash_attention_split_plain",
            "launch_kernel"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 3}
-HEAD_DIMS = (16, 32, 64, 128)
 LOG2E = 1.4426950408889634
-SM90_HEAD_DIMS = (64, 128)
 SM90 = "flash_attention_sm90"
 SPLIT = "flash_attention_split"
 ROUTES = (SM90, SPLIT, "flash_attention")
+# the head sizes the kernels take: every one the mma.sync kernels
+# (forward and backward), of them the wgmma forward's, the split route's
+# and the wgmma backward's
+HEAD_DIMS = (16, 32, 64, 112, 128)
+SM90_HEAD_DIMS = (64, 112, 128)
+SPLIT_HEAD_DIMS = (64, 128)
+SM90_BWD_HEAD_DIMS = (64, 128)
 H100_SMS = 132
-# the sm90 kernel's (keys per K/V tile, ring depth) at each (head size,
-# tile height) (csrc/flash_attention_sm90.cu: Tiles<D, br / 64>::BC, STAGES)
+# the sm90 kernel's (keys per K/V tile, ring depth) at each (tile width,
+# tile height) (csrc/flash_attention_sm90.cu: Tiles<W, br / 64>::BC,
+# STAGES); head size D runs on the tiles of width sm90_width(D)
 SM90_TILES = {(64, 64): (64, 2), (64, 128): (128, 3), (128, 64): (64, 2),
               (128, 128): (64, 2)}
 # the split route: KV tiles of 128 keys (csrc/flash_attention.cu
@@ -109,26 +126,43 @@ SPLIT_ROWS = 16
 SPLIT_WAVES = 1
 
 
+def sm90_width(D: int) -> int:
+    """The tile width (columns of q, k, v and o a tile holds) the sm90
+    forward runs head size ``D`` on: whole 64-column TMA boxes, so 112
+    runs on the 128-wide tiles, TMA filling columns 112-127 with zeros on
+    load (they add nothing to q k^T and give o columns it never stores)."""
+    return 64 * -(-D // 64)
+
+
 def sm90_bc(D: int, br: int) -> int:
     """Keys per K/V tile of the sm90 forward at head size ``D`` and tile
     height ``br`` (:func:`tile_height`)."""
-    return SM90_TILES[(D, br)][0]
+    return SM90_TILES[(sm90_width(D), br)][0]
 
 
 def route(dtype: torch.dtype, D: int, rows: Optional[int] = None,
           keys: Optional[int] = None) -> str:
-    """The kernel a CUDA call takes: bf16 with head size 64 or 128 goes to
-    ``flash_attention_sm90`` (wgmma, TMA) or, when ``rows`` (the query
-    rows of a KV head, Sq x H / Hkv) is at most :data:`SPLIT_ROWS` and the
-    ``keys`` (Skv) fill more than one of its tiles of :data:`SPLIT_BC`,
-    to ``flash_attention_split`` (split KV, mma.sync; on one tile the two
-    measured even); everything else to ``flash_attention`` (mma.sync
+    """The kernel a CUDA call takes: bf16 with head size 64, 112 or 128
+    goes to ``flash_attention_sm90`` (wgmma, TMA) or, at head size 64 or
+    128 when ``rows`` (the query rows of a KV head, Sq x H / Hkv) is at
+    most :data:`SPLIT_ROWS` and the ``keys`` (Skv) fill more than one of
+    its tiles of :data:`SPLIT_BC`, to ``flash_attention_split`` (split KV,
+    mma.sync; on one tile the two measured even; head size 112 stays on
+    the wgmma kernel); everything else to ``flash_attention`` (mma.sync
     bf16, float32 FMAs)."""
     if dtype != torch.bfloat16 or D not in SM90_HEAD_DIMS:
         return "flash_attention"
-    short = rows is not None and keys is not None and rows <= SPLIT_ROWS \
-        and keys > SPLIT_BC
+    short = D in SPLIT_HEAD_DIMS and rows is not None and keys is not None \
+        and rows <= SPLIT_ROWS and keys > SPLIT_BC
     return SPLIT if short else SM90
+
+
+def _check_head_size(D: int) -> None:
+    """Raise for a head size no flash kernel takes: the card's launches
+    and the operators' fakes (the dry run) alike."""
+    if D not in HEAD_DIMS:
+        raise ValueError(f"the flash kernels take head sizes {HEAD_DIMS}, "
+                         f"got {D}")
 
 
 def call_route(q: torch.Tensor, k: torch.Tensor) -> str:
@@ -365,8 +399,11 @@ BWD_TILE = 64
 
 def bwd_route(dtype: torch.dtype, D: int) -> str:
     """The backward's route: ``"sm90"`` (wgmma, TMA, the forward's saved
-    LSE) where the forward takes :data:`SM90`, else ``"mma"``."""
-    return "sm90" if route(dtype, D) == SM90 else "mma"
+    LSE) for bf16 at head sizes 64 and 128, else ``"mma"`` (float32;
+    bf16 at 16, 32 and 112, whose forward at 112 takes the wgmma kernel
+    but whose gradient the mma.sync kernels compute)."""
+    return "sm90" if dtype == torch.bfloat16 and D in SM90_BWD_HEAD_DIMS \
+        else "mma"
 
 
 def _q_tiles(Sq, Skv, causal, has_window, win, j):
@@ -547,12 +584,13 @@ def bwd_plan(B: int, Sq: int, Skv: int, H: int, Hkv: int, D: int,
 
 
 def sm90_smem_bytes(D: int, br: int) -> int:
-    """Dynamic shared memory of one CTA of the sm90 kernel (csrc
-    Smem<D, br / 64>): q, STAGES x (k, v) tiles of :func:`sm90_bc` keys
-    and o tiles in bf16, 2 + 4 STAGES mbarriers, and 1024 bytes of
-    alignment slack."""
-    bc, stages = SM90_TILES[(D, br)]
-    return 2 * (2 * br * D + 2 * stages * bc * D) + 8 * (2 + 4 * stages) \
+    """Dynamic shared memory of one CTA of the sm90 kernel at head size
+    ``D`` (csrc Smem<W, br / 64>, W = :func:`sm90_width`): q, STAGES x
+    (k, v) tiles of :func:`sm90_bc` keys and o tiles of W columns in bf16,
+    2 + 4 STAGES mbarriers, and 1024 bytes of alignment slack."""
+    W = sm90_width(D)
+    bc, stages = SM90_TILES[(W, br)]
+    return 2 * (2 * br * W + 2 * stages * bc * W) + 8 * (2 + 4 * stages) \
         + 1024
 
 
@@ -634,8 +672,8 @@ def split_plan(B: int, Sq: int, Skv: int, H: int, Hkv: int, D: int,
     16 rows, else 4 and as many blocks of 64 as the rows need), and the most ranges whose CTAs fit ``waves`` waves of ``sms``
     SMs (one at least, at most one a KV tile of ``bc`` keys: the kernel's
     ``split::BC``)."""
-    if D not in SM90_HEAD_DIMS:
-        raise ValueError(f"{SPLIT} takes head sizes {SM90_HEAD_DIMS}, got "
+    if D not in SPLIT_HEAD_DIMS:
+        raise ValueError(f"{SPLIT} takes head sizes {SPLIT_HEAD_DIMS}, got "
                          f"{D}")
     if Hkv <= 0 or H % Hkv:
         raise ValueError(f"{H} query heads are not a multiple of {Hkv}")
@@ -664,7 +702,8 @@ def flash_attention_split_plain(q: torch.Tensor, k: torch.Tensor,
     ranges folded in order, o = sum 2^(m - M) o_r / sum 2^(m - M) l_r with
     M the largest m (0, and an LSE of -inf, for a row that sees no key).
     ``with_lse`` as :func:`flash_attention_plain`'s.  Bf16 at head sizes
-    64 and 128, the route's inputs; no card path takes it."""
+    64 and 128 (:data:`SPLIT_HEAD_DIMS`), the route's inputs; no card path
+    takes it."""
     batched = q.dim() == 4
     if not batched:
         q, k, v = q[None], k[None], v[None]
@@ -754,8 +793,7 @@ def _kernel_shapes(named) -> tuple:
     B = int(q.shape[0]) if q.dim() == 4 else 1
     Sq, H, D = (int(s) for s in q.shape[-3:])
     Skv, Hkv = int(k.shape[-3]), int(k.shape[-2])
-    if D not in HEAD_DIMS:
-        raise ValueError(f"the kernel takes head sizes {HEAD_DIMS}, got {D}")
+    _check_head_size(D)
     if max(Sq, Skv) >= 2 ** 30:
         raise ValueError("sequence too long for the kernel's int32 positions")
     return B, Sq, Skv, H, Hkv, D
@@ -803,9 +841,9 @@ def launch_kernel(kernel: str, q, k, v, *, causal: bool = True, window=None,
                       _build.stream_of(q))
         flash_attention.launches_sm90 += 1
     elif kernel == SPLIT:
-        if q.dtype != torch.bfloat16 or D not in SM90_HEAD_DIMS:
+        if q.dtype != torch.bfloat16 or D not in SPLIT_HEAD_DIMS:
             raise ValueError(f"{SPLIT} takes bf16 head sizes "
-                             f"{SM90_HEAD_DIMS}, got {q.dtype} {D}")
+                             f"{SPLIT_HEAD_DIMS}, got {q.dtype} {D}")
         plan = split_plan(B, Sq, Skv, H, Hkv, D, causal, window,
                           _sm_count(q.device.index))
         # each range's unnormalised o, max and sum of every row (none for
@@ -856,6 +894,7 @@ def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 @_flash_op.register_fake
 def _flash_fake(q, k, v, causal, window, scale):
     _check(q, k, v)
+    _check_head_size(q.shape[-1])
     return torch.empty_like(q)
 
 
@@ -870,7 +909,7 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     without it.  The call is the operator
     ``torch.ops.repro_torch.flash_attention_lse`` (a fake and
     :func:`flash_flops`, as the forward's).  CUDA tensors must take one of
-    those two routes (bf16, head size 64 or 128)."""
+    those two routes (bf16, head size 64, 112 or 128)."""
     return torch.ops.repro_torch.flash_attention_lse(
         q, k, v, bool(causal), None if window is None else int(window),
         None if scale is None else float(scale))
@@ -887,6 +926,7 @@ def _flash_lse_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 @_flash_lse_op.register_fake
 def _flash_lse_fake(q, k, v, causal, window, scale):
     _check(q, k, v)
+    _check_head_size(q.shape[-1])
     return (torch.empty_like(q),
             q.new_empty(q.shape[:-3] + (q.shape[-2], q.shape[-3]),
                         dtype=torch.float32))
@@ -1000,7 +1040,7 @@ def _launch_backward_mma(q, k, v, o, do, *, causal=True, window=None,
                          scale=None) -> tuple:
     """The mma.sync route's kernels (``flash_bwd_dq``, ``flash_bwd_dkdv``,
     under GQA ``flash_bwd_dkdv_reduce``; not counted): the route of
-    float32 and of bf16 head sizes 16 and 32, and ``chip_smoke.py``'s
+    float32 and of bf16 head sizes 16, 32 and 112, and ``chip_smoke.py``'s
     ``prev_ms`` at the sm90 route's shapes."""
     B, Sq, Skv, H, Hkv, D = _kernel_shapes(
         ((q, "q"), (k, "k"), (v, "v"), (o, "o"), (do, "do")))
@@ -1063,6 +1103,7 @@ def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 @_flash_bwd_op.register_fake
 def _flash_bwd_fake(q, k, v, o, do, causal, window, scale, lse=None):
     _check_backward(q, k, v, o, do)
+    _check_head_size(q.shape[-1])
     if lse is not None:
         _check_lse(q, lse)
     return tuple(torch.empty_like(t) for t in (q, k, v))

@@ -114,6 +114,8 @@ GRID = [
     (130, 70, 8, 1, 64, False, 20, 1),
     (100, 100, 4, 1, 64, True, 0, 1),          # nothing visible
     (70, 90, 8, 2, 128, True, 33, 1),
+    (1024, 1024, 64, 8, 112, True, None, 1),   # kimi-k2's prefill
+    (1, 2048, 64, 8, 112, True, None, 1),      # a short query at 112
 ]
 
 
@@ -173,7 +175,7 @@ def test_tile_plan_window_order_is_not_row_order():
 @settings(max_examples=80, deadline=None)
 @given(Sq=st.integers(1, 700), Skv=st.integers(1, 700),
        heads=st.sampled_from([(1, 1), (4, 1), (8, 2), (6, 3), (32, 8)]),
-       D=st.sampled_from([64, 128]), causal=st.booleans(),
+       D=st.sampled_from([64, 112, 128]), causal=st.booleans(),
        window=st.one_of(st.none(), st.integers(-40, 900)),
        B=st.integers(1, 3), sms=st.sampled_from([8, 132]))
 def test_tile_plan_sweep(Sq, Skv, heads, D, causal, window, B, sms):
@@ -184,15 +186,16 @@ def test_tile_plan_sweep(Sq, Skv, heads, D, causal, window, B, sms):
 def test_route_rule():
     for dt in (torch.float32, torch.bfloat16):
         for D in FA.HEAD_DIMS:
-            want = FA.SM90 if dt == torch.bfloat16 and D in (64, 128) \
+            want = FA.SM90 if dt == torch.bfloat16 and D in (64, 112, 128) \
                 else "flash_attention"
             assert FA.route(dt, D) == want
             # a KV head's query rows: the split route up to SPLIT_ROWS over
-            # more than one of its key tiles
+            # more than one of its key tiles, at head sizes 64 and 128 (112
+            # stays on the wgmma kernel)
             for rows in (1, FA.SPLIT_ROWS, FA.SPLIT_ROWS + 1, 4096):
                 for keys in (1, FA.SPLIT_BC, FA.SPLIT_BC + 1, 4096):
-                    short = want == FA.SM90 and rows <= FA.SPLIT_ROWS \
-                        and keys > FA.SPLIT_BC
+                    short = want == FA.SM90 and D in (64, 128) \
+                        and rows <= FA.SPLIT_ROWS and keys > FA.SPLIT_BC
                     assert FA.route(dt, D, rows, keys) == \
                         (FA.SPLIT if short else want)
     assert set(FA.ROUTES) == {FA.SM90, FA.SPLIT, "flash_attention"}
@@ -229,7 +232,7 @@ CARD_CASES = [  # B, Sq, Skv, H, Hkv, causal, window
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [16, 64, 128])
+@pytest.mark.parametrize("D", [16, 64, 112, 128])
 @pytest.mark.parametrize("case", CARD_CASES)
 def test_cuda_flash_routes_match_plain(card, D, case):
     dev, smoke = card
@@ -250,12 +253,14 @@ def test_cuda_flash_routes_match_plain(card, D, case):
             FA.flash_attention.launches_split - before[1]) == \
         (took == FA.SM90, took == FA.SPLIT)
     smoke.flash_check(got, want, f"D{D} {case}")
+    assert smoke.same_raw_bits(
+        got, FA.flash_attention(q, k, v, causal=causal, window=window))
     if causal and Sq > Skv:
         assert bool((got[:, : Sq - Skv] == 0).all())
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 112, 128])
 def test_cuda_flash_p_layout_one_hot(card, D):
     """Row i puts all its weight on key pi(i): a logit of 64 against 0 or
     -64 elsewhere.  The output row must be v[pi(i)], so a P fragment that

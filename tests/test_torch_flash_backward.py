@@ -6,7 +6,7 @@ of the reference's ``ref.flash_attention_ref`` and against autograd through
 ``flash_attention_plain``, in float32 within 1e-5 relative, on the same
 seeded inputs: causal, window and unmasked, GQA 4/2 and 4/4, Sq < Skv and
 Sq = Skv at lengths that are not multiples of 64, batched and not, head
-sizes 16 and 64, and rows that see no key (Sq > Skv causal), whose
+sizes 16, 64 and 112 (kimi-k2's, GQA 8:1), and rows that see no key (Sq > Skv causal), whose
 gradients must be 0.  ``bwd_plan(...).walk()`` must take exactly the
 visible (query, key) pairs, each once per query head, in both kernels, over
 a fixed grid and a hypothesis sweep.  ``FlashAttention`` on CPU tensors
@@ -37,6 +37,8 @@ CASES = [  # B, Sq, Skv, H, Hkv, D, causal, window
     (None, 30, 100, 4, 4, 64, False, None),
     (None, 100, 40, 4, 2, 64, True, None),      # rows 0..59 see no key
     (2, 80, 50, 4, 4, 16, True, 16),           # rows 0..29 see no key
+    (None, 96, 96, 8, 1, 112, True, None),      # kimi-k2: GQA 8:1 of 112
+    (2, 40, 75, 8, 1, 112, True, 30),
 ]
 
 

@@ -1058,6 +1058,37 @@ def test_prepared_index_cache_follows_source():
         device_index(torch.zeros(3), cpu)
 
 
+@pytest.mark.parametrize("what,source", [
+    ("index", lambda: torch.arange(9, dtype=torch.int32)),
+    ("index", lambda: torch.arange(9)),
+    ("index", lambda: np.arange(9)),
+    ("segments", lambda: torch.arange(9, dtype=torch.int32)),
+    ("segments", lambda: torch.arange(9, dtype=torch.int32).reshape(3, 3))],
+    ids=["int32", "int64", "numpy", "segments-int32", "segments-int32-2d"])
+def test_prepared_index_cache_entry_dies_with_its_source(what, source):
+    """An entry lives only as long as its source, also where the prepared
+    tensor is the source itself (an int32 tensor on the data's device) or
+    its flat view: a repeat call returns them again, and dropping the
+    source drops the entry and its memory."""
+    import gc
+    from repro_torch.kernels import _index
+    cpu = torch.device("cpu")
+    before = len(_index._CACHE)
+    src = source()
+    call = (lambda: _index.device_index(src, cpu)) if what == "index" \
+        else (lambda: _index.segment_meta(src, src, cpu))
+    a, b = call(), call()
+    assert len(_index._CACHE) == before + 1
+    assert b[0] is a[0] or b[0].data_ptr() == a[0].data_ptr()
+    assert [x for x in a[1:] if not isinstance(x, torch.Tensor)] == \
+        [x for x in b[1:] if not isinstance(x, torch.Tensor)]
+    if isinstance(src, torch.Tensor) and src.dtype == torch.int32:
+        assert a[0].data_ptr() == src.data_ptr()
+    del a, b, call, src
+    gc.collect()
+    assert len(_index._CACHE) == before
+
+
 # ------------------------------------------------------------------ card
 @pytest.fixture
 def cuda_device():

@@ -70,13 +70,15 @@ def model(request):
 
 
 # ------------------------------------------------------------ flash attention
-FLASH_CASES = [   # tests/test_kernels.py:69-76
+FLASH_CASES = [   # tests/test_kernels.py:69-76, then kimi-k2's D = 112
     (128, 128, 4, 2, 64, True, None),
     (100, 100, 2, 2, 32, True, None),
     (1, 96, 4, 1, 64, True, None),
     (64, 192, 8, 4, 64, True, 48),
     (128, 128, 2, 1, 128, False, None),
     (73, 129, 3, 3, 64, True, None),
+    (96, 96, 8, 1, 112, True, None),     # kimi-k2's head size, GQA 8:1
+    (80, 144, 8, 1, 112, True, 40),
 ]
 
 
@@ -349,13 +351,13 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [16, 64, 128])
+@pytest.mark.parametrize("D", [16, 64, 112, 128])
 @pytest.mark.parametrize("Sq,Skv,causal,window", [
     (70, 90, True, 33), (300, 300, True, None), (96, 40, True, None),
     (130, 257, False, None)])
 def test_cuda_flash_matches_plain(cuda_device, dt, D, Sq, Skv, causal,
                                   window):
-    """Both kernels (route: bf16 D 64/128 -> the wgmma kernel, else the
+    """Both kernels (route: bf16 D 64/112/128 -> the wgmma kernel, else the
     first kernel) against the plain version on unscaled randn inputs, held
     to chip_smoke's FLASH_TOL, whose limit scales with each query row."""
     root = str(Path(__file__).resolve().parents[1])

@@ -11,7 +11,8 @@ against the JAX reference, with identical weights carried across by
 - SF = dense inside the port, plan-cache hits, the exact sflog event
   stream of a decode-shape layer (``tests/test_sflog.py:239``);
 - full-model ``prefill`` / ``decode_step`` logits on the phi3.5-moe smoke
-  config (rtol 1e-4 / atol 1e-5, as for the dense models);
+  config and on kimi-k2's at its head size 112 (rtol 1e-4 / atol 1e-5, as
+  for the dense models);
 - ``ServeEngine`` greedy streams identical to the reference engine's, same
   requests, same batch: capacity makes a token's output depend on its
   batch neighbours (idle slots feed token 0 at their stale positions), so
@@ -251,11 +252,17 @@ def test_moe_decode_exact_event_stream():
 
 
 # --------------------------------------------------------------- the model
-@pytest.fixture(scope="module")
-def model():
-    """(ref cfg, port cfg, ref params, port params) of the phi3.5-moe
-    smoke config, one set of float32 weights."""
-    rcfg, cfg = configs(PHI)
+# the model tests' configs: phi3.5-moe's smoke config, and kimi-k2's (its
+# shared expert, GQA 2:1) at its own head size 112, which the flash
+# kernels' routes must take
+MODEL_CASES = {PHI: {}, KIMI: {"head_dim": 112}}
+
+
+@pytest.fixture(scope="module", params=sorted(MODEL_CASES))
+def model(request):
+    """(ref cfg, port cfg, ref params, port params) of one of
+    ``MODEL_CASES``' smoke configs, one set of float32 weights."""
+    rcfg, cfg = configs(request.param, **MODEL_CASES[request.param])
     rp = RT.init_params(jax.random.PRNGKey(0), rcfg)
     params = params_from_arrays(cfg, jax.tree.map(np.asarray, rp),
                                 device="cpu")

@@ -867,7 +867,7 @@ BWD_CASES = [  # B, Sq, Skv, H, Hkv, causal, window
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("D", [16, 32, 64, 112, 128])
 @pytest.mark.parametrize("case", BWD_CASES)
 def test_cuda_flash_backward_matches_plain(dev, case, D, dtype):
     """Both backward kernels against flash_attention_backward_plain at
