@@ -543,6 +543,8 @@ class SFComm:
     as the reference's facade does.  Off (the default), a hook costs one
     integer test; during a CUDA-graph capture it bumps the event's
     ``traced`` counter only, and reads, fences and allocates nothing.
+    Whatever the mode, each operation is also a ``sflog.span`` of its
+    event's name (a profiler range while one records).
     """
 
     def __init__(self, sf: StarForest, backend: Optional[str] = None, *,
@@ -595,82 +597,81 @@ class SFComm:
         return float(self.sf.nedges_total) * math.prod(data.shape[1:]) \
             * data.element_size()
 
-    def _split_begin(self, name: str, begin, data, op):
-        if not sflog.enabled():
-            return begin(data, op)
-        t0 = sflog.op_begin()
-        pend = begin(data, op)
-        nb = self._payload_bytes(data)
-        tags = self._logtags(op)
-        sflog.op_end(name + "Begin", t0, pend.payload, nbytes=nb, tags=tags)
-        sflog.stash_pending(pend, name + "End", nb, tags, tracing=t0 < 0)
-        return pend
+    def _split_begin(self, name: str, end_name: str, begin, data, op):
+        with sflog.span(name):
+            if not sflog.enabled():
+                return begin(data, op)
+            t0 = sflog.op_begin()
+            pend = begin(data, op)
+            nb = self._payload_bytes(data)
+            tags = self._logtags(op)
+            sflog.op_end(name, t0, pend.payload, nbytes=nb, tags=tags)
+            sflog.stash_pending(pend, end_name, nb, tags, tracing=t0 < 0)
+            return pend
 
-    def _split_end(self, end, pending, data):
-        info = sflog.claim_pending(pending)
-        if info is None:
-            return end(pending, data)
-        t0 = time.perf_counter()
-        out = end(pending, data)
-        sflog.pending_end(info, t0, out)
-        return out
+    def _split_end(self, name: str, end, pending, data):
+        with sflog.span(name):
+            info = sflog.claim_pending(pending)
+            if info is None:
+                return end(pending, data)
+            t0 = time.perf_counter()
+            out = end(pending, data)
+            sflog.pending_end(info, t0, out)
+            return out
 
-    def _logged(self, name: str, payload, run, *args, tags=None,
+    def _logged(self, name: str, payload, run, *args, op=None,
                 scale: float = 1.0):
-        """``run(*args)`` recorded as one ``name`` event moving ``scale`` x
-        ``payload``'s comm volume."""
-        t0 = sflog.op_begin()
-        out = run(*args)
-        sflog.op_end(name, t0, out,
-                     nbytes=scale * self._payload_bytes(payload), tags=tags)
-        return out
+        """``run(*args)`` in a span ``name``, recorded as one ``name``
+        event moving ``scale`` x ``payload``'s comm volume while the
+        registry is on."""
+        with sflog.span(name):
+            if not sflog.enabled():
+                return run(*args)
+            t0 = sflog.op_begin()
+            out = run(*args)
+            sflog.op_end(name, t0, out,
+                         nbytes=scale * self._payload_bytes(payload),
+                         tags=self._logtags(op))
+            return out
 
     # delegation ----------------------------------------------------------
     def bcast_begin(self, rootdata, op="replace"):
-        return self._split_begin("SFBcast", self.backend.bcast_begin,
-                                 rootdata, op)
+        return self._split_begin("SFBcastBegin", "SFBcastEnd",
+                                 self.backend.bcast_begin, rootdata, op)
 
     def bcast_end(self, pending, leafdata):
-        return self._split_end(self.backend.bcast_end, pending, leafdata)
+        return self._split_end("SFBcastEnd", self.backend.bcast_end,
+                               pending, leafdata)
 
     def bcast(self, rootdata, leafdata, op="replace"):
-        if not sflog.enabled():
-            return self.backend.bcast(rootdata, leafdata, op)
         return self._logged("SFBcast", rootdata, self.backend.bcast,
-                            rootdata, leafdata, op, tags=self._logtags(op))
+                            rootdata, leafdata, op, op=op)
 
     def reduce_begin(self, leafdata, op="sum"):
-        return self._split_begin("SFReduce", self.backend.reduce_begin,
-                                 leafdata, op)
+        return self._split_begin("SFReduceBegin", "SFReduceEnd",
+                                 self.backend.reduce_begin, leafdata, op)
 
     def reduce_end(self, pending, rootdata):
-        return self._split_end(self.backend.reduce_end, pending, rootdata)
+        return self._split_end("SFReduceEnd", self.backend.reduce_end,
+                               pending, rootdata)
 
     def reduce(self, leafdata, rootdata, op="sum"):
-        if not sflog.enabled():
-            return self.backend.reduce(leafdata, rootdata, op)
         return self._logged("SFReduce", leafdata, self.backend.reduce,
-                            leafdata, rootdata, op, tags=self._logtags(op))
+                            leafdata, rootdata, op, op=op)
 
     def fetch_and_op(self, rootdata, leafdata, op="sum"):
-        if not sflog.enabled():
-            return self.backend.fetch_and_op(rootdata, leafdata, op)
         # fetch-and-op moves payload both ways (fetch + update)
         return self._logged("SFFetchAndOp", leafdata,
                             self.backend.fetch_and_op, rootdata, leafdata,
-                            op, tags=self._logtags(op), scale=2.0)
+                            op, op=op, scale=2.0)
 
     def gather(self, leafdata):
-        if not sflog.enabled():
-            return self.backend.gather(leafdata)
         return self._logged("SFGather", leafdata, self.backend.gather,
-                            leafdata, tags=self._logtags())
+                            leafdata)
 
     def scatter(self, multirootdata, leafdata=None):
-        if not sflog.enabled():
-            return self.backend.scatter(multirootdata, leafdata)
         return self._logged("SFScatter", multirootdata, self.backend.scatter,
-                            multirootdata, leafdata, tags=self._logtags())
+                            multirootdata, leafdata)
 
     # fused multi-field exchange (VecScatter analogue) -------------------
     def _bundle(self, fields) -> "FieldBundle":

@@ -285,17 +285,18 @@ class DynPlan:
     # ----------------------------------------------------------------- ops
     def reduce(self, leafdata, leaf_root, rootdata=None, op="sum",
                unique: bool = False, leaf_rep: int = 1):
-        if not sflog.enabled():
-            return self._reduce_impl(leafdata, leaf_root, rootdata, op,
-                                     unique, leaf_rep)
-        t0 = sflog.op_begin()
-        out = self._reduce_impl(leafdata, leaf_root, rootdata, op,
-                                unique, leaf_rep)
-        sflog.op_end("SFDynReduce", t0, out,
-                     nbytes=self._row_bytes(leafdata),
-                     tags={"op": get_op(op).name, "unique": unique,
-                           "label": str(self.label)})
-        return out
+        with sflog.span("SFDynReduce"):
+            if not sflog.enabled():
+                return self._reduce_impl(leafdata, leaf_root, rootdata, op,
+                                         unique, leaf_rep)
+            t0 = sflog.op_begin()
+            out = self._reduce_impl(leafdata, leaf_root, rootdata, op,
+                                    unique, leaf_rep)
+            sflog.op_end("SFDynReduce", t0, out,
+                         nbytes=self._row_bytes(leafdata),
+                         tags={"op": get_op(op).name, "unique": unique,
+                               "label": str(self.label)})
+            return out
 
     def _reduce_impl(self, leafdata, leaf_root, rootdata=None, op="sum",
                      unique: bool = False, leaf_rep: int = 1):
@@ -404,14 +405,15 @@ class DynPlan:
         return torch.where(_rows(length > 0, upd), upd, rootdata)
 
     def bcast(self, rootdata, leaf_root, leafdata=None):
-        if not sflog.enabled():
-            return self._bcast_impl(rootdata, leaf_root, leafdata)
-        t0 = sflog.op_begin()
-        out = self._bcast_impl(rootdata, leaf_root, leafdata)
-        sflog.op_end("SFDynBcast", t0, out,
-                     nbytes=self._row_bytes(rootdata),
-                     tags={"label": str(self.label)})
-        return out
+        with sflog.span("SFDynBcast"):
+            if not sflog.enabled():
+                return self._bcast_impl(rootdata, leaf_root, leafdata)
+            t0 = sflog.op_begin()
+            out = self._bcast_impl(rootdata, leaf_root, leafdata)
+            sflog.op_end("SFDynBcast", t0, out,
+                         nbytes=self._row_bytes(rootdata),
+                         tags={"label": str(self.label)})
+            return out
 
     def _bcast_impl(self, rootdata, leaf_root, leafdata=None):
         """Root→leaf broadcast (replace).  Dropped edges read the zero drop

@@ -56,6 +56,9 @@ __all__ = ["FieldSpec", "FieldBundle", "PendingMulti"]
 _C_CALLS = sflog.counter("fields.multi_calls")
 _C_EXCH = sflog.counter("fields.fused_exchanges")
 _C_FIELDS = sflog.counter("fields.fields_moved")
+# the registry events (and span names) of a split fused exchange's halves
+_MULTI_EVENTS = {"bcast": ("SFBcastMultiBegin", "SFBcastMultiEnd"),
+                 "reduce": ("SFReduceMultiBegin", "SFReduceMultiEnd")}
 
 # bitcast carrier per itemsize for mixed-dtype REPLACE groups
 _CARRIER = {1: torch.uint8, 2: torch.uint16, 4: torch.uint32}
@@ -251,7 +254,7 @@ class FieldBundle:
         return ne * g.width * g.carrier.itemsize
 
     def _run(self, srcs, dsts, op, exchange, nsrc: int, ndst: int,
-             kind: str):
+             event: str):
         opname = get_op(op).name
         groups = self._groups(opname)
         self._count(groups)
@@ -259,12 +262,14 @@ class FieldBundle:
         out: List[Any] = [None] * len(self.specs)
         for g in groups:
             src, dst = self._fused(g, srcs, nsrc), self._fused(g, dsts, ndst)
-            t0 = sflog.op_begin() if logging else 0.0
-            fused = exchange(src, dst, op)
-            if logging:
-                sflog.op_end(f"SF{kind}Multi", t0, fused,
-                             nbytes=self._group_bytes(g),
-                             tags={"op": opname, "fields": len(g.members)})
+            with sflog.span(event):
+                t0 = sflog.op_begin() if logging else 0.0
+                fused = exchange(src, dst, op)
+                if logging:
+                    sflog.op_end(event, t0, fused,
+                                 nbytes=self._group_bytes(g),
+                                 tags={"op": opname,
+                                       "fields": len(g.members)})
             self._split(g, fused, ndst, out)
         return out
 
@@ -276,7 +281,7 @@ class FieldBundle:
         self._check(rootfields, "rootdata", nroot)
         self._check(leaffields, "leafdata", nleaf)
         return self._run(rootfields, leaffields, op, self._exec.bcast,
-                         nroot, nleaf, "Bcast")
+                         nroot, nleaf, "SFBcastMulti")
 
     def reduce_multi(self, leaffields, rootfields, op="sum"):
         """k leaf→root reductions as one fused exchange per group; returns
@@ -286,35 +291,38 @@ class FieldBundle:
         self._check(leaffields, "leafdata", nleaf)
         self._check(rootfields, "rootdata", nroot)
         return self._run(leaffields, rootfields, op, self._exec.reduce,
-                         nleaf, nroot, "Reduce")
+                         nleaf, nroot, "SFReduceMulti")
 
     # ------------------------------------------------- split-phase (begin/end)
     def _multi_begin(self, kind: str, srcs, op, nsrc: int) -> PendingMulti:
         opn = get_op(op)
         begin = getattr(self._exec, f"{kind}_begin")
         groups = self._groups(opn.name)
-        logging = sflog.enabled()
-        t0 = sflog.op_begin() if logging else 0.0
-        self._count(groups)
-        items = [(g, begin(self._fused(g, srcs, nsrc), opn)) for g in groups]
-        pend = PendingMulti(kind, self, opn, items)
-        if logging:
-            nb = sum(self._group_bytes(g) for g in groups)
-            tags = {"op": opn.name, "groups": len(groups),
-                    "fields": len(self.specs)}
-            ev = f"SF{kind.capitalize()}Multi"
-            sflog.op_end(ev + "Begin", t0, None, nbytes=nb, tags=tags)
-            sflog.stash_pending(pend, ev + "End", nb, tags, tracing=t0 < 0)
-        return pend
+        ev_begin, ev_end = _MULTI_EVENTS[kind]
+        with sflog.span(ev_begin):
+            logging = sflog.enabled()
+            t0 = sflog.op_begin() if logging else 0.0
+            self._count(groups)
+            items = [(g, begin(self._fused(g, srcs, nsrc), opn))
+                     for g in groups]
+            pend = PendingMulti(kind, self, opn, items)
+            if logging:
+                nb = sum(self._group_bytes(g) for g in groups)
+                tags = {"op": opn.name, "groups": len(groups),
+                        "fields": len(self.specs)}
+                sflog.op_end(ev_begin, t0, None, nbytes=nb, tags=tags)
+                sflog.stash_pending(pend, ev_end, nb, tags, tracing=t0 < 0)
+            return pend
 
     def _multi_end(self, pending: PendingMulti, dsts):
-        info = sflog.claim_pending(pending)
-        if info is None:
-            return self._multi_end_impl(pending, dsts)
-        t0 = time.perf_counter()
-        out = self._multi_end_impl(pending, dsts)
-        sflog.pending_end(info, t0, out)
-        return out
+        with sflog.span(_MULTI_EVENTS[pending.kind][1]):
+            info = sflog.claim_pending(pending)
+            if info is None:
+                return self._multi_end_impl(pending, dsts)
+            t0 = time.perf_counter()
+            out = self._multi_end_impl(pending, dsts)
+            sflog.pending_end(info, t0, out)
+            return out
 
     def _multi_end_impl(self, pending: PendingMulti, dsts):
         kind = pending.kind

@@ -60,16 +60,19 @@ class PendingComm:
 
     def end(self, data: torch.Tensor) -> torch.Tensor:
         """Complete the operation against the destination array (and
-        record the End event its begin stashed, once)."""
-        info = sflog.claim_pending(self)
-        t0 = time.perf_counter() if info is not None else 0.0
-        if self.kind == "bcast":
-            out = self.owner.bcast_end(self, data)
-        else:
-            out = self.owner.reduce_end(self, data)
-        if info is not None:
-            sflog.pending_end(info, t0, out)
-        return out
+        record the End event its begin stashed, once), in a span of the
+        End's name."""
+        bcast = self.kind == "bcast"
+        with sflog.span("SFBcastEnd" if bcast else "SFReduceEnd"):
+            info = sflog.claim_pending(self)
+            t0 = time.perf_counter() if info is not None else 0.0
+            if bcast:
+                out = self.owner.bcast_end(self, data)
+            else:
+                out = self.owner.reduce_end(self, data)
+            if info is not None:
+                sflog.pending_end(info, t0, out)
+            return out
 
     def converted(self, fn, dtype: torch.dtype) -> "PendingComm":
         """This token with its payload rows mapped by ``fn``, now of

@@ -19,12 +19,24 @@ into:
   local-vs-remote edge split, root-degree histogram, backend and cached-plan
   signatures for any ``StarForest`` / ``SFComm``; sizes, unit and label
   for a ``DynPlan``.
+* **Spans** (:func:`span`): named ranges in a ``torch.profiler`` trace, on
+  the clock of the device's kernels, nested by the profiler per thread.
+  They record nothing in the registry.
 
 Call sites in this port: every operation of ``SFComm`` (so ``ParCSR``'s
 SpMV, the DMDA halo, the multigrid transfers and the stash flush), the
 fused multi-field exchange of ``FieldBundle``, ``DynPlan``'s runtime-routed
 ``SFDynReduce`` / ``SFDynBcast`` (bytes: leaves x row bytes; MoE dispatch
-and combine) and the serving engine.
+and combine) and the serving engine.  Each SF exchange also opens a span
+under its event's name, the End a token's own ``end`` records included
+(``ParCSR.spmv``'s halo shows as ``SFBcastBegin`` / ``SFBcastEnd``; a
+split fused exchange's per-group backend Ends nest in its
+``SF*MultiEnd``).  Spans without a registry event mark the layers above:
+``cg.solve`` / ``cg.prepare`` / ``cg.capture`` / ``cg.loop`` /
+``cg.flag`` / ``cg.result`` (``solvers/cg.py``), ``train.step`` /
+``train.forward`` / ``train.backward`` (``training/train_loop.py``),
+``optim.update`` (``training/optimizer.py``) and ``moe.route`` /
+``moe.dispatch`` / ``moe.experts`` / ``moe.combine`` (``models/moe.py``).
 
 Rendering: :func:`log_view` (the PETSc-style text table) and
 :func:`dump_json` (a JSON-ready dict benchmarks stamp into artifacts).
@@ -34,13 +46,17 @@ call boundaries.  A hook that fires while ``torch.compile`` traces or while
 a CUDA graph is being captured increments the event's ``traced`` counter
 and records nothing else: wall time under a trace is meaningless, and the
 captured work replays arbitrarily many times later.
-``count``/``time``/``bytes`` are therefore *eager-execution* totals.
+``count``/``time``/``bytes`` are therefore *eager-execution* totals.  A
+span opened during a capture marks the capture's host time; replays open
+none.
 
-**Gating.**  ``REPRO_SF_LOG`` selects the mode at import: ``0`` (default)
-off, ``1`` on, ``fence`` on + ``torch.cuda.synchronize`` on the device of
-every event's result, so times are true wall times rather than dispatch
-times.  When off, every hook is a single integer test.  Counters are always
-live: they are bare integer adds.
+**Gating.**  ``REPRO_SF_LOG`` selects the registry's mode at import: ``0``
+(default) off, ``1`` on, ``fence`` on + ``torch.cuda.synchronize`` on the
+device of every event's result, so times are true wall times rather than
+dispatch times.  When off, every hook is a single integer test.  Counters
+are always live: they are bare integer adds.  Spans do not read the mode:
+a span is a ``record_function`` range while a profiler records, and
+otherwise one call and one test that return a shared no-op.
 """
 
 from __future__ import annotations
@@ -59,7 +75,7 @@ __all__ = [
     "Counter", "counter", "counters",
     "EventRecord", "event", "events",
     "op_begin", "op_end", "stash_pending", "claim_pending", "pending_end",
-    "timed", "context",
+    "timed", "context", "span",
     "log_view", "dump_json", "events_snapshot", "events_delta",
     "overlap_efficiency", "exchange_totals",
     "sf_view", "format_sf_view",
@@ -357,6 +373,36 @@ def timed(name: str, *, nbytes: float = 0.0,
         yield
     finally:
         op_end(name, t0, None, nbytes=nbytes, tags=tags)
+
+
+# --------------------------------------------------------------------------
+# spans: ranges on the profiler's clock
+# --------------------------------------------------------------------------
+class _NoSpan:
+    """The span while no profiler records: enters and leaves, nothing
+    else."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_NO_SPAN = _NoSpan()
+_profiling = torch._C._autograd._profiler_enabled
+
+
+def span(name: str):
+    """A range named ``name`` for ``with``: while a ``torch.profiler``
+    records, a ``record_function`` range (a ``user_annotation`` in its
+    trace, on the clock of the device's kernels); otherwise the shared
+    no-op.  Writes nothing to the event registry, whatever the mode."""
+    if _profiling():
+        return torch.autograd.profiler.record_function(name)
+    return _NO_SPAN
 
 
 # --------------------------------------------------------------------------

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core import sflog
 from ..core.device import resolve_device
 from ..core.dynplan import DynPlan, PlanCache
 from ..core.fields import FieldBundle
@@ -185,13 +186,15 @@ def route(xg: torch.Tensor, router: torch.Tensor, k: int, C: int
           ) -> Tuple[torch.Tensor, ...]:
     """The router over groups xg (G, T, D): -> (probs (G, T, E) float32,
     the top-k weights wk (G, T, k) renormalized, in xg's dtype, expert ids
-    eidx, and :func:`_capacity_slots`'s slot and keep)."""
-    logits = torch.einsum("gtd,de->gte", xg.float(), router)
-    probs = torch.softmax(logits, dim=-1)
-    wk, eidx = torch.topk(probs, k, dim=-1)                 # (G, T, k)
-    wk = (wk / wk.sum(dim=-1, keepdim=True)).to(xg.dtype)
-    slot, keep = _capacity_slots(eidx, C, router.shape[-1])
-    return probs, wk, eidx, slot, keep
+    eidx, and :func:`_capacity_slots`'s slot and keep); in a span
+    ``moe.route``."""
+    with sflog.span("moe.route"):
+        logits = torch.einsum("gtd,de->gte", xg.float(), router)
+        probs = torch.softmax(logits, dim=-1)
+        wk, eidx = torch.topk(probs, k, dim=-1)             # (G, T, k)
+        wk = (wk / wk.sum(dim=-1, keepdim=True)).to(xg.dtype)
+        slot, keep = _capacity_slots(eidx, C, router.shape[-1])
+        return probs, wk, eidx, slot, keep
 
 
 def experts(xg: torch.Tensor, wk: torch.Tensor, slot: torch.Tensor,
@@ -200,59 +203,64 @@ def experts(xg: torch.Tensor, wk: torch.Tensor, slot: torch.Tensor,
     """Dispatch, expert products and combine for the E experts of the
     stacks ``w_in`` / ``w_gate`` (E, D, F) and ``w_out`` (E, F, D): xg (G,
     T, D), slots in [0, E*C] (E*C drops) -> y (G, T, D), each token the
-    weighted sum of its kept picks."""
+    weighted sum of its kept picks.  The three stages run in the spans
+    ``moe.dispatch``, ``moe.experts`` and ``moe.combine``."""
     G, T, D = xg.shape
     k = slot.shape[-1]
     E = w_in.shape[0]
-    if mode == "sf":
-        plan = _moe_plan(G, T, k, E, C, D, xg.dtype)
-        leaf_root = routing_leaf_root(slot, keep, C, E)
-        w_leaf = wk.reshape(G * T * k, 1)
-        # capacity slots never repeat -> one writer per root: the reduce is
-        # the writer inversion plus a gather (unique=True)
-        if G * T * k <= _FUSE_MAX_LEAVES:
-            # decode-sized: the leaves carry the pick's hidden state and its
-            # combine weight, fused by FieldBundle into ONE exchange of
-            # (D + 1)-wide rows
-            x_leaf = xg.reshape(G * T, 1, D).expand(G * T, k, D) \
-                .reshape(G * T * k, D)
-            bound = plan.bind(leaf_root, unique=True)
-            fb = FieldBundle.for_data(bound, [x_leaf, w_leaf])
-            buf, sw = fb.reduce_multi(
-                [x_leaf, w_leaf],
-                [xg.new_zeros((G * E * C, D)), xg.new_zeros((G * E * C, 1))],
-                op="sum")
+    with sflog.span("moe.dispatch"):
+        if mode == "sf":
+            plan = _moe_plan(G, T, k, E, C, D, xg.dtype)
+            leaf_root = routing_leaf_root(slot, keep, C, E)
+            w_leaf = wk.reshape(G * T * k, 1)
+            # capacity slots never repeat -> one writer per root: the
+            # reduce is the writer inversion plus a gather (unique=True)
+            if G * T * k <= _FUSE_MAX_LEAVES:
+                # decode-sized: the leaves carry the pick's hidden state
+                # and its combine weight, fused by FieldBundle into ONE
+                # exchange of (D + 1)-wide rows
+                x_leaf = xg.reshape(G * T, 1, D).expand(G * T, k, D) \
+                    .reshape(G * T * k, D)
+                bound = plan.bind(leaf_root, unique=True)
+                fb = FieldBundle.for_data(bound, [x_leaf, w_leaf])
+                buf, sw = fb.reduce_multi(
+                    [x_leaf, w_leaf],
+                    [xg.new_zeros((G * E * C, D)),
+                     xg.new_zeros((G * E * C, 1))], op="sum")
+            else:
+                # prefill-sized: compose with the token->pick replication
+                # (leaf_rep, the PetscSFCompose shortcut) and gather the
+                # hidden state straight from the compact token rows
+                buf = plan.reduce(xg.reshape(G * T, D), leaf_root, op="sum",
+                                  unique=True, leaf_rep=k)
+                sw = plan.reduce(w_leaf, leaf_root, op="sum", unique=True)
         else:
-            # prefill-sized: compose with the token->pick replication
-            # (leaf_rep, the PetscSFCompose shortcut) and gather the hidden
-            # state straight from the compact token rows
-            buf = plan.reduce(xg.reshape(G * T, D), leaf_root, op="sum",
-                              unique=True, leaf_rep=k)
-            sw = plan.reduce(w_leaf, leaf_root, op="sum", unique=True)
-    else:
-        buf = _dispatch_dense(xg, slot, keep, C, E)
-    h = buf.reshape(G, E, C, D)
+            buf = _dispatch_dense(xg, slot, keep, C, E)
+        h = buf.reshape(G, E, C, D)
 
-    up = torch.einsum("gecd,edf->gecf", h, w_in)
-    gate = torch.einsum("gecd,edf->gecf", h, w_gate)
-    out = torch.einsum("gecf,efd->gecd", F.silu(gate) * up, w_out)
-    out_flat = out.reshape(G, E * C, D)
+    with sflog.span("moe.experts"):
+        up = torch.einsum("gecd,edf->gecf", h, w_in)
+        gate = torch.einsum("gecd,edf->gecf", h, w_gate)
+        out = torch.einsum("gecf,efd->gecd", F.silu(gate) * up, w_out)
+        out_flat = out.reshape(G, E * C, D)
 
-    if mode == "sf":
-        # weight at the root (each slot has one writer, so w*out here is
-        # bit-identical to weighting at the leaf), then bcast back: dropped
-        # picks read the zero drop row; the k picks summed as slice adds,
-        # in the reference's order
-        scaled = out_flat.reshape(G * E * C, D) * sw
-        picks = plan.bcast(scaled, leaf_root).reshape(G, T, k, D)
-        y = picks[:, :, 0]
-        for j in range(1, k):
-            y = y + picks[:, :, j]
-        return y
-    rows = torch.arange(G, device=xg.device)[:, None, None]
-    gathered = out_flat[rows, slot.clamp(max=E * C - 1)]  # (G, T, k, D)
-    gathered = gathered * keep[..., None].to(out_flat.dtype)
-    return torch.einsum("gtkd,gtk->gtd", gathered, wk.to(out_flat.dtype))
+    with sflog.span("moe.combine"):
+        if mode == "sf":
+            # weight at the root (each slot has one writer, so w*out here
+            # is bit-identical to weighting at the leaf), then bcast back:
+            # dropped picks read the zero drop row; the k picks summed as
+            # slice adds, in the reference's order
+            scaled = out_flat.reshape(G * E * C, D) * sw
+            picks = plan.bcast(scaled, leaf_root).reshape(G, T, k, D)
+            y = picks[:, :, 0]
+            for j in range(1, k):
+                y = y + picks[:, :, j]
+            return y
+        rows = torch.arange(G, device=xg.device)[:, None, None]
+        gathered = out_flat[rows, slot.clamp(max=E * C - 1)]  # (G, T, k, D)
+        gathered = gathered * keep[..., None].to(out_flat.dtype)
+        return torch.einsum("gtkd,gtk->gtd", gathered,
+                            wk.to(out_flat.dtype))
 
 
 def aux_parts(probs: torch.Tensor, eidx: torch.Tensor, E: int

@@ -21,7 +21,17 @@ count is the reference's.  On a CUDA device ``GRAPH_ITERS`` guarded
 iterations are captured once into a CUDA graph over static state buffers
 and the graph is replayed until the device flag says the loop is done: the
 host reads one flag per replay and issues no kernel.  On the CPU the same
-chunks run eagerly.
+chunks run eagerly.  ``CGResult.matvecs`` counts the operator's
+applications wherever they ran: the eager ones, and a captured chunk's
+once per replay.
+
+A solve marks its stages as ``core.sflog`` spans (ranges in a
+``torch.profiler`` trace, nothing without one): ``cg.solve`` around all of
+it, the graph's teardown included; ``cg.prepare``; ``cg.capture`` (the
+side-stream warm-up chunk, the capture, the instantiation); ``cg.loop``
+(the replays, or the eager chunks) with a ``cg.flag`` around each host
+read of the loop's flag; ``cg.result``.  The registry's counters
+``cg.captures``, ``cg.replays`` and ``cg.matvecs`` are always live.
 
 Both take an optional preconditioner ``M`` (``z = M(r)``, e.g. the V-cycle
 of :class:`repro_torch.solvers.multigrid.Multigrid`) with the reference's
@@ -39,6 +49,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ..core import sflog
 from ..kernels import ops as kops
 
 __all__ = ["CGResult", "cg", "cg_async", "as_matvec", "GRAPH_ITERS"]
@@ -46,6 +57,10 @@ __all__ = ["CGResult", "cg", "cg_async", "as_matvec", "GRAPH_ITERS"]
 # guarded iterations per CUDA graph: the host reads the loop's flag once per
 # replay, and a converged loop runs at most GRAPH_ITERS - 1 idle iterations
 GRAPH_ITERS = 10
+
+_C_CAPTURES = sflog.counter("cg.captures")
+_C_REPLAYS = sflog.counter("cg.replays")
+_C_MATVECS = sflog.counter("cg.matvecs")
 
 
 def as_matvec(op) -> Callable:
@@ -66,6 +81,7 @@ class CGResult:
     rnorm: float
     converged: bool
     graph_replays: int = 0      # cg_async on a CUDA device
+    matvecs: int = 0            # operator applications run on the device
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -116,21 +132,38 @@ def cg(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
     while it < maxiter:
         # host reads the residual -> device/host sync every iteration
         if rnorm <= tol * max(bnorm, 1e-30):
-            return CGResult(x, it, rnorm, True)
+            return CGResult(x, it, rnorm, True, matvecs=1 + it)
         x, r, p, rz, rr = _step(matvec, x, r, p, rz, M)
         rnorm = float(torch.sqrt(rr))   # blocking host readback
         it += 1
-    return CGResult(x, it, rnorm, rnorm <= tol * max(bnorm, 1e-30))
+    return CGResult(x, it, rnorm, rnorm <= tol * max(bnorm, 1e-30),
+                    matvecs=1 + it)
+
+
+class _Counted:
+    """A matvec that counts its applications in ``calls``."""
+
+    __slots__ = ("fn", "calls")
+
+    def __init__(self, fn: Callable):
+        self.fn, self.calls = fn, 0
+
+    def __call__(self, v: torch.Tensor) -> torch.Tensor:
+        self.calls += 1
+        return self.fn(v)
 
 
 class _GuardedLoop:
     """The state of ``cg_async``'s loop in fixed buffers, and a chunk of
     ``GRAPH_ITERS`` guarded iterations that updates them in place and sets
-    ``go``, the loop condition after the chunk."""
+    ``go``, the loop condition after the chunk.  ``matvec`` is a
+    :class:`_Counted`, shared with the loop's copies; ``per_replay`` is
+    the applications one replay of the loop's captured chunk runs."""
 
-    def __init__(self, matvec, x, r, p, rz, rr, tol2, maxiter: int,
-                 check_every: int, M=None):
+    def __init__(self, matvec: _Counted, x, r, p, rz, rr, tol2,
+                 maxiter: int, check_every: int, M=None):
         self.matvec, self.M, self.tol2 = matvec, M, tol2
+        self.per_replay = 0
         self.maxiter, self.check_every = maxiter, check_every
         self.x, self.r, self.p = x.clone(), r.clone(), p.clone()
         self.rz, self.rr = rz.clone(), rr.clone()
@@ -171,35 +204,52 @@ def _capture(loop: _GuardedLoop):
     """One chunk of ``loop`` captured into a CUDA graph, and the kernel
     launches the capture recorded (by name, as ``kops.launch_counts``).  A
     capture launches nothing, so what the wrappers counted during it is
-    taken back; :func:`_replay` counts the launches of every replay."""
-    dev = loop.x.device
-    side = torch.cuda.Stream(dev)
-    side.wait_stream(torch.cuda.current_stream(dev))
-    with torch.cuda.stream(side):
-        # warm-up on a side stream, as CUDA-graph capture asks, on copies
-        # of the state: lazy library setup happens outside the capture
-        loop.copy().chunk()
-    torch.cuda.current_stream(dev).wait_stream(side)
-    before = kops.launch_counts()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        loop.chunk()
-    captured = {k: v - before[k] for k, v in kops.launch_counts().items()}
-    kops.add_launches(captured, -1)
-    return graph, captured
+    taken back, and so are the matvecs (kept as ``loop.per_replay``);
+    :func:`_replay` counts both for every replay."""
+    with sflog.span("cg.capture"):
+        dev = loop.x.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            # warm-up on a side stream, as CUDA-graph capture asks, on
+            # copies of the state: lazy library setup happens outside the
+            # capture
+            loop.copy().chunk()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        before = kops.launch_counts()
+        calls = loop.matvec.calls
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            loop.chunk()
+        captured = {k: v - before[k] for k, v in kops.launch_counts().items()}
+        kops.add_launches(captured, -1)
+        loop.per_replay = loop.matvec.calls - calls
+        loop.matvec.calls = calls
+        _C_CAPTURES.add()
+        return graph, captured
+
+
+def _flag(loop: _GuardedLoop) -> bool:
+    """The host's read of the loop's flag, which waits for the device."""
+    with sflog.span("cg.flag"):
+        return bool(loop.go)
 
 
 def _replay(loop: _GuardedLoop, graph, captured: dict) -> int:
     """Replay ``graph`` until the loop's flag drops; returns the replays.
     A replay launches every kernel the capture recorded, so the launch
-    counters gain the captured launches once per replay."""
+    counters gain the captured launches once per replay, and the loop's
+    matvec count its ``per_replay``."""
     replays = 0
-    while True:
-        graph.replay()
-        replays += 1
-        if not bool(loop.go):            # the one host read per replay
-            break
+    with sflog.span("cg.loop"):
+        while True:
+            graph.replay()
+            replays += 1
+            if not _flag(loop):          # the one host read per replay
+                break
     kops.add_launches(captured, replays)
+    loop.matvec.calls += loop.per_replay * replays
+    _C_REPLAYS.add(replays)
     return replays
 
 
@@ -222,7 +272,7 @@ def _prepare(matvec, b, x0, tol, maxiter, check_every,
              M=None) -> _GuardedLoop:
     """The loop's start: the warm-up SpMV, the first residual (and its
     preconditioned twin) and the tolerance, all on the device."""
-    matvec = as_matvec(matvec)
+    matvec = _Counted(as_matvec(matvec))
     x = torch.zeros_like(b) if x0 is None else x0
     # one eager application before the loop, as the reference does before
     # tracing: the first SpMV (and the first M) prepares its index caches,
@@ -237,23 +287,32 @@ def _prepare(matvec, b, x0, tol, maxiter, check_every,
 
 
 def _result(loop: _GuardedLoop, b, tol, replays: int) -> CGResult:
-    rnorm = float(torch.sqrt(loop.rr))
-    bnorm = float(torch.sqrt(_dot(b, b)))
-    return CGResult(loop.x.clone(), int(loop.it), rnorm,
-                    rnorm <= tol * max(bnorm, 1e-30), replays)
+    with sflog.span("cg.result"):
+        rnorm = float(torch.sqrt(loop.rr))
+        bnorm = float(torch.sqrt(_dot(b, b)))
+        _C_MATVECS.add(loop.matvec.calls)
+        return CGResult(loop.x.clone(), int(loop.it), rnorm,
+                        rnorm <= tol * max(bnorm, 1e-30), replays,
+                        loop.matvec.calls)
 
 
 def _cg_async(matvec, b, x0, tol, maxiter, check_every, *,
               graph: bool, M=None) -> CGResult:
     """:func:`cg_async`, its guarded chunks replayed as a CUDA graph or run
     eagerly (the CPU's way, and the graph's check on the card)."""
-    loop = _prepare(matvec, b, x0, tol, maxiter, check_every, M)
-    replays = 0
-    if bool(loop.go):
+    with sflog.span("cg.solve"):
+        with sflog.span("cg.prepare"):
+            loop = _prepare(matvec, b, x0, tol, maxiter, check_every, M)
+        replays = 0
         if graph:
-            replays = _replay(loop, *_capture(loop))
+            with sflog.span("cg.loop"):
+                go = _flag(loop)
+            if go:
+                cuda_graph, captured = _capture(loop)
+                replays = _replay(loop, cuda_graph, captured)
+                del cuda_graph           # its teardown, inside the solve
         else:
-            loop.chunk()
-            while bool(loop.go):
-                loop.chunk()
-    return _result(loop, b, tol, replays)
+            with sflog.span("cg.loop"):
+                while _flag(loop):
+                    loop.chunk()
+        return _result(loop, b, tol, replays)

@@ -35,6 +35,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from ..core import sflog
 from ..models.meshed import is_dtensor, whole, wrap_local
 from .pytree import flatten_up_to, tree_flatten, tree_leaves, tree_map, \
     tree_unflatten
@@ -284,12 +285,16 @@ def _flat(params, grads, opt_state):
 @torch.no_grad()
 def adamw_update(params, grads, opt_state: Dict, cfg: OptConfig, *,
                  inplace: bool = False) -> Tuple[Dict, Dict, Dict]:
-    """One AdamW step.  Returns (params', opt_state', metrics)."""
-    step, lr, gnorm, clip, bc1, bc2 = _update_scalars(grads, opt_state, cfg)
-    upd = _make_leaf_updater(cfg, lr, clip, bc1, bc2)
-    flat_p, tdef, flat_g, flat_m, flat_v = _flat(params, grads, opt_state)
-    out = [upd(p, g, m, v, inplace) for p, g, m, v in
-           zip(flat_p, flat_g, flat_m, flat_v)]
+    """One AdamW step, in a span ``optim.update``.  Returns (params',
+    opt_state', metrics)."""
+    with sflog.span("optim.update"):
+        step, lr, gnorm, clip, bc1, bc2 = _update_scalars(grads, opt_state,
+                                                          cfg)
+        upd = _make_leaf_updater(cfg, lr, clip, bc1, bc2)
+        flat_p, tdef, flat_g, flat_m, flat_v = _flat(params, grads,
+                                                     opt_state)
+        out = [upd(p, g, m, v, inplace) for p, g, m, v in
+               zip(flat_p, flat_g, flat_m, flat_v)]
     new_p = tree_unflatten(tdef, [o[0] for o in out])
     new_m = tree_unflatten(tdef, [o[1] for o in out])
     new_v = tree_unflatten(tdef, [o[2] for o in out])
@@ -308,20 +313,24 @@ def adamw_update_bucketed(params, grads, opt_state: Dict, cfg: OptConfig,
     Bit-identical to :func:`adamw_update`: per-leaf updates are
     independent given the shared global-norm clip, which is computed over
     the full grads tree before any bucket is consumed.  A plan that does
-    not cover every leaf exactly once raises ``ValueError``.
+    not cover every leaf exactly once raises ``ValueError``.  The update
+    runs in a span ``optim.update``.
     """
-    step, lr, gnorm, clip, bc1, bc2 = _update_scalars(grads, opt_state, cfg)
-    upd = _make_leaf_updater(cfg, lr, clip, bc1, bc2)
-    flat_p, tdef, flat_g, flat_m, flat_v = _flat(params, grads, opt_state)
-    covered = sorted(i for b in bucket_plan.buckets for i in b.leaves)
-    if covered != list(range(len(flat_p))):
-        raise ValueError(f"bucket plan covers {len(covered)} of "
-                         f"{len(flat_p)} param leaves")
-    new_p, new_m, new_v = list(flat_p), list(flat_m), list(flat_v)
-    for b in bucket_plan.buckets:
-        for i in b.leaves:
-            new_p[i], new_m[i], new_v[i] = upd(
-                flat_p[i], flat_g[i], flat_m[i], flat_v[i], inplace)
+    with sflog.span("optim.update"):
+        step, lr, gnorm, clip, bc1, bc2 = _update_scalars(grads, opt_state,
+                                                          cfg)
+        upd = _make_leaf_updater(cfg, lr, clip, bc1, bc2)
+        flat_p, tdef, flat_g, flat_m, flat_v = _flat(params, grads,
+                                                     opt_state)
+        covered = sorted(i for b in bucket_plan.buckets for i in b.leaves)
+        if covered != list(range(len(flat_p))):
+            raise ValueError(f"bucket plan covers {len(covered)} of "
+                             f"{len(flat_p)} param leaves")
+        new_p, new_m, new_v = list(flat_p), list(flat_m), list(flat_v)
+        for b in bucket_plan.buckets:
+            for i in b.leaves:
+                new_p[i], new_m[i], new_v[i] = upd(
+                    flat_p[i], flat_g[i], flat_m[i], flat_v[i], inplace)
     metrics = {"grad_norm": gnorm, "lr": lr}
     return (tree_unflatten(tdef, new_p),
             {"m": tree_unflatten(tdef, new_m),

@@ -26,6 +26,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core import sflog
 from ..core.device import resolve_device
 from ..models import transformer as T
 from ..models.meshed import is_dtensor, sharded_pick, whole, wrap_local
@@ -139,9 +140,11 @@ def value_and_grad(loss_fn: Callable, params, batch
     leaves = [p.detach().requires_grad_(p.is_floating_point())
               for p in flat]
     with torch.enable_grad():
-        loss, aux = loss_fn(tree_unflatten(td, leaves), batch)
+        with sflog.span("train.forward"):
+            loss, aux = loss_fn(tree_unflatten(td, leaves), batch)
         wrt = [p for p in leaves if p.requires_grad]
-        got = iter(torch.autograd.grad(loss, wrt, allow_unused=True))
+        with sflog.span("train.backward"):
+            got = iter(torch.autograd.grad(loss, wrt, allow_unused=True))
     grads = []
     for p in leaves:
         g = next(got) if p.requires_grad else None
@@ -204,6 +207,10 @@ def make_train_step(cfg: ModelConfig, ocfg: OptConfig,
         return out
 
     def step(params, opt_state, batch):
+        with sflog.span("train.step"):
+            return _step(params, opt_state, batch)
+
+    def _step(params, opt_state, batch):
         dev = _params_device(params)
         batch = place(batch_to(batch, dev))
         G = tcfg.microbatches

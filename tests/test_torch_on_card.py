@@ -353,6 +353,54 @@ def test_cuda_facade_hooks_under_capture_count_traced_only(dev):
         sflog.reset()
 
 
+def test_cuda_graph_cg_async_counts_replayed_matvecs(dev):
+    """A graph solve's ``matvecs``: the warm-up and first residual, the
+    side-stream warm-up chunk, then a captured chunk's ``GRAPH_ITERS``
+    once per replay (the registry's counters gain as much); its x is the
+    eager chunks' bit for bit.  Under a profiler the capture is a range
+    inside the solve and each replay's flag read one inside the loop."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import sflog
+    from repro_torch.meshdist import DMDA
+    from repro_torch.solvers.cg import GRAPH_ITERS, _cg_async, cg_async
+    from repro_torch.sparse import ParCSR
+    A = ParCSR.from_dmda_stencil(DMDA((24, 24, 24), 8, stencil="star",
+                                      periodic=False), device=dev)
+    b = torch.randn(A.shape[0], device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(5))
+    mv = lambda v: A.spmv(v, use_kernel=True)   # noqa: E731
+    c0 = sflog.counters()
+    got = cg_async(mv, b, tol=1e-5, maxiter=500)
+    c1 = sflog.counters()
+    want = _cg_async(mv, b, None, 1e-5, 500, 1, graph=False)
+    assert got.graph_replays >= 1
+    assert got.matvecs == 2 + GRAPH_ITERS + GRAPH_ITERS * got.graph_replays
+    assert got.matvecs == want.matvecs + GRAPH_ITERS
+    assert got.iters == want.iters and torch.equal(got.x, want.x)
+    assert c1["cg.captures"] - c0["cg.captures"] == 1
+    assert c1["cg.replays"] - c0["cg.replays"] == got.graph_replays
+    assert c1["cg.matvecs"] - c0["cg.matvecs"] == got.matvecs
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        again = cg_async(mv, b, tol=1e-5, maxiter=500)
+        torch.cuda.synchronize(dev)
+    assert torch.equal(again.x, got.x)
+    rs = {}
+    for e in prof.events():
+        # the host's ranges (the trace also holds each range's span on
+        # every stream it launched on)
+        if e.name.startswith("cg.") and \
+                e.device_type == torch.autograd.DeviceType.CPU:
+            rs.setdefault(e.name, []).append((e.time_range.start,
+                                               e.time_range.end))
+    within = lambda r, outer: any(a <= r[0] and r[1] <= z    # noqa: E731
+                                  for a, z in rs[outer])
+    assert len(rs["cg.solve"]) == len(rs["cg.capture"]) == 1
+    assert within(rs["cg.capture"][0], "cg.solve")
+    assert len(rs["cg.flag"]) == again.graph_replays + 1
+    assert all(within(f, "cg.loop") for f in rs["cg.flag"])
+
+
 # ------------------------------------------------------ runtime-routed SFs
 def _dyn_case(dev, nroots=300, nleaves=1000, unit=(8,), seed=3):
     rng = np.random.default_rng(seed)
